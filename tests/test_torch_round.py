@@ -27,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from thaler_study_tpu.fields import GOLDILOCKS as JF  # noqa: E402
 from thaler_study_tpu.fields import FArray as JFArray  # noqa: E402
 from thaler_study_tpu.ops import round_kernel as jrk  # noqa: E402
+from thaler_study_tpu_torch import api  # noqa: E402
 from thaler_study_tpu_torch.fields import F389, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.fields import goldilocks as gl  # noqa: E402
 from thaler_study_tpu_torch.fiat_shamir import (  # noqa: E402
@@ -140,19 +141,25 @@ def test_product_poly_sumcheck_accepts(rng):
 
 
 def test_outside_the_slice_raises():
-    """mont32 fields, multi-block specs and a non-empty DST are later
-    slices: every entry point raises NotImplementedError."""
+    """Multi-block specs, a non-empty DST and the triangle and GKR entry
+    points are later slices: each raises NotImplementedError. Every field
+    of the port is in the fused path."""
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
     tables = [FArray.from_ints([1] * (1 << s), GOLDILOCKS, device="cpu") for s in (1, 3)]
     with pytest.raises(NotImplementedError):
         rk.round_step(multi, tables, None)
     spec = rk.single_block_spec(2, 2)
     batch = [FArray.from_ints([[1, 2, 3, 4]], GOLDILOCKS, device="cpu") for _ in range(2)]
-    for s, field, dst in ((multi, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"")):
+    for s, field, dst in ((multi, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"tag")):
         assert not fs_kernel.supports_fused_fs(s, field, dst)
+    assert fs_kernel.supports_fused_fs(spec, F389, b"")
     with pytest.raises(NotImplementedError):
         fs_kernel.fs_prove_device_batch(multi, batch)
     with pytest.raises(NotImplementedError):
         fs_kernel.fs_prove_device_batch(spec, batch, b"tag")
     with pytest.raises(NotImplementedError):
-        FArray.from_ints([1], F389, device="cpu")
+        api.prove_triangle_count([False] * 16, 4, F389, device="cpu")
+    with pytest.raises(NotImplementedError):
+        api.verify_triangle_count([False] * 16, 4, None, F389, device="cpu")
+    with pytest.raises(NotImplementedError):
+        api.run_gkr(None, [3, 2, 3, 1], F389, device="cpu")

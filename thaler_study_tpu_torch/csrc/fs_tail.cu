@@ -1,22 +1,27 @@
 // The per-round tail of the batched Fiat-Shamir sumcheck prover, one thread
-// per proof.
+// per proof, over Goldilocks or a mont32 field (p < 2^31).
 //
 // Replaces: the per-round scalar code of thaler_study_tpu/ops/fs_kernel.py
 // _fs_prove_impl (:220), which XLA compiles for the TPU: the round-sum
 // reduction and s(1) = claim - s(0) (ops/round_kernel._round_sums claim
 // shortcut), _interp_coeffs (:106), _any_zero_coeffs (:182),
 // _absorb_round_msg (:188) with DevChain.absorb (ops/sha_chain.py:116),
-// DevChain._finish_b0 / draw_uniform (:157, :214), _gl_from_be_words
-// (:249) and _claim_at (:153). Its plain version is
-// ops/fs_kernel.fs_tail_plain.
+// DevChain._finish_b0 / draw_uniform (:157, :214), hash_to_field_chain
+// (:264: _gl_from_be_words for Goldilocks, the big-endian Horner lifted
+// to Montgomery form for mont32) and _claim_at (:153). Its plain version
+// is ops/fs_kernel.fs_tail_plain.
 //
 // Per round j and proof b it: sums the round kernel's per-block partials
 // mod p; fills s(1) = claim[b] - s(0) for j > 0; interpolates the d + 1
 // coefficients with the inverse-Vandermonde constants vinv; ORs the
-// zero-coefficient flag; writes c_1 (j = 0) and the coefficient row;
-// serializes the arkworks message into the carried SHA-256 chain; and,
-// unless it is the last round, finishes expand_message_xmd into the next
-// challenge r[b] and the next claim[b] = g_j(r[b]) by Horner.
+// zero-coefficient flag; writes c_1 (j = 0) and the coefficient row as
+// canonical values; serializes the arkworks message (byte_size
+// little-endian bytes per element) into the carried SHA-256 chain; and,
+// unless it is the last round, finishes expand_message_xmd
+// (len_in_bytes uniform bytes) into the next challenge r[b] and the next
+// claim[b] = g_j(r[b]) by Horner. For a mont32 field the sums, vinv, r and
+// the claim are Montgomery words, as in the JAX package; only what is
+// serialized and stored for the host is canonical.
 //
 // What bounds it: latency. It moves a few hundred bytes per proof; each
 // SHA-256 compression is a serial 64-step chain. Written as eager torch
@@ -25,6 +30,7 @@
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
+#include "mont32.cuh"
 
 namespace {
 
@@ -84,22 +90,55 @@ __device__ void compress(uint32_t st[8], const uint8_t* blk) {
   st[7] += h;
 }
 
-__device__ __forceinline__ void put_le64(uint8_t* out, int& m, uint64_t v) {
-  for (int q = 0; q < 8; ++q) out[m++] = (uint8_t)(v >> (8 * q));
+__device__ __forceinline__ void put_le(uint8_t* out, int& m, uint64_t v, int bytes) {
+  for (int q = 0; q < bytes; ++q) out[m++] = (uint8_t)(v >> (8 * q));
 }
 
-// hash_to_field::<1> for Goldilocks with the empty DST over a transcript of
-// `total` bytes whose chain is (mid, tail[0:fill]).
-__device__ uint64_t draw_gl(const uint32_t mid[8], const uint8_t tail[64], int fill,
-                            long long total) {
-  // b_0 = SHA-256(Z_pad || transcript || I2OSP(24, 2) || 0x00 || DST'),
+// The field as the tail sees it: arithmetic on its words, the canonical
+// value of a word, and the element drawn from the uniform bytes of b_1.
+struct GlOps {
+  using word = uint64_t;
+  __device__ __forceinline__ word add(word a, word b) const { return gl::add(a, b); }
+  __device__ __forceinline__ word sub(word a, word b) const { return gl::sub(a, b); }
+  __device__ __forceinline__ word mul(word a, word b) const { return gl::mul(a, b); }
+  __device__ __forceinline__ word canonical(word a) const { return a; }
+  // the first 24 uniform bytes, big-endian, reduced mod p:
+  // (w0 w1) * 2^128 + (w2 w3) * 2^64 + (w4 w5)
+  __device__ word from_uniform(const uint32_t h[8], int) const {
+    uint64_t x[3];
+    for (int i = 0; i < 3; ++i) {
+      const uint64_t v = (uint64_t)h[2 * i] << 32 | h[2 * i + 1];
+      x[i] = v >= gl::P ? v - gl::P : v;
+    }
+    return gl::add(gl::add(x[2], gl::mul(x[1], gl::EPS)), gl::mul(x[0], gl::C128));
+  }
+};
+
+struct M32Ops : m32::Field {
+  using word = uint32_t;
+  __device__ __forceinline__ word canonical(word a) const { return from_mont(a); }
+  // the first len uniform bytes, big-endian, mod p, as a Montgomery word
+  __device__ word from_uniform(const uint32_t h[8], int len) const {
+    uint64_t acc = 0;
+    for (int q = 0; q < len; ++q) acc = (acc * 256 + ((h[q / 4] >> (24 - 8 * (q % 4))) & 0xFF)) % p;
+    return to_mont(acc);
+  }
+};
+
+// hash_to_field::<1> with the empty DST over a transcript of `total` bytes
+// whose chain is (mid, tail[0:fill]); len uniform bytes (<= 32: one b_1).
+template <class F>
+__device__ typename F::word draw(const F& f, const uint32_t mid[8], const uint8_t tail[64],
+                                 int fill, long long total, int len) {
+  // b_0 = SHA-256(Z_pad || transcript || I2OSP(len, 2) || 0x00 || DST'),
   // DST' = [0]: finish a copy of the midstate over the tail and suffix
   uint32_t st[8];
   for (int i = 0; i < 8; ++i) st[i] = mid[i];
   uint8_t blk[128];
   for (int q = 0; q < 128; ++q) blk[q] = 0;
   for (int q = 0; q < fill; ++q) blk[q] = tail[q];
-  blk[fill + 1] = 24;
+  blk[fill] = (uint8_t)(len >> 8);
+  blk[fill + 1] = (uint8_t)len;
   blk[fill + 4] = 0x80;
   const int nblk = fill + 5 <= 56 ? 1 : 2;
   const uint64_t bits = (uint64_t)(64 + total + 4) * 8;
@@ -119,43 +158,38 @@ __device__ uint64_t draw_gl(const uint32_t mid[8], const uint8_t tail[64], int f
   uint32_t h[8];
   for (int i = 0; i < 8; ++i) h[i] = H0[i];
   compress(h, b1);
-  // the first 24 uniform bytes, big-endian, reduced mod p:
-  // (w0 w1) * 2^128 + (w2 w3) * 2^64 + (w4 w5)
-  uint64_t x[3];
-  for (int i = 0; i < 3; ++i) {
-    const uint64_t v = (uint64_t)h[2 * i] << 32 | h[2 * i + 1];
-    x[i] = v >= gl::P ? v - gl::P : v;
-  }
-  return gl::add(gl::add(x[2], gl::mul(x[1], gl::EPS)), gl::mul(x[0], gl::C128));
+  return f.from_uniform(h, len);
 }
 
-template <int D>
-__global__ void fs_tail_kernel(const uint64_t* __restrict__ partials, int blocks,
+template <class F, int D>
+__global__ void fs_tail_kernel(F f, int byte_size, int len,
+                               const typename F::word* __restrict__ partials, int blocks,
                                uint32_t* __restrict__ state, uint8_t* __restrict__ buf,
-                               uint64_t* __restrict__ claim, uint64_t* __restrict__ r,
-                               uint64_t* __restrict__ c1, uint64_t* __restrict__ coeffs,
-                               int ncoef, int coeff_off, int* __restrict__ any_zero,
-                               const uint64_t* __restrict__ vinv, int batch, int round,
-                               long long nbytes, int draw) {
+                               typename F::word* __restrict__ claim, typename F::word* __restrict__ r,
+                               typename F::word* __restrict__ c1,
+                               typename F::word* __restrict__ coeffs, int ncoef, int coeff_off,
+                               int* __restrict__ any_zero, const typename F::word* __restrict__ vinv,
+                               int batch, int round, long long nbytes, int draw_next) {
+  using W = typename F::word;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
 
-  uint64_t s[D + 1];
+  W s[D + 1];
   for (int e = 0; e <= D; ++e) s[e] = 0;
-  const uint64_t* pp = partials + (long long)b * blocks * (D + 1);
+  const W* pp = partials + (long long)b * blocks * (D + 1);
   for (int x = 0; x < blocks; ++x) {
-    for (int e = 0; e <= D; ++e) s[e] = gl::add(s[e], pp[x * (D + 1) + e]);
+    for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], pp[x * (D + 1) + e]);
   }
-  if (round > 0) s[1] = gl::sub(claim[b], s[0]);
+  if (round > 0) s[1] = f.sub(claim[b], s[0]);
 
-  uint64_t c[D + 1];
+  W c[D + 1];
   int zero = 0;
   for (int i = 0; i <= D; ++i) {
-    uint64_t acc = 0;
-    for (int t = 0; t <= D; ++t) acc = gl::add(acc, gl::mul(vinv[i * (D + 1) + t], s[t]));
+    W acc = 0;
+    for (int t = 0; t <= D; ++t) acc = f.add(acc, f.mul(vinv[i * (D + 1) + t], s[t]));
     c[i] = acc;
     zero |= acc == 0;
-    coeffs[(long long)b * ncoef + coeff_off + i] = acc;
+    coeffs[(long long)b * ncoef + coeff_off + i] = f.canonical(acc);
   }
   any_zero[b] |= zero;
 
@@ -163,14 +197,14 @@ __global__ void fs_tail_kernel(const uint64_t* __restrict__ partials, int blocks
   uint8_t msg[8 + 8 + 16 * (D + 1)];
   int m = 0;
   if (round == 0) {
-    const uint64_t v = gl::add(s[0], s[1]);
+    const W v = f.canonical(f.add(s[0], s[1]));
     c1[b] = v;
-    put_le64(msg, m, v);
+    put_le(msg, m, v, byte_size);
   }
-  put_le64(msg, m, D + 1);
+  put_le(msg, m, D + 1, 8);
   for (int t = 0; t <= D; ++t) {
-    put_le64(msg, m, t);
-    put_le64(msg, m, c[t]);
+    put_le(msg, m, t, 8);
+    put_le(msg, m, f.canonical(c[t]), byte_size);
   }
 
   uint32_t st[8];
@@ -189,36 +223,54 @@ __global__ void fs_tail_kernel(const uint64_t* __restrict__ partials, int blocks
   for (int i = 0; i < 8; ++i) state[b * 8 + i] = st[i];
   for (int q = 0; q < 64; ++q) buf[b * 64 + q] = tail[q];
 
-  if (draw) {
-    const uint64_t rv = draw_gl(st, tail, fill, nbytes + m);
+  if (draw_next) {
+    const W rv = draw(f, st, tail, fill, nbytes + m, len);
     r[b] = rv;
-    uint64_t h = c[D];
-    for (int i = D - 1; i >= 0; --i) h = gl::add(gl::mul(h, rv), c[i]);
+    W h = c[D];
+    for (int i = D - 1; i >= 0; --i) h = f.add(f.mul(h, rv), c[i]);
     claim[b] = h;
   }
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched); degree must
-// be 2 or 3 (the wrapper checks every argument first).
-extern "C" int ts_fs_tail_launch(int degree, const void* partials, int blocks, void* state,
-                                 void* buf, void* claim, void* r, void* c1, void* coeffs,
-                                 int ncoef, int coeff_off, void* any_zero, const void* vinv,
-                                 int batch, int round, long long nbytes, int draw,
-                                 void* stream) {
+template <class F>
+int launch(const F& f, int byte_size, int len, int degree, const void* partials, int blocks,
+           void* state, void* buf, void* claim, void* r, void* c1, void* coeffs, int ncoef,
+           int coeff_off, void* any_zero, const void* vinv, int batch, int round,
+           long long nbytes, int draw_next, cudaStream_t s) {
+  using W = typename F::word;
   constexpr int TPB = 64;
   const dim3 grid((batch + TPB - 1) / TPB);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TS_FS_TAIL_ARGS                                                                     \
-  static_cast<const uint64_t*>(partials), blocks, static_cast<uint32_t*>(state),             \
-      static_cast<uint8_t*>(buf), static_cast<uint64_t*>(claim), static_cast<uint64_t*>(r), \
-      static_cast<uint64_t*>(c1), static_cast<uint64_t*>(coeffs), ncoef, coeff_off,          \
-      static_cast<int*>(any_zero), static_cast<const uint64_t*>(vinv), batch, round, nbytes, \
-      draw
-  if (degree == 2) fs_tail_kernel<2><<<grid, TPB, 0, s>>>(TS_FS_TAIL_ARGS);
-  else if (degree == 3) fs_tail_kernel<3><<<grid, TPB, 0, s>>>(TS_FS_TAIL_ARGS);
+#define TS_FS_TAIL_ARGS                                                                       \
+  f, byte_size, len, static_cast<const W*>(partials), blocks, static_cast<uint32_t*>(state), \
+      static_cast<uint8_t*>(buf), static_cast<W*>(claim), static_cast<W*>(r),                 \
+      static_cast<W*>(c1), static_cast<W*>(coeffs), ncoef, coeff_off,                        \
+      static_cast<int*>(any_zero), static_cast<const W*>(vinv), batch, round, nbytes, draw_next
+  if (degree == 2) fs_tail_kernel<F, 2><<<grid, TPB, 0, s>>>(TS_FS_TAIL_ARGS);
+  else if (degree == 3) fs_tail_kernel<F, 3><<<grid, TPB, 0, s>>>(TS_FS_TAIL_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef TS_FS_TAIL_ARGS
-  return (int)cudaGetLastError();
+  return 0;
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 = launched). mont32 = 0
+// takes Goldilocks int64 words; mont32 = 1 takes Montgomery words of the
+// field with modulus p < 2^31 and pinv = -p^-1 mod 2^32. byte_size is the
+// serialized width of one element, len the uniform bytes of one draw
+// (<= 32). degree must be 2 or 3 (the wrapper checks every argument first).
+extern "C" int ts_fs_tail_launch(int mont32, unsigned p, unsigned pinv, int byte_size, int len,
+                                 int degree, const void* partials, int blocks, void* state,
+                                 void* buf, void* claim, void* r, void* c1, void* coeffs,
+                                 int ncoef, int coeff_off, void* any_zero, const void* vinv,
+                                 int batch, int round, long long nbytes, int draw_next,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      mont32 ? launch(M32Ops{{p, pinv}}, byte_size, len, degree, partials, blocks, state, buf,
+                      claim, r, c1, coeffs, ncoef, coeff_off, any_zero, vinv, batch, round, nbytes,
+                      draw_next, s)
+             : launch(GlOps{}, byte_size, len, degree, partials, blocks, state, buf, claim, r, c1,
+                      coeffs, ncoef, coeff_off, any_zero, vinv, batch, round, nbytes, draw_next, s);
+  return rc ? rc : (int)cudaGetLastError();
 }

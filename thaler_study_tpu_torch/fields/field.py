@@ -4,7 +4,7 @@ Host-side protocol state (verifier checks, univariate round polynomials,
 transcript challenges) uses :class:`Felt` — arbitrary-precision Python integers
 reduced mod p. This mirrors the reference where the verifier is plain Rust over
 arkworks scalars (sum-check-protocol/src/lib.rs:227-331). Bulk data lives in
-int64 tensors, one element per 64-bit word (see ``farray.py``).
+tensors, one element per word (see ``farray.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ class FieldConfig:
     ``backend`` names the tensor representation:
 
     - ``"mont32"``:  p < 2^31 (the reference test fields 5, 389, 1572869
-      and BabyBear). Host scalars work; tensors of these fields are not
-      ported yet (``FArray`` raises).
+      and BabyBear). One int32 word per element holding its Montgomery
+      form x * 2^32 mod p.
     - ``"goldilocks"``: p = 2^64 - 2^32 + 1. One int64 word per element
       holding the canonical value's u64 bit pattern; the special reduction
       2^64 === 2^32 - 1 (mod p) makes Montgomery unnecessary.

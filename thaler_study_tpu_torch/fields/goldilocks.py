@@ -40,6 +40,11 @@ def _reduce_once(x: torch.Tensor) -> torch.Tensor:
     return torch.where((x ^ _SIGN) >= _P_FLIPPED, x + EPS, x)
 
 
+def canonical(x: torch.Tensor) -> torch.Tensor:
+    """Any u64 bit patterns (< 2^64 < 2p) -> canonical values mod p."""
+    return _reduce_once(x)
+
+
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular add of canonical elements."""
     s = a + b

@@ -21,13 +21,14 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
-from ..fields import goldilocks as gl
+from ..fields import GOLDILOCKS, FArray, FieldConfig
+from ..fields.farray import word_dtype
 
 THREADS = 256  # csrc/round_kernel.cu THREADS
 _TARGET_BLOCKS = 2048  # blocks in flight over the whole batch: ~16 per SM
 
-# launches of the CUDA kernel (not of the plain version)
-launches = 0
+# launches of the CUDA kernel (not of the plain version), per instantiation
+launches = {"goldilocks": 0, "mont32": 0}
 
 _lib = None
 
@@ -38,7 +39,8 @@ def _kernel():
         lib = _build.load("round_kernel")
         fn = lib.ts_round_launch
         fn.argtypes = (
-            [ctypes.c_int] * 3
+            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint]
+            + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 8
             + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
             + [ctypes.c_void_p]
@@ -54,7 +56,7 @@ def blocks_for(batch: int, half: int) -> int:
     return max(1, min(-(-half // THREADS), _TARGET_BLOCKS // batch))
 
 
-def _check(tables, r, out, fold: bool) -> Tuple[int, int, torch.device]:
+def _check(tables, r, out, fold: bool, dtype) -> Tuple[int, int, torch.device]:
     if not tables:
         raise ValueError("round_partials needs at least one table")
     t0 = tables[0]
@@ -65,21 +67,21 @@ def _check(tables, r, out, fold: bool) -> Tuple[int, int, torch.device]:
     if n < (4 if fold else 2) or n & (n - 1):
         raise ValueError(f"table length {n} must be a power of two >= {4 if fold else 2}")
     for t in tables:
-        if t.dtype != torch.int64 or t.shape != t0.shape or t.device != dev:
-            raise ValueError("tables must be int64 tensors of one shape on one device")
+        if t.dtype != dtype or t.shape != t0.shape or t.device != dev:
+            raise ValueError(f"tables must be {dtype} tensors of one shape on one device")
         if not t.is_contiguous():
             raise ValueError("tables must be contiguous")
     if fold:
-        if r is None or r.dtype != torch.int64 or r.shape != (batch,) or r.device != dev:
-            raise ValueError(f"r must be an int64 [{batch}] tensor on {dev}")
+        if r is None or r.dtype != dtype or r.shape != (batch,) or r.device != dev:
+            raise ValueError(f"r must be a {dtype} [{batch}] tensor on {dev}")
         if not r.is_contiguous():
             raise ValueError("r must be contiguous")
     if out is not None:
         if len(out) != len(tables):
             raise ValueError("one output per table")
         for o in out:
-            if o.dtype != torch.int64 or o.shape != (batch, n // 2) or o.device != dev:
-                raise ValueError(f"outputs must be int64 [{batch}, {n // 2}] on {dev}")
+            if o.dtype != dtype or o.shape != (batch, n // 2) or o.device != dev:
+                raise ValueError(f"outputs must be {dtype} [{batch}, {n // 2}] on {dev}")
             if not o.is_contiguous():
                 raise ValueError("outputs must be contiguous")
     return batch, n, dev
@@ -90,22 +92,24 @@ def round_partials(
     r: Optional[torch.Tensor] = None,
     skip_t1: bool = False,
     out: Optional[Sequence[torch.Tensor]] = None,
+    field: FieldConfig = GOLDILOCKS,
 ) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
     """One round over B proofs of a single-block product of k tables.
 
-    ``tables``: k int64 [B, n] tensors (canonical Goldilocks, MSB-first).
-    ``r``: int64 [B] challenges, or None for a round without a fold.
+    ``tables``: k [B, n] tensors of ``field``'s words (``FArray`` data,
+    MSB-first). ``r``: [B] challenges, or None for a round without a fold.
     ``skip_t1``: leave s(1) out (0); the caller fills claim - s(0).
-    ``out``: k int64 [B, n/2] buffers for the folded tables (allocated when
-    None). Returns (folded tables or None, partials int64 [B, blocks, k+1]).
-    The input tables are never written.
+    ``out``: k [B, n/2] buffers for the folded tables (allocated when
+    None). Returns (folded tables or None, partials [B, blocks, k+1]), all
+    in the field's word dtype. The input tables are never written.
     """
     fold = r is not None
-    batch, n, dev = _check(tables, r, out, fold)
+    dtype = word_dtype(field)
+    batch, n, dev = _check(tables, r, out, fold, dtype)
     half = n // 4 if fold else n // 2
     blocks = blocks_for(batch, half)
     if dev.type == "cpu":
-        folded, partials = round_partials_plain(tables, r, skip_t1, blocks)
+        folded, partials = round_partials_plain(tables, r, skip_t1, blocks, field)
         if out is not None and folded is not None:
             for o, f in zip(out, folded):
                 o.copy_(f)
@@ -119,12 +123,16 @@ def round_partials(
     if batch > 65535:
         raise ValueError("the CUDA round kernel takes at most 65535 proofs")
     if fold and out is None:
-        out = [torch.empty((batch, n // 2), dtype=torch.int64, device=dev) for _ in tables]
-    partials = torch.empty((batch, blocks, k + 1), dtype=torch.int64, device=dev)
+        out = [torch.empty((batch, n // 2), dtype=dtype, device=dev) for _ in tables]
+    partials = torch.empty((batch, blocks, k + 1), dtype=dtype, device=dev)
     ins = [t.data_ptr() for t in tables] + [None] * (3 - k)
     outs = ([o.data_ptr() for o in out] if fold else []) + [None] * (3 - (k if fold else 0))
     chunk = -(-half // blocks)
+    mont32 = field.backend == "mont32"
     rc = _kernel()(
+        int(mont32),
+        field.p if mont32 else 0,
+        field.mont_pinv_neg if mont32 else 0,
         k,
         int(fold),
         int(skip_t1),
@@ -140,8 +148,7 @@ def round_partials(
     )
     if rc != 0:
         raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    launches[field.backend] += 1
     return (list(out) if fold else None), partials
 
 
@@ -150,26 +157,28 @@ def round_partials_plain(
     r: Optional[torch.Tensor],
     skip_t1: bool,
     blocks: int,
+    field: FieldConfig = GOLDILOCKS,
 ) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
-    """The kernel's function in plain torch int64 ops (any device): the same
-    folded tables and the same per-block partials (block x sums the pair
-    indices [x * chunk, (x + 1) * chunk))."""
+    """The kernel's function in plain torch ops (``FArray`` arithmetic, any
+    device): the same folded tables and the same per-block partials (block
+    x sums the pair indices [x * chunk, (x + 1) * chunk))."""
     batch, n = tables[0].shape
     k = len(tables)
+    tabs = [FArray(t, field) for t in tables]
     if r is not None:
         h = n // 4
-        rr = r.reshape(batch, 1)
-        lo = [gl.fold(t[:, :h], t[:, 2 * h : 3 * h], rr) for t in tables]
-        hi = [gl.fold(t[:, h : 2 * h], t[:, 3 * h :], rr) for t in tables]
-        folded = [torch.cat([a, b], dim=1) for a, b in zip(lo, hi)]
+        rr = FArray(r.reshape(batch, 1), field)
+        lo = [FArray.fold(t[:, :h], t[:, 2 * h : 3 * h], rr) for t in tabs]
+        hi = [FArray.fold(t[:, h : 2 * h], t[:, 3 * h :], rr) for t in tabs]
+        folded = [torch.cat([a.data, b.data], dim=1) for a, b in zip(lo, hi)]
     else:
         h = n // 2
-        lo = [t[:, :h] for t in tables]
-        hi = [t[:, h:] for t in tables]
+        lo = [t[:, :h] for t in tabs]
+        hi = [t[:, h:] for t in tabs]
         folded = None
     chunk = -(-h // blocks)
     pad = blocks * chunk - h
-    deltas = [gl.sub(b, a) for a, b in zip(lo, hi)]
+    deltas = [b - a for a, b in zip(lo, hi)]
     cols = []
     views = None
     for t in range(k + 1):
@@ -178,13 +187,13 @@ def round_partials_plain(
         elif t == 1:
             views = hi
         else:
-            views = [gl.add(v, d) for v, d in zip(views, deltas)]
+            views = [v + d for v, d in zip(views, deltas)]
         if t == 1 and skip_t1:
-            cols.append(torch.zeros((batch, blocks), dtype=torch.int64, device=lo[0].device))
+            cols.append(torch.zeros((batch, blocks), dtype=word_dtype(field), device=tables[0].device))
             continue
         prod = views[0]
         for v in views[1:]:
-            prod = gl.mul(prod, v)
-        prod = torch.nn.functional.pad(prod, (0, pad))
-        cols.append(gl.sum_mod(prod.reshape(batch, blocks, chunk), 2))
+            prod = prod * v
+        padded = torch.nn.functional.pad(prod.data, (0, pad))
+        cols.append(FArray(padded.reshape(batch, blocks, chunk), field).sum(axis=2).data)
     return folded, torch.stack(cols, dim=2)

@@ -24,10 +24,12 @@ message lengths value-dependent. The device path assumes every coefficient
 is nonzero, detects violations per proof, and returns ``None`` for such a
 proof; the caller re-proves it on the exact host loop.
 
-Scope of this slice: Goldilocks, single-block products of 2 or 3 factors
-(the CUDA kernels' instantiations; the plain versions take any k), and the
-empty DST. Anything else raises ``NotImplementedError`` naming the later
-slice.
+Scope: Goldilocks and the mont32 fields (F5, F389, F1572869, BabyBear;
+their sums, challenges and claims stay Montgomery words on the device, and
+only canonical coefficients reach the host), single-block products of 2 or
+3 factors (the CUDA kernels' instantiations; the plain versions take any
+k), and the empty DST. Anything else raises ``NotImplementedError`` naming
+the later slice.
 """
 
 from __future__ import annotations
@@ -40,15 +42,15 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..fields import FArray, FieldConfig
-from ..fields.farray import tensor_u64, u64_tensor
-from ..fields.goldilocks import P
+from ..fields import GOLDILOCKS, FArray, FieldConfig
+from ..fields.farray import tensor_u64, u64_tensor, word_dtype
 from .cuda_round import round_partials
 from .round_kernel import PolySpec, check_single_block
-from .sha_chain import DevChain, absorb_py, draw_gl_py
+from .sha_chain import DevChain, absorb_py, draw_py, len_in_bytes
 
-# launches of the CUDA FS tail kernel (not of the plain version)
-launches = 0
+# launches of the CUDA FS tail kernel (not of the plain version), per
+# instantiation
+launches = {"goldilocks": 0, "mont32": 0}
 
 _lib = None
 
@@ -59,7 +61,8 @@ def _kernel():
         lib = _build.load("fs_tail")
         fn = lib.ts_fs_tail_launch
         fn.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p] * 6
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
@@ -91,29 +94,35 @@ def _interp_matrix(degree: int, p: int) -> tuple:
     return tuple(tuple(row) for row in vinv)
 
 
-def _msg_len(round_idx: int, degree: int) -> int:
+def _msg_len(round_idx: int, degree: int, byte_size: int) -> int:
     """Bytes of round ``round_idx``'s message: [c_1] || len || terms."""
-    return (8 if round_idx == 0 else 0) + 8 + 16 * (degree + 1)
+    return (byte_size if round_idx == 0 else 0) + 8 + (8 + byte_size) * (degree + 1)
 
 
-def _check_supported(spec: PolySpec, field: FieldConfig, num_tables: int, dst: bytes):
+def interp_tensor(field: FieldConfig, degree: int, device) -> torch.Tensor:
+    """The inverse-Vandermonde constants as the FS tail takes them, row-major:
+    canonical for Goldilocks, Montgomery words (c << 32) mod p for mont32."""
+    m = np.array(_interp_matrix(degree, field.p), dtype=object).reshape(-1)
+    if field.backend == "mont32":
+        m = (m << 32) % field.p
+    return u64_tensor(m.astype(np.uint64), device, word_dtype(field))
+
+
+def _check_supported(spec: PolySpec, num_tables: int, dst: bytes):
     if dst != b"":
         raise NotImplementedError(
             "a non-empty DST needs the unfused per-round batched path "
             "(thaler_study_tpu/protocols/batched.py:188-204), a later slice"
         )
-    if field.backend != "goldilocks":
-        raise NotImplementedError(
-            f"{field.name}: the mont32 fused prover is a later slice of the port"
-        )
     check_single_block(spec, num_tables)
 
 
 def supports_fused_fs(spec: PolySpec, field: FieldConfig, dst: bytes) -> bool:
-    """Does this slice's fused path cover (spec, field, dst)? Goldilocks,
-    the empty DST and a single-block product of all the spec's tables."""
+    """Does this slice's fused path cover (spec, field, dst)? Any field of
+    the port, the empty DST and a single-block product of all the spec's
+    tables."""
     try:
-        _check_supported(spec, field, len(spec.table_blocks), dst)
+        _check_supported(spec, len(spec.table_blocks), dst)
     except NotImplementedError:
         return False
     return True
@@ -138,27 +147,28 @@ def _assemble_msgs(c1: int, coeffs: Sequence[int], degrees: Sequence[int], byte_
     return msgs
 
 
-def _check_tail(partials, chain, claim, r, c1, coeffs, any_zero, vinv, coeff_off):
+def _check_tail(field, partials, chain, claim, r, c1, coeffs, any_zero, vinv, coeff_off):
     dev = partials.device
-    if partials.dim() != 3 or partials.dtype != torch.int64:
-        raise ValueError("partials must be an int64 [B, blocks, d+1] tensor")
+    w = word_dtype(field)
+    if partials.dim() != 3 or partials.dtype != w:
+        raise ValueError(f"partials must be a {w} [B, blocks, d+1] tensor")
     batch, _, d1 = partials.shape
     want = {
         "state": (chain.state, torch.int32, (batch, 8)),
         "buf": (chain.buf, torch.uint8, (batch, 64)),
-        "claim": (claim, torch.int64, (batch,)),
-        "r": (r, torch.int64, (batch,)),
-        "c1": (c1, torch.int64, (batch,)),
+        "claim": (claim, w, (batch,)),
+        "r": (r, w, (batch,)),
+        "c1": (c1, w, (batch,)),
         "any_zero": (any_zero, torch.int32, (batch,)),
-        "vinv": (vinv, torch.int64, (d1 * d1,)),
+        "vinv": (vinv, w, (d1 * d1,)),
     }
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{name} must be {dtype} {list(shape)} on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if coeffs.dtype != torch.int64 or coeffs.dim() != 2 or coeffs.shape[0] != batch:
-        raise ValueError(f"coeffs must be int64 [{batch}, ncoef]")
+    if coeffs.dtype != w or coeffs.dim() != 2 or coeffs.shape[0] != batch:
+        raise ValueError(f"coeffs must be {w} [{batch}, ncoef]")
     if coeffs.device != dev or not coeffs.is_contiguous() or not partials.is_contiguous():
         raise ValueError("coeffs and partials must be contiguous and on one device")
     if not 0 <= coeff_off <= coeffs.shape[1] - d1:
@@ -177,22 +187,31 @@ def fs_tail(
     round_idx: int,
     coeff_off: int,
     draw: bool,
+    field: FieldConfig = GOLDILOCKS,
 ) -> None:
     """Round ``round_idx``'s FS tail for B proofs, in place: updates
     ``chain`` (state, buf, nbytes), ``coeffs[:, coeff_off:coeff_off+d+1]``,
     ``any_zero``, ``c1`` (round 0) and, with ``draw``, the next ``r`` and
-    ``claim``. ``partials``: the round kernel's int64 [B, blocks, d+1];
-    ``vinv``: the (d+1)^2 inverse-Vandermonde constants, row-major.
+    ``claim``. ``partials``: the round kernel's [B, blocks, d+1];
+    ``vinv``: :func:`interp_tensor`. Field-valued tensors hold ``field``'s
+    words (``word_dtype``): ``claim`` and ``r`` in the round kernel's
+    domain, ``c1`` and ``coeffs`` canonical.
     CPU tensors run :func:`fs_tail_plain`; CUDA tensors the kernel."""
-    _check_tail(partials, chain, claim, r, c1, coeffs, any_zero, vinv, coeff_off)
+    _check_tail(field, partials, chain, claim, r, c1, coeffs, any_zero, vinv, coeff_off)
     batch, blocks, d1 = partials.shape
     dev = partials.device
     if dev.type == "cpu":
-        fs_tail_plain(partials, chain, claim, r, c1, coeffs, any_zero, vinv, round_idx, coeff_off, draw)
+        fs_tail_plain(partials, chain, claim, r, c1, coeffs, any_zero, vinv, round_idx, coeff_off, draw, field)
     elif dev.type == "cuda":
         if d1 - 1 not in (2, 3):
             raise NotImplementedError(f"the CUDA FS tail takes degree 2 or 3, not {d1 - 1}")
+        mont32 = field.backend == "mont32"
         rc = _kernel()(
+            int(mont32),
+            field.p if mont32 else 0,
+            field.mont_pinv_neg if mont32 else 0,
+            field.byte_size,
+            len_in_bytes(field),
             d1 - 1,
             partials.data_ptr(),
             blocks,
@@ -214,57 +233,68 @@ def fs_tail(
         )
         if rc != 0:
             raise RuntimeError(f"FS tail kernel launch failed: CUDA error {rc}")
-        global launches
-        launches += 1
+        launches[field.backend] += 1
     else:
         raise ValueError(f"fs_tail runs on cpu or cuda, not {dev}")
-    chain.nbytes += _msg_len(round_idx, d1 - 1)
+    chain.nbytes += _msg_len(round_idx, d1 - 1, field.byte_size)
 
 
-def _put_u64(t: torch.Tensor, values) -> None:
-    t.copy_(u64_tensor(np.array(values, dtype=np.uint64).reshape(t.shape), t.device))
+def _put(t: torch.Tensor, values) -> None:
+    t.copy_(u64_tensor(np.array(values, dtype=np.uint64).reshape(t.shape), t.device, t.dtype))
 
 
-def fs_tail_plain(partials, chain, claim, r, c1, coeffs, any_zero, vinv, round_idx, coeff_off, draw) -> None:
+def fs_tail_plain(
+    partials, chain, claim, r, c1, coeffs, any_zero, vinv, round_idx, coeff_off, draw, field=GOLDILOCKS
+) -> None:
     """:func:`fs_tail` in Python ints over ``.tolist()``, with the
-    pure-Python SHA-256 compression (any device; same in-place outputs)."""
+    pure-Python SHA-256 compression (any device; same in-place outputs).
+    mont32 words are taken to canonical values on the way in and back to
+    Montgomery words on the way out."""
     batch, _, d1 = partials.shape
     degree = d1 - 1
-    parts = tensor_u64(partials).tolist()
-    m = [[int(x) for x in row] for row in tensor_u64(vinv).reshape(d1, d1).tolist()]
-    claims = [int(x) for x in tensor_u64(claim)]
-    rs = [int(x) for x in tensor_u64(r)]
+    p, bs = field.p, field.byte_size
+    if field.backend == "mont32":
+        rinv, mont_r = pow(field.mont_r, -1, p), field.mont_r
+    else:
+        rinv = mont_r = 1
+
+    def ints(t):  # words -> canonical ints
+        return [int(x) * rinv % p for x in tensor_u64(t).reshape(-1)]
+
+    parts = np.array(ints(partials), dtype=object).reshape(batch, -1, d1)
+    m = np.array(ints(vinv), dtype=object).reshape(d1, d1).tolist()
+    claims, rs = ints(claim), ints(r)
     c1s = [int(x) for x in tensor_u64(c1)]
     coef = tensor_u64(coeffs).copy()
     zeros = any_zero.cpu().tolist()
     states = chain.state.cpu().numpy().view(np.uint32).tolist()
     bufs = [bytearray(row) for row in chain.buf.cpu().numpy().tolist()]
     for b in range(batch):
-        s = [sum(int(row[e]) for row in parts[b]) % P for e in range(d1)]
+        s = [int(parts[b, :, e].sum()) % p for e in range(d1)]
         if round_idx > 0:
-            s[1] = (claims[b] - s[0]) % P
-        c = [sum(m[i][t] * s[t] for t in range(d1)) % P for i in range(d1)]
+            s[1] = (claims[b] - s[0]) % p
+        c = [sum(m[i][t] * s[t] for t in range(d1)) % p for i in range(d1)]
         zeros[b] |= int(any(x == 0 for x in c))
         coef[b, coeff_off : coeff_off + d1] = c
         msg = []
         if round_idx == 0:
-            c1s[b] = (s[0] + s[1]) % P
-            msg.append(c1s[b].to_bytes(8, "little"))
+            c1s[b] = (s[0] + s[1]) % p
+            msg.append(c1s[b].to_bytes(bs, "little"))
         msg.append(d1.to_bytes(8, "little"))
         for t in range(d1):
-            msg.append(t.to_bytes(8, "little") + c[t].to_bytes(8, "little"))
+            msg.append(t.to_bytes(8, "little") + c[t].to_bytes(bs, "little"))
         msg = b"".join(msg)
         absorb_py(states[b], bufs[b], chain.nbytes, msg)
         if draw:
-            rs[b] = draw_gl_py(states[b], bufs[b], chain.nbytes + len(msg))
+            rs[b] = draw_py(field, states[b], bufs[b], chain.nbytes + len(msg))
             acc = c[degree]
             for i in range(degree - 1, -1, -1):
-                acc = (acc * rs[b] + c[i]) % P
+                acc = (acc * rs[b] + c[i]) % p
             claims[b] = acc
-    _put_u64(claim, claims)
-    _put_u64(r, rs)
-    _put_u64(c1, c1s)
-    _put_u64(coeffs, coef)
+    _put(claim, [x * mont_r % p for x in claims])
+    _put(r, [x * mont_r % p for x in rs])
+    _put(c1, c1s)
+    _put(coeffs, coef)
     any_zero.copy_(torch.tensor(zeros, dtype=torch.int32))
     chain.state.copy_(torch.from_numpy(np.array(states, dtype=np.uint32).view(np.int32)))
     chain.buf.copy_(torch.tensor([list(bb) for bb in bufs], dtype=torch.uint8))
@@ -281,7 +311,7 @@ def fs_prove_device_batch(
     zero (the caller re-proves only that instance on the host loop).
     Raises ``NotImplementedError`` outside this slice (see module doc)."""
     field = tables[0].field
-    _check_supported(spec, field, len(tables), dst)
+    _check_supported(spec, len(tables), dst)
     data = [t.data for t in tables]
     if data[0].dim() != 2:
         raise ValueError("fs_prove_device_batch takes [B, 2^n] tables")
@@ -291,10 +321,10 @@ def fs_prove_device_batch(
         raise ValueError(f"tables of {size} entries for a {n}-variable spec")
     dev = data[0].device
     degrees = spec.round_degrees()
-    degree = degrees[0]
-    vinv = u64_tensor(np.array(_interp_matrix(degree, field.p), dtype=np.uint64).reshape(-1), dev)
+    vinv = interp_tensor(field, degrees[0], dev)
+    w = word_dtype(field)
 
-    def zeros(*shape, dtype=torch.int64):
+    def zeros(*shape, dtype=w):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     chain = DevChain.fresh(batch, dev)
@@ -304,23 +334,23 @@ def fs_prove_device_batch(
     # ping-pong fold buffers: round j >= 1 writes [B, size >> j] into
     # buffer (j - 1) % 2, reading the previous round's buffer
     bufs = [
-        [torch.empty(batch * size // 2, dtype=torch.int64, device=dev),
-         torch.empty(batch * size // 4, dtype=torch.int64, device=dev)]
+        [torch.empty(batch * size // 2, dtype=w, device=dev),
+         torch.empty(batch * size // 4, dtype=w, device=dev)]
         for _ in data
     ]
     cur = data
     off = 0
     for j in range(n):
         if j == 0:
-            _, partials = round_partials(cur)
+            _, partials = round_partials(cur, field=field)
         else:
             m = size >> j
             out = [pp[(j - 1) % 2][: batch * m].view(batch, m) for pp in bufs]
-            cur, partials = round_partials(cur, r, skip_t1=True, out=out)
-        fs_tail(partials, chain, claim, r, c1, coeffs, any_zero, vinv, j, off, j < n - 1)
+            cur, partials = round_partials(cur, r, skip_t1=True, out=out, field=field)
+        fs_tail(partials, chain, claim, r, c1, coeffs, any_zero, vinv, j, off, j < n - 1, field)
         off += degrees[j] + 1
     # the one host read: c_1, the coefficient table and the zero flags
-    host = tensor_u64(torch.cat([c1[:, None], coeffs, any_zero[:, None].to(torch.int64)], 1))
+    host = tensor_u64(torch.cat([c1[:, None], coeffs, any_zero[:, None].to(w)], 1))
     return [
         None
         if host[b, -1]

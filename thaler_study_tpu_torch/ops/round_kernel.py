@@ -10,7 +10,8 @@ IP, GKR W) raise ``NotImplementedError``; they are a later slice.
 Tables are flat, MSB-first: the round variable splits each in halves.
 :func:`round_step` goes through ``cuda_round.round_partials``: the CUDA
 kernel for CUDA tensors, at every table size, and its plain version for CPU
-tensors.
+tensors. Every function here takes Goldilocks and the mont32 fields; round
+sums of a mont32 field are Montgomery words, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..fields import FArray
-from ..fields import goldilocks as gl
+from ..fields import FArray, FieldConfig
 from . import cuda_round
 
 
@@ -103,12 +103,13 @@ def check_single_block(spec: PolySpec, num_tables: int) -> None:
         )
 
 
-def _round_sums(partials: torch.Tensor, claim: Optional[torch.Tensor]) -> torch.Tensor:
+def _round_sums(field: FieldConfig, partials: torch.Tensor, claim: Optional[FArray]) -> FArray:
     """Round sums s(0..d) from the round kernel's [blocks, d+1] partials;
-    with the round claim c known, s(1) = c - s(0) (exact mod p)."""
-    sums = gl.sum_mod(partials, 0)
+    with the round claim c known (a 0-d FArray), s(1) = c - s(0), exact
+    mod p."""
+    sums = FArray(partials, field).sum(axis=0)
     if claim is not None:
-        sums[1] = gl.sub(claim, sums[0])
+        sums.data[1] = (claim - sums[0]).data
     return sums
 
 
@@ -130,11 +131,11 @@ def round_step(
     field = tables[0].field
     data = [t.data.reshape(1, -1) for t in tables]
     r = None if r_prev is None else r_prev.data.reshape(1)
-    folded, partials = cuda_round.round_partials(data, r, skip_t1=claim is not None)
-    sums = _round_sums(partials[0], None if claim is None else claim.data.reshape(()))
+    folded, partials = cuda_round.round_partials(data, r, skip_t1=claim is not None, field=field)
+    sums = _round_sums(field, partials[0], None if claim is None else claim.reshape(()))
     if folded is not None:
         tables = tuple(FArray(f.reshape(-1), field) for f in folded)
-    return FArray(sums, field), tuple(tables)
+    return sums, tuple(tables)
 
 
 def fold_step(

@@ -15,8 +15,9 @@ fused FS prover is static, so every proof sits at the same offset. The
 traced-offset mode of the JAX package (GKR layers) is a later slice.
 
 The absorb/draw arithmetic runs on the card inside the FS tail kernel
-(``csrc/fs_tail.cu``); :func:`absorb_py` and :func:`draw_gl_py` are its
-plain versions. Scope: empty DST and Goldilocks (24 uniform bytes).
+(``csrc/fs_tail.cu``); :func:`absorb_py` and :func:`draw_py` are its
+plain versions. Scope: the empty DST, any field of the port (at most 32
+uniform bytes per draw, so one digest b_1).
 """
 
 from __future__ import annotations
@@ -27,16 +28,24 @@ from typing import List
 import numpy as np
 import torch
 
-from ..fields.goldilocks import P
+from ..fields import GOLDILOCKS, FieldConfig
 from .sha256 import H0, digest_bytes, py_compress
 
 # midstate after the all-zero Z_pad block
 ZPAD_STATE = list(H0)
 py_compress(ZPAD_STATE, bytes(64))
 
-# expand_message_xmd(len_in_bytes = 24) suffix: I2OSP(24, 2) || 0x00 || DST'
-# with DST' = I2OSP(len(DST) = 0, 1)
-_B0_SUFFIX = bytes([0, 24, 0, 0])
+
+def len_in_bytes(field: FieldConfig) -> int:
+    """Uniform bytes of one element, ceil((bits(p) + 128) / 8): 17 for F5,
+    18 for F389, 19 for F1572869, 20 for BabyBear, 24 for Goldilocks."""
+    return (field.bit_size + 128 + 7) // 8
+
+
+def _b0_suffix(length: int) -> bytes:
+    """The bytes after the transcript in b_0:
+    I2OSP(len_in_bytes, 2) || 0x00 || DST' with DST' = I2OSP(len(DST) = 0, 1)."""
+    return length.to_bytes(2, "big") + bytes([0, 0])
 
 
 @dataclasses.dataclass
@@ -73,12 +82,15 @@ def absorb_py(state: List[int], buf: bytearray, nbytes: int, msg: bytes) -> None
     buf[fill:] = bytes(64 - fill)
 
 
-def draw_gl_py(state: List[int], buf: bytes, nbytes: int) -> int:
+def draw_py(field: FieldConfig, state: List[int], buf: bytes, nbytes: int) -> int:
     """``DefaultFieldHasher<Sha256,128>::hash_to_field::<1>`` with the empty
-    DST for Goldilocks, over the chain's ``nbytes``-byte transcript."""
+    DST over the chain's ``nbytes``-byte transcript: the canonical value of
+    the first ``len_in_bytes(field)`` uniform bytes, big-endian, mod p."""
+    length = len_in_bytes(field)
+    suffix = _b0_suffix(length)
     fill = nbytes % 64
-    msg_len = 64 + nbytes + len(_B0_SUFFIX)  # Z_pad + transcript + suffix
-    tail = bytes(buf[:fill]) + _B0_SUFFIX + b"\x80"
+    msg_len = 64 + nbytes + len(suffix)  # Z_pad + transcript + suffix
+    tail = bytes(buf[:fill]) + suffix + b"\x80"
     tail += bytes((56 - len(tail)) % 64) + (8 * msg_len).to_bytes(8, "big")
     b0 = list(state)
     for off in range(0, len(tail), 64):
@@ -87,4 +99,9 @@ def draw_gl_py(state: List[int], buf: bytes, nbytes: int) -> int:
     block = digest_bytes(b0) + bytes([1, 0, 0x80]) + bytes(21) + (8 * 34).to_bytes(8, "big")
     b1 = list(H0)
     py_compress(b1, block)
-    return int.from_bytes(digest_bytes(b1)[:24], "big") % P
+    return int.from_bytes(digest_bytes(b1)[:length], "big") % field.p
+
+
+def draw_gl_py(state: List[int], buf: bytes, nbytes: int) -> int:
+    """:func:`draw_py` for Goldilocks."""
+    return draw_py(GOLDILOCKS, state, buf, nbytes)

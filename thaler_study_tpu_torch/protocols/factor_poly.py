@@ -6,17 +6,16 @@ SumCheckPolynomial parity API of the reference — ``evaluate``,
 ``fix_variables``, ``to_univariate``, ``num_vars``, ``to_evaluations`` —
 while its hot path (``round_univariate``) is one round kernel launch per
 sumcheck round (fold + partial sums; ref hot loop:
-matrix-multiplication/src/lib.rs:110-131). This slice ports single-block
-products only (``round_kernel.check_single_block``).
+matrix-multiplication/src/lib.rs:110-131). Any field of the port;
+single-block products only (``round_kernel.check_single_block``).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from ..fields import FArray, Felt, FieldConfig
+from ..mle.dense import bitrev_perm
 from ..ops.round_kernel import (
     PolySpec,
     fold_step,
@@ -27,15 +26,6 @@ from ..ops.round_kernel import (
 from ..sumcheck.poly import SumCheckPolynomial
 from ..sumcheck.univariate import UniPoly, interpolate_at_small_points
 from ..utils.counters import count_round
-
-
-def _bitrev_perm(n: int) -> np.ndarray:
-    """perm[i] = bit-reversal of i over n bits (LSB-first <-> MSB-first)."""
-    idx = np.arange(1 << n)
-    out = np.zeros_like(idx)
-    for b in range(n):
-        out |= ((idx >> b) & 1) << (n - 1 - b)
-    return out
 
 
 class ProductPoly(SumCheckPolynomial):
@@ -125,5 +115,5 @@ class ProductPoly(SumCheckPolynomial):
     def to_evaluations(self) -> List[Felt]:
         """Dense evaluations, little-endian (arkworks hypercube) order."""
         flat = product_evals(self.spec, self.tables)
-        ints = flat.to_u64()[_bitrev_perm(self.num_vars())]
+        ints = flat.to_u64()[bitrev_perm(self.num_vars())]
         return [Felt(int(v), self.field) for v in ints]
