@@ -23,7 +23,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 2. each kernel instantiation against its plain torch version on the card,
    on the same tensors, exactly (field values have no rounding): the round
    kernel over Goldilocks and over the mont32 fields BabyBear, F1572869,
-   F389 and F5; the FS tail over Goldilocks, BabyBear and F5;
+   F389 and F5; the FS tail over the same five fields at every buffer fill
+   (nbytes % 64 = 0..63), degree 2 and 3, round 0 / middle / last, its
+   transcript bytes included; the SHA-256 chain helper against Python;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -31,7 +33,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    matmul entry against the product entry computed with Python ints, the
    verifier, a tampered transcript, and a smaller entry against the same
    call on the CPU;
-4. timing with CUDA events, a dependent host read and a profiler trace;
+4. timing with CUDA events, a dependent host read and a profiler trace,
+   and the FS tail's latency floor (one thread's chain of dependent SHA-256
+   compressions, times the compressions on a round's chain);
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -126,7 +130,7 @@ def main(argv=None) -> int:
     log(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     torch.cuda.synchronize()
 
@@ -190,7 +194,7 @@ def main(argv=None) -> int:
         log(f"round kernel == plain (exact) over {field.name} in {checks} cases: k in (2, 3), "
             f"N in (4, 8, 2^12, 2^{n}), B = {B}, all four modes, boundary words")
 
-    def tail_case(field, degree, nbytes):
+    def tail_case(field, degree, round_idx, nbytes):
         blocks = cuda_round.blocks_for(B, 1 << (n - 2))
         parts = words(field, B, blocks, degree + 1)
         claim = words(field, B)
@@ -204,7 +208,9 @@ def main(argv=None) -> int:
                                             dtype=torch.int64).to(torch.uint8)
         chain.nbytes = nbytes
         vinv = fs_kernel.interp_tensor(field, degree, dev)
-        state = [chain, claim, words(field, B), words(field, B), words(field, B, n * (degree + 1)),
+        m = fs_kernel._msg_len(round_idx, degree, field.byte_size)
+        msgs = torch.randint(0, 256, (B, nbytes + m), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
+        state = [chain, claim, words(field, B), words(field, B), words(field, B, n * (degree + 1)), msgs,
                  torch.zeros(B, dtype=torch.int32, device=dev), vinv]
         return parts, state
 
@@ -212,26 +218,41 @@ def main(argv=None) -> int:
         chain, *rest = state
         return [DevChain(chain.state.clone(), chain.buf.clone(), chain.nbytes)] + [t.clone() for t in rest]
 
-    tail_cases = [(2, 0, True, 0), (2, 5, True, 1000), (3, 9, True, 1210), (2, n - 1, False, 1170)]
-    for field in (GOLDILOCKS, BABYBEAR, F5):
+    # the FS tail at every fill of the chain's partial block; the round
+    # (0, middle, last: no draw) turns with the fill
+    tail_rounds = (0, n // 2, n - 1)
+    for field in (GOLDILOCKS, BABYBEAR, F1572869, F389, F5):
         key = ("fs_tail", field.backend)
-        for degree, round_idx, draw, nbytes in tail_cases:
-            parts, kstate = tail_case(field, degree, nbytes)
-            pstate = clone_state(kstate)
-            off = (degree + 1) * min(round_idx, n - 1)
-            fs_kernel.fs_tail(parts, *kstate, round_idx, off, draw, field)
-            fs_kernel.fs_tail_plain(parts, *pstate, round_idx, off, draw, field)
-            torch.cuda.synchronize()
-            kc, pc = kstate[0], pstate[0]
-            outs = [(kc.state, pc.state), (kc.buf, pc.buf)] + list(zip(kstate[1:6], pstate[1:6]))
-            e = max(max_abs_err(a.to(torch.int64), b.to(torch.int64)) for a, b in outs)
-            if e:
-                raise AssertionError(f"FS tail kernel != plain: {field.name} degree={degree} round={round_idx}")
-            err[key] = max(err.get(key, 0), e)
-            if int(kstate[5][3]) != 1:
-                raise AssertionError(f"FS tail kernel did not flag proof 3's zero coefficients ({field.name})")
-        log(f"FS tail kernel == plain (exact) over {field.name} in {len(tail_cases)} cases: B = {B}, "
-            "degree 2 and 3, round 0 / middle / last, one proof with zero coefficients")
+        checks = 0
+        for degree in (2, 3):
+            for fill in range(64):
+                round_idx = tail_rounds[fill % 3]
+                draw = round_idx < n - 1
+                parts, kstate = tail_case(field, degree, round_idx, 64 * (16 + fill % 5) + fill)
+                pstate = clone_state(kstate)
+                off = (degree + 1) * round_idx
+                fs_kernel.fs_tail(parts, *kstate, round_idx, off, draw, field)
+                fs_kernel.fs_tail_plain(parts, *pstate, round_idx, off, draw, field)
+                torch.cuda.synchronize()
+                kc, pc = kstate[0], pstate[0]
+                outs = [(kc.state, pc.state), (kc.buf, pc.buf)] + list(zip(kstate[1:7], pstate[1:7]))
+                e = max(max_abs_err(a.to(torch.int64), b.to(torch.int64)) for a, b in outs)
+                if e:
+                    raise AssertionError(
+                        f"FS tail kernel != plain: {field.name} degree={degree} fill={fill} round={round_idx}")
+                err[key] = max(err.get(key, 0), e)
+                if int(kstate[6][3]) != 1:
+                    raise AssertionError(f"FS tail kernel did not flag proof 3's zero coefficients ({field.name})")
+                checks += 1
+        log(f"FS tail kernel == plain (exact) over {field.name} in {checks} cases: B = {B}, every fill 0..63, "
+            "degree 2 and 3, round 0 / middle / last, transcript bytes, one proof with zero coefficients")
+
+    chain_out = torch.empty(8, dtype=torch.int32, device=dev)
+    fs_kernel.sha_chain(5, chain_out)
+    torch.cuda.synchronize()
+    if chain_out.cpu().numpy().view(np.uint32).tolist() != fs_kernel.sha_chain_plain(5):
+        raise AssertionError("SHA-256 chain helper != its plain version")
+    log("SHA-256 chain helper (the latency floor's kernel) == plain over 5 compressions")
 
     # ---- phase 3: the paths at full size -----------------------------
     def reset_counts():
@@ -331,6 +352,12 @@ def main(argv=None) -> int:
         return tables, poly, ts, launches
 
     # ---- phase 4: timing ---------------------------------------------
+    def compressions(nbytes, m, draw):
+        """SHA-256 compressions on one proof's chain in a round: the absorb's
+        full blocks, then b_0's closing blocks and b_1."""
+        end = nbytes % 64 + m
+        return end // 64 + ((1 if end % 64 + 5 <= 56 else 2) + 1 if draw else 0)
+
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -397,17 +424,18 @@ def main(argv=None) -> int:
             },
         }))
 
-        # the host's own share after the read: assembling B x n messages' bytes
-        coeff_rows = np.random.default_rng(args.seed).integers(0, field.p, size=(B, 1 + 3 * n), dtype=np.uint64)
-        degrees = spec.round_degrees()
-        asm_ms = []
+        # the host's own share after the read: slicing B x n messages out of
+        # the transcript bytes
+        lens = [fs_kernel._msg_len(j, d, field.byte_size) for j, d in enumerate(spec.round_degrees())]
+        host = np.random.default_rng(args.seed).integers(0, 256, size=(B, sum(lens) + 4), dtype=np.uint8)
+        host[:, -4:] = 0
+        split_ms = []
         for _ in range(5):
             t0 = time.perf_counter()
-            for row in coeff_rows:
-                fs_kernel._assemble_msgs(int(row[0]), row[1:].tolist(), degrees, field.byte_size)
-            asm_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"{field.name} host byte assembly of {B} x {n} messages (after the read, device idle): "
-            f"{statistics.median(asm_ms):.3f} ms median of 5 {tag}")
+            fs_kernel.split_transcripts(host, lens)
+            split_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"{field.name} host slicing of {B} x {n} messages out of {host.nbytes} transcript bytes (after the "
+            f"read, device idle): {statistics.median(split_ms):.3f} ms median of 5 {tag}")
 
         # kernel 1 at the round-1 shape (fold + claim shortcut), and its plain version
         data = [t.data for t in tables]
@@ -433,14 +461,33 @@ def main(argv=None) -> int:
             per_round.append(time_launches(lambda: cuda_round.round_partials(tj, r1, True, oj, field), 5))
         del outs, tj, oj
 
-        parts, kstate = tail_case(field, 2, 1000)
-        k2_ms = time_launches(lambda: fs_kernel.fs_tail(parts, *kstate, 5, 15, True, field), 100)
-        k2_plain_ms = time_launches(lambda: fs_kernel.fs_tail_plain(parts, *kstate, 5, 15, True, field), 3)
-        k2_bytes = parts.numel() * wb + B * (2 * 32 + 2 * 64 + 2 * wb + wb + 3 * wb + 2 * 4) + 9 * wb
+        parts, kstate = tail_case(field, 2, 5, 1000)
+        m2 = fs_kernel._msg_len(5, 2, field.byte_size)
+
+        def tail_once(fn):
+            kstate[0].nbytes = 1000  # the same fill (40) and chain for every launch
+            fn(parts, *kstate, 5, 15, True, field)
+
+        k2_eager_ms = time_launches(lambda: tail_once(fs_kernel.fs_tail), 100)
+        # back to back without the host: 20 launches captured in a CUDA graph
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                tail_once(fs_kernel.fs_tail)
+        k2_ms = time_launches(graph.replay, 5) / 20
+        k2_plain_ms = time_launches(lambda: tail_once(fs_kernel.fs_tail_plain), 3)
+        k2_bytes = parts.numel() * wb + B * (2 * 32 + 2 * 64 + 2 * wb + wb + 3 * wb + 2 * 4 + m2) + 9 * wb
         k2_bound = k2_bytes / PEAK_BYTES_PER_S * 1e3
+        k2_comp = compressions(1000, m2, True)
+        k2_floor = k2_comp * compress_ms
+        dispatch_comp = sum(compressions(sum(lens[:j]), lens[j], j < n - 1) for j in range(n))
         device_ms = sum(per_round) + n * k2_ms
         log(f"{field.name} FS tail kernel (B={B}, degree 2, {parts.shape[1]} partials per proof): {k2_ms:.4f} ms "
-            f"per launch, bound {k2_bound:.6f} ms ({k2_bytes} B); plain (Python ints) {k2_plain_ms:.3f} ms {tag}")
+            f"per launch replayed from a CUDA graph ({k2_eager_ms:.4f} ms issued from Python), bound "
+            f"{k2_bound:.6f} ms ({k2_bytes} B), latency floor {k2_floor:.4f} ms ({k2_comp} compressions); "
+            f"plain (Python ints) {k2_plain_ms:.3f} ms {tag}")
+        log(f"{field.name} FS tail latency floor per dispatch: {dispatch_comp} compressions on each proof's chain "
+            f"over {n} rounds, {dispatch_comp * compress_ms:.4f} ms {tag}")
         log(f"{field.name} per dispatch, kernels timed one shape at a time: round kernel {sum(per_round):.3f} ms "
             f"over {n} launches (rounds 0-3: {[round(x, 4) for x in per_round[:4]]}), FS tail {n * k2_ms:.3f} ms; "
             f"sum {device_ms:.3f} of {dispatch_ms:.3f} ms dispatch {tag}")
@@ -461,14 +508,22 @@ def main(argv=None) -> int:
             per_kernel[key] = (sum(mine) / 1e3, len(mine))
         if spans:
             busy_ms = busy_us / 1e3
+            tail_ms, tail_n = per_kernel["fs_tail_kernel"]
             log(f"{field.name} profiler trace of one dispatch: device busy {busy_ms:.3f} ms (union of {len(spans)} "
                 f"device records; round kernel {per_kernel['round_kernel'][0]:.3f} ms over "
-                f"{per_kernel['round_kernel'][1]} launches, FS tail {per_kernel['fs_tail_kernel'][0]:.4f} ms over "
-                f"{per_kernel['fs_tail_kernel'][1]}) against the {dispatch_ms:.3f} ms dispatch -> device idle "
-                f"share {1 - busy_ms / dispatch_ms:.1%} {tag}")
+                f"{per_kernel['round_kernel'][1]} launches, FS tail {tail_ms:.4f} ms over {tail_n}, "
+                f"{tail_ms / max(tail_n, 1) * 1e3:.2f} us each) against the {dispatch_ms:.3f} ms dispatch -> device "
+                f"idle share {1 - busy_ms / dispatch_ms:.1%} {tag}")
         else:
             log(f"{field.name} profiler trace of one dispatch: no device records, device idle share not measured")
-        return {"round_kernel": (k1_ms, k1_plain_ms, k1_bound), "fs_tail": (k2_ms, k2_plain_ms, k2_bound)}
+        return {"round_kernel": (k1_ms, k1_plain_ms, k1_bound), "fs_tail": (k2_ms, k2_plain_ms, k2_bound, k2_floor)}
+
+    # the latency floor: one thread's chain of dependent compressions; the
+    # difference of two chain lengths takes the launch out
+    chain_ms = {c: time_launches(lambda: fs_kernel.sha_chain(c, chain_out), 5) for c in (1024, 2048)}
+    compress_ms = (chain_ms[2048] - chain_ms[1024]) / 1024
+    log(f"SHA-256 compression latency (one thread, dependent chain): {compress_ms * 1e6:.1f} ns "
+        f"({chain_ms[1024]:.4f} ms for 1024, {chain_ms[2048]:.4f} ms for 2048) {tag}")
 
     launches, timing = {}, {}
     for field, label in ((GOLDILOCKS, "goldilocks(2^64-2^32+1)"), (BABYBEAR, "babybear(2^31-2^27+1)")):
@@ -556,13 +611,16 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         for backend in ("goldilocks", "mont32"):
-            ms, plain_ms, bound_ms = timing[backend][name]
-            kernels.append({
+            ms, plain_ms, bound_ms, *floor = timing[backend][name]
+            row = {
                 "name": f"{name}_{backend}", "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[backend][name], "max_abs_err": err[(name, backend)],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
                 "library_ms": None,
-            })
+            }
+            if floor:
+                row["latency_floor_ms"] = floor[0]
+            kernels.append(row)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -11,12 +11,14 @@ loop runs on the host, and each round is two launches over all B proofs:
    partial round sums;
 2. the FS tail kernel (:func:`fs_tail`, ``csrc/fs_tail.cu``): reduce the
    partials, fill s(1) = claim - s(0), interpolate, flag zero coefficients,
-   absorb the serialized message into the carried SHA-256 chain, draw the
-   next challenge and evaluate the next claim.
+   write the serialized message into each proof's transcript bytes and
+   absorb it into the carried SHA-256 chain, draw the next challenge and
+   evaluate the next claim.
 
 Challenges, claims and chain state stay on the device between rounds; the
-host reads nothing inside the loop, and afterwards reads only c_1, the
-coefficient table and the zero flags, from which it assembles the bytes.
+host reads nothing inside the loop, and afterwards reads only the
+transcript bytes and the zero flags, out of which it slices the messages
+(:func:`split_transcripts`).
 
 Bit-exactness caveat (as in the JAX package): arkworks drops zero
 coefficients from serialized ``SparsePolynomial`` terms, which would make
@@ -35,6 +37,7 @@ the later slice.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from functools import lru_cache
 from typing import List, Optional, Sequence
 
@@ -46,6 +49,7 @@ from ..fields import GOLDILOCKS, FArray, FieldConfig
 from ..fields.farray import tensor_u64, u64_tensor, word_dtype
 from .cuda_round import round_partials
 from .round_kernel import PolySpec, check_single_block
+from .sha256 import H0, py_compress
 from .sha_chain import DevChain, absorb_py, draw_py, len_in_bytes
 
 # launches of the CUDA FS tail kernel (not of the plain version), per
@@ -55,21 +59,23 @@ launches = {"goldilocks": 0, "mont32": 0}
 _lib = None
 
 
-def _kernel():
+def _library():
     global _lib
     if _lib is None:
         lib = _build.load("fs_tail")
-        fn = lib.ts_fs_tail_launch
-        fn.argtypes = (
-            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+        lib.ts_fs_tail_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p] * 6
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+            + [ctypes.c_void_p, ctypes.c_void_p]
             + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
             + [ctypes.c_void_p]
         )
-        fn.restype = ctypes.c_int
-        _lib = fn
+        lib.ts_fs_tail_launch.restype = ctypes.c_int
+        lib.ts_sha_chain_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.ts_sha_chain_launch.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 
@@ -128,26 +134,7 @@ def supports_fused_fs(spec: PolySpec, field: FieldConfig, dst: bytes) -> bool:
     return True
 
 
-def _assemble_msgs(c1: int, coeffs: Sequence[int], degrees: Sequence[int], byte_size: int) -> list:
-    """Host re-assembly of the byte messages from device coefficient ints —
-    the exact layout the device hashed. ``coeffs`` is flat round-major,
-    (degrees[j] + 1) coefficients per round."""
-    msgs = []
-    off = 0
-    for j, degree in enumerate(degrees):
-        out = []
-        if j == 0:
-            out.append(int(c1).to_bytes(byte_size, "little"))
-        out.append((degree + 1).to_bytes(8, "little"))
-        for t in range(degree + 1):
-            out.append(t.to_bytes(8, "little"))
-            out.append(int(coeffs[off]).to_bytes(byte_size, "little"))
-            off += 1
-        msgs.append(b"".join(out))
-    return msgs
-
-
-def _check_tail(field, partials, chain, claim, r, c1, coeffs, any_zero, vinv, coeff_off):
+def _check_tail(field, partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off):
     dev = partials.device
     w = word_dtype(field)
     if partials.dim() != 3 or partials.dtype != w:
@@ -173,6 +160,11 @@ def _check_tail(field, partials, chain, claim, r, c1, coeffs, any_zero, vinv, co
         raise ValueError("coeffs and partials must be contiguous and on one device")
     if not 0 <= coeff_off <= coeffs.shape[1] - d1:
         raise ValueError("coefficient row offset out of range")
+    end = chain.nbytes + _msg_len(round_idx, d1 - 1, field.byte_size)
+    if msgs.dtype != torch.uint8 or msgs.dim() != 2 or msgs.shape[0] != batch or msgs.shape[1] < end:
+        raise ValueError(f"msgs must be uint8 [{batch}, >= {end}]")
+    if msgs.device != dev or not msgs.is_contiguous():
+        raise ValueError("msgs must be contiguous and on the partials' device")
 
 
 def fs_tail(
@@ -182,6 +174,7 @@ def fs_tail(
     r: torch.Tensor,
     c1: torch.Tensor,
     coeffs: torch.Tensor,
+    msgs: torch.Tensor,
     any_zero: torch.Tensor,
     vinv: torch.Tensor,
     round_idx: int,
@@ -191,25 +184,28 @@ def fs_tail(
 ) -> None:
     """Round ``round_idx``'s FS tail for B proofs, in place: updates
     ``chain`` (state, buf, nbytes), ``coeffs[:, coeff_off:coeff_off+d+1]``,
-    ``any_zero``, ``c1`` (round 0) and, with ``draw``, the next ``r`` and
-    ``claim``. ``partials``: the round kernel's [B, blocks, d+1];
-    ``vinv``: :func:`interp_tensor`. Field-valued tensors hold ``field``'s
-    words (``word_dtype``): ``claim`` and ``r`` in the round kernel's
-    domain, ``c1`` and ``coeffs`` canonical.
+    the round's message bytes ``msgs[:, chain.nbytes : chain.nbytes + m]``
+    (``msgs`` [B, >= chain.nbytes + m] uint8: each row the proof's
+    transcript so far), ``any_zero``, ``c1`` (round 0) and, with ``draw``,
+    the next ``r`` and ``claim``. ``partials``: the round kernel's
+    [B, blocks, d+1]; ``vinv``: :func:`interp_tensor`. Field-valued tensors
+    hold ``field``'s words (``word_dtype``): ``claim`` and ``r`` in the
+    round kernel's domain, ``c1`` and ``coeffs`` canonical.
     CPU tensors run :func:`fs_tail_plain`; CUDA tensors the kernel."""
-    _check_tail(field, partials, chain, claim, r, c1, coeffs, any_zero, vinv, coeff_off)
+    _check_tail(field, partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off)
     batch, blocks, d1 = partials.shape
     dev = partials.device
     if dev.type == "cpu":
-        fs_tail_plain(partials, chain, claim, r, c1, coeffs, any_zero, vinv, round_idx, coeff_off, draw, field)
+        fs_tail_plain(partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off, draw, field)
     elif dev.type == "cuda":
         if d1 - 1 not in (2, 3):
             raise NotImplementedError(f"the CUDA FS tail takes degree 2 or 3, not {d1 - 1}")
         mont32 = field.backend == "mont32"
-        rc = _kernel()(
+        rc = _library().ts_fs_tail_launch(
             int(mont32),
             field.p if mont32 else 0,
             field.mont_pinv_neg if mont32 else 0,
+            field.mont_r2 if mont32 else 0,
             field.byte_size,
             len_in_bytes(field),
             d1 - 1,
@@ -223,6 +219,8 @@ def fs_tail(
             coeffs.data_ptr(),
             coeffs.shape[1],
             coeff_off,
+            msgs.data_ptr(),
+            msgs.shape[1],
             any_zero.data_ptr(),
             vinv.data_ptr(),
             batch,
@@ -239,12 +237,34 @@ def fs_tail(
     chain.nbytes += _msg_len(round_idx, d1 - 1, field.byte_size)
 
 
+def sha_chain(n: int, out: torch.Tensor) -> None:
+    """The latency floor under the FS tail's hash path, not on the prover's
+    path: one CUDA thread runs ``n`` dependent SHA-256 compressions from the
+    initial hash value, compression i over block i % 2 of two blocks that
+    hold the big-endian words 0, 1, ..., 31, and writes the final state
+    into ``out``, a CUDA int32 [8]."""
+    if out.device.type != "cuda" or out.dtype != torch.int32 or out.shape != (8,):
+        raise ValueError("out must be a CUDA int32 [8] tensor")
+    rc = _library().ts_sha_chain_launch(n, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"SHA-256 chain kernel launch failed: CUDA error {rc}")
+
+
+def sha_chain_plain(n: int) -> List[int]:
+    """:func:`sha_chain` in Python ints: the final state as 8 u32 ints."""
+    blocks = [b"".join(k.to_bytes(4, "big") for k in range(16 * j, 16 * j + 16)) for j in (0, 1)]
+    state = list(H0)
+    for i in range(n):
+        py_compress(state, blocks[i % 2])
+    return state
+
+
 def _put(t: torch.Tensor, values) -> None:
     t.copy_(u64_tensor(np.array(values, dtype=np.uint64).reshape(t.shape), t.device, t.dtype))
 
 
 def fs_tail_plain(
-    partials, chain, claim, r, c1, coeffs, any_zero, vinv, round_idx, coeff_off, draw, field=GOLDILOCKS
+    partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off, draw, field=GOLDILOCKS
 ) -> None:
     """:func:`fs_tail` in Python ints over ``.tolist()``, with the
     pure-Python SHA-256 compression (any device; same in-place outputs).
@@ -269,6 +289,7 @@ def fs_tail_plain(
     zeros = any_zero.cpu().tolist()
     states = chain.state.cpu().numpy().view(np.uint32).tolist()
     bufs = [bytearray(row) for row in chain.buf.cpu().numpy().tolist()]
+    out = []
     for b in range(batch):
         s = [int(parts[b, :, e].sum()) % p for e in range(d1)]
         if round_idx > 0:
@@ -284,6 +305,7 @@ def fs_tail_plain(
         for t in range(d1):
             msg.append(t.to_bytes(8, "little") + c[t].to_bytes(bs, "little"))
         msg = b"".join(msg)
+        out.append(msg)
         absorb_py(states[b], bufs[b], chain.nbytes, msg)
         if draw:
             rs[b] = draw_py(field, states[b], bufs[b], chain.nbytes + len(msg))
@@ -295,6 +317,8 @@ def fs_tail_plain(
     _put(r, [x * mont_r % p for x in rs])
     _put(c1, c1s)
     _put(coeffs, coef)
+    rows = np.frombuffer(b"".join(out), dtype=np.uint8).reshape(batch, -1)
+    msgs[:, chain.nbytes : chain.nbytes + rows.shape[1]] = torch.from_numpy(rows.copy())
     any_zero.copy_(torch.tensor(zeros, dtype=torch.int32))
     chain.state.copy_(torch.from_numpy(np.array(states, dtype=np.uint32).view(np.int32)))
     chain.buf.copy_(torch.tensor([list(bb) for bb in bufs], dtype=torch.uint8))
@@ -330,6 +354,8 @@ def fs_prove_device_batch(
     chain = DevChain.fresh(batch, dev)
     r, claim, c1 = zeros(batch), zeros(batch), zeros(batch)
     coeffs = zeros(batch, sum(d + 1 for d in degrees))
+    lens = [_msg_len(j, d, field.byte_size) for j, d in enumerate(degrees)]
+    msgs = zeros(batch, sum(lens), dtype=torch.uint8)
     any_zero = zeros(batch, dtype=torch.int32)
     # ping-pong fold buffers: round j >= 1 writes [B, size >> j] into
     # buffer (j - 1) % 2, reading the previous round's buffer
@@ -347,15 +373,27 @@ def fs_prove_device_batch(
             m = size >> j
             out = [pp[(j - 1) % 2][: batch * m].view(batch, m) for pp in bufs]
             cur, partials = round_partials(cur, r, skip_t1=True, out=out, field=field)
-        fs_tail(partials, chain, claim, r, c1, coeffs, any_zero, vinv, j, off, j < n - 1, field)
+        fs_tail(partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, j, off, j < n - 1, field)
         off += degrees[j] + 1
-    # the one host read: c_1, the coefficient table and the zero flags
-    host = tensor_u64(torch.cat([c1[:, None], coeffs, any_zero[:, None].to(w)], 1))
+    # the one host read: the transcript bytes and the zero flags
+    host = torch.cat([msgs, any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
+    return split_transcripts(host, lens)
+
+
+def split_transcripts(host: np.ndarray, lens: Sequence[int]) -> List[Optional[list]]:
+    """The host's work after the read. ``host``: [B, sum(lens) + 4] uint8,
+    each row a proof's transcript bytes and then its zero flag (an int32).
+    Returns each proof's messages (``lens`` bytes each) sliced out of one
+    ``bytes`` object, or ``None`` for a flagged proof."""
+    total = sum(lens)
+    width = host.shape[1]
+    blob = host.tobytes()
+    cuts = list(itertools.accumulate(lens, initial=0))
+    spans = list(zip(cuts[:-1], cuts[1:]))
+    flags = host[:, total:].any(1).tolist()
     return [
-        None
-        if host[b, -1]
-        else _assemble_msgs(int(host[b, 0]), host[b, 1:-1].tolist(), degrees, field.byte_size)
-        for b in range(batch)
+        None if flagged else [blob[b * width + s : b * width + e] for s, e in spans]
+        for b, flagged in enumerate(flags)
     ]
 
 

@@ -1,7 +1,7 @@
 """SHA-256 compression on the host: the oracle for the device chain.
 
 The device compression runs inside the FS tail kernel
-(``csrc/fs_tail.cu``), one thread per proof. This pure-Python compression
+(``csrc/fs_tail.cu``), one warp per proof. This pure-Python compression
 is what the kernel's plain version (``ops/fs_kernel.fs_tail_plain``) runs,
 and the chain built on it is held against ``hashlib`` in the tests.
 """

@@ -15,8 +15,9 @@ fused FS prover is static, so every proof sits at the same offset. The
 traced-offset mode of the JAX package (GKR layers) is a later slice.
 
 The absorb/draw arithmetic runs on the card inside the FS tail kernel
-(``csrc/fs_tail.cu``); :func:`absorb_py` and :func:`draw_py` are its
-plain versions. Scope: the empty DST, any field of the port (at most 32
+(``csrc/fs_tail.cu``, one warp per proof: the warp stages the bytes in
+shared memory, and its lanes run each compression in registers);
+:func:`absorb_py` and :func:`draw_py` are its plain versions. Scope: the empty DST, any field of the port (at most 32
 uniform bytes per draw, so one digest b_1).
 """
 
