@@ -4,6 +4,7 @@
 Usage, from the repository root on a machine with a card:
 
     python3 chip_smoke.py [--seed 42] [--n 22] [--batch 64] [--reps 5] [--mm-log 13]
+                          [--gkr-depth 16] [--gkr-log 20]
 
 The paths, each driven through the entry points a user calls:
 
@@ -15,27 +16,45 @@ The paths, each driven through the entry points a user calls:
   (2.15 GB);
 - the matrix-multiplication IP entry point (``api.prove_matmul_entry`` /
   ``verify_matmul_entry``) on two 2^mm_log x 2^mm_log matrices made from the
-  seed with numpy, 8192 x 8192 by default, over F5 and Goldilocks.
+  seed with numpy, 8192 x 8192 by default, over F5 and Goldilocks;
+- the GKR prover (``gkr.Prover`` -> ``gkr.generate_gkr_transcript``, then
+  ``gkr.verify_gkr_transcript``) on the flagship circuit of
+  ``benches/gkr_benchmark.py``: 16 layers x 2^20 gates over Goldilocks,
+  wiring, gate types and inputs drawn from the seed with numpy as the
+  benchmark draws them; and ``api.run_gkr`` with ``generate_gkr_transcript``
+  on the book circuit (F389) and a 5-layer mixed-width circuit (Goldilocks
+  and BabyBear).
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
-1. device: card name and power limit; build both kernels with nvcc;
+1. device: card name and power limit; build the kernels with nvcc (one
+   process per source, in parallel) and the host runtime with g++;
 2. each kernel instantiation against its plain torch version on the card,
    on the same tensors, exactly (field values have no rounding): the round
    kernel over Goldilocks and over the mont32 fields BabyBear, F1572869,
    F389 and F5; the FS tail over the same five fields at every buffer fill
    (nbytes % 64 = 0..63), degree 2 and 3, round 0 / middle / last, its
-   transcript bytes included; the SHA-256 chain helper against Python;
+   transcript bytes included; the SHA-256 chain helper against Python; the
+   round kernel's two LibraW shapes (K1) with and without fold and skip-1
+   at several sizes, and the phase-table kernel (K2) on random, skewed and
+   sparse wirings with random values and values at p - 1, over the same
+   five fields (and in phase 4 on the flagship's own layer 0 wiring, over
+   Goldilocks and BabyBear);
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
    tampered, and a batch with an all-zero factor in one instance; the
    matmul entry against the product entry computed with Python ints, the
    verifier, a tampered transcript, and a smaller entry against the same
-   call on the CPU;
+   call on the CPU; the GKR circuits: the small ones byte-identical to
+   ``device="cpu"`` through both entry points, the flagship's outputs equal
+   to the plain forward pass on the CPU, accepted by the verifier and
+   rejected when tampered;
 4. timing with CUDA events, a dependent host read and a profiler trace,
    and the FS tail's latency floor (one thread's chain of dependent SHA-256
-   compressions, times the compressions on a round's chain);
+   compressions, times the compressions on a round's chain); for GKR, the
+   proof's seconds with a breakdown by step, the device idle share from a
+   trace of one layer, and K1 and K2 at the flagship's shapes;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -77,6 +96,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=64, help="proofs per dispatch")
     ap.add_argument("--reps", type=int, default=5, help="timed dispatches")
     ap.add_argument("--mm-log", type=int, default=13, help="log2 of the matmul entry's matrix side")
+    ap.add_argument("--gkr-depth", type=int, default=16, help="layers of the flagship GKR circuit")
+    ap.add_argument("--gkr-log", type=int, default=20, help="log2 of the flagship GKR circuit's width")
     args = ap.parse_args(argv)
     jax_preloaded = "jax" in sys.modules
 
@@ -90,7 +111,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from thaler_study_tpu_torch import _build, api
+    from thaler_study_tpu_torch import _build, api, gkr
     from thaler_study_tpu_torch.fiat_shamir import (
         FiatShamirTranscript,
         SerializationError,
@@ -100,9 +121,11 @@ def main(argv=None) -> int:
         generate_transcript,
         verify_transcript,
     )
-    from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, F1572869, GOLDILOCKS, FArray
+    from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, F1572869, GOLDILOCKS, FArray, FeltVector
     from thaler_study_tpu_torch.fields import goldilocks as gl
     from thaler_study_tpu_torch.fields.farray import tensor_u64, word_dtype
+    from thaler_study_tpu_torch.gkr import device_tables
+    from thaler_study_tpu_torch.gkr.circuit import scan_plan
     from thaler_study_tpu_torch.ops import cuda_round, fs_kernel
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
@@ -132,6 +155,9 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "Function properties for" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    _build.load_host("native")
+    log(f"built the host runtime (runtime/native.cpp, g++) in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
 
     # ---- phase 2: kernels against their plain versions ---------------
@@ -254,14 +280,86 @@ def main(argv=None) -> int:
         raise AssertionError("SHA-256 chain helper != its plain version")
     log("SHA-256 chain helper (the latency floor's kernel) == plain over 5 compressions")
 
+    # K1: the round kernel's LibraW shapes (phase 1: 3 tables; phase 2: 3
+    # tables and the scalar w_u), batch 1 as GKR runs them and a batch of 4
+    gw = args.gkr_log
+    libra = ((1, cuda_round.LIBRA_PHASE1, 0), (2, cuda_round.LIBRA_PHASE2, 1))
+    for field in (GOLDILOCKS, BABYBEAR, F1572869, F389, F5):
+        key = ("libra_round", field.backend)
+        checks = 0
+        for phase, terms, n_scalars in libra:
+            for batch, size in ((1, 4), (1, 8), (4, 1 << 12), (1, 1 << gw)):
+                tables = [words(field, batch, size) for _ in range(3)]
+                scalars = [words(field, batch) for _ in range(n_scalars)]
+                r = words(field, batch)
+                for fold, skip in modes:
+                    rr = r if fold else None
+                    folded, parts = cuda_round.round_partials(
+                        tables, rr, skip_t1=skip, field=field, terms=terms, scalars=scalars)
+                    ref_folded, ref = cuda_round.round_partials_plain(
+                        tables, rr, skip, parts.shape[1], field, terms, scalars)
+                    torch.cuda.synchronize()
+                    e = max_abs_err(parts, ref)
+                    if fold:
+                        e = max([e] + [max_abs_err(a, b) for a, b in zip(folded, ref_folded)])
+                    if e:
+                        raise AssertionError(f"LibraW round kernel != plain: {field.name} phase={phase} "
+                                             f"B={batch} N={size} fold={fold} skip={skip}")
+                    err[key] = max(err.get(key, 0), e)
+                    checks += 1
+                del tables, folded, ref_folded, parts, ref
+        log(f"round kernel, LibraW shapes (K1) == plain (exact) over {field.name} in {checks} cases: phases 1 "
+            f"and 2, (B, N) in (1, 4), (1, 8), (4, 2^12), (1, 2^{gw}), all four modes, boundary words")
+
+    # K2: the phase-table scatter-add over skewed and sparse wirings
+    wrng = np.random.default_rng(args.seed + 1)
+    big, hot = 1 << 16, np.full(1 << 16, 3)
+    wirings = [
+        ("random, 2^4 gates on 2^4 cells", 4, wrng.integers(0, 16, 16), wrng.integers(0, 16, 16)),
+        ("random, 2^16 gates on 2^16 cells", 16, wrng.integers(0, big, big), wrng.integers(0, big, big)),
+        ("every gate on one cell, 2^16 gates", 4, hot, hot + 8),
+        ("fan-in 64, 2^16 gates on 2^10 cells", 10, wrng.integers(0, 1 << 10, big), wrng.integers(0, 1 << 10, big)),
+        ("empty cells, 2^10 gates on even cells below 2^12 of 2^14", 14,
+         2 * wrng.integers(0, 1 << 11, 1 << 10), 2 * wrng.integers(0, 1 << 11, 1 << 10)),
+    ]
+    wirings = [(name, k, torch.from_numpy(b.astype(np.int32)).to(dev), torch.from_numpy(c.astype(np.int32)).to(dev),
+                torch.from_numpy(wrng.random(len(b)) < 0.5).to(dev)) for name, k, b, c in wirings]
+    for field in (GOLDILOCKS, BABYBEAR, F1572869, F389, F5):
+        key = ("phase_tables", field.backend)
+        checks = 0
+        for name, k, bt, ct, mt in wirings:
+            plans = {1: scan_plan(bt, 1 << k), 2: scan_plan(ct, 1 << k)}
+            g = bt.shape[0]
+            top = np.full(max(g, 1 << k), field.p - 1, dtype=np.uint64)
+            for values in ("random words", "every value p - 1"):
+                if values == "random words":
+                    eq_r, table = FArray(words(field, g), field), FArray(words(field, 1 << k), field)
+                else:
+                    eq_r = FArray.from_ints(top[:g], field, device=dev)
+                    table = FArray.from_ints(top[: 1 << k], field, device=dev)
+                for phase, key_t, gidx in ((1, bt, ct), (2, ct, bt)):
+                    out = device_tables.phase_tables(phase, plans[phase], key_t, gidx, mt, eq_r, table, k)
+                    ref = device_tables.phase_tables_plain(phase, key_t, gidx, mt, eq_r, table, k)
+                    torch.cuda.synchronize()
+                    e = max(max_abs_err(a.data, b.data) for a, b in zip(out, ref))
+                    if e:
+                        raise AssertionError(f"phase-table kernel != plain: {field.name} {name} {values} phase={phase}")
+                    err[key] = max(err.get(key, 0), e)
+                    checks += 1
+        log(f"phase-table kernel (K2) == plain (exact) over {field.name} in {checks} cases: "
+            f"{'; '.join(w[0] for w in wirings)}; random words and every value p - 1; phases 1 and 2")
+
     # ---- phase 3: the paths at full size -----------------------------
+    counters = {"round_kernel": cuda_round.launches, "fs_tail": fs_kernel.launches,
+                "libra_round": cuda_round.libra_launches, "phase_tables": device_tables.launches}
+
     def reset_counts():
-        for counts in (cuda_round.launches, fs_kernel.launches):
+        for counts in counters.values():
             for key in counts:
                 counts[key] = 0
 
     def read_counts():
-        return {"round_kernel": dict(cuda_round.launches), "fs_tail": dict(fs_kernel.launches)}
+        return {name: dict(counts) for name, counts in counters.items()}
 
     spec = single_block_spec(2, n)
     rng = np.random.default_rng(args.seed)
@@ -292,7 +390,8 @@ def main(argv=None) -> int:
         counts = read_counts()
         launches = {k: v[field.backend] for k, v in counts.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if launches != {"round_kernel": n, "fs_tail": n} or sum(sum(v.values()) for v in counts.values()) != 2 * n:
+        want = {"round_kernel": n, "fs_tail": n, "libra_round": 0, "phase_tables": 0}
+        if launches != want or sum(sum(v.values()) for v in counts.values()) != 2 * n:
             raise AssertionError(f"{field.name}: expected {n} launches of each kernel per dispatch, got {counts}")
         bs = field.byte_size
         if len(ts) != B or any(len(t.g) != n for t in ts):
@@ -360,6 +459,18 @@ def main(argv=None) -> int:
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def device_spans(prof):
+        """The device records of a trace, sorted, and the microseconds their
+        union covers."""
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy_us, end = 0.0, float("-inf")
+        for s0, s1, _ in spans:
+            if s1 > end:
+                busy_us += s1 - max(s0, end)
+                end = s1
+        return spans, busy_us
 
     def time_launches(fn, reps):
         fn()
@@ -495,13 +606,7 @@ def main(argv=None) -> int:
         # device busy time inside one dispatch, from the CUPTI records of a trace
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             generate_transcripts_batch(poly, field)
-        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for s0, s1, _ in spans:
-            if s1 > end:
-                busy_us += s1 - max(s0, end)
-                end = s1
+        spans, busy_us = device_spans(prof)
         per_kernel = {}
         for key in ("round_kernel", "fs_tail_kernel"):
             mine = [s1 - s0 for s0, s1, name in spans if key in name]
@@ -603,6 +708,253 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    # ---- GKR: phase 3 (paths) and phase 4 (timing) ----------------------
+    def gate_circuit(widths, grng):
+        """A random circuit of the given layer widths (output layer first,
+        then the input count), wiring and gate types drawn as
+        benches/gkr_benchmark.py draws them: b, c, then MUL with probability
+        0.5, per layer."""
+        layers = []
+        for width, nxt in zip(widths[:-1], widths[1:]):
+            b = grng.integers(0, nxt, width)
+            c = grng.integers(0, nxt, width)
+            mul = grng.random(width) < 0.5
+            layers.append(gkr.CircuitLayer([
+                gkr.Gate(gkr.GateType.MUL if m else gkr.GateType.ADD, (x, y))
+                for x, y, m in zip(b.tolist(), c.tolist(), mul.tolist())
+            ]))
+        return gkr.Circuit(layers, widths[-1])
+
+    def gkr_launch_counts(circuit):
+        """K1 launches (one per round) and K2 launches (two per layer) of one proof."""
+        layers = len(circuit.layers)
+        return sum(2 * circuit.num_vars_at(i + 1) for i in range(layers)), 2 * layers
+
+    def accepts(t, circuit, inputs, field) -> bool:
+        try:
+            return gkr.verify_gkr_transcript(t, gkr.Verifier(circuit, field), inputs, field)
+        except (gkr.GKRError, SumCheckError, SerializationError, ValueError):
+            return False
+
+    def gkr_counts_ok(counts, field, circuit) -> bool:
+        k1, k2 = gkr_launch_counts(circuit)
+        want = {name: {b: 0 for b in ("goldilocks", "mont32")} for name in counters}
+        want["libra_round"][field.backend] = k1
+        want["phase_tables"][field.backend] = k2
+        return counts == want
+
+    gkr_launches = {}
+    mixed = [4, 1 << 12, 2, 1 << 10, 1 << 6, 1 << 8]
+    for label, field in (("book circuit", F389), ("5-layer mixed-width circuit", GOLDILOCKS),
+                         ("5-layer mixed-width circuit", BABYBEAR)):
+        if field is F389:
+            circuit, inputs = gkr.circuit_from_book(), [3, 2, 3, 1]
+        else:
+            srng = np.random.default_rng(args.seed + 2)
+            circuit = gate_circuit(mixed, srng)
+            inputs = [field.p - 1] + srng.integers(0, min(field.p, 1 << 62), mixed[-1] - 1).tolist()
+        felts = field.felts(inputs)
+        torch.cuda.synchronize()
+        reset_counts()
+        t_card = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field), field)
+        counts = read_counts()
+        if not gkr_counts_ok(counts, field, circuit):
+            raise AssertionError(f"GKR {label} {field.name}: launches {counts}, expected {gkr_launch_counts(circuit)}")
+        gkr_launches[field.backend] = {"libra_round": counts["libra_round"][field.backend],
+                                       "phase_tables": counts["phase_tables"][field.backend]}
+        t_cpu = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, device="cpu"), field)
+        if t_card.to_bytes() != t_cpu.to_bytes():
+            raise AssertionError(f"GKR {label} {field.name}: card transcript != device='cpu'")
+        if not accepts(t_card, circuit, felts, field):
+            raise AssertionError(f"GKR {label} {field.name}: the verifier rejected an honest transcript")
+        outs, ok = api.run_gkr(circuit, inputs, field, seed=args.seed)
+        outs_cpu, ok_cpu = api.run_gkr(circuit, inputs, field, seed=args.seed, device="cpu")
+        if not (ok and ok_cpu) or [f.v for f in outs] != [f.v for f in outs_cpu]:
+            raise AssertionError(f"GKR {label} {field.name}: api.run_gkr on the card != device='cpu' or rejected")
+        if field is F389 and [f.v for f in outs] != [36, 6]:
+            raise AssertionError(f"GKR book circuit: outputs {[f.v for f in outs]} != [36, 6]")
+        log(f"GKR {label} {field.name} (widths {[len(l) for l in circuit.layers] + [circuit.num_inputs]}): "
+            f"generate_gkr_transcript on the card byte-identical to device='cpu' ({len(t_card.g)} messages), "
+            f"accepted; api.run_gkr outputs and decision == device='cpu'; launches K1 "
+            f"{gkr_launches[field.backend]['libra_round']}, K2 {gkr_launches[field.backend]['phase_tables']}")
+
+    # the flagship: benches/gkr_benchmark.py's circuit at --depth, --width-log
+    depth, width = args.gkr_depth, 1 << args.gkr_log
+    F = GOLDILOCKS
+    grng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    circuit = gate_circuit([width] * depth + [width], grng)
+    construct_s = time.perf_counter() - t0
+    inputs = grng.integers(0, 1 << 62, width)
+    log(f"GKR flagship circuit {depth} x 2^{args.gkr_log} ({depth * width} gates) built in Python in "
+        f"{construct_s:.2f} s (Gate objects and Circuit.__init__; not prover time)")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    transcript = gkr.generate_gkr_transcript(gkr.Prover(circuit, inputs, F), F)
+    prove_s = time.perf_counter() - t0
+    counts = read_counts()
+    if not gkr_counts_ok(counts, F, circuit):
+        raise AssertionError(f"GKR flagship: launches {counts}, expected {gkr_launch_counts(circuit)}")
+    gkr_launches[F.backend] = {"libra_round": counts["libra_round"][F.backend],
+                               "phase_tables": counts["phase_tables"][F.backend]}
+    n_msgs = 1 + sum(1 + 2 * circuit.num_vars_at(i + 1) for i in range(depth))
+    if len(transcript.g) != n_msgs:
+        raise AssertionError(f"GKR flagship: {len(transcript.g)} messages, expected {n_msgs}")
+    outs = gkr.deserialize_gkr_message(transcript.g[0], F).circuit_outputs
+    t0 = time.perf_counter()
+    want = circuit.evaluate_device(FArray.from_ints(inputs, F, device="cpu"))[0].to_u64()
+    cpu_fwd_s = time.perf_counter() - t0
+    if not isinstance(outs, FeltVector) or not np.array_equal(np.asarray(outs.ints, dtype=np.uint64), want):
+        raise AssertionError("GKR flagship: the claimed outputs != the plain forward pass on the CPU")
+    t0 = time.perf_counter()
+    if not gkr.verify_gkr_transcript(transcript, gkr.Verifier(circuit, F), inputs, F):
+        raise AssertionError("GKR flagship: the verifier rejected an honest transcript")
+    verify_s = time.perf_counter() - t0
+    sumcheck_msgs = [i for i, m in enumerate(transcript.g) if m[0] == 2]
+    flip = sumcheck_msgs[len(sumcheck_msgs) // 2]
+    bad = list(transcript.g)
+    bad[flip] = bad[flip][:-1] + bytes([bad[flip][-1] ^ 1])
+    if accepts(gkr.GKRTranscript(bad), circuit, inputs, F):
+        raise AssertionError("GKR flagship: a tampered transcript was accepted")
+    transcript_bytes = sum(len(m) for m in transcript.g)
+    log(f"GKR flagship {depth} x 2^{args.gkr_log} {F.name}: generate_gkr_transcript {prove_s:.3f} s (host clock, "
+        f"forward pass included), {len(transcript.g)} messages, {transcript_bytes} bytes; launches K1 "
+        f"{gkr_launches[F.backend]['libra_round']}, K2 {gkr_launches[F.backend]['phase_tables']}; outputs == the "
+        f"plain forward pass on the CPU ({cpu_fwd_s:.2f} s); verify_gkr_transcript accepted in {verify_s:.3f} s; "
+        f"rejected with one byte flipped in sumcheck message {flip} {tag}")
+
+    def gkr_timed(circuit, inputs, field, traced_layer):
+        """generate_gkr_transcript with a host-clock bucket per step (every
+        step ends in a host read of its result) and one layer traced by the
+        profiler. Returns the transcript, the buckets and the traced layer's
+        (wall ms, device busy ms, device records)."""
+        buckets = dict.fromkeys(("forward_s", "begin_s", "phase1_tables_s", "phase2_tables_s",
+                                 "sumcheck_rounds_s", "final_restrict_s", "host_hashing_s"), 0.0)
+        trace = []
+
+        def step(name, layer, j, fn):
+            if name == "layer":
+                if layer != traced_layer:
+                    return fn()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    out = fn()
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t) * 1e3
+                spans, busy_us = device_spans(prof)
+                trace.extend((wall_ms, busy_us / 1e3, spans))
+                return out
+            if name == "round":
+                k = circuit.num_vars_at(layer + 1)
+                key = "phase2_tables_s" if j == k else "final_restrict_s" if j == 2 * k - 1 else "sumcheck_rounds_s"
+            else:
+                key = {"begin": "begin_s", "start_round": "phase1_tables_s", "hash": "host_hashing_s"}[name]
+            t = time.perf_counter()
+            out = fn()
+            buckets[key] += time.perf_counter() - t
+            return out
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prover = gkr.Prover(circuit, inputs, field)
+        torch.cuda.synchronize()
+        buckets["forward_s"] = time.perf_counter() - t
+        return gkr.generate_gkr_transcript(prover, field, step=step), buckets, tuple(trace)
+
+    timed_t, buckets, (layer_ms, busy_ms, spans) = gkr_timed(circuit, inputs, F, depth // 2)
+    if timed_t.to_bytes() != transcript.to_bytes():
+        raise AssertionError("GKR flagship: the timed run's transcript differs")
+    by_kernel = {}
+    k1_longest_us = max([s1 - s0 for s0, s1, name in spans if "libra_round_kernel" in name], default=0.0)
+    for s0, s1, name in spans:
+        label = ("K1 libra_round_kernel" if "libra_round_kernel" in name else
+                 "K2 phase_tables_kernel" if "phase_tables_kernel" in name else "other")
+        ms_, n_ = by_kernel.get(label, (0.0, 0))
+        by_kernel[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
+    idle = 1 - busy_ms / layer_ms if spans else None
+    log(f"GKR flagship profiler trace of layer {depth // 2}: {layer_ms:.3f} ms wall (profiler on), device busy "
+        f"{busy_ms:.3f} ms (union of {len(spans)} device records; "
+        f"{', '.join(f'{k} {v[0]:.3f} ms over {v[1]}' for k, v in sorted(by_kernel.items()))}; longest K1 "
+        f"record {k1_longest_us:.1f} us) -> device idle share "
+        + (f"{idle:.1%}" if spans else "not measured (no device records)") + f" {tag}")
+    log(json.dumps({
+        "bench": "gkr_prover_full_protocol", "gates": depth * width, "depth": depth, "width": width,
+        "field": F.name, "accepted": True, "prover_s": prove_s, "verifier_s": verify_s,
+        "messages": len(transcript.g), "transcript_bytes": transcript_bytes,
+        "breakdown_s": buckets, "breakdown_total_s": sum(buckets.values()),
+        "circuit_construct_s": construct_s, "device_idle_share_one_layer": idle, "card": card,
+    }))
+    del transcript, timed_t, bad
+
+    # K1 and K2 at the flagship's shapes: a 2^20-entry phase round with a
+    # fold and the claim shortcut (batch 1), and layer 0's phase tables.
+    # Issued from Python one by one, these launches time the host's wrapper
+    # call; 20 launches captured in a CUDA graph time the kernel.
+    def graph_ms(fn, count=20):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(count):
+                fn()
+        return time_launches(graph.replay, 5) / count
+
+    gkr_timing = {}
+    wiring = circuit.device_wiring(0, dev)
+    k = circuit.num_vars_at(1)
+    g = len(circuit.layers[0])
+    for field in (GOLDILOCKS, BABYBEAR):
+        wb = 8 if field.backend == "goldilocks" else 4
+        N = 1 << k
+        tables = [words(field, 1, N) for _ in range(3)]
+        r1, scalar = words(field, 1), [words(field, 1)]
+        outs = [torch.empty((1, N // 2), dtype=word_dtype(field), device=dev) for _ in range(3)]
+        blocks = cuda_round.blocks_for(1, N // 4)
+        rows = {}
+        for phase, terms, n_scalars in libra:
+            sc = scalar[:n_scalars]
+
+            def k1():
+                cuda_round.round_partials(tables, r1, True, outs, field, terms, sc)
+
+            issued_ms = time_launches(k1, 20)
+            plain_ms = time_launches(lambda: cuda_round.round_partials_plain(tables, r1, True, blocks, field, terms, sc), 3)
+            nbytes = 3 * (N + N // 2) * wb + (1 + n_scalars) * wb + blocks * 3 * wb
+            rows[f"K1 phase {phase}"] = (graph_ms(k1), plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3, nbytes, issued_ms)
+        eq_r, table = FArray(words(field, g), field), FArray(words(field, N), field)
+        for phase, key_t, gidx, plan in ((1, wiring.b, wiring.c, wiring.plan_b), (2, wiring.c, wiring.b, wiring.plan_c)):
+
+            def k2():
+                return device_tables.phase_tables(phase, plan, key_t, gidx, wiring.is_mul, eq_r, table, k)
+
+            def k2_plain():
+                return device_tables.phase_tables_plain(phase, key_t, gidx, wiring.is_mul, eq_r, table, k)
+
+            # K2 against its plain version on the main path's own wiring
+            e = max(max_abs_err(a.data, b.data) for a, b in zip(k2(), k2_plain()))
+            if e:
+                raise AssertionError(f"phase-table kernel != plain: {field.name} flagship layer 0 wiring phase={phase}")
+            err[("phase_tables", field.backend)] = max(err[("phase_tables", field.backend)], e)
+            log(f"phase-table kernel (K2) == plain (exact) over {field.name} on the flagship's layer 0 wiring "
+                f"({g} gates on 2^{k} cells), random words, phase {phase}")
+            issued_ms = time_launches(k2, 20)
+            plain_ms = time_launches(k2_plain, 3)
+            # order, gather index, gate type, eq_r per gate; starts and the
+            # gathered table per cell read once; two tables written
+            nbytes = g * (4 + 4 + 1 + wb) + (N + 1) * 4 + N * wb + 2 * N * wb
+            rows[f"K2 phase {phase}"] = (graph_ms(k2), plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3, nbytes, issued_ms)
+        for name, (ms, plain_ms, bound_ms, nbytes, issued_ms) in rows.items():
+            log(f"{field.name} {name} at the flagship's shape (2^{k} entries, {g} gates): {ms:.4f} ms per launch "
+                f"replayed from a CUDA graph ({issued_ms:.4f} ms issued from Python), bound {bound_ms:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound_ms / ms:.1%} of the bound; plain torch "
+                f"{plain_ms:.3f} ms {tag}")
+        gkr_timing[field.backend] = {"libra_round": rows["K1 phase 1"][:3], "phase_tables": rows["K2 phase 1"][:3]}
+        del tables, outs, eq_r, table
+    del wiring, circuit
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ---- phase 5: summary lines --------------------------------------
     if "thaler_study_tpu" in sys.modules or (not jax_preloaded and "jax" in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -621,6 +973,18 @@ def main(argv=None) -> int:
             if floor:
                 row["latency_floor_ms"] = floor[0]
             kernels.append(row)
+    # the GKR kernels: launches per proof (Goldilocks: the flagship; mont32:
+    # the BabyBear 5-layer circuit), times at the flagship's shapes (phase 1)
+    gkr_sources = {"libra_round": ("thaler_study_tpu_torch/csrc/round_kernel.cu", "thaler_study_tpu/ops/pallas_round.py:341"),
+                   "phase_tables": ("thaler_study_tpu_torch/csrc/phase_tables.cu", "thaler_study_tpu/gkr/device_tables.py:192")}
+    for name, (source, replaces) in gkr_sources.items():
+        for backend in ("goldilocks", "mont32"):
+            ms, plain_ms, bound_ms = gkr_timing[backend][name]
+            kernels.append({
+                "name": f"{name}_{backend}", "route": "cuda", "source": source, "replaces": replaces,
+                "launches": gkr_launches[backend][name], "max_abs_err": err[(name, backend)],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            })
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -27,7 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 from thaler_study_tpu.fields import GOLDILOCKS as JF  # noqa: E402
 from thaler_study_tpu.fields import FArray as JFArray  # noqa: E402
 from thaler_study_tpu.ops import round_kernel as jrk  # noqa: E402
-from thaler_study_tpu_torch import api  # noqa: E402
+from thaler_study_tpu_torch import api, gkr  # noqa: E402
 from thaler_study_tpu_torch.fields import F389, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.fields import goldilocks as gl  # noqa: E402
 from thaler_study_tpu_torch.fiat_shamir import (  # noqa: E402
@@ -141,9 +141,9 @@ def test_product_poly_sumcheck_accepts(rng):
 
 
 def test_outside_the_slice_raises():
-    """Multi-block specs, a non-empty DST and the triangle and GKR entry
-    points are later slices: each raises NotImplementedError. Every field
-    of the port is in the fused path."""
+    """Multi-block specs, a non-empty DST, the triangle entry points and
+    the dense-W GKR prover (a two-block spec) are later slices: each raises
+    NotImplementedError. Every field of the port is in the fused path."""
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
     tables = [FArray.from_ints([1] * (1 << s), GOLDILOCKS, device="cpu") for s in (1, 3)]
     with pytest.raises(NotImplementedError):
@@ -162,4 +162,4 @@ def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError):
         api.verify_triangle_count([False] * 16, 4, None, F389, device="cpu")
     with pytest.raises(NotImplementedError):
-        api.run_gkr(None, [3, 2, 3, 1], F389, device="cpu")
+        gkr.Prover(gkr.circuit_from_book(), F389.felts([3, 2, 3, 1]), F389, use_linear=False, device="cpu")

@@ -3,7 +3,8 @@
 Counterpart of ``thaler_study_tpu/api.py``: build the polynomial, run the
 Fiat-Shamir transform, verify. Each call takes ``device`` (``"cuda"`` by
 default; ``"cpu"`` runs the plain versions of the kernels). The triangle
-IP and GKR entry points are later slices of the port and raise.
+IP entry points are the multi-block slice of the port and raise;
+``run_gkr`` drives the GKR prover.
 """
 
 from __future__ import annotations
@@ -74,8 +75,40 @@ def verify_triangle_count(adjacency, n_nodes: int, transcript, field: FieldConfi
     )
 
 
-def run_gkr(circuit, inputs: Sequence, field: FieldConfig = GOLDILOCKS, seed: int = 0, device="cuda"):
-    raise NotImplementedError("GKR (host layer and fused device path) is a later slice of the port")
+def run_gkr(
+    circuit, inputs: Sequence, field: FieldConfig = GOLDILOCKS, seed: int = 0, device="cuda"
+) -> Tuple[List[Felt], bool]:
+    """Run the full interactive GKR protocol on a circuit, the prover's
+    tables on ``device``.
+
+    Returns (claimed_outputs, accepted). The interactive loop mirrors the
+    reference's protocol test loop (gkr-protocol/src/lib.rs:551-624); the
+    verifier draws from ``SeededRng(seed)``.
+    """
+    from .gkr import Prover as GKRProver
+    from .gkr import R
+    from .gkr import Verifier as GKRVerifier
+    from .sumcheck import SeededRng
+
+    felt_inputs = [x if isinstance(x, Felt) else field.felt(int(x)) for x in inputs]
+    rng = SeededRng(seed)
+    prover = GKRProver(circuit, felt_inputs, field, device=device)
+    begin = prover.start_protocol()
+    verifier = GKRVerifier(circuit, field)
+    r_i = verifier.receive_prover_msg(begin, rng).r
+    for i in range(len(circuit.layers)):
+        msg = prover.start_round(i, r_i)
+        num_vars = 2 * circuit.num_vars_at(i + 1)
+        verifier.receive_prover_msg(msg, rng)
+        for j in range(num_vars - 1):
+            vm = verifier.receive_prover_msg(prover.round_msg(j), rng)
+            prover.receive_verifier_msg(vm)
+        prover.receive_verifier_msg(verifier.final_random_point(rng))
+        vm = verifier.receive_prover_msg(prover.round_msg(num_vars - 1), rng)
+        if not isinstance(vm, R):
+            raise AssertionError("the verifier did not return the next layer's point")
+        r_i = vm.r
+    return begin.circuit_outputs, verifier.check_input(felt_inputs)
 
 
 def _index_point(v: int, bits: int, field: FieldConfig) -> List[Felt]:

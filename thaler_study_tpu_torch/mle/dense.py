@@ -44,6 +44,12 @@ def _bitrev_index(n: int, device) -> torch.Tensor:
     return rev
 
 
+def bitrev(table: FArray, n: int) -> FArray:
+    """Bit-reverse a 2^n-entry table on its device (an involution: label
+    order <-> internal MSB-first order)."""
+    return FArray(table.data[_bitrev_index(n, table.device)], table.field)
+
+
 class DenseMLE:
     """A dense MLE table (internal MSB-first variable order)."""
 
@@ -70,7 +76,15 @@ class DenseMLE:
         table = FArray.from_ints(values, field, device=device)
         if table.shape != (1 << num_vars,):
             raise ValueError(f"a {num_vars}-variable MLE takes {1 << num_vars} evaluations, got {table.shape}")
-        return cls(FArray(table.data[_bitrev_index(num_vars, table.device)], field), num_vars)
+        return cls(bitrev(table, num_vars), num_vars)
+
+    @classmethod
+    def from_evals_lsb_farray(cls, evals: FArray, num_vars: int) -> "DenseMLE":
+        """From a table already on its device in arkworks order: the bit
+        reversal runs there."""
+        if evals.shape != (1 << num_vars,):
+            raise ValueError(f"a {num_vars}-variable MLE takes {1 << num_vars} evaluations, got {evals.shape}")
+        return cls(bitrev(evals, num_vars), num_vars)
 
     @classmethod
     def from_evals_msb(cls, evals: FArray, num_vars: int) -> "DenseMLE":
@@ -95,6 +109,23 @@ class DenseMLE:
         if len(point) != self.num_vars:
             raise ValueError(f"a point of {len(point)} coordinates for {self.num_vars} variables")
         return self.fix_variables(list(point)).evals.item()
+
+    def evaluate_many(self, points: Sequence[Sequence[Felt]]) -> list:
+        """Evaluate at P points with one fold chain over a [P, 2^n]
+        broadcast of the table (the JAX package's ``_eval_many_impl``; GKR's
+        ``restrict_poly`` needs n + 1 line points per layer). Plain torch."""
+        if any(len(pt) != self.num_vars for pt in points):
+            raise ValueError(f"every point needs {self.num_vars} coordinates")
+        if self.num_vars == 0:
+            v = self.evals.item()
+            return [v for _ in points]
+        flat = [f.v for pt in points for f in pt]
+        rs = FArray.from_ints(flat, self.field, device=self.evals.device).reshape(len(points), self.num_vars)
+        t = self.evals.reshape(1, -1)
+        for j in range(self.num_vars):
+            half = t.shape[1] // 2
+            t = FArray.fold(t[:, :half], t[:, half:], rs[:, j : j + 1])
+        return t.reshape(len(points)).to_felts()
 
     def relabel(self, a: int, b: int, k: int) -> "DenseMLE":
         """Swap the variable blocks [a, a+k) and [b, b+k) (ark-poly

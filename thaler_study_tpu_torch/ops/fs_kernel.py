@@ -48,7 +48,7 @@ from .. import _build
 from ..fields import GOLDILOCKS, FArray, FieldConfig
 from ..fields.farray import tensor_u64, u64_tensor, word_dtype
 from .cuda_round import round_partials
-from .round_kernel import PolySpec, check_single_block
+from .round_kernel import PolySpec, check_single_product
 from .sha256 import H0, py_compress
 from .sha_chain import DevChain, absorb_py, draw_py, len_in_bytes
 
@@ -120,7 +120,7 @@ def _check_supported(spec: PolySpec, num_tables: int, dst: bytes):
             "a non-empty DST needs the unfused per-round batched path "
             "(thaler_study_tpu/protocols/batched.py:188-204), a later slice"
         )
-    check_single_block(spec, num_tables)
+    check_single_product(spec, num_tables)
 
 
 def supports_fused_fs(spec: PolySpec, field: FieldConfig, dst: bytes) -> bool:

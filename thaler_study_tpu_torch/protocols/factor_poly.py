@@ -6,8 +6,10 @@ SumCheckPolynomial parity API of the reference — ``evaluate``,
 ``fix_variables``, ``to_univariate``, ``num_vars``, ``to_evaluations`` —
 while its hot path (``round_univariate``) is one round kernel launch per
 sumcheck round (fold + partial sums; ref hot loop:
-matrix-multiplication/src/lib.rs:110-131). Any field of the port;
-single-block products only (``round_kernel.check_single_block``).
+matrix-multiplication/src/lib.rs:110-131). Any field of the port; any
+single-block spec (``round_kernel.check_single_block``): the product of
+the matmul IP and the multi-term LibraW phases of GKR, whose 0-block
+scalar tables are carried unchanged through every fold.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ class ProductPoly(SumCheckPolynomial):
             claim = None
             if self._last_uni is not None:
                 claim = FArray.scalar(self._last_uni.evaluate(r_prev), device=device)
-                claim_known = True
+                claim_known = spec.after_fold().degree() >= 1
             sums, tables = round_step(spec, tables, r, claim=claim)
             spec = spec.after_fold()
         else:
