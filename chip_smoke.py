@@ -23,7 +23,9 @@ The paths, each driven through the entry points a user calls:
   wiring, gate types and inputs drawn from the seed with numpy as the
   benchmark draws them; and ``api.run_gkr`` with ``generate_gkr_transcript``
   on the book circuit (F389) and a 5-layer mixed-width circuit (Goldilocks
-  and BabyBear).
+  and BabyBear);
+- the fused GKR prover (``gkr.generate_gkr_transcript_fused``) on two small
+  Goldilocks circuits and on the flagship.
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -39,7 +41,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    at several sizes, and the phase-table kernel (K2) on random, skewed and
    sparse wirings with random values and values at p - 1, over the same
    five fields (and in phase 4 on the flagship's own layer 0 wiring, over
-   Goldilocks and BabyBear);
+   Goldilocks and BabyBear); the eq-table kernel at n = 1..20 (Goldilocks,
+   BabyBear), the line restriction at k = 2..20, the GKR round tail at
+   every fill x (StartSumCheck, one draw, two draws) and the final tail at
+   k in (2, 3, 10, 20) x every fill;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -49,12 +54,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    call on the CPU; the GKR circuits: the small ones byte-identical to
    ``device="cpu"`` through both entry points, the flagship's outputs equal
    to the plain forward pass on the CPU, accepted by the verifier and
-   rejected when tampered;
+   rejected when tampered; the fused path byte-identical to ``device="cpu"``
+   and to the per-layer path (small circuits) and to the per-layer run
+   (flagship), with no fallback and the launch counts of its design;
 4. timing with CUDA events, a dependent host read and a profiler trace,
    and the FS tail's latency floor (one thread's chain of dependent SHA-256
    compressions, times the compressions on a round's chain); for GKR, the
    proof's seconds with a breakdown by step, the device idle share from a
-   trace of one layer, and K1 and K2 at the flagship's shapes;
+   trace of one layer, and K1 and K2 at the flagship's shapes; for the
+   fused path, the median of warm proofs, its ``timings`` breakdown, the
+   prelude's parts, a trace of one proof (device idle share, one
+   device-to-host read after the prelude), and its four kernels at the
+   flagship's shapes;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -125,8 +136,9 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.fields import goldilocks as gl
     from thaler_study_tpu_torch.fields.farray import tensor_u64, word_dtype
     from thaler_study_tpu_torch.gkr import device_tables
+    from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.gkr.circuit import scan_plan
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, sha_chain
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.protocols import (
@@ -349,9 +361,132 @@ def main(argv=None) -> int:
         log(f"phase-table kernel (K2) == plain (exact) over {field.name} in {checks} cases: "
             f"{'; '.join(w[0] for w in wirings)}; random words and every value p - 1; phases 1 and 2")
 
+    # the fused GKR path's kernels: the eq table (every field the GKR
+    # prover runs: Goldilocks, BabyBear), the line restriction and the two
+    # GKR tails (Goldilocks, the fused path's field)
+    for field in (GOLDILOCKS, BABYBEAR):
+        key = ("eq_table", field.backend)
+        checks = 0
+        for n_ in range(1, gw + 1):
+            for values in ("random words", "0", "1", "p - 1"):
+                if values == "random words":
+                    r = FArray(words(field, n_), field)
+                else:
+                    r = FArray.from_ints([{"0": 0, "1": 1, "p - 1": field.p - 1}[values]] * n_, field, device=dev)
+                out, ref = device_tables.eq_table_dev(r, n_), device_tables.eq_table_plain(r, n_)
+                torch.cuda.synchronize()
+                e = max_abs_err(out.data, ref.data)
+                if e:
+                    raise AssertionError(f"eq-table kernel != plain: {field.name} n={n_} r={values}")
+                err[key] = max(err.get(key, 0), e)
+                checks += 1
+        log(f"eq-table kernel == plain (exact) over {field.name} in {checks} cases: n = 1..{gw}, r random "
+            "(boundary words first), all 0, all 1, all p - 1")
+    key = ("line_restrict", "goldilocks")
+    checks = 0
+    for k_ in range(2, gw + 1):
+        for values in ("random words", "every value p - 1"):
+            if values == "random words":
+                w_, u_, d_ = (FArray(words(GOLDILOCKS, n_), GOLDILOCKS) for n_ in (1 << k_, k_, k_))
+            else:
+                w_, u_, d_ = (FArray.from_ints([gl.P - 1] * n_, GOLDILOCKS, device=dev) for n_ in (1 << k_, k_, k_))
+            out = device_tables.line_restrict_coeffs(w_, u_, d_, k_)
+            ref = device_tables.line_restrict_coeffs_plain(w_, u_, d_, k_)
+            torch.cuda.synchronize()
+            e = max_abs_err(out.data, ref.data)
+            if e or out.shape != (k_ + 1,):
+                raise AssertionError(f"line-restriction kernel != plain: k={k_} {values}")
+            err[key] = max(err.get(key, 0), e)
+            checks += 1
+    log(f"line-restriction kernel == plain (exact) over Goldilocks in {checks} cases: k = 2..{gw}, random words "
+        "and every value p - 1")
+
+    tail_blocks = cuda_round.blocks_for(1, 1 << (gw - 2))
+    trng = np.random.default_rng(args.seed + 5)
+
+    def gkr_tail_case(fill, m, k_):
+        """A chain after a random prefix with the given fill, K1-shaped
+        partials, a claim, the layer's challenge vector, a byte buffer with
+        room for the message at offset 7, a zero flag; and a copy of the
+        mutable state for the plain version."""
+        prefix = trng.integers(0, 256, 64 * (2 + fill % 5) + fill, dtype=np.uint8).tobytes()
+        chain = gkr_tail.prefix_chain(prefix, dev)
+        state = {
+            "partials": words(GOLDILOCKS, 1, tail_blocks, 3),
+            "claim": words(GOLDILOCKS, 1),
+            "chal": words(GOLDILOCKS, 2 * k_),
+            "msgs": torch.randint(0, 256, (m + 16,), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8),
+            "zero": torch.zeros(1, dtype=torch.int32, device=dev),
+        }
+        copy = {name: t.clone() for name, t in state.items()}
+        return (chain, state), (gkr_tail.GKRChain(chain.state.clone(), chain.buf.clone(), chain.nbytes), copy)
+
+    def tail_err(a, b):
+        (ca, sa), (cb, sb) = a, b
+        outs = [(ca.state, cb.state), (ca.buf, cb.buf)] + [(sa[n_], sb[n_]) for n_ in sa]
+        return max(max_abs_err(x.to(torch.int64), y.to(torch.int64)) for x, y in outs)
+
+    key = ("gkr_round_tail", "goldilocks")
+    checks = 0
+    for fill in range(64):
+        for msg_kind in ("StartSumCheck", "one draw", "two draws"):
+            k_ = 2 + fill % 19
+            start = (fill, k_) if msg_kind == "StartSumCheck" else None
+            draws = 2 if msg_kind == "two draws" else 1
+            idx = 2 * k_ - 3 if draws == 2 else fill % k_
+            m = gkr_tail.ROUND_LEN + (gkr_tail.START_LEN if start else 0)
+            a, b = gkr_tail_case(fill, m, k_)
+            if fill == 3 and msg_kind == "one draw":
+                a[1]["partials"].zero_()  # all sums zero with a zero claim: zero coefficients, flagged
+                a[1]["claim"].zero_()
+                b = (b[0], {n_: t.clone() for n_, t in a[1].items()})
+            args_a = (a[1]["partials"], a[0], a[1]["msgs"], 7, a[1]["zero"], a[1]["claim"], a[1]["chal"], idx, draws)
+            gkr_tail.round_tail(*args_a, start=start)
+            gkr_tail.round_tail_plain(b[1]["partials"], b[0], b[1]["msgs"], 7, b[1]["zero"], b[1]["claim"],
+                                      b[1]["chal"], idx, draws, start)
+            torch.cuda.synchronize()
+            e = tail_err(a, b)
+            if e:
+                raise AssertionError(f"GKR round tail kernel != plain: fill={fill} {msg_kind}")
+            if fill == 3 and msg_kind == "one draw" and int(a[1]["zero"]) != 1:
+                raise AssertionError("GKR round tail kernel did not flag zero coefficients")
+            err[key] = max(err.get(key, 0), e)
+            checks += 1
+    log(f"GKR round tail kernel == plain (exact) in {checks} cases: every fill 0..63 x (StartSumCheck, one draw, "
+        f"two draws), {tail_blocks} K1 partials, transcript bytes, chain, challenges, claim; one case flagged zero")
+
+    key = ("gkr_final_tail", "goldilocks")
+    checks = 0
+    for k_ in (2, 3, 10, gw):
+        for fill in range(64):
+            m = gkr_tail.final_len(k_)
+            a, b = gkr_tail_case(fill, m, k_)
+            q_ = words(GOLDILOCKS, k_ + 1)
+            q_[q_ == 0] = 1  # words() puts a 0 first
+            if fill == 9:
+                q_[k_] = 0  # a zero coefficient of q: flagged
+            r_a = torch.zeros(k_, dtype=torch.int64, device=dev)
+            r_b = r_a.clone()
+            gkr_tail.final_tail(a[1]["partials"], a[1]["claim"], q_, a[1]["chal"], k_, a[0], a[1]["msgs"], 7,
+                                a[1]["zero"], r_a)
+            gkr_tail.final_tail_plain(b[1]["partials"], b[1]["claim"], q_, b[1]["chal"], k_, b[0], b[1]["msgs"], 7,
+                                      b[1]["zero"], r_b)
+            torch.cuda.synchronize()
+            e = max(tail_err(a, b), max_abs_err(r_a, r_b))
+            if e:
+                raise AssertionError(f"GKR final tail kernel != plain: k={k_} fill={fill}")
+            if fill == 9 and int(a[1]["zero"]) != 1:
+                raise AssertionError(f"GKR final tail kernel did not flag a zero coefficient of q at k={k_}")
+            err[key] = max(err.get(key, 0), e)
+            checks += 1
+    log(f"GKR final tail kernel == plain (exact) in {checks} cases: k in (2, 3, 10, {gw}) x every fill 0..63, "
+        "transcript bytes, chain, r_next; a zero coefficient of q flagged")
+
     # ---- phase 3: the paths at full size -----------------------------
     counters = {"round_kernel": cuda_round.launches, "fs_tail": fs_kernel.launches,
-                "libra_round": cuda_round.libra_launches, "phase_tables": device_tables.launches}
+                "libra_round": cuda_round.libra_launches, "phase_tables": device_tables.launches,
+                "eq_table": device_tables.eq_launches, "line_restrict": device_tables.line_launches,
+                "gkr_round_tail": gkr_tail.round_launches, "gkr_final_tail": gkr_tail.final_launches}
 
     def reset_counts():
         for counts in counters.values():
@@ -390,7 +525,8 @@ def main(argv=None) -> int:
         counts = read_counts()
         launches = {k: v[field.backend] for k, v in counts.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = {"round_kernel": n, "fs_tail": n, "libra_round": 0, "phase_tables": 0}
+        want = dict.fromkeys(counters, 0)
+        want.update(round_kernel=n, fs_tail=n)
         if launches != want or sum(sum(v.values()) for v in counts.values()) != 2 * n:
             raise AssertionError(f"{field.name}: expected {n} launches of each kernel per dispatch, got {counts}")
         bs = field.byte_size
@@ -725,10 +861,15 @@ def main(argv=None) -> int:
             ]))
         return gkr.Circuit(layers, widths[-1])
 
-    def gkr_launch_counts(circuit):
-        """K1 launches (one per round) and K2 launches (two per layer) of one proof."""
-        layers = len(circuit.layers)
-        return sum(2 * circuit.num_vars_at(i + 1) for i in range(layers)), 2 * layers
+    def gkr_launch_counts(circuit, fused_path=False):
+        """The launches of one proof: per layer 2k of K1 (one per round), 2
+        of K2 and 2 of the eq table; on the fused path also 2k - 1 round
+        tails, one final tail and k fold steps of the line restriction."""
+        ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
+        want = {"libra_round": sum(2 * k for k in ks), "phase_tables": 2 * len(ks), "eq_table": 2 * len(ks)}
+        if fused_path:
+            want.update(gkr_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks), line_restrict=sum(ks))
+        return want
 
     def accepts(t, circuit, inputs, field) -> bool:
         try:
@@ -736,11 +877,10 @@ def main(argv=None) -> int:
         except (gkr.GKRError, SumCheckError, SerializationError, ValueError):
             return False
 
-    def gkr_counts_ok(counts, field, circuit) -> bool:
-        k1, k2 = gkr_launch_counts(circuit)
+    def gkr_counts_ok(counts, field, circuit, fused_path=False) -> bool:
         want = {name: {b: 0 for b in ("goldilocks", "mont32")} for name in counters}
-        want["libra_round"][field.backend] = k1
-        want["phase_tables"][field.backend] = k2
+        for name, v in gkr_launch_counts(circuit, fused_path).items():
+            want[name][field.backend] = v
         return counts == want
 
     gkr_launches = {}
@@ -760,8 +900,8 @@ def main(argv=None) -> int:
         counts = read_counts()
         if not gkr_counts_ok(counts, field, circuit):
             raise AssertionError(f"GKR {label} {field.name}: launches {counts}, expected {gkr_launch_counts(circuit)}")
-        gkr_launches[field.backend] = {"libra_round": counts["libra_round"][field.backend],
-                                       "phase_tables": counts["phase_tables"][field.backend]}
+        gkr_launches[field.backend] = {name: counts[name][field.backend]
+                                       for name in ("libra_round", "phase_tables", "eq_table")}
         t_cpu = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, device="cpu"), field)
         if t_card.to_bytes() != t_cpu.to_bytes():
             raise AssertionError(f"GKR {label} {field.name}: card transcript != device='cpu'")
@@ -775,8 +915,33 @@ def main(argv=None) -> int:
             raise AssertionError(f"GKR book circuit: outputs {[f.v for f in outs]} != [36, 6]")
         log(f"GKR {label} {field.name} (widths {[len(l) for l in circuit.layers] + [circuit.num_inputs]}): "
             f"generate_gkr_transcript on the card byte-identical to device='cpu' ({len(t_card.g)} messages), "
-            f"accepted; api.run_gkr outputs and decision == device='cpu'; launches K1 "
-            f"{gkr_launches[field.backend]['libra_round']}, K2 {gkr_launches[field.backend]['phase_tables']}")
+            f"accepted; api.run_gkr outputs and decision == device='cpu'; launches {gkr_launches[field.backend]}")
+
+    # the fused path on small Goldilocks circuits (every layer k >= 2): the
+    # card's transcript byte-identical to the fused path on the CPU and to
+    # the per-layer path, accepted, no fallback
+    for label, widths, seed in (("mixed-width", [1 << 4, 1 << 6, 1 << 4, 1 << 8, 1 << 6, 1 << 6], 3),
+                                ("uniform", [1 << 8] * 5, 4)):
+        srng = np.random.default_rng(args.seed + seed)
+        circuit = gate_circuit(widths, srng)
+        felts = GOLDILOCKS.felts([GOLDILOCKS.p - 1] + srng.integers(0, 1 << 62, widths[-1] - 1).tolist())
+        torch.cuda.synchronize()
+        reset_counts()
+        f0 = gkr_fused.fallbacks
+        t_card = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, felts, GOLDILOCKS), GOLDILOCKS)
+        counts = read_counts()
+        if gkr_fused.fallbacks != f0 or not gkr_counts_ok(counts, GOLDILOCKS, circuit, fused_path=True):
+            raise AssertionError(f"GKR fused {label}: fallbacks {gkr_fused.fallbacks - f0}, launches {counts}, "
+                                 f"expected {gkr_launch_counts(circuit, True)}")
+        t_cpu = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, felts, GOLDILOCKS, device="cpu"), GOLDILOCKS)
+        t_layer = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, GOLDILOCKS), GOLDILOCKS)
+        if gkr_fused.fallbacks != f0 or not t_card.to_bytes() == t_cpu.to_bytes() == t_layer.to_bytes():
+            raise AssertionError(f"GKR fused {label}: card transcript != device='cpu' or != the per-layer path")
+        if not accepts(t_card, circuit, felts, GOLDILOCKS):
+            raise AssertionError(f"GKR fused {label}: the verifier rejected an honest transcript")
+        log(f"GKR fused path, {label} Goldilocks circuit (widths {widths}): generate_gkr_transcript_fused on the "
+            f"card byte-identical to device='cpu' and to the per-layer path ({len(t_card.g)} messages), accepted, "
+            f"no fallback; launches { {name: counts[name]['goldilocks'] for name in gkr_launch_counts(circuit, True)} }")
 
     # the flagship: benches/gkr_benchmark.py's circuit at --depth, --width-log
     depth, width = args.gkr_depth, 1 << args.gkr_log
@@ -796,8 +961,7 @@ def main(argv=None) -> int:
     counts = read_counts()
     if not gkr_counts_ok(counts, F, circuit):
         raise AssertionError(f"GKR flagship: launches {counts}, expected {gkr_launch_counts(circuit)}")
-    gkr_launches[F.backend] = {"libra_round": counts["libra_round"][F.backend],
-                               "phase_tables": counts["phase_tables"][F.backend]}
+    gkr_launches[F.backend] = {name: counts[name][F.backend] for name in ("libra_round", "phase_tables", "eq_table")}
     n_msgs = 1 + sum(1 + 2 * circuit.num_vars_at(i + 1) for i in range(depth))
     if len(transcript.g) != n_msgs:
         raise AssertionError(f"GKR flagship: {len(transcript.g)} messages, expected {n_msgs}")
@@ -885,7 +1049,126 @@ def main(argv=None) -> int:
         "breakdown_s": buckets, "breakdown_total_s": sum(buckets.values()),
         "circuit_construct_s": construct_s, "device_idle_share_one_layer": idle, "card": card,
     }))
-    del transcript, timed_t, bad
+
+    # the fused path on the flagship: the same bytes as the per-layer run,
+    # every layer's rounds on the card, one device-to-host read after the
+    # prelude
+    fused_keys = ("libra_round", "phase_tables", "eq_table", "line_restrict", "gkr_round_tail", "gkr_final_tail")
+    torch.cuda.synchronize()
+    reset_counts()
+    f0 = gkr_fused.fallbacks
+    t0 = time.perf_counter()
+    fused_t = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F)
+    fused_first_s = time.perf_counter() - t0
+    counts = read_counts()
+    if gkr_fused.fallbacks != f0 or not gkr_counts_ok(counts, F, circuit, fused_path=True):
+        raise AssertionError(f"GKR flagship fused: fallbacks {gkr_fused.fallbacks - f0}, launches {counts}, "
+                             f"expected {gkr_launch_counts(circuit, True)}")
+    fused_launches = {name: counts[name][F.backend] for name in fused_keys}
+    if fused_t.to_bytes() != transcript.to_bytes():
+        raise AssertionError("GKR flagship: the fused transcript != the per-layer transcript")
+    t0 = time.perf_counter()
+    if not gkr.verify_gkr_transcript(fused_t, gkr.Verifier(circuit, F), inputs, F):
+        raise AssertionError("GKR flagship: the verifier rejected the fused transcript")
+    fused_verify_s = time.perf_counter() - t0
+    final_msgs = [i for i, m in enumerate(fused_t.g) if m[0] == 3]
+    flip_f = final_msgs[len(final_msgs) // 2]
+    bad = list(fused_t.g)
+    bad[flip_f] = bad[flip_f][:-1] + bytes([bad[flip_f][-1] ^ 1])
+    if accepts(gkr.GKRTranscript(bad), circuit, inputs, F):
+        raise AssertionError("GKR flagship: a tampered fused transcript was accepted")
+    log(f"GKR flagship fused: generate_gkr_transcript_fused byte-identical to the per-layer transcript, no fallback, "
+        f"launches {fused_launches} (first run {fused_first_s:.3f} s with the prover's forward pass); "
+        f"verify_gkr_transcript accepted in {fused_verify_s:.3f} s; rejected with one byte flipped in final "
+        f"message {flip_f} {tag}")
+
+    # warm proofs: host clock around Prover (the forward pass) + the fused
+    # call, which ends in its host read; then the forward pass alone, the
+    # timings breakdown (a sync after every step) and one traced proof
+    fused_s = []
+    for _ in range(max(3, args.reps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F)
+        fused_s.append(time.perf_counter() - t0)
+        if again.to_bytes() != transcript.to_bytes():
+            raise AssertionError("GKR flagship: a warm fused proof differs")
+    fwd_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gkr.Prover(circuit, inputs, F)
+        torch.cuda.synchronize()
+        fwd_s.append(time.perf_counter() - t0)
+    fwd_med = statistics.median(fwd_s)
+    timings = []
+    gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F, timings=timings)
+    parts = {name: sum(sec for n_, _, sec in timings if n_ == name)
+             for name in ("prelude", "phase1", "phase2", "pull", "assemble")}
+    per_layer_ms = [1e3 * sum(sec for n_, i_, sec in timings if i_ == i and n_ in ("phase1", "phase2"))
+                    for i in range(depth)]
+    # the prelude's parts on a fresh prover: the W_0 pull with Begin's
+    # serialization, the native midstate over Z_pad || Begin, r_0's draw
+    fprover = gkr.Prover(circuit, inputs, F)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    begin_raw = gkr.serialize_gkr_message(fprover.start_protocol())
+    t1 = time.perf_counter()
+    mid, rest = gkr_tail.midstate(begin_raw)
+    t2 = time.perf_counter()
+    sha_chain.draw_many_py(F, mid.tolist(), rest, len(begin_raw), circuit.num_vars_at(0))
+    t3 = time.perf_counter()
+    log(f"GKR flagship fused prelude split (host clock): W_0 pull and Begin serialization {(t1 - t0) * 1e3:.2f} ms, "
+        f"native SHA-256 midstate over {len(begin_raw) / 1e6:.2f} MB {(t2 - t1) * 1e3:.2f} ms "
+        f"({len(begin_raw) / (t2 - t1) / 1e6:.0f} MB/s), r_0's draw ({circuit.num_vars_at(0)} elements, Python "
+        f"compressions) {(t3 - t2) * 1e3:.2f} ms {tag}")
+    fprover = gkr.Prover(circuit, inputs, F)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gkr.generate_gkr_transcript_fused(fprover, F)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    spans, busy_us = device_spans(prof)
+    del fprover
+    fused_kernels = {}
+    for s0, s1, name in spans:
+        label = next((k_ for k_ in ("libra_round_kernel", "phase_tables_kernel", "eq_table_kernel",
+                                    "line_fold_kernel", "gkr_round_tail_kernel", "gkr_final_tail_kernel",
+                                    "Memcpy DtoH", "Memcpy HtoD") if k_ in name), "other")
+        ms_, n_ = fused_kernels.get(label, (0.0, 0))
+        fused_kernels[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
+    layer_start = min((s0 for s0, _, name in spans if "eq_table_kernel" in name), default=None)
+    copies = [(s0, name) for s0, _, name in spans if "Memcpy" in name]
+    if copies and layer_start is not None:
+        reads = [name for s0, name in copies if "DtoH" in name and s0 > layer_start]
+        writes = [name for s0, name in copies if "HtoD" in name and s0 > layer_start]
+        if len(reads) != 1:
+            raise AssertionError(f"GKR flagship fused: {len(reads)} device-to-host reads after the prelude: {reads}")
+        reads_note = (f"device-to-host copies after the prelude (the first eq-table kernel): {len(reads)} "
+                      f"({reads[0]}); host-to-device copies after it: {len(writes)}")
+    else:
+        reads_note = "device-to-host copies: not measured (no copy records in the trace)"
+    fused_idle = 1 - busy_us / 1e3 / traced_ms if spans else None
+    log(f"GKR flagship fused, traced proof: {traced_ms:.3f} ms wall (profiler on), device busy {busy_us / 1e3:.3f} ms "
+        f"(union of {len(spans)} device records; "
+        f"{', '.join(f'{k_} {v[0]:.3f} ms over {v[1]}' for k_, v in sorted(fused_kernels.items()))}); {reads_note}; "
+        "device idle share " + (f"{fused_idle:.1%}" if spans else "not measured (no device records)") + f" {tag}")
+    log(f"GKR flagship fused breakdown (a sync after every step): prelude {parts['prelude']:.4f} s, phase 1 "
+        f"{parts['phase1']:.4f} s, phase 2 {parts['phase2']:.4f} s over {depth} layers (per layer "
+        f"{min(per_layer_ms):.2f}-{max(per_layer_ms):.2f} ms), pull {parts['pull']:.4f} s, assemble "
+        f"{parts['assemble']:.4f} s; forward pass {fwd_med:.4f} s (median of 3) {tag}")
+    prove_med = statistics.median(fused_s)
+    log(json.dumps({
+        "bench": "gkr_prover_fused_noninteractive", "gates": depth * width, "depth": depth, "width": width,
+        "field": F.name, "accepted": True, "prover_s": prove_med, "verifier_s": fused_verify_s,
+        "messages": len(fused_t.g), "transcript_bytes": sum(len(m) for m in fused_t.g),
+        "breakdown": {"forward_pass_s": fwd_med, "fused_layers_s": prove_med - fwd_med,
+                      "phase1_s": parts["phase1"], "phase2_s": parts["phase2"], "prelude_s": parts["prelude"],
+                      "assemble_s": parts["assemble"], "final_pull_s": parts["pull"]},
+        "prover_s_all": fused_s, "reps": len(fused_s), "per_layer_path_prover_s": prove_s,
+        "device_idle_share": fused_idle, "traced_ms": traced_ms, "launches": fused_launches, "card": card,
+    }))
+    del transcript, timed_t, bad, fused_t, again
 
     # K1 and K2 at the flagship's shapes: a 2^20-entry phase round with a
     # fold and the claim shortcut (batch 1), and layer 0's phase tables.
@@ -951,6 +1234,62 @@ def main(argv=None) -> int:
                 f"{plain_ms:.3f} ms {tag}")
         gkr_timing[field.backend] = {"libra_round": rows["K1 phase 1"][:3], "phase_tables": rows["K2 phase 1"][:3]}
         del tables, outs, eq_r, table
+
+    # the fused path's kernels at the flagship's shapes, from CUDA graphs:
+    # the eq table (n = 2^k_cur entries, both fields), the line restriction
+    # (k fold steps, timed per restriction), the round tail at a chain fill
+    # of 40 with K1's partials, the final tail at k
+    F = GOLDILOCKS
+    for field in (GOLDILOCKS, BABYBEAR):
+        wb = 8 if field.backend == "goldilocks" else 4
+        r_ = FArray(words(field, k), field)
+        eq_ms = graph_ms(lambda: device_tables.eq_table_dev(r_, k))
+        eq_plain = time_launches(lambda: device_tables.eq_table_plain(r_, k), 3)
+        eq_bytes = (1 << k) * wb + k * wb
+        gkr_timing[field.backend]["eq_table"] = (eq_ms, eq_plain, eq_bytes / PEAK_BYTES_PER_S * 1e3)
+        log(f"{field.name} eq-table kernel at n = {k}: {eq_ms:.4f} ms per launch from a CUDA graph, bound "
+            f"{eq_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({eq_bytes / 1e6:.1f} MB written at 3.35 TB/s), "
+            f"{eq_bytes / PEAK_BYTES_PER_S * 1e3 / eq_ms:.1%} of the bound; plain torch {eq_plain:.3f} ms {tag}")
+    w_, u_, d_ = (FArray(words(F, n_), F) for n_ in (1 << k, k, k))
+    lr_ms = graph_ms(lambda: device_tables.line_restrict_coeffs(w_, u_, d_, k), count=5)
+    lr_plain = time_launches(lambda: device_tables.line_restrict_coeffs_plain(w_, u_, d_, k), 3)
+    lr_bytes = ((1 << k) + 2 * k + k + 1) * 8  # W, u and delta read once; q written
+    lr_steps = sum(((1 << (k - j)) * (j + 1) + (1 << (k - j - 1)) * (j + 2)) * 8 for j in range(k))
+    gkr_timing["goldilocks"]["line_restrict"] = (lr_ms, lr_plain, lr_bytes / PEAK_BYTES_PER_S * 1e3)
+    log(f"line-restriction kernel at k = {k} ({k} fold-step launches): {lr_ms:.4f} ms per restriction from a CUDA "
+        f"graph, bound {lr_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({lr_bytes / 1e6:.1f} MB: W read once), "
+        f"{lr_bytes / PEAK_BYTES_PER_S * 1e3 / lr_ms:.1%} of the bound; the steps move {lr_steps / 1e6:.1f} MB "
+        f"({lr_steps / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); plain torch {lr_plain:.3f} ms {tag}")
+    for name in ("gkr_round_tail", "gkr_final_tail"):
+        m = gkr_tail.ROUND_LEN if name == "gkr_round_tail" else gkr_tail.final_len(k)
+        (chain_, st_), _ = gkr_tail_case(40, m, k)
+        st_["q"] = words(F, k + 1)
+        r_next = torch.empty(k, dtype=torch.int64, device=dev)
+
+        def tail_launch(fn):
+            chain_.nbytes = 64 * 131072 + 40  # the same fill (40) for every launch
+            if name == "gkr_round_tail":
+                fn(st_["partials"], chain_, st_["msgs"], 7, st_["zero"], st_["claim"], st_["chal"], 5, 1)
+            else:
+                fn(st_["partials"], st_["claim"], st_["q"], st_["chal"], k, chain_, st_["msgs"], 7, st_["zero"],
+                   r_next)
+
+        fn_k = gkr_tail.round_tail if name == "gkr_round_tail" else gkr_tail.final_tail
+        fn_p = gkr_tail.round_tail_plain if name == "gkr_round_tail" else gkr_tail.final_tail_plain
+        t_ms = graph_ms(lambda: tail_launch(fn_k))
+        t_plain = time_launches(lambda: tail_launch(fn_p), 3)
+        # partials, the chain's state and partial block and the zero flag read
+        # and written, the message written; the claim read and written and one
+        # challenge written (round), or the claim, q and the 2k challenges
+        # read and r_{i+1} written (final)
+        t_bytes = tail_blocks * 3 * 8 + 2 * (32 + 64 + 4) + m
+        t_bytes += 3 * 8 if name == "gkr_round_tail" else (1 + (k + 1) + 2 * k + k) * 8
+        floor_ms = compressions(64 * 131072 + 40, m, True) * compress_ms
+        gkr_timing["goldilocks"][name] = (t_ms, t_plain, t_bytes / PEAK_BYTES_PER_S * 1e3, floor_ms)
+        log(f"{name} kernel ({tail_blocks} K1 partials, {m}-byte message at fill 40): {t_ms * 1e3:.2f} us per launch "
+            f"from a CUDA graph, bound {t_bytes / PEAK_BYTES_PER_S * 1e3:.7f} ms ({t_bytes} B), latency floor "
+            f"{floor_ms * 1e3:.2f} us ({compressions(64 * 131072 + 40, m, True)} compressions); plain (Python ints) "
+            f"{t_plain:.3f} ms {tag}")
     del wiring, circuit
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -985,6 +1324,27 @@ def main(argv=None) -> int:
                 "launches": gkr_launches[backend][name], "max_abs_err": err[(name, backend)],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             })
+    # the fused path's kernels: launches on the flagship's fused proof (the
+    # eq table over mont32: the BabyBear 5-layer per-layer proof); the line
+    # restriction's ms and bound are per restriction of k fold-step launches
+    fused_sources = {
+        ("eq_table", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:316"),
+        ("eq_table", "mont32"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:316"),
+        ("line_restrict", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:454"),
+        ("gkr_round_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cu", "thaler_study_tpu/gkr/fused.py:161"),
+        ("gkr_final_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cu", "thaler_study_tpu/gkr/fused.py:318"),
+    }
+    for (name, backend), (source, replaces) in fused_sources.items():
+        ms, plain_ms, bound_ms, *floor = gkr_timing[backend][name]
+        row = {
+            "name": f"{name}_{backend}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": fused_launches[name] if backend == "goldilocks" else gkr_launches[backend][name],
+            "max_abs_err": err[(name, backend)], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+        }
+        if floor:
+            row["latency_floor_ms"] = floor[0]
+        kernels.append(row)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

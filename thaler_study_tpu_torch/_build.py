@@ -24,7 +24,13 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"round_kernel": "round_kernel.cu", "fs_tail": "fs_tail.cu", "phase_tables": "phase_tables.cu"}
+SOURCES = {
+    "round_kernel": "round_kernel.cu",
+    "fs_tail": "fs_tail.cu",
+    "phase_tables": "phase_tables.cu",
+    "gkr_tables": "gkr_tables.cu",
+    "gkr_tail": "gkr_tail.cu",
+}
 HOST_SOURCES = {"native": Path(__file__).resolve().parent / "runtime" / "native.cpp"}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 NVCC_FLAGS = [

@@ -1,6 +1,7 @@
 """The GKR protocol (ref: gkr-protocol crate): the port of
-``thaler_study_tpu.gkr`` with its exports, except the dense ``W`` (a
-two-block spec, the multi-block slice of the port)."""
+``thaler_study_tpu.gkr`` with its exports (the fused prover included),
+except the dense ``W`` (a two-block spec, the multi-block slice of the
+port)."""
 
 from .circuit import (
     Circuit,
@@ -25,6 +26,7 @@ from .protocol import (
     line,
     restrict_poly,
 )
+from .fused import generate_gkr_transcript_fused, supports_fused_gkr
 from .transcript import (
     GKRTranscript,
     deserialize_gkr_message,
@@ -37,6 +39,8 @@ from .transcript import (
 __all__ = [
     "GKRTranscript",
     "generate_gkr_transcript",
+    "generate_gkr_transcript_fused",
+    "supports_fused_gkr",
     "verify_gkr_transcript",
     "resume_gkr_transcript",
     "serialize_gkr_message",

@@ -22,8 +22,17 @@ layer's sort plan (``circuit.scan_plan``); its plain version,
 :func:`phase_tables_plain`, scatters by the key itself with ``index_add_``
 over 32-bit halves, so the two agree only if the plan is right.
 
-Everything else here is plain torch, exact: the eq table, the gathers,
-the dot product, the bit reversal (the JAX package's jnp programs).
+Two more builders have kernels of their own, ``csrc/gkr_tables.cu``:
+
+- :func:`eq_table_dev`, eq(x, r) over 2^n indices (plain version
+  :func:`eq_table_plain`, n interleave steps);
+- :func:`line_restrict_coeffs`, the k + 1 coefficients of
+  q(t) = W~(u + t delta), the fused GKR prover's line restriction (plain
+  version :func:`line_restrict_coeffs_plain`, the JAX package's symbolic
+  fold in FArray ops).
+
+Everything else here is plain torch, exact: the gathers, the dot product,
+the bit reversal (the JAX package's jnp programs).
 """
 
 from __future__ import annotations
@@ -41,10 +50,14 @@ from ..mle.dense import bitrev
 
 THREADS = 256  # csrc/phase_tables.cu THREADS
 
-# launches of the CUDA kernel (not of the plain version), per instantiation
+# launches of the CUDA kernels (not of the plain versions), per instantiation:
+# K2, the eq table, and the line restriction's fold steps
 launches = {"goldilocks": 0, "mont32": 0}
+eq_launches = {"goldilocks": 0, "mont32": 0}
+line_launches = {"goldilocks": 0, "mont32": 0}
 
 _fn = None
+_tables = None
 
 
 def _kernel():
@@ -61,16 +74,112 @@ def _kernel():
     return _fn
 
 
+def _tables_lib():
+    global _tables
+    if _tables is None:
+        lib = _build.load("gkr_tables")
+        vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        lib.ts_eq_table_launch.argtypes = [i, u, u, vp, i, vp, vp]
+        lib.ts_eq_table_launch.restype = i
+        lib.ts_line_fold_launch.argtypes = [i, u, u, vp, i, vp, vp, vp, ctypes.c_longlong, vp]
+        lib.ts_line_fold_launch.restype = i
+        _tables = lib
+    return _tables
+
+
+def _field_args(field: FieldConfig):
+    mont32 = field.backend == "mont32"
+    return int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0
+
+
+def _check_vector(name: str, x: FArray, n: int) -> None:
+    if x.data.dim() != 1 or x.shape[0] < n or not x.data.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D FArray of at least {n} elements, got {x.shape}")
+
+
 def eq_table_dev(r: FArray, n: int) -> FArray:
-    """eq(x, r) over little-endian indices (index bit j = r[j]), built with
-    n interleave steps on r's device (the host ``runtime.eq_table``'s
-    order)."""
+    """eq(x, r) over little-endian indices (index bit j = r[j]) for the 2^n
+    x, on r's device (the host ``runtime.eq_table``'s order). CPU tensors
+    run :func:`eq_table_plain`; CUDA tensors launch the eq-table kernel or
+    raise."""
+    _check_vector("r", r, n)
+    dev = r.device
+    if dev.type == "cpu":
+        return eq_table_plain(r, n)
+    if dev.type != "cuda":
+        raise ValueError(f"eq_table_dev runs on cpu or cuda, not {dev}")
+    out = torch.empty(1 << n, dtype=word_dtype(r.field), device=dev)
+    rc = _tables_lib().ts_eq_table_launch(
+        *_field_args(r.field), r.data.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
+    )
+    if rc != 0:
+        raise RuntimeError(f"eq-table kernel launch failed: CUDA error {rc}")
+    eq_launches[r.field.backend] += 1
+    return FArray(out, r.field)
+
+
+def eq_table_plain(r: FArray, n: int) -> FArray:
+    """:func:`eq_table_dev` in plain torch ops (any device): n interleave
+    steps, t -> (t (1 - r_j), t r_j) from the last variable down."""
     t = FArray.from_ints([1], r.field, device=r.device)
     for j in reversed(range(n)):
         hi = t * r[j]
         lo = t - hi
         t = FArray(torch.stack([lo.data, hi.data], dim=1).reshape(-1), r.field)
     return t
+
+
+def line_restrict_coeffs(w_lsb: FArray, u: FArray, delta: FArray, k: int) -> FArray:
+    """The coefficients (ascending powers of t) of q(t) = W~(u + t delta),
+    the degree-k restriction of the multilinear W (``w_lsb``, 2^k values in
+    label order) to a line: W folded one variable at a time with
+    r_j(t) = u_j + t delta_j carried symbolically (``csrc/gkr_tables.cu``).
+    Returns a [k + 1] FArray. CPU tensors run
+    :func:`line_restrict_coeffs_plain`; CUDA tensors launch one fold step of
+    the kernel per variable or raise."""
+    if w_lsb.shape != (1 << k,) or not w_lsb.data.is_contiguous():
+        raise ValueError(f"w_lsb must be a contiguous FArray of {1 << k} values, got {w_lsb.shape}")
+    _check_vector("u", u, k)
+    _check_vector("delta", delta, k)
+    dev = w_lsb.device
+    if u.field != w_lsb.field or delta.field != w_lsb.field or u.device != dev or delta.device != dev:
+        raise ValueError("w_lsb, u and delta must be FArrays of one field on one device")
+    if dev.type == "cpu":
+        return line_restrict_coeffs_plain(w_lsb, u, delta, k)
+    if dev.type != "cuda":
+        raise ValueError(f"line_restrict_coeffs runs on cpu or cuda, not {dev}")
+    lib, args = _tables_lib(), _field_args(w_lsb.field)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cur = w_lsb.data
+    for j in range(k):
+        half = 1 << (k - j - 1)
+        out = torch.empty(half * (j + 2), dtype=cur.dtype, device=dev)
+        rc = lib.ts_line_fold_launch(
+            *args, cur.data_ptr(), j, u.data.data_ptr(), delta.data.data_ptr(), out.data_ptr(), half, stream
+        )
+        if rc != 0:
+            raise RuntimeError(f"line-restriction kernel launch failed: CUDA error {rc}")
+        line_launches[w_lsb.field.backend] += 1
+        cur = out
+    return FArray(cur, w_lsb.field)
+
+
+def line_restrict_coeffs_plain(w_lsb: FArray, u: FArray, delta: FArray, k: int) -> FArray:
+    """:func:`line_restrict_coeffs` in FArray ops (any device), the JAX
+    package's fold: each step turns the [2h, j + 1] table of degree-j
+    polynomials into [h, j + 2], even + r_j(t) (odd - even)."""
+    field = w_lsb.field
+    arr = w_lsb.reshape(-1, 1)
+    for j in range(k):
+        pairs = arr.data.reshape(-1, 2, j + 1)
+        even, odd = FArray(pairs[:, 0, :], field), FArray(pairs[:, 1, :], field)
+        diff = odd - even
+        zero = torch.zeros_like(even.data[:, :1])
+        # r_j(t) diff(t) = u_j diff + t delta_j diff
+        a = torch.cat([(diff * u[j]).data, zero], dim=1)
+        b = torch.cat([zero, (diff * delta[j]).data], dim=1)
+        arr = FArray(torch.cat([even.data, zero], dim=1), field) + FArray(a, field) + FArray(b, field)
+    return arr.reshape(-1)
 
 
 def gather(table: FArray, idx: torch.Tensor) -> FArray:

@@ -18,7 +18,9 @@ The absorb/draw arithmetic runs on the card inside the FS tail kernel
 (``csrc/fs_tail.cu``, one warp per proof: the warp stages the bytes in
 shared memory, and its lanes run each compression in registers);
 :func:`absorb_py` and :func:`draw_py` are its plain versions. Scope: the empty DST, any field of the port (at most 32
-uniform bytes per draw, so one digest b_1).
+uniform bytes per draw, so one digest b_1). The GKR tails (``csrc/gkr_tail.cu``)
+also draw two Goldilocks elements at once; :func:`draw_many_py` is their
+plain version.
 """
 
 from __future__ import annotations
@@ -83,11 +85,13 @@ def absorb_py(state: List[int], buf: bytearray, nbytes: int, msg: bytes) -> None
     buf[fill:] = bytes(64 - fill)
 
 
-def draw_py(field: FieldConfig, state: List[int], buf: bytes, nbytes: int) -> int:
-    """``DefaultFieldHasher<Sha256,128>::hash_to_field::<1>`` with the empty
-    DST over the chain's ``nbytes``-byte transcript: the canonical value of
-    the first ``len_in_bytes(field)`` uniform bytes, big-endian, mod p."""
-    length = len_in_bytes(field)
+def draw_many_py(field: FieldConfig, state: List[int], buf: bytes, nbytes: int, count: int) -> List[int]:
+    """``DefaultFieldHasher<Sha256,128>::hash_to_field`` of ``count``
+    elements with the empty DST over the chain's ``nbytes``-byte
+    transcript: each element the canonical value of its
+    ``len_in_bytes(field)`` uniform bytes, big-endian, mod p."""
+    width = len_in_bytes(field)
+    length = width * count
     suffix = _b0_suffix(length)
     fill = nbytes % 64
     msg_len = 64 + nbytes + len(suffix)  # Z_pad + transcript + suffix
@@ -96,11 +100,22 @@ def draw_py(field: FieldConfig, state: List[int], buf: bytes, nbytes: int) -> in
     b0 = list(state)
     for off in range(0, len(tail), 64):
         py_compress(b0, tail[off : off + 64])
-    # b_1 = H(b_0 || 0x01 || DST'), one padded block of 34 message bytes
-    block = digest_bytes(b0) + bytes([1, 0, 0x80]) + bytes(21) + (8 * 34).to_bytes(8, "big")
-    b1 = list(H0)
-    py_compress(b1, block)
-    return int.from_bytes(digest_bytes(b1)[:length], "big") % field.p
+    # b_i = H((b_0 ^ b_{i-1}) || i || DST'), one padded block of 34 bytes
+    # each (b_1 takes b_0 itself)
+    b0_bytes = digest_bytes(b0)
+    uniform, prev = b"", bytes(32)
+    for i in range(1, (length + 31) // 32 + 1):
+        block = bytes(x ^ y for x, y in zip(b0_bytes, prev)) + bytes([i, 0, 0x80]) + bytes(21) + (8 * 34).to_bytes(8, "big")
+        bi = list(H0)
+        py_compress(bi, block)
+        prev = digest_bytes(bi)
+        uniform += prev
+    return [int.from_bytes(uniform[i * width : (i + 1) * width], "big") % field.p for i in range(count)]
+
+
+def draw_py(field: FieldConfig, state: List[int], buf: bytes, nbytes: int) -> int:
+    """One element of :func:`draw_many_py` (one digest b_1)."""
+    return draw_many_py(field, state, buf, nbytes, 1)[0]
 
 
 def draw_gl_py(state: List[int], buf: bytes, nbytes: int) -> int:

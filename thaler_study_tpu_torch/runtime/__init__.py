@@ -2,7 +2,7 @@
 
 Counterpart of ``thaler_study_tpu/runtime``: ``native.cpp`` here is the
 port's own copy of the functions it uses (eq tables, the sparse wiring
-predicate evaluation, MLE evaluation), built with ``g++`` into ``_build/``
+predicate evaluation, MLE evaluation, the SHA-256 midstate), built with ``g++`` into ``_build/``
 at first use (``_build.load_host``). A failed build raises; there is no
 Python fallback.
 """
@@ -33,6 +33,7 @@ def _load() -> ctypes.CDLL:
         lib.ts_wiring_eval_sparse.restype = ctypes.c_uint64
         lib.ts_mle_eval.argtypes = [_U64P, ctypes.c_int64, _U64P, ctypes.c_int32, _U64P, ctypes.c_uint64]
         lib.ts_mle_eval.restype = ctypes.c_uint64
+        lib.ts_sha256_blocks.argtypes = [_U8P, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32)]
         _lib = lib
     return _lib
 
@@ -76,3 +77,23 @@ def mle_eval(evals, point, p: int) -> int:
             _ptr(evals, _U64P), len(evals), _ptr(point, _U64P), len(point), _ptr(scratch, _U64P), p
         )
     )
+
+
+# SHA-256 initial hash value (FIPS 180-4)
+_SHA256_H0 = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+
+
+def sha256_midstate(data: bytes, state=None) -> np.ndarray:
+    """Advance a SHA-256 midstate over ``data``, whole 64-byte blocks
+    (``len(data) % 64 == 0``), from ``state`` (8 u32 words; the initial hash
+    value when None). Returns the new state as a numpy uint32 [8]: a large
+    Fiat-Shamir prefix is absorbed once, by the native runtime."""
+    if len(data) % 64:
+        raise ValueError(f"sha256_midstate takes whole 64-byte blocks, not {len(data)} bytes")
+    out = np.array(_SHA256_H0 if state is None else state, dtype=np.uint32)
+    if out.shape != (8,):
+        raise ValueError("a SHA-256 state is 8 words")
+    if data:
+        buf = np.frombuffer(data, dtype=np.uint8)
+        _load().ts_sha256_blocks(_ptr(buf, _U8P), len(data) // 64, _ptr(out, ctypes.POINTER(ctypes.c_uint32)))
+    return out
