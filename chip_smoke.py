@@ -38,13 +38,16 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (nbytes % 64 = 0..63), degree 2 and 3, round 0 / middle / last, its
    transcript bytes included; the SHA-256 chain helper against Python; the
    round kernel's two LibraW shapes (K1) with and without fold and skip-1
-   at several sizes, and the phase-table kernel (K2) on random, skewed and
-   sparse wirings with random values and values at p - 1, over the same
-   five fields (and in phase 4 on the flagship's own layer 0 wiring, over
-   Goldilocks and BabyBear); the eq-table kernel at n = 1..20 (Goldilocks,
-   BabyBear), the line restriction at k = 2..20, the GKR round tail at
-   every fill x (StartSumCheck, one draw, two draws) and the final tail at
-   k in (2, 3, 10, 20) x every fill;
+   at several sizes, and the phase-table kernel (K2, over its static plan)
+   on skewed and sparse wirings and on random ones at every k = 4..20
+   (Goldilocks and BabyBear; k = 4 for the other fields) with random
+   values and values at p - 1, over the same five fields (and in phase 4
+   on the flagship's own layer 0 wiring, over Goldilocks and BabyBear);
+   the eq-table kernel at n = 1..20 (Goldilocks, BabyBear), the line
+   restriction at k = 2..20, K1 with the GKR round tail as its epilogue
+   (TAIL) against K1's plain version then the tail's at every fill x
+   (StartSumCheck, one draw, two draws), and the final tail at k in
+   (2, 3, 10, 20) x every fill;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -64,8 +67,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    trace of one layer, and K1 and K2 at the flagship's shapes; for the
    fused path, the median of warm proofs, its ``timings`` breakdown, the
    prelude's parts, a trace of one proof (device idle share, one
-   device-to-host read after the prelude), and its four kernels at the
-   flagship's shapes;
+   device-to-host read after the prelude, no standalone round tail), and
+   its kernels at the flagship's shapes (K1 with TAIL beside K1 alone);
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -137,7 +140,7 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.fields.farray import tensor_u64, word_dtype
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
-    from thaler_study_tpu_torch.gkr.circuit import scan_plan
+    from thaler_study_tpu_torch.gkr.circuit import layer_wiring
     from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, sha_chain
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
@@ -323,25 +326,34 @@ def main(argv=None) -> int:
         log(f"round kernel, LibraW shapes (K1) == plain (exact) over {field.name} in {checks} cases: phases 1 "
             f"and 2, (B, N) in (1, 4), (1, 8), (4, 2^12), (1, 2^{gw}), all four modes, boundary words")
 
-    # K2: the phase-table scatter-add over skewed and sparse wirings
+    # K2: the phase-table scatter-add over its static plan: random wirings
+    # at every k = 4..gw (the flagship's wiring law), skewed and sparse ones
     wrng = np.random.default_rng(args.seed + 1)
     big, hot = 1 << 16, np.full(1 << 16, 3)
     wirings = [
-        ("random, 2^4 gates on 2^4 cells", 4, wrng.integers(0, 16, 16), wrng.integers(0, 16, 16)),
         ("random, 2^16 gates on 2^16 cells", 16, wrng.integers(0, big, big), wrng.integers(0, big, big)),
         ("every gate on one cell, 2^16 gates", 4, hot, hot + 8),
         ("fan-in 64, 2^16 gates on 2^10 cells", 10, wrng.integers(0, 1 << 10, big), wrng.integers(0, 1 << 10, big)),
         ("empty cells, 2^10 gates on even cells below 2^12 of 2^14", 14,
          2 * wrng.integers(0, 1 << 11, 1 << 10), 2 * wrng.integers(0, 1 << 11, 1 << 10)),
     ]
-    wirings = [(name, k, torch.from_numpy(b.astype(np.int32)).to(dev), torch.from_numpy(c.astype(np.int32)).to(dev),
-                torch.from_numpy(wrng.random(len(b)) < 0.5).to(dev)) for name, k, b, c in wirings]
+    uniform = [(f"random, 2^{k_} gates on 2^{k_} cells", k_, wrng.integers(0, 1 << k_, 1 << k_),
+                wrng.integers(0, 1 << k_, 1 << k_)) for k_ in range(4, gw + 1)]
+
+    def device_wirings(ws):
+        out = []
+        for name, k_, b, c in ws:
+            bt, ct = (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (b, c))
+            out.append((name, k_, layer_wiring(bt, ct, torch.from_numpy(wrng.random(len(b)) < 0.5).to(dev), k_)))
+        return out
+
+    wirings, uniform = device_wirings(wirings), device_wirings(uniform)
     for field in (GOLDILOCKS, BABYBEAR, F1572869, F389, F5):
         key = ("phase_tables", field.backend)
         checks = 0
-        for name, k, bt, ct, mt in wirings:
-            plans = {1: scan_plan(bt, 1 << k), 2: scan_plan(ct, 1 << k)}
-            g = bt.shape[0]
+        cases = wirings + (uniform if field in (GOLDILOCKS, BABYBEAR) else uniform[:1])
+        for name, k, w in cases:
+            g = w.b.shape[0]
             top = np.full(max(g, 1 << k), field.p - 1, dtype=np.uint64)
             for values in ("random words", "every value p - 1"):
                 if values == "random words":
@@ -349,9 +361,9 @@ def main(argv=None) -> int:
                 else:
                     eq_r = FArray.from_ints(top[:g], field, device=dev)
                     table = FArray.from_ints(top[: 1 << k], field, device=dev)
-                for phase, key_t, gidx in ((1, bt, ct), (2, ct, bt)):
-                    out = device_tables.phase_tables(phase, plans[phase], key_t, gidx, mt, eq_r, table, k)
-                    ref = device_tables.phase_tables_plain(phase, key_t, gidx, mt, eq_r, table, k)
+                for phase, key_t, gidx in ((1, w.b, w.c), (2, w.c, w.b)):
+                    out = device_tables.phase_tables(phase, w, eq_r, table, k)
+                    ref = device_tables.phase_tables_plain(phase, key_t, gidx, w.is_mul, eq_r, table, k)
                     torch.cuda.synchronize()
                     e = max(max_abs_err(a.data, b.data) for a, b in zip(out, ref))
                     if e:
@@ -359,7 +371,9 @@ def main(argv=None) -> int:
                     err[key] = max(err.get(key, 0), e)
                     checks += 1
         log(f"phase-table kernel (K2) == plain (exact) over {field.name} in {checks} cases: "
-            f"{'; '.join(w[0] for w in wirings)}; random words and every value p - 1; phases 1 and 2")
+            f"{'; '.join(c[0] for c in cases[:len(wirings)])}; random wirings at k = "
+            f"{cases[len(wirings)][1]}..{cases[-1][1]}; random words and every value p - 1; phases 1 and 2")
+    del wirings, uniform
 
     # the fused GKR path's kernels: the eq table (every field the GKR
     # prover runs: Goldilocks, BabyBear), the line restriction and the two
@@ -426,34 +440,60 @@ def main(argv=None) -> int:
         outs = [(ca.state, cb.state), (ca.buf, cb.buf)] + [(sa[n_], sb[n_]) for n_ in sa]
         return max(max_abs_err(x.to(torch.int64), y.to(torch.int64)) for x, y in outs)
 
-    key = ("gkr_round_tail", "goldilocks")
+    # K1 with the round tail as its epilogue (TAIL) against K1's plain
+    # version over the same split followed by the tail's plain version, at
+    # every fill x (StartSumCheck, one draw, two draws), over tables of 2^4,
+    # 2^10 and 2^gw entries (one block to a wave of blocks taking tickets),
+    # both LibraW phases, with and without a fold
+    key = ("libra_round_tail", "goldilocks")
     checks = 0
+    F = GOLDILOCKS
     for fill in range(64):
         for msg_kind in ("StartSumCheck", "one draw", "two draws"):
             k_ = 2 + fill % 19
             start = (fill, k_) if msg_kind == "StartSumCheck" else None
             draws = 2 if msg_kind == "two draws" else 1
             idx = 2 * k_ - 3 if draws == 2 else fill % k_
+            size = (1 << 4, 1 << 10, 1 << gw)[(fill + len(msg_kind)) % 3]
+            phase = 1 if start else 1 + fill % 2
+            fold = start is None and fill % 4 != 0
+            _, terms, n_scalars = libra[phase - 1]
+            tables = [words(F, 1, size) for _ in range(3)]
+            scalars = [words(F, 1) for _ in range(n_scalars)]
+            rr = words(F, 1) if fold else None
             m = gkr_tail.ROUND_LEN + (gkr_tail.START_LEN if start else 0)
             a, b = gkr_tail_case(fill, m, k_)
             if fill == 3 and msg_kind == "one draw":
-                a[1]["partials"].zero_()  # all sums zero with a zero claim: zero coefficients, flagged
+                for t_ in tables:  # all sums zero with a zero claim: zero coefficients, flagged
+                    t_.zero_()
                 a[1]["claim"].zero_()
-                b = (b[0], {n_: t.clone() for n_, t in a[1].items()})
-            args_a = (a[1]["partials"], a[0], a[1]["msgs"], 7, a[1]["zero"], a[1]["claim"], a[1]["chal"], idx, draws)
-            gkr_tail.round_tail(*args_a, start=start)
-            gkr_tail.round_tail_plain(b[1]["partials"], b[0], b[1]["msgs"], 7, b[1]["zero"], b[1]["claim"],
-                                      b[1]["chal"], idx, draws, start)
+                b[1]["claim"].zero_()
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            layer_tail = gkr_tail.LayerTail(a[0], a[1]["msgs"], a[1]["zero"], a[1]["claim"], a[1]["chal"], counter)
+            tail = gkr_tail.RoundTail(layer_tail, 7, idx, draws, start)
+            folded, parts = gkr_tail.libra_round_tail(tables, rr, start is None, phase, scalars, tail)
+            # the plain K1 over the kernel's split (one wave of blocks), then the plain tail
+            ref_folded, ref_parts = cuda_round.round_partials_plain(tables, rr, start is None, parts.shape[1], F,
+                                                                    terms, scalars)
+            gkr_tail.round_tail_plain(ref_parts, b[0], b[1]["msgs"], 7, b[1]["zero"], b[1]["claim"], b[1]["chal"],
+                                      idx, draws, start)
             torch.cuda.synchronize()
-            e = tail_err(a, b)
-            if e:
-                raise AssertionError(f"GKR round tail kernel != plain: fill={fill} {msg_kind}")
+            e = max(tail_err(a, b), max_abs_err(parts, ref_parts))
+            if fold:
+                e = max([e] + [max_abs_err(x, y) for x, y in zip(folded, ref_folded)])
+            if e or int(counter) != 0:
+                raise AssertionError(f"K1 with TAIL != plain K1 then the plain tail: fill={fill} {msg_kind} N={size} "
+                                     f"phase={phase} fold={fold}; ticket counter {int(counter)}")
             if fill == 3 and msg_kind == "one draw" and int(a[1]["zero"]) != 1:
-                raise AssertionError("GKR round tail kernel did not flag zero coefficients")
+                raise AssertionError("K1 with TAIL did not flag zero coefficients")
             err[key] = max(err.get(key, 0), e)
             checks += 1
-    log(f"GKR round tail kernel == plain (exact) in {checks} cases: every fill 0..63 x (StartSumCheck, one draw, "
-        f"two draws), {tail_blocks} K1 partials, transcript bytes, chain, challenges, claim; one case flagged zero")
+        del tables, ref_folded, ref_parts, folded, parts
+    log(f"round kernel with the GKR round tail (K1, TAIL) == K1's plain version then the plain round tail "
+        f"(exact) in {checks} "
+        f"cases: every fill 0..63 x (StartSumCheck, one draw, two draws), N in (2^4, 2^10, 2^{gw}), both LibraW "
+        "phases, with and without a fold; partials, folded tables, transcript bytes, chain, challenges, claim; "
+        "ticket counter back at 0; one case flagged zero")
 
     key = ("gkr_final_tail", "goldilocks")
     checks = 0
@@ -486,7 +526,7 @@ def main(argv=None) -> int:
     counters = {"round_kernel": cuda_round.launches, "fs_tail": fs_kernel.launches,
                 "libra_round": cuda_round.libra_launches, "phase_tables": device_tables.launches,
                 "eq_table": device_tables.eq_launches, "line_restrict": device_tables.line_launches,
-                "gkr_round_tail": gkr_tail.round_launches, "gkr_final_tail": gkr_tail.final_launches}
+                "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches}
 
     def reset_counts():
         for counts in counters.values():
@@ -863,12 +903,13 @@ def main(argv=None) -> int:
 
     def gkr_launch_counts(circuit, fused_path=False):
         """The launches of one proof: per layer 2k of K1 (one per round), 2
-        of K2 and 2 of the eq table; on the fused path also 2k - 1 round
-        tails, one final tail and k fold steps of the line restriction."""
+        of K2 and 2 of the eq table; on the fused path 2k - 1 of the 2k K1
+        launches carry the round tail (TAIL), and one final tail and k fold
+        steps of the line restriction follow."""
         ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
         want = {"libra_round": sum(2 * k for k in ks), "phase_tables": 2 * len(ks), "eq_table": 2 * len(ks)}
         if fused_path:
-            want.update(gkr_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks), line_restrict=sum(ks))
+            want.update(libra_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks), line_restrict=sum(ks))
         return want
 
     def accepts(t, circuit, inputs, field) -> bool:
@@ -1053,7 +1094,7 @@ def main(argv=None) -> int:
     # the fused path on the flagship: the same bytes as the per-layer run,
     # every layer's rounds on the card, one device-to-host read after the
     # prelude
-    fused_keys = ("libra_round", "phase_tables", "eq_table", "line_restrict", "gkr_round_tail", "gkr_final_tail")
+    fused_keys = ("libra_round", "libra_round_tail", "phase_tables", "eq_table", "line_restrict", "gkr_final_tail")
     torch.cuda.synchronize()
     reset_counts()
     f0 = gkr_fused.fallbacks
@@ -1133,10 +1174,23 @@ def main(argv=None) -> int:
     fused_kernels = {}
     for s0, s1, name in spans:
         label = next((k_ for k_ in ("libra_round_kernel", "phase_tables_kernel", "eq_table_kernel",
-                                    "line_fold_kernel", "gkr_round_tail_kernel", "gkr_final_tail_kernel",
-                                    "Memcpy DtoH", "Memcpy HtoD") if k_ in name), "other")
+                                    "line_fold_kernel", "gkr_final_tail_kernel", "Memcpy DtoH", "Memcpy HtoD")
+                      if k_ in name), "other")
+        if label == "libra_round_kernel" and name.split("libra_round_kernel<", 1)[-1].split(">", 1)[0].endswith("true"):
+            label = "libra_round_kernel TAIL"  # the last template argument
         ms_, n_ = fused_kernels.get(label, (0.0, 0))
         fused_kernels[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
+    if any("gkr_round_tail" in name for _, _, name in spans):
+        raise AssertionError("GKR flagship fused: a standalone round-tail kernel ran")
+    # the TAIL launches by inner round (2k - 1 per layer, in issue order),
+    # grouped by table size: rounds 0-2 of each phase are the large ones
+    tail_us = [s1 - s0 for s0, s1, name in spans if "libra_round_kernel<" in name and
+               name.split("libra_round_kernel<", 1)[1].split(">", 1)[0].endswith("true")]
+    k_f = circuit.num_vars_at(1)
+    if spans and len(tail_us) == depth * (2 * k_f - 1):
+        per_j = [statistics.mean(tail_us[j :: 2 * k_f - 1]) for j in range(2 * k_f - 1)]
+        log(f"GKR flagship fused trace, K1 with TAIL by inner round (mean over {depth} layers, us): phase 1 "
+            f"{[round(x, 1) for x in per_j[:k_f]]}; phase 2 {[round(x, 1) for x in per_j[k_f:]]} {tag}")
     layer_start = min((s0 for s0, _, name in spans if "eq_table_kernel" in name), default=None)
     copies = [(s0, name) for s0, _, name in spans if "Memcpy" in name]
     if copies and layer_start is not None:
@@ -1205,11 +1259,40 @@ def main(argv=None) -> int:
             plain_ms = time_launches(lambda: cuda_round.round_partials_plain(tables, r1, True, blocks, field, terms, sc), 3)
             nbytes = 3 * (N + N // 2) * wb + (1 + n_scalars) * wb + blocks * 3 * wb
             rows[f"K1 phase {phase}"] = (graph_ms(k1), plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3, nbytes, issued_ms)
+            if field is not GOLDILOCKS:
+                continue
+            # K1 with the round tail as its epilogue, at a chain fill of 40
+            (chain_, st_), _ = gkr_tail_case(40, gkr_tail.ROUND_LEN, k)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+
+            layer_tail = gkr_tail.LayerTail(chain_, st_["msgs"], st_["zero"], st_["claim"], st_["chal"], counter)
+
+            def k1_tail():
+                chain_.nbytes = 64 * 131072 + 40  # the same fill (40) for every launch
+                gkr_tail.libra_round_tail(tables, r1, True, phase, sc, gkr_tail.RoundTail(layer_tail, 7, 5, 1), outs)
+
+            def k1_tail_plain():
+                chain_.nbytes = 64 * 131072 + 40
+                _, parts_ = cuda_round.round_partials_plain(tables, r1, True, blocks, field, terms, sc)
+                gkr_tail.round_tail_plain(parts_, chain_, st_["msgs"], 7, st_["zero"], st_["claim"], st_["chal"], 5, 1)
+
+            issued_ms = time_launches(k1_tail, 20)
+            plain_ms = time_launches(k1_tail_plain, 3)
+            # K1's bytes; then the partials read again, the chain's state and
+            # block and the zero flag read and written, the message written,
+            # the claim read and written, one challenge written
+            m_ = gkr_tail.ROUND_LEN
+            tail_bytes = blocks * 3 * 8 + 2 * (32 + 64 + 4) + m_ + 3 * 8
+            floor_ms = compressions(64 * 131072 + 40, m_, True) * compress_ms
+            all_bytes = nbytes + tail_bytes
+            rows[f"K1+TAIL phase {phase}"] = (graph_ms(k1_tail), plain_ms, all_bytes / PEAK_BYTES_PER_S * 1e3,
+                                              all_bytes, issued_ms, floor_ms)
+            del chain_, st_
         eq_r, table = FArray(words(field, g), field), FArray(words(field, N), field)
-        for phase, key_t, gidx, plan in ((1, wiring.b, wiring.c, wiring.plan_b), (2, wiring.c, wiring.b, wiring.plan_c)):
+        for phase, key_t, gidx in ((1, wiring.b, wiring.c), (2, wiring.c, wiring.b)):
 
             def k2():
-                return device_tables.phase_tables(phase, plan, key_t, gidx, wiring.is_mul, eq_r, table, k)
+                return device_tables.phase_tables(phase, wiring, eq_r, table, k)
 
             def k2_plain():
                 return device_tables.phase_tables_plain(phase, key_t, gidx, wiring.is_mul, eq_r, table, k)
@@ -1223,17 +1306,55 @@ def main(argv=None) -> int:
                 f"({g} gates on 2^{k} cells), random words, phase {phase}")
             issued_ms = time_launches(k2, 20)
             plain_ms = time_launches(k2_plain, 3)
-            # order, gather index, gate type, eq_r per gate; starts and the
-            # gathered table per cell read once; two tables written
-            nbytes = g * (4 + 4 + 1 + wb) + (N + 1) * 4 + N * wb + 2 * N * wb
+            # the plan (order, packed) and eq_r per gate, starts and the
+            # gathered table per cell read once; two tables written. (The
+            # earlier design of this kernel also read a one-byte gate type
+            # per gate: its bound counted g * (4 + 4 + 1 + wb) + the same
+            # per-cell bytes.)
+            nbytes = g * (4 + 4 + wb) + (N + 1) * 4 + N * wb + 2 * N * wb
             rows[f"K2 phase {phase}"] = (graph_ms(k2), plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3, nbytes, issued_ms)
-        for name, (ms, plain_ms, bound_ms, nbytes, issued_ms) in rows.items():
+            prev_bytes = nbytes + g
+            log(f"{field.name} K2 phase {phase} bound with a gate-type byte per gate read too (the earlier "
+                f"design's count): {prev_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({prev_bytes / 1e6:.1f} MB)")
+        for name, (ms, plain_ms, bound_ms, nbytes, issued_ms, *floor) in rows.items():
             log(f"{field.name} {name} at the flagship's shape (2^{k} entries, {g} gates): {ms:.4f} ms per launch "
                 f"replayed from a CUDA graph ({issued_ms:.4f} ms issued from Python), bound {bound_ms:.4f} ms "
-                f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound_ms / ms:.1%} of the bound; plain torch "
-                f"{plain_ms:.3f} ms {tag}")
+                f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), {bound_ms / ms:.1%} of the bound"
+                + (f", tail latency floor {floor[0] * 1e3:.2f} us" if floor else "")
+                + f"; plain {plain_ms:.3f} ms {tag}")
         gkr_timing[field.backend] = {"libra_round": rows["K1 phase 1"][:3], "phase_tables": rows["K2 phase 1"][:3]}
+        if field is GOLDILOCKS:
+            gkr_timing[field.backend]["libra_round_tail"] = rows["K1+TAIL phase 1"][:3] + rows["K1+TAIL phase 1"][5:]
+            for phase in (1, 2):
+                epi = rows[f"K1+TAIL phase {phase}"][0] - rows[f"K1 phase {phase}"][0]
+                host = rows[f"K1+TAIL phase {phase}"][4] - rows[f"K1 phase {phase}"][4]
+                with_tail = rows[f"K1+TAIL phase {phase}"][0]
+                log(f"Goldilocks inner round, phase {phase}: K1 with the tail {with_tail * 1e3:.2f} "
+                    f"us against K1 alone {rows[f'K1 phase {phase}'][0] * 1e3:.2f} us from CUDA graphs: the epilogue "
+                    f"adds {epi * 1e3:.2f} us; issued from Python {rows[f'K1+TAIL phase {phase}'][4] * 1e3:.1f} us "
+                    f"against {rows[f'K1 phase {phase}'][4] * 1e3:.1f} us per call ({host * 1e3:+.1f} us) {tag}")
         del tables, outs, eq_r, table
+
+    # what the epilogue adds to K1 at each table size (phase 1, fold, claim
+    # shortcut; CUDA graphs), against the round tail's latency floor
+    (chain_, st_), _ = gkr_tail_case(40, gkr_tail.ROUND_LEN, k)
+    layer_tail = gkr_tail.LayerTail(chain_, st_["msgs"], st_["zero"], st_["claim"], st_["chal"],
+                                    torch.zeros(1, dtype=torch.int32, device=dev))
+    sweep = []
+    for m_ in range(4, k + 1, 4):
+        tabs = [words(GOLDILOCKS, 1, 1 << m_) for _ in range(3)]
+        outs_ = [torch.empty((1, 1 << (m_ - 1)), dtype=torch.int64, device=dev) for _ in range(3)]
+        r_ = words(GOLDILOCKS, 1)
+
+        def with_tail():
+            chain_.nbytes = 64 * 131072 + 40
+            gkr_tail.libra_round_tail(tabs, r_, True, 1, [], gkr_tail.RoundTail(layer_tail, 7, 5, 1), outs_)
+
+        alone = graph_ms(lambda: cuda_round.round_partials(tabs, r_, True, outs_, GOLDILOCKS, libra[0][1]))
+        sweep.append((m_, alone * 1e3, graph_ms(with_tail) * 1e3))
+    log("K1 alone / K1 with TAIL by table size (phase 1, fold, CUDA graphs, us): "
+        + ", ".join(f"2^{m_}: {a:.2f} / {b:.2f} (+{b - a:.2f})" for m_, a, b in sweep) + f" {tag}")
+    del chain_, st_, layer_tail, tabs, outs_
 
     # the fused path's kernels at the flagship's shapes, from CUDA graphs:
     # the eq table (n = 2^k_cur entries, both fields), the line restriction
@@ -1260,36 +1381,27 @@ def main(argv=None) -> int:
         f"graph, bound {lr_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({lr_bytes / 1e6:.1f} MB: W read once), "
         f"{lr_bytes / PEAK_BYTES_PER_S * 1e3 / lr_ms:.1%} of the bound; the steps move {lr_steps / 1e6:.1f} MB "
         f"({lr_steps / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); plain torch {lr_plain:.3f} ms {tag}")
-    for name in ("gkr_round_tail", "gkr_final_tail"):
-        m = gkr_tail.ROUND_LEN if name == "gkr_round_tail" else gkr_tail.final_len(k)
-        (chain_, st_), _ = gkr_tail_case(40, m, k)
-        st_["q"] = words(F, k + 1)
-        r_next = torch.empty(k, dtype=torch.int64, device=dev)
+    m = gkr_tail.final_len(k)
+    (chain_, st_), _ = gkr_tail_case(40, m, k)
+    st_["q"] = words(F, k + 1)
+    r_next = torch.empty(k, dtype=torch.int64, device=dev)
 
-        def tail_launch(fn):
-            chain_.nbytes = 64 * 131072 + 40  # the same fill (40) for every launch
-            if name == "gkr_round_tail":
-                fn(st_["partials"], chain_, st_["msgs"], 7, st_["zero"], st_["claim"], st_["chal"], 5, 1)
-            else:
-                fn(st_["partials"], st_["claim"], st_["q"], st_["chal"], k, chain_, st_["msgs"], 7, st_["zero"],
-                   r_next)
+    def final_launch(fn):
+        chain_.nbytes = 64 * 131072 + 40  # the same fill (40) for every launch
+        fn(st_["partials"], st_["claim"], st_["q"], st_["chal"], k, chain_, st_["msgs"], 7, st_["zero"], r_next)
 
-        fn_k = gkr_tail.round_tail if name == "gkr_round_tail" else gkr_tail.final_tail
-        fn_p = gkr_tail.round_tail_plain if name == "gkr_round_tail" else gkr_tail.final_tail_plain
-        t_ms = graph_ms(lambda: tail_launch(fn_k))
-        t_plain = time_launches(lambda: tail_launch(fn_p), 3)
-        # partials, the chain's state and partial block and the zero flag read
-        # and written, the message written; the claim read and written and one
-        # challenge written (round), or the claim, q and the 2k challenges
-        # read and r_{i+1} written (final)
-        t_bytes = tail_blocks * 3 * 8 + 2 * (32 + 64 + 4) + m
-        t_bytes += 3 * 8 if name == "gkr_round_tail" else (1 + (k + 1) + 2 * k + k) * 8
-        floor_ms = compressions(64 * 131072 + 40, m, True) * compress_ms
-        gkr_timing["goldilocks"][name] = (t_ms, t_plain, t_bytes / PEAK_BYTES_PER_S * 1e3, floor_ms)
-        log(f"{name} kernel ({tail_blocks} K1 partials, {m}-byte message at fill 40): {t_ms * 1e3:.2f} us per launch "
-            f"from a CUDA graph, bound {t_bytes / PEAK_BYTES_PER_S * 1e3:.7f} ms ({t_bytes} B), latency floor "
-            f"{floor_ms * 1e3:.2f} us ({compressions(64 * 131072 + 40, m, True)} compressions); plain (Python ints) "
-            f"{t_plain:.3f} ms {tag}")
+    t_ms = graph_ms(lambda: final_launch(gkr_tail.final_tail))
+    t_plain = time_launches(lambda: final_launch(gkr_tail.final_tail_plain), 3)
+    # partials, the chain's state and partial block and the zero flag read
+    # and written, the message written; the claim, q and the 2k challenges
+    # read and r_{i+1} written
+    t_bytes = tail_blocks * 3 * 8 + 2 * (32 + 64 + 4) + m + (1 + (k + 1) + 2 * k + k) * 8
+    floor_ms = compressions(64 * 131072 + 40, m, True) * compress_ms
+    gkr_timing["goldilocks"]["gkr_final_tail"] = (t_ms, t_plain, t_bytes / PEAK_BYTES_PER_S * 1e3, floor_ms)
+    log(f"gkr_final_tail kernel ({tail_blocks} K1 partials, {m}-byte message at fill 40): {t_ms * 1e3:.2f} us per "
+        f"launch from a CUDA graph, bound {t_bytes / PEAK_BYTES_PER_S * 1e3:.7f} ms ({t_bytes} B), latency floor "
+        f"{floor_ms * 1e3:.2f} us ({compressions(64 * 131072 + 40, m, True)} compressions); plain (Python ints) "
+        f"{t_plain:.3f} ms {tag}")
     del wiring, circuit
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1331,7 +1443,7 @@ def main(argv=None) -> int:
         ("eq_table", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:316"),
         ("eq_table", "mont32"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:316"),
         ("line_restrict", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:454"),
-        ("gkr_round_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cu", "thaler_study_tpu/gkr/fused.py:161"),
+        ("libra_round_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cuh", "thaler_study_tpu/gkr/fused.py:161"),
         ("gkr_final_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cu", "thaler_study_tpu/gkr/fused.py:318"),
     }
     for (name, backend), (source, replaces) in fused_sources.items():

@@ -17,6 +17,9 @@
   which take them for CPU tensors) against the JAX ``eq_table_dev`` and
   ``line_restrict_coeffs`` at k = 2..6, random values and every value
   p - 1;
+- K1 and the round tail as one call (``gkr_tail.libra_round_tail``, the
+  composition the kernel's epilogue runs) at every buffer fill against
+  Python-int round sums and the JAX package's codec and chain;
 - the plain round tail and final tail at every buffer fill 0..63 against
   the JAX package's pure-Python host code: its message codec, its
   challenge chain and its polynomials (bytes, chain state, challenges,
@@ -40,6 +43,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # 6 test workers share the cores: torch's own pool would compete with them
 
 import jax  # noqa: E402
 
@@ -262,8 +266,10 @@ def test_round_tail_plain_every_fill():
         chal = torch.zeros(2 * k, dtype=torch.int64)
         draws = 2 if kind == "two draws" else 1
         idx = 2 * k - 3 if draws == 2 else fill % k
-        m = gkr_tail.round_tail(parts, chain, msgs, 11, zero, claim, chal, idx, draws,
-                                start=(layer, k) if kind == "start" else None)
+        start = (layer, k) if kind == "start" else None
+        gkr_tail.round_tail_plain(parts, chain, msgs, 11, zero, claim, chal, idx, draws, start)
+        m = gkr_tail.ROUND_LEN + (gkr_tail.START_LEN if start else 0)
+        chain.nbytes += m
 
         poly = _jpoly(s)
         want = b""
@@ -289,9 +295,86 @@ def test_round_tail_plain_every_fill():
     # a zero coefficient sets the flag: s = (0, 0, 0) at round 0
     chain, _ = _chain_at(b"")
     zero = torch.zeros(1, dtype=torch.int32)
-    gkr_tail.round_tail(torch.zeros((1, 2, 3), dtype=torch.int64), chain, torch.zeros(82, dtype=torch.uint8), 0,
-                        zero, torch.zeros(1, dtype=torch.int64), torch.zeros(4, dtype=torch.int64), 0, 1, start=(0, 2))
+    gkr_tail.round_tail_plain(torch.zeros((1, 2, 3), dtype=torch.int64), chain, torch.zeros(82, dtype=torch.uint8),
+                              0, zero, torch.zeros(1, dtype=torch.int64), torch.zeros(4, dtype=torch.int64), 0, 1,
+                              (0, 2))
     assert int(zero[0]) == 1
+
+
+def _libra_sums(phase, tables, scalar, r):
+    """Python ints: the tables folded at r (None: no fold) and the round
+    sums s(0), s(1), s(2) of W A1 + A2 (phase 1) or B1 w + B1 Wc + B2 w Wc
+    (phase 2) over the (folded) tables' halves."""
+    if r is not None:
+        h = len(tables[0]) // 2
+        tables = [[(t[x] + r * (t[h + x] - t[x])) % P for x in range(h)] for t in tables]
+    h = len(tables[0]) // 2
+    s = []
+    for t in range(3):
+        v = [[(tab[x] + t * (tab[h + x] - tab[x])) % P for x in range(h)] for tab in tables]
+        if phase == 1:
+            s.append(sum(a * b + c for a, b, c in zip(*v)) % P)
+        else:
+            s.append(sum(a * scalar + a * c + b * scalar * c for a, b, c in zip(*v)) % P)
+    return tables, s
+
+
+def test_round_with_tail_every_fill():
+    """K1 and the round tail as one call (``gkr_tail.libra_round_tail``: on
+    the CPU, K1's plain version then ``round_tail_plain``, the composition
+    the kernel's epilogue runs) at every fill of the chain's partial block,
+    turning through phase 1's round 0 (StartSumCheck, no fold), a folded
+    round of either phase and the second-to-last message (two draws): the
+    folded tables and the round sums equal to Python ints, the message
+    bytes, chain state, challenges and next claim equal to the JAX
+    package's codec and challenge chain."""
+    rng = np.random.default_rng(53)
+    for fill in range(64):
+        kind = ("start", "plain", "two draws")[fill % 3]
+        phase = 1 if kind == "start" or fill % 2 else 2
+        prefix = rng.integers(0, 256, 64 * (1 + fill % 3) + fill, dtype=np.uint8).tobytes()
+        chain, jchain = _chain_at(prefix)
+        vals = [[int(x) for x in rng.integers(0, P, 16, dtype=np.uint64)] for _ in range(3)]
+        vals[0][fill % 16] = P - 1
+        scalar = int(rng.integers(0, P, dtype=np.uint64))
+        r = None if kind == "start" else int(rng.integers(0, P, dtype=np.uint64))
+        folded_want, s = _libra_sums(phase, vals, scalar, r)
+        claim_in = (s[0] + s[1]) % P if kind == "start" else int(rng.integers(0, P, dtype=np.uint64))
+        if kind != "start":
+            s[1] = (claim_in - s[0]) % P
+        k, layer = 3 + fill % 4, fill
+        draws = 2 if kind == "two draws" else 1
+        idx = 2 * k - 3 if draws == 2 else fill % k
+        layer_tail = gkr_tail.LayerTail(
+            chain, torch.full((200,), 5, dtype=torch.uint8), torch.zeros(1, dtype=torch.int32),
+            FArray.from_ints([claim_in], F, device="cpu").data, torch.zeros(2 * k, dtype=torch.int64),
+            torch.zeros(1, dtype=torch.int32),
+        )
+        tail = gkr_tail.RoundTail(layer_tail, 9, idx, draws, (layer, k) if kind == "start" else None)
+        tables = [FArray.from_ints(v, F, device="cpu").data.reshape(1, -1) for v in vals]
+        folded, partials = gkr_tail.libra_round_tail(
+            tables, None if r is None else FArray.from_ints([r], F, device="cpu").data, kind != "start", phase,
+            [] if phase == 1 else [FArray.from_ints([scalar], F, device="cpu").data], tail,
+        )
+        assert partials.shape[0] == 1 and partials.shape[2] == 3
+        if r is not None:
+            assert [[int(x) for x in FArray(t[0], F).to_u64()] for t in folded] == folded_want, fill
+
+        poly = _jpoly(s)
+        want = b""
+        if kind == "start":
+            want = jgkr.serialize_gkr_message(jgkr.StartSumCheck(c_1=JF.felt(s[0] + s[1]), round=layer, num_vars=2 * k))
+        want += jgkr.serialize_gkr_message(jgkr.SumCheckProverMessage(p=poly))
+        msgs = layer_tail.msgs
+        assert tail.length == len(want)
+        assert bytes(msgs[9 : 9 + len(want)].tolist()) == want, (fill, kind)
+        assert msgs[:9].eq(5).all() and msgs[9 + len(want) :].eq(5).all()
+        _check_chain(chain, prefix + want)
+        jchain.absorb(want)
+        rs = jchain.draw(draws)
+        assert [int(x) for x in FArray(layer_tail.chal, F).to_u64()[idx : idx + draws]] == [x.v for x in rs], fill
+        assert FArray(layer_tail.claim, F).to_u64()[0] == poly.evaluate(rs[0]).v
+        assert int(layer_tail.zero[0]) == 0 and int(layer_tail.counter[0]) == 0
 
 
 def test_final_tail_plain_every_fill():

@@ -8,10 +8,12 @@
   ``_round_sums``, which the JAX LibraW rounds run); and ``ProductPoly``'s
   parity API over the same specs;
 - kernel K2's plain version (``device_tables.phase_tables_plain`` through
-  ``phase1_tables`` / ``phase2_tables``) against the JAX ``phase1_tables``
-  / ``phase2_tables`` in the ``scan`` mode, on random wiring at g = 2^4
-  and 2^10, a wiring that puts every gate on one cell, a wiring with empty
-  cells, and every input at p - 1;
+  ``phase1_tables`` / ``phase2_tables``) and the kernel's walk over its
+  static plan (``circuit.phase_plan``: runs in bit-reversed key order,
+  gather index and type packed), emulated in Python ints, against the JAX
+  ``phase1_tables`` / ``phase2_tables`` in the ``scan`` mode, on random
+  wiring at g = 2^4 and 2^10, a wiring that puts every gate on one cell, a
+  wiring with empty cells, and every input at p - 1;
 - the sort plans, eq tables and host runtime, the forward pass
   (``Circuit.evaluate_device``), ``DenseMLE.evaluate_many`` and
   ``restrict_poly`` (the golden [32, 385, 383] over F389).
@@ -31,6 +33,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # 6 test workers share the cores: torch's own pool would compete with them
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -45,7 +48,7 @@ from thaler_study_tpu.protocols import ProductPoly as JProductPoly  # noqa: E402
 from thaler_study_tpu_torch import gkr, runtime  # noqa: E402
 from thaler_study_tpu_torch.fields import BABYBEAR, F389, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.gkr import device_tables as dt  # noqa: E402
-from thaler_study_tpu_torch.gkr.circuit import LayerWiring, scan_plan  # noqa: E402
+from thaler_study_tpu_torch.gkr.circuit import LayerWiring, layer_wiring, scan_plan  # noqa: E402
 from thaler_study_tpu_torch.mle import DenseMLE  # noqa: E402
 from thaler_study_tpu_torch.ops import cuda_round  # noqa: E402
 from thaler_study_tpu_torch.ops import round_kernel as rk  # noqa: E402
@@ -168,8 +171,7 @@ def _wirings(rng):
 
 
 def _layer_wiring(b, c, m, k) -> LayerWiring:
-    bt, ct = torch.from_numpy(b), torch.from_numpy(c)
-    return LayerWiring(bt, ct, torch.from_numpy(m), scan_plan(bt, 1 << k), scan_plan(ct, 1 << k))
+    return layer_wiring(torch.from_numpy(b), torch.from_numpy(c), torch.from_numpy(m), k)
 
 
 def _oracle(phase, key, eq_r, table, gidx, is_mul, k, p):
@@ -187,9 +189,10 @@ def _oracle(phase, key, eq_r, table, gidx, is_mul, k, p):
 
 @pytest.mark.parametrize("field", [GOLDILOCKS, BABYBEAR], ids=["goldilocks", "babybear"])
 def test_phase_tables_match_jax(field):
-    """K2's plain version through phase1_tables / phase2_tables against the
-    JAX scan-mode builds (A1, A2, eq_r; B1, B2, w_u), and every input at
-    p - 1 against the JAX scan_add_mod_many and Python ints."""
+    """K2's plain version through phase1_tables / phase2_tables, and the
+    kernel's walk over its static plan, against the JAX scan-mode builds
+    (A1, A2, eq_r; B1, B2, w_u), and every input at p - 1 against the JAX
+    scan_add_mod_many and Python ints."""
     rng = np.random.default_rng(11 if field is GOLDILOCKS else 12)
     p, jf = field.p, _jf(field)
     for name, k_cur, k, b, c, m in _wirings(rng):
@@ -214,15 +217,19 @@ def test_phase_tables_match_jax(field):
             assert got.shape == (1 << k,)
             assert _same(got, exp), (field.name, name, label)
         assert _same(w_u, jwu), (field.name, name)
+        # kernel K2's walk over the static plan, on the same inputs
+        eq_np, eq_u = eq_r.to_u64(), dt.eq_table_dev(u_arr, k).to_u64()
+        walked = _walk(wiring.plan1, 1, eq_np, w_vals, k, p) + _walk(wiring.plan2, 2, eq_np, eq_u, k, p)
+        for got, exp, label in zip(walked, want, ("a1", "a2", "b1", "b2")):
+            assert np.array_equal(np.array(got, dtype=np.uint64), np.asarray(exp.to_u64())), (field.name, name, label)
 
         # every gate's eq weight and every table entry at p - 1
         g = len(b)
         full = np.full(g, p - 1, dtype=np.uint64)
         eq_full, jeq_full = _both(field, full)
         tab, jtab = _both(field, np.full(1 << k, p - 1, dtype=np.uint64))
-        for phase, key, gidx, plan in ((1, b, c, wiring.plan_b), (2, c, b, wiring.plan_c)):
-            key_t, gidx_t = torch.from_numpy(key), torch.from_numpy(gidx)
-            t1, t2 = dt.phase_tables(phase, plan, key_t, gidx_t, wiring.is_mul, eq_full, tab, k)
+        for phase, key, gidx in ((1, b, c), (2, c, b)):
+            t1, t2 = dt.phase_tables(phase, wiring, eq_full, tab, k)
             with jax.disable_jit():
                 prod = jeq_full * jdt.gather(jtab, jnp.asarray(gidx))
                 zero = jnp.zeros_like
@@ -239,6 +246,65 @@ def test_phase_tables_match_jax(field):
                 exp_msb = jdt.lsb_to_msb(exp, k)
                 assert _same(got, exp_msb), (field.name, name, phase)
                 assert [f.v for f in DenseMLE.from_evals_msb(got, k).to_evaluations()] == orc
+
+
+def _walk(plan, phase, eq_r, table, k, p):
+    """Kernel K2's walk over its static plan in Python ints: position pos
+    sums the gates order[starts[pos]:starts[pos + 1]], each with the gather
+    index and type unpacked from packed[]; returns the two tables in
+    position (MSB-first) order."""
+    order, starts, packed = (x.numpy().tolist() for x in (plan.order, plan.starts, plan.packed))
+    out1, out2 = [], []
+    for pos in range(1 << k):
+        a1 = a2 = 0
+        for s in range(starts[pos], starts[pos + 1]):
+            w = packed[s]
+            e, v, mul = int(eq_r[order[s]]), int(table[w & 0x7FFFFFFF]), w < 0
+            if phase == 1:
+                a1 += e * v if mul else e
+                a2 += 0 if mul else e * v
+            elif mul:
+                a2 += e * v
+            else:
+                a1 += e * v
+        out1.append(a1 % p)
+        out2.append(a2 % p)
+    return out1, out2
+
+
+def test_phase_plan_layout_and_walk():
+    """The static plan of K2 (``circuit.phase_plan``): a permutation of the
+    gates whose runs are in bit-reversed key order, stable within a run,
+    with the gather index and the gate type packed in that order; the
+    kernel's walk over it equal to Python ints with random values and
+    with every value p - 1, over Goldilocks and BabyBear, at g = 2^4 and
+    2^10, one cell taking all 64 gates (a warp's run on the card) and empty
+    cells. (test_phase_tables_match_jax holds the walk against JAX.)"""
+    for field in (GOLDILOCKS, BABYBEAR):
+        rng = np.random.default_rng(23 if field is GOLDILOCKS else 24)
+        p = field.p
+        wirings = _wirings(rng) + [("one cell, 64 gates", 6, 3, np.full(64, 6, dtype=np.int32),
+                                    np.full(64, 1, dtype=np.int32), rng.random(64) < 0.5)]
+        for name, _, k, b, c, m in wirings:
+            wiring = _layer_wiring(b, c, m, k)
+            g = len(b)
+            rev = [int(format(x, f"0{k}b")[::-1], 2) for x in range(1 << k)]
+            for phase, plan, key, gidx in ((1, wiring.plan1, b, c), (2, wiring.plan2, c, b)):
+                order, starts, packed = (x.numpy() for x in (plan.order, plan.starts, plan.packed))
+                assert sorted(order.tolist()) == list(range(g)), name
+                assert starts[0] == 0 and starts[-1] == g and (np.diff(starts) >= 0).all()
+                for pos in range(1 << k):
+                    run = order[starts[pos] : starts[pos + 1]]
+                    assert all(rev[key[x]] == pos for x in run) and (np.diff(run) > 0).all(), (name, pos)
+                assert np.array_equal(packed & 0x7FFFFFFF, gidx[order]) and np.array_equal(packed < 0, m[order])
+                for values in ("random", "p - 1"):
+                    if values == "random":
+                        eq_r, table = _values(field, rng, g), _values(field, rng, 1 << k)
+                    else:
+                        eq_r, table = np.full(g, p - 1, dtype=np.uint64), np.full(1 << k, p - 1, dtype=np.uint64)
+                    orc = _oracle(phase, key, eq_r, table, gidx, m, k, p)
+                    got = _walk(plan, phase, eq_r, table, k, p)
+                    assert list(got) == [[o[x] for x in rev] for o in orc], (field.name, name, phase, values)
 
 
 def test_plans_eq_tables_and_runtime_match_jax():

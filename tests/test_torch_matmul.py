@@ -8,6 +8,12 @@
   against the product computed with Python ints; the verifier accepts and
   rejects a flipped byte; the 2 x 2 book example
   (``tests/test_matmul.py``).
+- the public surface on input outside the port's slices, as the JAX
+  package answers it: ``api.run_gkr`` takes ``mesh=`` and ``n_shard=`` and
+  raises ``NotImplementedError`` for either; ``fs_prove_device`` and
+  ``fs_prove_device_batch`` return ``None`` for a non-empty DST (as JAX's
+  do) and a multi-block spec; ``generate_transcripts_batch`` raises for a
+  non-empty DST instead of taking another path.
 
 The port runs on CPU tensors (the plain version of the round kernel); the
 JAX side runs eagerly under ``jax.disable_jit()``. Inputs come from numpy
@@ -15,27 +21,35 @@ seeds; tolerance: exact equality.
 
 Cases loop inside a few test functions on purpose: the suite runs under
 pytest-xdist ``--dist loadfile``, which starts files with more cases first;
-more than 7 here would start this file ahead of the long GKR files and
+more than 8 here would start this file ahead of the JAX package's long
+``tests/test_gkr_fused.py`` (8 cases, earlier in collection order) and
 lengthen the whole run.
 """
+
+import inspect
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # 6 test workers share the cores: torch's own pool would compete with them
 
 import jax  # noqa: E402
 
 from thaler_study_tpu import api as japi  # noqa: E402
 from thaler_study_tpu import fields as jfields  # noqa: E402
+from thaler_study_tpu.ops import fs_kernel as jfs  # noqa: E402
+from thaler_study_tpu.ops import round_kernel as jrk  # noqa: E402
 from thaler_study_tpu.mle.dense import DenseMLE as JDenseMLE  # noqa: E402
 from thaler_study_tpu.mle.dense import bitrev_perm as jbitrev_perm  # noqa: E402
 from thaler_study_tpu.protocols import MatMulG as JMatMulG  # noqa: E402
-from thaler_study_tpu_torch import api  # noqa: E402
+from thaler_study_tpu_torch import api, gkr  # noqa: E402
 from thaler_study_tpu_torch.fiat_shamir import FiatShamirTranscript, SerializationError  # noqa: E402
-from thaler_study_tpu_torch.fields import F5, F389, GOLDILOCKS  # noqa: E402
+from thaler_study_tpu_torch.fields import F5, F389, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.mle import DenseMLE, bitrev_perm  # noqa: E402
-from thaler_study_tpu_torch.protocols import MatMulG  # noqa: E402
+from thaler_study_tpu_torch.ops import fs_kernel  # noqa: E402
+from thaler_study_tpu_torch.ops import round_kernel as rk  # noqa: E402
+from thaler_study_tpu_torch.protocols import BatchedProductPoly, MatMulG, generate_transcripts_batch  # noqa: E402
 from thaler_study_tpu_torch.sumcheck import SumCheckError  # noqa: E402
 
 JFIELD = {"Goldilocks": jfields.GOLDILOCKS, "F389": jfields.F389, "F5": jfields.F5}
@@ -138,3 +152,36 @@ def test_book_example():
             claim, _ = api.prove_matmul_entry(1, a, b, i, j, F5, device="cpu")
             assert claim.v == [[0, 4], [2, 0]][i][j]
             _check_entry(F5, 1, np.array(a, dtype=np.uint64), np.array(b, dtype=np.uint64), i, j)
+
+
+@pytest.mark.parametrize("entry", ["run_gkr", "fs_prove_device", "generate_transcripts_batch"])
+def test_unsupported_input_follows_jax(entry):
+    """What the public surface does with input outside the port's slices,
+    against the JAX package's answer where it gives one without compiling."""
+    if entry == "run_gkr":
+        params = list(inspect.signature(api.run_gkr).parameters)
+        assert params[:6] == list(inspect.signature(japi.run_gkr).parameters)
+        for kw in ({"mesh": object()}, {"n_shard": 2}):
+            with pytest.raises(NotImplementedError, match="multi-device"):
+                api.run_gkr(gkr.circuit_from_book(), [3, 2, 3, 1], F389, device="cpu", **kw)
+        outs, ok = api.run_gkr(gkr.circuit_from_book(), [3, 2, 3, 1], F389, seed=1, mesh=None, n_shard=None,
+                               device="cpu")
+        assert ok and [f.v for f in outs] == [36, 6]
+        return
+    vals = _values(GOLDILOCKS, 31, 2 * 16).reshape(2, 16)
+    batch = [FArray.from_ints(v[None, :], GOLDILOCKS, device="cpu") for v in vals]
+    spec = rk.single_block_spec(2, 4)
+    if entry == "fs_prove_device":
+        jtables = [jfields.FArray.from_ints(v, jfields.GOLDILOCKS) for v in vals]
+        jspec = jrk.PolySpec(block_sizes=(4,), table_blocks=((0,), (0,)), terms=((0, 1),))
+        assert jfs.fs_prove_device(jspec, jtables, b"tag") is None
+        assert jfs.fs_prove_device_batch(jspec, [t.reshape(1, -1) for t in jtables], b"tag") is None
+        assert fs_kernel.fs_prove_device(spec, [t[0] for t in batch], b"tag") is None
+        assert fs_kernel.fs_prove_device_batch(spec, batch, b"tag") is None
+        multi = rk.PolySpec(block_sizes=(2, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
+        assert fs_kernel.fs_prove_device(multi, [t[0] for t in batch]) is None
+        assert fs_kernel.fs_prove_device(spec, [t[0] for t in batch]) is not None
+        return
+    with pytest.raises(NotImplementedError, match="A5"):
+        generate_transcripts_batch(BatchedProductPoly(batch), GOLDILOCKS, b"tag")
+    assert len(generate_transcripts_batch(BatchedProductPoly(batch), GOLDILOCKS)) == 1

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # 6 test workers share the cores: torch's own pool would compete with them
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -141,9 +142,11 @@ def test_product_poly_sumcheck_accepts(rng):
 
 
 def test_outside_the_slice_raises():
-    """Multi-block specs, a non-empty DST, the triangle entry points and
-    the dense-W GKR prover (a two-block spec) are later slices: each raises
-    NotImplementedError. Every field of the port is in the fused path."""
+    """Multi-block specs, the triangle entry points and the dense-W GKR
+    prover (a two-block spec) are later slices: each raises
+    NotImplementedError; the fused FS prover returns None for a multi-block
+    spec or a non-empty DST, as the JAX package's does for what it does not
+    cover. Every field of the port is in the fused path."""
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
     tables = [FArray.from_ints([1] * (1 << s), GOLDILOCKS, device="cpu") for s in (1, 3)]
     with pytest.raises(NotImplementedError):
@@ -153,10 +156,8 @@ def test_outside_the_slice_raises():
     for s, field, dst in ((multi, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"tag")):
         assert not fs_kernel.supports_fused_fs(s, field, dst)
     assert fs_kernel.supports_fused_fs(spec, F389, b"")
-    with pytest.raises(NotImplementedError):
-        fs_kernel.fs_prove_device_batch(multi, batch)
-    with pytest.raises(NotImplementedError):
-        fs_kernel.fs_prove_device_batch(spec, batch, b"tag")
+    assert fs_kernel.fs_prove_device_batch(multi, batch) is None
+    assert fs_kernel.fs_prove_device_batch(spec, batch, b"tag") is None
     with pytest.raises(NotImplementedError):
         api.prove_triangle_count([False] * 16, 4, F389, device="cpu")
     with pytest.raises(NotImplementedError):

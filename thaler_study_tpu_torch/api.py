@@ -76,15 +76,24 @@ def verify_triangle_count(adjacency, n_nodes: int, transcript, field: FieldConfi
 
 
 def run_gkr(
-    circuit, inputs: Sequence, field: FieldConfig = GOLDILOCKS, seed: int = 0, device="cuda"
+    circuit,
+    inputs: Sequence,
+    field: FieldConfig = GOLDILOCKS,
+    seed: int = 0,
+    mesh=None,
+    n_shard=None,
+    device="cuda",
 ) -> Tuple[List[Felt], bool]:
     """Run the full interactive GKR protocol on a circuit, the prover's
     tables on ``device``.
 
     Returns (claimed_outputs, accepted). The interactive loop mirrors the
     reference's protocol test loop (gkr-protocol/src/lib.rs:551-624); the
-    verifier draws from ``SeededRng(seed)``.
+    verifier draws from ``SeededRng(seed)``. ``mesh`` and ``n_shard`` (a
+    sharded prover) are the multi-device slice of the port and raise.
     """
+    if mesh is not None or n_shard is not None:
+        raise NotImplementedError("a sharded GKR run (mesh=, n_shard=) is the multi-device slice of the port (ROADMAP A7)")
     from .gkr import Prover as GKRProver
     from .gkr import R
     from .gkr import Verifier as GKRVerifier

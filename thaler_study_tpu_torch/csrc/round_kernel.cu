@@ -22,7 +22,10 @@
 // per-block partials are summed mod p by the caller (the FS tail kernel,
 // or torch for a single round). Modular addition is exact, so the order
 // of the sums cannot change a bit. mont32 words stay Montgomery throughout:
-// the partials are the Montgomery words of the sums.
+// the partials are the Montgomery words of the sums. On the fused GKR path
+// libra_round_kernel also runs the GKR round tail on them in its last
+// block (TAIL, tail_epilogue below; csrc/gkr_tail.cuh), so that a round
+// is one launch.
 //
 // What bounds it on the H100: device memory. A FOLD round reads 2 x 4 and
 // writes 2 x 2 words per table per quarter index, 8 or 4 bytes each; the
@@ -37,6 +40,7 @@
 // blocks run in parallel and reduce their threads' sums in shared memory.
 #include <cuda_runtime.h>
 
+#include "gkr_tail.cuh"
 #include "goldilocks.cuh"
 #include "mont32.cuh"
 
@@ -186,13 +190,74 @@ __device__ __forceinline__ void add_libra(const F& f, typename F::Acc& acc,
   }
 }
 
-template <class F, int PHASE, bool FOLD, bool SKIP1>
+// The GKR round tail as the epilogue of a libra_round_kernel launch (TAIL,
+// Goldilocks, batch 1): each block has written its partials (and
+// block_sums, the same three words, to shared memory); thread 0 makes the
+// block's writes visible device-wide (one fence, after the barrier) and
+// takes a ticket. The last block resets the counter, sums every block's
+// partials (read from L2) with all its threads, and one warp runs
+// gkr_tail::round_tail on the round sums; the chain's inputs were copied
+// into `in` when the block started. A grid of one block (the rounds over
+// tables of up to 2^10 entries) skips the ticket and takes its own sums.
+// The fence and the ticket hold each block a little longer, so the
+// wrapper launches one wave of blocks (ts_libra_round_tail_blocks) and
+// pays them once.
+__device__ __forceinline__ void tail_epilogue(const uint64_t* partials, const uint64_t* block_sums,
+                                              const gkr_tail::RoundArgs& t, const gkr_tail::ChainIn& in) {
+  __shared__ int last;
+  __shared__ uint64_t sums[THREADS / 32][3];
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint64_t s[3];
+  if (gridDim.x == 1) {
+    if (warp != 0) return;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) s[e] = block_sums[e];
+    gkr_tail::round_tail(s, in, t);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(t.counter, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) s[e] = 0;
+  for (int x = threadIdx.x; x < (int)gridDim.x; x += THREADS) {
+#pragma unroll
+    for (int e = 0; e < 3; ++e)
+      s[e] = gl::add(s[e], __ldcg(reinterpret_cast<const unsigned long long*>(partials) + 3 * x + e));
+  }
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s[e] = gl::add(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
+    if (lane == 0) sums[warp][e] = s[e];
+  }
+  __syncthreads();
+  if (warp != 0) return;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    s[e] = sums[0][e];
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) s[e] = gl::add(s[e], sums[w][e]);
+  }
+  if (lane == 0) *t.counter = 0;
+  gkr_tail::round_tail(s, in, t);
+}
+
+template <class F, int PHASE, bool FOLD, bool SKIP1, bool TAIL>
 __global__ void __launch_bounds__(THREADS)
     libra_round_kernel(F f, Tables<typename F::word, 3> t, const typename F::word* __restrict__ r,
                        const typename F::word* __restrict__ scalar, typename F::word one,
-                       typename F::word* __restrict__ partials, long long n, long long chunk) {
+                       typename F::word* __restrict__ partials, long long n, long long chunk,
+                       gkr_tail::RoundArgs tail) {
   using W = typename F::word;
   constexpr int K = 3, D = 2;
+  __shared__ gkr_tail::ChainIn chain_in;
+  if constexpr (TAIL) gkr_tail::load_chain_async(chain_in, tail);
   const long long b = blockIdx.y;
   const long long half = FOLD ? n / 4 : n / 2;
   const long long begin = (long long)blockIdx.x * chunk;
@@ -238,18 +303,21 @@ __global__ void __launch_bounds__(THREADS)
     if (lane == 0) warp_sums[warp][j] = x;
   }
   __syncthreads();
+  __shared__ W block_sums[D + 1];
   if (threadIdx.x <= D) {
     W total = 0;
 #pragma unroll
     for (int w = 0; w < THREADS / 32; ++w) total = f.add(total, warp_sums[w][threadIdx.x]);
     partials[(b * gridDim.x + blockIdx.x) * (D + 1) + threadIdx.x] = total;
+    if constexpr (TAIL) block_sums[threadIdx.x] = total;
   }
+  if constexpr (TAIL) tail_epilogue(partials, block_sums, tail, chain_in);
 }
 
-template <class F, int PHASE, bool FOLD, bool SKIP1>
-void launch_libra(const F& f, const void* const* in, void* const* out, const void* r,
-                  const void* scalar, typename F::word one, void* partials, long long batch,
-                  long long n, int blocks, long long chunk, cudaStream_t stream) {
+template <class F, int PHASE, bool FOLD, bool SKIP1, bool TAIL>
+void launch_libra(const F& f, const void* const* in, void* const* out, const void* r, const void* scalar,
+                  typename F::word one, void* partials, long long batch, long long n, int blocks,
+                  long long chunk, const gkr_tail::RoundArgs& tail, cudaStream_t stream) {
   using W = typename F::word;
   Tables<W, 3> t;
   for (int g = 0; g < 3; ++g) {
@@ -257,34 +325,37 @@ void launch_libra(const F& f, const void* const* in, void* const* out, const voi
     t.out[g] = static_cast<W*>(out[g]);
   }
   dim3 grid(blocks, (unsigned)batch);
-  libra_round_kernel<F, PHASE, FOLD, SKIP1><<<grid, THREADS, 0, stream>>>(
-      f, t, static_cast<const W*>(r), static_cast<const W*>(scalar), one, static_cast<W*>(partials),
-      n, chunk);
+  libra_round_kernel<F, PHASE, FOLD, SKIP1, TAIL><<<grid, THREADS, 0, stream>>>(
+      f, t, static_cast<const W*>(r), static_cast<const W*>(scalar), one, static_cast<W*>(partials), n,
+      chunk, tail);
 }
 
-template <class F, int PHASE>
+template <class F, int PHASE, bool TAIL>
 void launch_libra_modes(const F& f, int fold, int skip_t1, const void* const* in, void* const* out,
                         const void* r, const void* scalar, typename F::word one, void* partials,
-                        long long batch, long long n, int blocks, long long chunk, cudaStream_t s) {
+                        long long batch, long long n, int blocks, long long chunk,
+                        const gkr_tail::RoundArgs& tail, cudaStream_t s) {
   if (fold && skip_t1)
-    launch_libra<F, PHASE, true, true>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, s);
+    launch_libra<F, PHASE, true, true, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
   else if (fold)
-    launch_libra<F, PHASE, true, false>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, s);
+    launch_libra<F, PHASE, true, false, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
   else if (skip_t1)
-    launch_libra<F, PHASE, false, true>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, s);
+    launch_libra<F, PHASE, false, true, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
   else
-    launch_libra<F, PHASE, false, false>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, s);
+    launch_libra<F, PHASE, false, false, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
 }
 
-template <class F>
-int launch_libra_field(const F& f, int phase, int fold, int skip_t1, const void* const* in,
-                       void* const* out, const void* r, const void* scalar, typename F::word one,
-                       void* partials, long long batch, long long n, int blocks, long long chunk,
-                       cudaStream_t s) {
+template <class F, bool TAIL>
+int launch_libra_field(const F& f, int phase, int fold, int skip_t1, const void* const* in, void* const* out,
+                       const void* r, const void* scalar, typename F::word one, void* partials,
+                       long long batch, long long n, int blocks, long long chunk,
+                       const gkr_tail::RoundArgs& tail, cudaStream_t s) {
   if (phase == 1)
-    launch_libra_modes<F, 1>(f, fold, skip_t1, in, out, r, scalar, one, partials, batch, n, blocks, chunk, s);
+    launch_libra_modes<F, 1, TAIL>(f, fold, skip_t1, in, out, r, scalar, one, partials, batch, n, blocks, chunk,
+                                   tail, s);
   else if (phase == 2)
-    launch_libra_modes<F, 2>(f, fold, skip_t1, in, out, r, scalar, one, partials, batch, n, blocks, chunk, s);
+    launch_libra_modes<F, 2, TAIL>(f, fold, skip_t1, in, out, r, scalar, one, partials, batch, n, blocks, chunk,
+                                   tail, s);
   else
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -356,14 +427,68 @@ extern "C" int ts_libra_round_launch(int mont32, unsigned p, unsigned pinv, int 
   const void* in[3] = {in0, in1, in2};
   void* out[3] = {out0, out1, out2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const gkr_tail::RoundArgs none{};
   int rc;
   if (mont32) {
     const uint32_t one = (uint32_t)((1ull << 32) % p);  // the Montgomery word of 1
-    rc = launch_libra_field(M32Ops{{p, pinv}}, phase, fold, skip_t1, in, out, r, scalar, one,
-                            partials, batch, n, blocks, chunk, s);
+    rc = launch_libra_field<M32Ops, false>(M32Ops{{p, pinv}}, phase, fold, skip_t1, in, out, r, scalar, one,
+                                          partials, batch, n, blocks, chunk, none, s);
   } else {
-    rc = launch_libra_field(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, (uint64_t)1, partials,
-                            batch, n, blocks, chunk, s);
+    rc = launch_libra_field<GlOps, false>(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, (uint64_t)1,
+                                         partials, batch, n, blocks, chunk, none, s);
   }
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int PHASE, bool FOLD, bool SKIP1>
+int wave_blocks() {
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, libra_round_kernel<GlOps, PHASE, FOLD, SKIP1, true>,
+                                                    THREADS, 0))
+    return -1;
+  return sms * per_sm;
+}
+
+}  // namespace
+
+// Blocks of one wave of the TAIL instantiation (phase, fold, skip_t1) on
+// the current device: its SMs times the blocks of that kernel resident on
+// one SM. Returns -1 on a CUDA error.
+extern "C" int ts_libra_round_tail_blocks(int phase, int fold, int skip_t1) {
+  if (phase == 1) {
+    if (fold) return skip_t1 ? wave_blocks<1, true, true>() : wave_blocks<1, true, false>();
+    return skip_t1 ? wave_blocks<1, false, true>() : wave_blocks<1, false, false>();
+  }
+  if (phase == 2) {
+    if (fold) return skip_t1 ? wave_blocks<2, true, true>() : wave_blocks<2, true, false>();
+    return skip_t1 ? wave_blocks<2, false, true>() : wave_blocks<2, false, false>();
+  }
+  return -1;
+}
+
+// The LibraW shapes over Goldilocks for one proof (batch 1) with the GKR
+// round tail as the launch's epilogue (TAIL; gkr_tail.cuh, RoundArgs):
+// the same partials as ts_libra_round_launch, then the tail's outputs.
+// counter must be 0 (the last block leaves it 0). Returns as above.
+extern "C" int ts_libra_round_tail_launch(int phase, int fold, int skip_t1, const void* in0, const void* in1,
+                                          const void* in2, void* out0, void* out1, void* out2, const void* r,
+                                          const void* scalar, void* partials, long long n, int blocks,
+                                          long long chunk, void* counter, void* state, void* buf,
+                                          long long nbytes, void* msg, void* zero, void* claim, void* chal,
+                                          int chal_idx, int draws, int start, long long layer, int k,
+                                          void* stream) {
+  if (draws != 1 && draws != 2) return (int)cudaErrorInvalidValue;
+  const void* in[3] = {in0, in1, in2};
+  void* out[3] = {out0, out1, out2};
+  const gkr_tail::RoundArgs tail{static_cast<int*>(counter), static_cast<uint32_t*>(state),
+                                 static_cast<uint8_t*>(buf), nbytes, static_cast<uint8_t*>(msg),
+                                 static_cast<int*>(zero), static_cast<uint64_t*>(claim),
+                                 static_cast<uint64_t*>(chal), chal_idx, draws, start, k, layer};
+  const int rc = launch_libra_field<GlOps, true>(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, (uint64_t)1,
+                                                 partials, 1, n, blocks, chunk, tail,
+                                                 static_cast<cudaStream_t>(stream));
   return rc ? rc : (int)cudaGetLastError();
 }

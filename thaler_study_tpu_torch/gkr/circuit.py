@@ -13,7 +13,7 @@ Two evaluation paths:
   per layer two gathers, an add, a product and a select (plain torch,
   exact), over wiring uploaded once per circuit and device and cached.
 
-The wiring arrays (``_wiring``) and their device copies with the sort
+The wiring arrays (``_wiring``) and their device copies with the static
 plans of the phase-table scatter-adds (``device_wiring``) are what the
 LibraW prover and the sparse verifier read.
 """
@@ -69,16 +69,31 @@ class CircuitEvaluation:
 
 
 @dataclasses.dataclass
+class PhasePlan:
+    """The static plan of one phase-table scatter-add (kernel K2), in the
+    tables' output order: ``order`` (int32 [g]) lists the gates so that
+    those of output position ``pos`` = bitrev_k(key) are contiguous, in
+    ascending pos; ``starts`` (int32 [2^k + 1]) is the first listed
+    position of each pos; ``packed`` (int32 [g]) is the gather index of
+    gate ``order[s]`` with its type in bit 31 (1 = MUL). It depends only on
+    the circuit, so it is made once per circuit and device."""
+
+    order: torch.Tensor
+    starts: torch.Tensor
+    packed: torch.Tensor
+
+
+@dataclasses.dataclass
 class LayerWiring:
     """One layer's wiring on a device: input labels, gate types, and the
-    sort plans (order, starts) of the two phase-table scatter-adds, keyed on
-    b (phase 1) and on c (phase 2)."""
+    plans of the two phase-table scatter-adds: phase 1 keyed on b and
+    gathering at c, phase 2 keyed on c and gathering at b."""
 
     b: torch.Tensor  # int32 [g]
     c: torch.Tensor  # int32 [g]
     is_mul: torch.Tensor  # bool [g]
-    plan_b: tuple
-    plan_c: tuple
+    plan1: PhasePlan
+    plan2: PhasePlan
 
 
 def scan_plan(idx: torch.Tensor, size: int):
@@ -93,6 +108,26 @@ def scan_plan(idx: torch.Tensor, size: int):
     starts = torch.zeros(size + 1, dtype=torch.int64, device=idx.device)
     starts[1:] = torch.cumsum(counts, 0)
     return order, starts.to(torch.int32)
+
+
+def phase_plan(key: torch.Tensor, gather_idx: torch.Tensor, is_mul: torch.Tensor, k: int) -> PhasePlan:
+    """The :class:`PhasePlan` of a scatter-add keyed on ``key`` over 2^k
+    cells (labels < 2^k <= 2^30): :func:`scan_plan` keyed on bitrev_k(key),
+    and the gather index and gate type permuted into its order."""
+    key = key.to(torch.int64)
+    pos = torch.zeros_like(key)
+    for j in range(k):
+        pos |= ((key >> j) & 1) << (k - 1 - j)
+    order, starts = scan_plan(pos, 1 << k)
+    idx = order.to(torch.int64)
+    packed = gather_idx.to(torch.int64)[idx] - (is_mul[idx].to(torch.int64) << 31)  # bit 31 of the int32
+    return PhasePlan(order, starts, packed.to(torch.int32))
+
+
+def layer_wiring(b: torch.Tensor, c: torch.Tensor, is_mul: torch.Tensor, k: int) -> LayerWiring:
+    """A :class:`LayerWiring` on the tensors' device (b, c int32 labels
+    below 2^k, is_mul bool)."""
+    return LayerWiring(b, c, is_mul, phase_plan(b, c, is_mul, k), phase_plan(c, b, is_mul, k))
 
 
 class Circuit:
@@ -142,7 +177,7 @@ class Circuit:
         return CircuitEvaluation(layers)
 
     def device_wiring(self, i: int, device) -> LayerWiring:
-        """Layer i's wiring on ``device``, uploaded (and its sort plans
+        """Layer i's wiring on ``device``, uploaded (and its phase plans
         made) once per circuit and device."""
         dev = torch.device(device)
         key = (i, dev.type, dev.index)
@@ -153,9 +188,7 @@ class Circuit:
             # the gathers and the phase-table kernel index by these labels
             if any(len(x) and (x.min() < 0 or x.max() >= size) for x in (b_idx, c_idx)):
                 raise ValueError(f"layer {i} wires an input label outside layer {i + 1}'s {size} values")
-            b = torch.from_numpy(b_idx).to(dev)
-            c = torch.from_numpy(c_idx).to(dev)
-            w = LayerWiring(b, c, torch.from_numpy(is_mul).to(dev), scan_plan(b, size), scan_plan(c, size))
+            w = layer_wiring(*(torch.from_numpy(x).to(dev) for x in (b_idx, c_idx, is_mul)), self.num_vars_at(i + 1))
             self._dev_wiring[key] = w
         return w
 

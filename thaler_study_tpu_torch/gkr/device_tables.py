@@ -17,10 +17,12 @@ PyTorch call states (``index_add_`` wraps mod 2^64). They are kernel K2,
   b2[c] = sum_{g: c_g = c} (mul_g ? t_g : 0).
 
 Both outputs come out of one launch, in internal MSB-first order (the
-JAX package's ``lsb_to_msb`` fused into the store). The kernel reads the
-layer's sort plan (``circuit.scan_plan``); its plain version,
-:func:`phase_tables_plain`, scatters by the key itself with ``index_add_``
-over 32-bit halves, so the two agree only if the plan is right.
+JAX package's ``lsb_to_msb``). The kernel reads the layer's static plan
+(``circuit.PhasePlan``: the gates listed in output order, their gather
+index and type packed in that order), so it writes each output position
+once, in order; its plain version, :func:`phase_tables_plain`, scatters
+by the key itself with ``index_add_`` over 32-bit halves and then bit
+reverses, so the two agree only if the plan is right.
 
 Two more builders have kernels of their own, ``csrc/gkr_tables.cu``:
 
@@ -66,8 +68,8 @@ def _kernel():
         fn = _build.load("phase_tables").ts_phase_tables_launch
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int]
-            + [ctypes.c_void_p] * 8
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -212,57 +214,51 @@ def _scatter_add_mod(key: torch.Tensor, vals: FArray, size: int) -> FArray:
     return FArray((s % vals.field.p).to(torch.int32), vals.field)
 
 
-def _check(phase, plan, key, gather_idx, is_mul, eq_r, table, k):
-    order, starts = plan
-    g = key.shape[0]
+def _check(phase, wiring, eq_r: FArray, table: FArray, k: int):
+    g = wiring.b.shape[0]
     dev = eq_r.device
     dtype = word_dtype(eq_r.field)
     if phase not in (1, 2):
         raise ValueError(f"phase must be 1 or 2, not {phase}")
     if table.field != eq_r.field or table.data.dtype != dtype or eq_r.data.dtype != dtype:
         raise ValueError("eq_r and the gathered table must be FArrays of one field")
-    want = [(order, torch.int32, (g,)), (starts, torch.int32, ((1 << k) + 1,)), (key, torch.int32, (g,)),
-            (gather_idx, torch.int32, (g,)), (is_mul, torch.bool, (g,)), (eq_r.data, dtype, (g,))]
-    for t, dt, shape in want + [(table.data, dtype, (table.shape[0],))]:
+    if table.data.dim() != 1 or table.shape[0] < 1 << k:
+        raise ValueError(f"the gathered table must hold the 2^{k} values the labels index")
+    plan = wiring.plan1 if phase == 1 else wiring.plan2
+    want = [(wiring.b, torch.int32, (g,)), (wiring.c, torch.int32, (g,)), (wiring.is_mul, torch.bool, (g,)),
+            (plan.order, torch.int32, (g,)), (plan.starts, torch.int32, ((1 << k) + 1,)),
+            (plan.packed, torch.int32, (g,)), (eq_r.data, dtype, (g,)), (table.data, dtype, (table.shape[0],))]
+    for t, dt, shape in want:
         if t.dtype != dt or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
             raise ValueError(f"phase_tables: expected a contiguous {dt} {shape} tensor on {dev}")
+    return plan
 
 
-def phase_tables(
-    phase: int,
-    plan: Tuple[torch.Tensor, torch.Tensor],
-    key: torch.Tensor,
-    gather_idx: torch.Tensor,
-    is_mul: torch.Tensor,
-    eq_r: FArray,
-    table: FArray,
-    k: int,
-) -> Tuple[FArray, FArray]:
+def phase_tables(phase: int, wiring, eq_r: FArray, table: FArray, k: int) -> Tuple[FArray, FArray]:
     """The two phase tables of a LibraW phase (module doc), each of 2^k
     cells in internal MSB-first order.
 
-    ``plan``: the (order, starts) sort plan keyed on ``key`` (b in phase 1,
-    c in phase 2); ``gather_idx``: the other label (c, then b); ``eq_r``:
-    eq(r_i, g) over the layer's gates; ``table``: W in label order (phase
-    1) or eq_u (phase 2). CPU tensors take :func:`phase_tables_plain`; CUDA
-    tensors launch kernel K2 or raise."""
-    eq_r = eq_r[: key.shape[0]] if eq_r.shape[0] != key.shape[0] else eq_r
-    _check(phase, plan, key, gather_idx, is_mul, eq_r, table, k)
+    ``wiring``: the layer's ``circuit.LayerWiring`` (phase 1 keys on b and
+    gathers at c with ``plan1``, phase 2 keys on c and gathers at b with
+    ``plan2``); ``eq_r``: eq(r_i, g) over the layer's gates; ``table``: W
+    in label order (phase 1) or eq_u (phase 2). CPU tensors take
+    :func:`phase_tables_plain`; CUDA tensors launch kernel K2 or raise."""
+    eq_r = eq_r[: wiring.b.shape[0]] if eq_r.shape[0] != wiring.b.shape[0] else eq_r
+    plan = _check(phase, wiring, eq_r, table, k)
     dev = eq_r.device
     if dev.type == "cpu":
-        return phase_tables_plain(phase, key, gather_idx, is_mul, eq_r, table, k)
+        key, gidx = (wiring.b, wiring.c) if phase == 1 else (wiring.c, wiring.b)
+        return phase_tables_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k)
     if dev.type != "cuda":
         raise ValueError(f"phase_tables runs on cpu or cuda, not {dev}")
     field = eq_r.field
     size = 1 << k
     out1 = torch.empty(size, dtype=word_dtype(field), device=dev)
     out2 = torch.empty_like(out1)
-    mont32 = field.backend == "mont32"
     rc = _kernel()(
-        int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0, phase,
-        plan[0].data_ptr(), plan[1].data_ptr(), gather_idx.data_ptr(), is_mul.data_ptr(),
-        eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(),
-        size, k, torch.cuda.current_stream(dev).cuda_stream,
+        *_field_args(field), phase, plan.order.data_ptr(), plan.starts.data_ptr(), plan.packed.data_ptr(),
+        eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"phase-table kernel launch failed: CUDA error {rc}")
@@ -292,7 +288,7 @@ def phase1_tables(r_i: FArray, w_lsb: FArray, wiring, k_cur: int, k: int):
     layer's ``circuit.LayerWiring``) -> (a1, a2 in MSB-first order,
     eq_r [2^k_cur])."""
     eq_r = eq_table_dev(r_i, k_cur)
-    a1, a2 = phase_tables(1, wiring.plan_b, wiring.b, wiring.c, wiring.is_mul, eq_r, w_lsb, k)
+    a1, a2 = phase_tables(1, wiring, eq_r, w_lsb, k)
     return a1, a2, eq_r
 
 
@@ -300,5 +296,5 @@ def phase2_tables(u: FArray, w_lsb: FArray, eq_r: FArray, wiring, k: int):
     """LibraW phase-2 build: (u [k], W in label order, eq_r, wiring) ->
     (b1, b2 in MSB-first order, w_u = W~(u) as a (1,) FArray)."""
     eq_u = eq_table_dev(u, k)
-    b1, b2 = phase_tables(2, wiring.plan_c, wiring.c, wiring.b, wiring.is_mul, eq_r, eq_u, k)
+    b1, b2 = phase_tables(2, wiring, eq_r, eq_u, k)
     return b1, b2, dot_mod(w_lsb, eq_u)

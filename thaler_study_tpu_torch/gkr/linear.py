@@ -52,7 +52,7 @@ class LibraW:
     ):
         if mesh is not None or n_shard is not None:
             raise NotImplementedError(
-                "a sharded GKR layer (mesh=) is the multi-device slice of the port (ROADMAP A9)"
+                "a sharded GKR layer (mesh=) is the multi-device slice of the port (ROADMAP A7)"
             )
         if not isinstance(w_next, FArray):
             raise TypeError("w_next must be the layer's values as an FArray (label order)")

@@ -172,7 +172,7 @@ class Prover:
                 "the multi-block slice of the port"
             )
         if mesh is not None or n_shard is not None:
-            raise NotImplementedError("a sharded GKR prover (mesh=) is the multi-device slice of the port (ROADMAP A9)")
+            raise NotImplementedError("a sharded GKR prover (mesh=) is the multi-device slice of the port (ROADMAP A7)")
         self.circuit = circuit
         self.field = field
         self.use_linear = use_linear

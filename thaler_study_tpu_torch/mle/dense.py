@@ -12,9 +12,9 @@ variable 0 combines the two contiguous halves
 ``t' = lo + r * (hi - lo)`` and variable 1 is then the new MSB. Conversions
 happen only at the constructors and ``to_evaluations``.
 
-Folds, the bit reversal and ``relabel`` are plain torch on the tensor's
-device: the JAX fold chain (``_fold_impl``) is a jnp program, not a Pallas
-kernel.
+Folds (``fix_variables``, :func:`fold_msb`), the bit reversal and
+``relabel`` are plain torch on the tensor's device: the JAX fold chain
+(``_fold_impl``) is a jnp program, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -152,5 +152,17 @@ class DenseMLE:
         ints = self.evals.to_u64()[bitrev_perm(self.num_vars)]  # an involution
         return [Felt(int(v), self.field) for v in ints]
 
+    def to_evals_lsb_farray(self) -> FArray:
+        """The table in arkworks order, on its device (the bit reversal)."""
+        return bitrev(self.evals, self.num_vars)
+
     def __repr__(self):
         return f"DenseMLE(n={self.num_vars}, {self.field.name})"
+
+
+def fold_msb(table: FArray, r: FArray) -> FArray:
+    """One fold step, t' = lo + r (hi - lo), halving the table (the
+    reference's even/odd pair identity, matrix-multiplication/src/lib.rs:
+    114-122, in contiguous-halves form). ``r`` is a 0-d FArray."""
+    half = table.shape[0] // 2
+    return FArray.fold(table[:half], table[half:], r)

@@ -30,8 +30,10 @@ Scope: Goldilocks and the mont32 fields (F5, F389, F1572869, BabyBear;
 their sums, challenges and claims stay Montgomery words on the device, and
 only canonical coefficients reach the host), single-block products of 2 or
 3 factors (the CUDA kernels' instantiations; the plain versions take any
-k), and the empty DST. Anything else raises ``NotImplementedError`` naming
-the later slice.
+k), and the empty DST (:func:`supports_fused_fs`). For anything else
+:func:`fs_prove_device` and :func:`fs_prove_device_batch` return ``None``,
+as the JAX package's do; ``protocols.batched`` then raises
+``NotImplementedError`` naming the later slice.
 """
 
 from __future__ import annotations
@@ -114,21 +116,16 @@ def interp_tensor(field: FieldConfig, degree: int, device) -> torch.Tensor:
     return u64_tensor(m.astype(np.uint64), device, word_dtype(field))
 
 
-def _check_supported(spec: PolySpec, num_tables: int, dst: bytes):
-    if dst != b"":
-        raise NotImplementedError(
-            "a non-empty DST needs the unfused per-round batched path "
-            "(thaler_study_tpu/protocols/batched.py:188-204), a later slice"
-        )
-    check_single_product(spec, num_tables)
-
-
 def supports_fused_fs(spec: PolySpec, field: FieldConfig, dst: bytes) -> bool:
     """Does this slice's fused path cover (spec, field, dst)? Any field of
     the port, the empty DST and a single-block product of all the spec's
-    tables."""
+    tables (the JAX package's ``supports_fused_fs`` takes any spec of
+    round degree >= 1; multi-term and multi-block specs and a non-empty DST
+    are later slices)."""
+    if dst != b"":
+        return False
     try:
-        _check_supported(spec, len(spec.table_blocks), dst)
+        check_single_product(spec, len(spec.table_blocks))
     except NotImplementedError:
         return False
     return True
@@ -326,16 +323,20 @@ def fs_tail_plain(
 
 def fs_prove_device_batch(
     spec: PolySpec, tables: Sequence[FArray], dst: bytes = b""
-) -> List[Optional[list]]:
+) -> Optional[List[Optional[list]]]:
     """B independent whole proofs, two launches per round.
 
     ``tables``: per-factor FArrays of shape [B, 2^n] on one device (the
     inputs are never written). Returns a list of B entries — each a message
     list, or ``None`` for an instance whose serialized coefficients hit a
-    zero (the caller re-proves only that instance on the host loop).
-    Raises ``NotImplementedError`` outside this slice (see module doc)."""
+    zero (the caller re-proves only that instance on the host loop). Returns
+    ``None`` outright when :func:`supports_fused_fs` does not cover (spec,
+    field, dst), as the JAX package's does."""
     field = tables[0].field
-    _check_supported(spec, len(tables), dst)
+    if not supports_fused_fs(spec, field, dst):
+        return None
+    if len(tables) != len(spec.table_blocks):
+        raise ValueError(f"{len(tables)} tables for a spec of {len(spec.table_blocks)}")
     data = [t.data for t in tables]
     if data[0].dim() != 2:
         raise ValueError("fs_prove_device_batch takes [B, 2^n] tables")
@@ -402,5 +403,6 @@ def fs_prove_device(
 ) -> Optional[list]:
     """One whole proof (1-D tables): a batch of one. Returns the serialized
     round messages, or ``None`` when a zero coefficient forces the exact
-    host loop."""
-    return fs_prove_device_batch(spec, [t.reshape(1, -1) for t in tables], dst)[0]
+    host loop or when (spec, field, dst) is not covered."""
+    out = fs_prove_device_batch(spec, [t.reshape(1, -1) for t in tables], dst)
+    return None if out is None else out[0]

@@ -2,20 +2,25 @@
 version.
 
 Counterpart of the scalar code of ``thaler_study_tpu/gkr/fused.py``'s
-layer bodies (:161-196, :283-347): after each launch of the round kernel
-(K1, ``cuda_round.round_partials``) the tail reduces K1's partials, fills
-s(1) from the claim, interpolates, serializes the GKR message into the
-proof's transcript bytes, absorbs it into the carried SHA-256 chain and
-draws the next challenge, so that nothing of a layer goes to the host. The
-CUDA source is ``csrc/gkr_tail.cu``; its note says what bounds it.
+layer bodies (:161-196, :283-347): after each round's sums (kernel K1,
+``cuda_round.round_partials``) the tail reduces K1's partials, fills s(1)
+from the claim, interpolates, serializes the GKR message into the proof's
+transcript bytes, absorbs it into the carried SHA-256 chain and draws the
+next challenge, so that nothing of a layer goes to the host. The CUDA code
+is ``csrc/gkr_tail.cuh`` (the round tail, run as K1's epilogue) and
+``csrc/gkr_tail.cu`` (the final tail); the header's note says what bounds
+it.
 
 Two entry points, each with a plain version in Python ints (with the
 pure-Python SHA-256 compression) for CPU tensors; CUDA tensors launch the
 kernel or raise:
 
-- :func:`round_tail`, one launch per inner round: StartSumCheck first in
-  phase 1's round 0, then the SumCheckProverMessage, one draw (two at the
-  layer's second-to-last message) and the next claim;
+- :func:`libra_round_tail`, one launch per inner round: K1 over the
+  round's tables with the round tail as its epilogue (the last block to
+  finish runs it; StartSumCheck first in phase 1's round 0, then the
+  SumCheckProverMessage, one draw (two at the layer's second-to-last
+  message) and the next claim). Its plain version is
+  ``cuda_round.round_partials_plain`` then :func:`round_tail_plain`;
 - :func:`final_tail`, one launch per layer: the FinalRoundMessage (the last
   round polynomial p and the line restriction q), the r* draw and the next
   layer's point r_{i+1} = u + (c - u) r*.
@@ -39,6 +44,7 @@ import torch
 from .. import _build, runtime
 from ..fields import GOLDILOCKS
 from ..fields.farray import tensor_u64
+from . import cuda_round
 from .fs_kernel import _put
 from .sha_chain import absorb_py, draw_many_py
 
@@ -49,11 +55,14 @@ START_LEN = 25  # StartSumCheck: tag, c_1, layer, 2k
 ROUND_LEN = 57  # SumCheckProverMessage of a degree-2 polynomial
 
 # launches of the CUDA kernels (not of the plain versions), per instantiation
-# (Goldilocks only)
-round_launches = {"goldilocks": 0, "mont32": 0}
+# (Goldilocks only): K1 with the round tail as its epilogue (each also
+# counted in cuda_round.libra_launches, as a launch of K1), the final tail
+tail_launches = {"goldilocks": 0, "mont32": 0}
 final_launches = {"goldilocks": 0, "mont32": 0}
 
 _lib = None
+_round_tail_fn = None
+_wave = {}  # (device index, phase, fold, skip_t1) -> blocks of one wave
 
 
 def _library():
@@ -61,12 +70,38 @@ def _library():
     if _lib is None:
         lib = _build.load("gkr_tail")
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ts_gkr_round_tail_launch.argtypes = [vp, i, vp, vp, ll, vp, vp, vp, vp, i, i, i, ll, i, vp]
-        lib.ts_gkr_round_tail_launch.restype = i
         lib.ts_gkr_final_tail_launch.argtypes = [vp, i, vp, vp, i, vp, vp, vp, ll, vp, vp, vp, vp]
         lib.ts_gkr_final_tail_launch.restype = i
         _lib = lib
     return _lib
+
+
+def _round_tail_kernel():
+    global _round_tail_fn
+    if _round_tail_fn is None:
+        fn = _build.load("round_kernel").ts_libra_round_tail_launch
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [i, i, i] + [vp] * 9 + [ll, i, ll] + [vp] * 3 + [ll] + [vp] * 4 + [i, i, i, ll, i, vp]
+        fn.restype = i
+        _round_tail_fn = fn
+    return _round_tail_fn
+
+
+def _wave_blocks(dev, phase: int, fold: bool, skip_t1: bool) -> int:
+    """Blocks of one wave of K1 with TAIL on ``dev``: every block then
+    fences and takes its ticket at once (csrc/round_kernel.cu)."""
+    key = (dev.index, phase, fold, skip_t1)
+    n = _wave.get(key)
+    if n is None:
+        lib = _build.load("round_kernel")
+        lib.ts_libra_round_tail_blocks.argtypes = [ctypes.c_int] * 3
+        lib.ts_libra_round_tail_blocks.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            n = lib.ts_libra_round_tail_blocks(phase, int(fold), int(skip_t1))
+        if n < 1:
+            raise RuntimeError("could not read the round kernel's occupancy on the card")
+        _wave[key] = n
+    return n
 
 
 def final_len(k: int) -> int:
@@ -126,45 +161,122 @@ def _launched(rc: int, name: str, counts: dict) -> None:
     counts["goldilocks"] += 1
 
 
-def round_tail(
-    partials: torch.Tensor,
-    chain: GKRChain,
-    msgs: torch.Tensor,
-    off: int,
-    zero: torch.Tensor,
-    claim: torch.Tensor,
-    chal: torch.Tensor,
-    chal_idx: int,
-    draws: int,
-    start: Optional[Tuple[int, int]] = None,
-) -> int:
-    """One inner round's tail, in place. ``partials``: K1's [1, blocks, 3];
-    ``msgs[off:]`` receives the message bytes (StartSumCheck first when
-    ``start`` = (layer, k), phase 1's round 0: then s(1) is computed, not
-    taken from ``claim``); ``zero`` (int32 [1]) is ORed with the
-    zero-coefficient flag; ``draws`` (1 or 2) challenges go to
-    ``chal[chal_idx:]`` and ``claim`` (int64 [1]) becomes the round
-    polynomial at the first. Advances ``chain`` and returns the bytes
-    written. CPU tensors run :func:`round_tail_plain`."""
-    m = ROUND_LEN + (START_LEN if start is not None else 0)
-    dev = _check_common(partials, chain, msgs, off, m, zero)
-    _check(dev, {"claim": (claim, torch.int64, (1,)), "chal": (chal, torch.int64, None)})
-    if draws not in (1, 2) or chal.dim() != 1 or not 0 <= chal_idx <= chal.shape[0] - draws:
-        raise ValueError(f"{draws} draws do not fit chal[{chal_idx}:] of {list(chal.shape)}")
+@dataclasses.dataclass
+class LayerTail:
+    """What every round tail of one fused layer reads and writes, checked
+    once, when it is made: ``chain``; ``msgs`` (uint8, 1-D), the proof's
+    transcript bytes; ``zero`` (int32 [1]), ORed with the zero-coefficient
+    flag; ``claim`` (int64 [1]), the running claim; ``chal`` (int64, 1-D),
+    the layer's challenge vector; ``counter`` (int32 [1], 0), the round
+    kernel's ticket counter, left 0 by every launch."""
+
+    chain: GKRChain
+    msgs: torch.Tensor
+    zero: torch.Tensor
+    claim: torch.Tensor
+    chal: torch.Tensor
+    counter: torch.Tensor
+
+    def __post_init__(self):
+        _check(self.claim.device, {
+            "chain.state": (self.chain.state, torch.int32, (8,)),
+            "chain.buf": (self.chain.buf, torch.uint8, (64,)),
+            "msgs": (self.msgs, torch.uint8, None),
+            "zero": (self.zero, torch.int32, (1,)),
+            "claim": (self.claim, torch.int64, (1,)),
+            "chal": (self.chal, torch.int64, None),
+            "counter": (self.counter, torch.int32, (1,)),
+        })
+        if self.msgs.dim() != 1 or self.chal.dim() != 1:
+            raise ValueError("msgs and chal must be 1-D")
+        # the kernel copies these into shared memory with 16- and 8-byte copies
+        if self.chain.state.data_ptr() % 16 or self.chain.buf.data_ptr() % 16 or self.claim.data_ptr() % 8:
+            raise ValueError("chain.state and chain.buf must be 16-byte aligned, claim 8-byte aligned")
+
+
+@dataclasses.dataclass
+class RoundTail:
+    """One inner round's tail: its message goes to ``layer.msgs[off:]``
+    (StartSumCheck first when ``start`` = (layer index, k), phase 1's round
+    0: then s(1) is computed, not taken from the claim); ``draws`` (1 or 2)
+    challenges go to ``layer.chal[chal_idx:]`` and the claim becomes the
+    round polynomial at the first."""
+
+    layer: LayerTail
+    off: int
+    chal_idx: int
+    draws: int
+    start: Optional[Tuple[int, int]] = None
+
+    @property
+    def length(self) -> int:
+        """The bytes of the round's messages."""
+        return ROUND_LEN + (START_LEN if self.start is not None else 0)
+
+
+def libra_round_tail(
+    tables: List[torch.Tensor],
+    r: Optional[torch.Tensor],
+    skip_t1: bool,
+    phase: int,
+    scalars: List[torch.Tensor],
+    tail: RoundTail,
+    out: Optional[List[torch.Tensor]] = None,
+) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
+    """One inner round of a fused GKR layer: K1 over the LibraW ``phase``
+    (1: W A1 + A2; 2: B1 w_u + B1 Wc + B2 w_u Wc with ``scalars`` = [w_u];
+    batch 1, Goldilocks; ``r``, ``skip_t1`` and ``out`` as
+    ``cuda_round.round_partials`` takes them) and the round tail on its
+    partials, in place on ``tail.layer``; advances the chain. Returns K1's
+    (folded tables or None, partials). CPU tensors run K1's plain version,
+    then :func:`round_tail_plain`; CUDA tensors launch K1 with the tail as
+    its epilogue (one launch, at most one wave of blocks: the partials may
+    be split over fewer blocks than ``round_partials`` uses) or raise."""
+    lt, m = tail.layer, tail.length
+    if not 0 <= tail.off <= lt.msgs.shape[0] - m:
+        raise ValueError(f"msgs must have room for {m} bytes at offset {tail.off}")
+    if tail.draws not in (1, 2) or not 0 <= tail.chal_idx <= lt.chal.shape[0] - tail.draws:
+        raise ValueError(f"{tail.draws} draws do not fit chal[{tail.chal_idx}:] of {list(lt.chal.shape)}")
+    if phase not in (1, 2) or len(scalars) != phase - 1:
+        raise ValueError(f"LibraW phase {phase} with {len(scalars)} scalars")
+    dev = tables[0].device
+    if dev != lt.claim.device:
+        raise ValueError(f"the tables are on {dev}, the layer's tail state on {lt.claim.device}")
     if dev.type == "cpu":
-        round_tail_plain(partials, chain, msgs, off, zero, claim, chal, chal_idx, draws, start)
-    elif dev.type == "cuda":
-        layer, k = start if start is not None else (0, 0)
-        rc = _library().ts_gkr_round_tail_launch(
-            partials.data_ptr(), partials.shape[1], chain.state.data_ptr(), chain.buf.data_ptr(), chain.nbytes,
-            msgs.data_ptr() + off, zero.data_ptr(), claim.data_ptr(), chal.data_ptr(), chal_idx, draws,
-            int(start is not None), layer, k, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _launched(rc, "round tail", round_launches)
-    else:
-        raise ValueError(f"round_tail runs on cpu or cuda, not {dev}")
+        terms = cuda_round.LIBRA_PHASE1 if phase == 1 else cuda_round.LIBRA_PHASE2
+        folded, partials = cuda_round.round_partials(tables, r, skip_t1, out, GOLDILOCKS, terms, scalars)
+        round_tail_plain(partials, lt.chain, lt.msgs, tail.off, lt.zero, lt.claim, lt.chal, tail.chal_idx,
+                         tail.draws, tail.start)
+        lt.chain.nbytes += m
+        return folded, partials
+    if dev.type != "cuda":
+        raise ValueError(f"libra_round_tail runs on cpu or cuda, not {dev}")
+    fold = r is not None
+    batch, n, _ = cuda_round._check(tables, r, out, fold, torch.int64)
+    if batch != 1 or len(tables) != 3:
+        raise NotImplementedError("the GKR round tail takes K1's three LibraW tables of one proof")
+    for sc in scalars:
+        if sc.dtype != torch.int64 or sc.shape != (1,) or sc.device != dev or not sc.is_contiguous():
+            raise ValueError(f"scalars must be contiguous int64 [1] tensors on {dev}")
+    half = n // 4 if fold else n // 2
+    blocks = min(cuda_round.blocks_for(1, half), _wave_blocks(dev, phase, fold, skip_t1))
+    if fold and out is None:
+        out = [torch.empty((1, n // 2), dtype=torch.int64, device=dev) for _ in tables]
+    partials = torch.empty((1, blocks, 3), dtype=torch.int64, device=dev)
+    outs = [o.data_ptr() for o in out] if fold else [None] * 3
+    layer, k = tail.start if tail.start is not None else (0, 0)
+    chain = lt.chain
+    rc = _round_tail_kernel()(
+        phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables), *outs,
+        r.data_ptr() if fold else None, scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
+        n, blocks, -(-half // blocks), lt.counter.data_ptr(), chain.state.data_ptr(), chain.buf.data_ptr(),
+        chain.nbytes, lt.msgs.data_ptr() + tail.off, lt.zero.data_ptr(), lt.claim.data_ptr(), lt.chal.data_ptr(),
+        tail.chal_idx, tail.draws, int(tail.start is not None), layer, k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _launched(rc, "round kernel with the round tail", tail_launches)
+    cuda_round.libra_launches["goldilocks"] += 1
     chain.nbytes += m
-    return m
+    return (list(out) if fold else None), partials
 
 
 def final_tail(

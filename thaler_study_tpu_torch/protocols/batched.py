@@ -58,9 +58,17 @@ def generate_transcripts_batch(
     prover, with an instance whose serialized coefficients hit a zero
     (value-dependent message lengths; rare) re-proven ALONE on the exact
     host loop — the rest of the batch keeps the device result.
-    Byte-identical to per-instance ``generate_transcript`` runs."""
+    Byte-identical to per-instance ``generate_transcript`` runs. A
+    non-empty DST is not covered by the fused prover, whose result is then
+    ``None``; the JAX package proves it on its unfused per-round path, the
+    port raises ``NotImplementedError`` (ROADMAP A5)."""
     spec = single_block_spec(len(poly.tables), poly.num_vars())
     fused = fs_prove_device_batch(spec, poly.tables, dst)
+    if fused is None:
+        raise NotImplementedError(
+            "the unfused per-round batched prover (a non-empty DST, "
+            "thaler_study_tpu/protocols/batched.py:188-204) is a later slice of the port (ROADMAP A5)"
+        )
     out = []
     for i, msgs in enumerate(fused):
         if msgs is None:  # per-instance zero-coefficient fallback
