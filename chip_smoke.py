@@ -4,7 +4,13 @@
 Usage, from the repository root on a machine with a card:
 
     python3 chip_smoke.py [--seed 42] [--n 22] [--batch 64] [--reps 5] [--mm-log 13]
-                          [--gkr-depth 16] [--gkr-log 20]
+                          [--gkr-depth 16] [--gkr-log 20] [--fused-trace-only]
+
+``--fused-trace-only`` builds the kernels and the flagship circuit, traces
+one fused GKR proof and prints its device time by kernel and by aten op
+(the plain-torch launches), and stops: it reads only names that earlier
+trees of the port have too, so a copy of this script placed at the root
+of an older checkout traces that tree's proof the same way.
 
 The paths, each driven through the entry points a user calls:
 
@@ -43,8 +49,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (Goldilocks and BabyBear; k = 4 for the other fields) with random
    values and values at p - 1, over the same five fields (and in phase 4
    on the flagship's own layer 0 wiring, over Goldilocks and BabyBear);
-   the eq-table kernel at n = 1..20 (Goldilocks, BabyBear), the line
-   restriction at k = 2..20, K1 with the GKR round tail as its epilogue
+   the eq-table kernel at n = 0..20, alone and with the dot W~(u) in the
+   same pass (Goldilocks, BabyBear), the line restriction's tiles through
+   the fused path's form (u and c from a challenge vector) at k = 2..20
+   (Goldilocks, BabyBear) and the delta form, K1 with the GKR round tail as
+   its epilogue
    (TAIL) against K1's plain version then the tail's at every fill x
    (StartSumCheck, one draw, two draws), and the final tail at k in
    (2, 3, 10, 20) x every fill;
@@ -67,8 +76,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    trace of one layer, and K1 and K2 at the flagship's shapes; for the
    fused path, the median of warm proofs, its ``timings`` breakdown, the
    prelude's parts, a trace of one proof (device idle share, one
-   device-to-host read after the prelude, no standalone round tail), and
-   its kernels at the flagship's shapes (K1 with TAIL beside K1 alone);
+   device-to-host read after the prelude, no standalone round tail, the
+   plain-torch time by aten op), and its kernels at the flagship's shapes
+   (K1 with TAIL beside K1 alone; the eq table, the eq table with the dot
+   and the line restriction);
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -103,6 +114,122 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+def device_spans(prof):
+    """The device records of a trace, sorted, and the microseconds their
+    union covers."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s0, s1, _ in spans:
+        if s1 > end:
+            busy_us += s1 - max(s0, end)
+            end = s1
+    return spans, busy_us
+
+
+def aten_split(prof):
+    """The trace's device time by aten op (the plain-torch launches; the
+    port's own kernels are launched through ctypes and have no aten op):
+    [(op, device ms, calls)], largest first."""
+    rows = []
+    for avg in prof.key_averages():
+        us = getattr(avg, "self_device_time_total", None)
+        if us is None:
+            us = getattr(avg, "self_cuda_time_total", 0.0)
+        if avg.key.startswith("aten::") and us > 0:
+            rows.append((avg.key, us / 1e3, avg.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def gate_circuit(gkr, widths, grng):
+    """A random circuit of the given layer widths (output layer first, then
+    the input count), wiring and gate types drawn as
+    benches/gkr_benchmark.py draws them: b, c, then MUL with probability
+    0.5, per layer."""
+    layers = []
+    for width, nxt in zip(widths[:-1], widths[1:]):
+        b = grng.integers(0, nxt, width)
+        c = grng.integers(0, nxt, width)
+        mul = grng.random(width) < 0.5
+        layers.append(gkr.CircuitLayer([
+            gkr.Gate(gkr.GateType.MUL if m else gkr.GateType.ADD, (x, y))
+            for x, y, m in zip(b.tolist(), c.tolist(), mul.tolist())
+        ]))
+    return gkr.Circuit(layers, widths[-1])
+
+
+# the fused proof's device records by kernel (the first match of a name);
+# line_fold_kernel is the line restriction of trees before the tiles
+FUSED_KERNELS = ("libra_round_kernel", "phase_tables_kernel", "eq_table_kernel", "line_tile_kernel",
+                 "line_fold_kernel", "gkr_final_tail_kernel", "Memcpy DtoH", "Memcpy HtoD")
+
+
+def template_flag(name: str, kernel: str) -> bool:
+    """Whether the last template argument of ``kernel`` in a record's name
+    is true (K1's TAIL, the eq table's DOT)."""
+    return name.split(kernel + "<", 1)[-1].split(">", 1)[0].endswith("true")
+
+
+def fused_trace(gkr, circuit, inputs, field):
+    """One fused proof of a fresh prover under the profiler: (wall ms,
+    device records, busy us, device ms by kernel label, aten split)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prover = gkr.Prover(circuit, inputs, field)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gkr.generate_gkr_transcript_fused(prover, field)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    spans, busy_us = device_spans(prof)
+    by_kernel = {}
+    for s0, s1, name in spans:
+        label = next((k_ for k_ in FUSED_KERNELS if k_ in name), "other")
+        if label in ("libra_round_kernel", "eq_table_kernel") and template_flag(name, label):
+            label += " TAIL" if label == "libra_round_kernel" else " DOT"
+        ms_, n_ = by_kernel.get(label, (0.0, 0))
+        by_kernel[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
+    return traced_ms, spans, busy_us, by_kernel, aten_split(prof)
+
+
+def split_line(by_kernel, aten, top=14) -> str:
+    """The trace's kernels and its largest aten ops as one log line."""
+    kern = ", ".join(f"{k_} {v[0]:.3f} ms over {v[1]}" for k_, v in sorted(by_kernel.items()))
+    ops = ", ".join(f"{op} {ms:.3f} ms over {n_}" for op, ms, n_ in aten[:top])
+    total = sum(ms for _, ms, _ in aten)
+    return (f"kernels: {kern}; plain torch by aten op ({total:.3f} ms over "
+            f"{sum(n_ for _, _, n_ in aten)} calls): {ops or 'not measured (no device time in key_averages)'}")
+
+
+def fused_trace_only(args, card: str) -> int:
+    """--fused-trace-only: the flagship's fused proof traced, split by
+    kernel and by aten op."""
+    import numpy as np
+    import torch
+
+    from thaler_study_tpu_torch import _build, gkr
+    from thaler_study_tpu_torch.fields import GOLDILOCKS
+
+    _build.build()
+    _build.load_host("native")
+    width = 1 << args.gkr_log
+    grng = np.random.default_rng(args.seed)
+    circuit = gate_circuit(gkr, [width] * args.gkr_depth + [width], grng)
+    inputs = grng.integers(0, 1 << 62, width)
+    for _ in range(2):  # warm: caches, allocator
+        gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, GOLDILOCKS), GOLDILOCKS)
+    torch.cuda.synchronize()
+    for run in range(2):
+        traced_ms, spans, busy_us, by_kernel, aten = fused_trace(gkr, circuit, inputs, GOLDILOCKS)
+        log(f"fused trace {run}: {traced_ms:.3f} ms wall (profiler on), device busy {busy_us / 1e3:.3f} ms over "
+            f"{len(spans)} device records, idle share {1 - busy_us / 1e3 / traced_ms:.1%}; "
+            f"{split_line(by_kernel, aten)} [{card}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42, help="numpy seed of the tables")
@@ -112,6 +239,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mm-log", type=int, default=13, help="log2 of the matmul entry's matrix side")
     ap.add_argument("--gkr-depth", type=int, default=16, help="layers of the flagship GKR circuit")
     ap.add_argument("--gkr-log", type=int, default=20, help="log2 of the flagship GKR circuit's width")
+    ap.add_argument("--fused-trace-only", action="store_true",
+                    help="trace one fused flagship proof, print its split by kernel and aten op, and stop")
     args = ap.parse_args(argv)
     jax_preloaded = "jax" in sys.modules
 
@@ -122,7 +251,6 @@ def main(argv=None) -> int:
         return 1
 
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from thaler_study_tpu_torch import _build, api, gkr
@@ -163,6 +291,8 @@ def main(argv=None) -> int:
     count = torch.cuda.device_count()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} (count {count}), torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.fused_trace_only:
+        return fused_trace_only(args, card)
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
@@ -375,45 +505,69 @@ def main(argv=None) -> int:
             f"{cases[len(wirings)][1]}..{cases[-1][1]}; random words and every value p - 1; phases 1 and 2")
     del wirings, uniform
 
-    # the fused GKR path's kernels: the eq table (every field the GKR
-    # prover runs: Goldilocks, BabyBear), the line restriction and the two
-    # GKR tails (Goldilocks, the fused path's field)
+    # the GKR paths' table kernels: the eq table, alone and with the dot
+    # W~(u) in the same pass (every field the GKR prover runs: Goldilocks,
+    # BabyBear); the line restriction's tiles (Goldilocks, the fused path's
+    # field, and BabyBear); then the two GKR tails (Goldilocks)
     for field in (GOLDILOCKS, BABYBEAR):
-        key = ("eq_table", field.backend)
         checks = 0
-        for n_ in range(1, gw + 1):
+        top = field.p - 1
+        for n_ in range(0, gw + 1):
             for values in ("random words", "0", "1", "p - 1"):
                 if values == "random words":
-                    r = FArray(words(field, n_), field)
+                    r = FArray(words(field, max(n_, 1))[:n_], field)
                 else:
-                    r = FArray.from_ints([{"0": 0, "1": 1, "p - 1": field.p - 1}[values]] * n_, field, device=dev)
-                out, ref = device_tables.eq_table_dev(r, n_), device_tables.eq_table_plain(r, n_)
+                    r = FArray.from_ints([{"0": 0, "1": 1, "p - 1": top}[values]] * n_, field, device=dev)
+                ref = device_tables.eq_table_plain(r, n_)
+                out = device_tables.eq_table_dev(r, n_)
                 torch.cuda.synchronize()
                 e = max_abs_err(out.data, ref.data)
                 if e:
                     raise AssertionError(f"eq-table kernel != plain: {field.name} n={n_} r={values}")
-                err[key] = max(err.get(key, 0), e)
+                err[("eq_table", field.backend)] = max(err.get(("eq_table", field.backend), 0), e)
+                for w_values in ("random words", "every value p - 1"):
+                    if w_values == "random words":
+                        w_ = FArray(words(field, 1 << n_), field)
+                    else:
+                        w_ = FArray.from_ints(np.full(1 << n_, top, dtype=np.uint64), field, device=dev)
+                    eq_u, w_u = device_tables.eq_table_dot(r, w_, n_)
+                    want = device_tables.dot_mod(w_, ref)
+                    torch.cuda.synchronize()
+                    e = max(max_abs_err(eq_u.data, ref.data), max_abs_err(w_u.data, want.data))
+                    if e or w_u.shape != (1,):
+                        raise AssertionError(f"eq-with-dot kernel != plain: {field.name} n={n_} r={values} W={w_values}")
+                    err[("eq_table_dot", field.backend)] = max(err.get(("eq_table_dot", field.backend), 0), e)
                 checks += 1
-        log(f"eq-table kernel == plain (exact) over {field.name} in {checks} cases: n = 1..{gw}, r random "
-            "(boundary words first), all 0, all 1, all p - 1")
-    key = ("line_restrict", "goldilocks")
-    checks = 0
-    for k_ in range(2, gw + 1):
-        for values in ("random words", "every value p - 1"):
-            if values == "random words":
-                w_, u_, d_ = (FArray(words(GOLDILOCKS, n_), GOLDILOCKS) for n_ in (1 << k_, k_, k_))
-            else:
-                w_, u_, d_ = (FArray.from_ints([gl.P - 1] * n_, GOLDILOCKS, device=dev) for n_ in (1 << k_, k_, k_))
-            out = device_tables.line_restrict_coeffs(w_, u_, d_, k_)
-            ref = device_tables.line_restrict_coeffs_plain(w_, u_, d_, k_)
-            torch.cuda.synchronize()
-            e = max_abs_err(out.data, ref.data)
-            if e or out.shape != (k_ + 1,):
-                raise AssertionError(f"line-restriction kernel != plain: k={k_} {values}")
-            err[key] = max(err.get(key, 0), e)
-            checks += 1
-    log(f"line-restriction kernel == plain (exact) over Goldilocks in {checks} cases: k = 2..{gw}, random words "
-        "and every value p - 1")
+        log(f"eq-table kernel and eq with the dot == eq_table_plain (+ dot_mod) (exact) over {field.name} in "
+            f"{checks} x (1 + 2) cases: n = 0..{gw}, r random (boundary words first), all 0, all 1, all p - 1; "
+            "W random and every value p - 1; eq table and W~(u)")
+    for field in (GOLDILOCKS, BABYBEAR):
+        checks = 0
+        for k_ in range(2, gw + 1):
+            for values in ("random words", "every value p - 1"):
+                if values == "random words":
+                    w_, chal = FArray(words(field, 1 << k_), field), FArray(words(field, 2 * k_), field)
+                else:
+                    w_, chal = (FArray.from_ints(np.full(n_, field.p - 1, dtype=np.uint64), field, device=dev)
+                                for n_ in (1 << k_, 2 * k_))
+                u_, c_ = chal[:k_], chal[k_:]
+                ref = device_tables.line_restrict_coeffs_plain(w_, u_, c_ - u_, k_)
+                out = device_tables.line_restrict_chal(w_, chal, k_)
+                forms = [out]
+                if k_ % 6 == 2:  # the JAX signature (delta given) on the same tiles
+                    forms.append(device_tables.line_restrict_coeffs(w_, u_, c_ - u_, k_))
+                torch.cuda.synchronize()
+                e = max(max_abs_err(q_.data, ref.data) for q_ in forms)
+                if e or out.shape != (k_ + 1,):
+                    raise AssertionError(f"line-restriction kernel != plain: {field.name} k={k_} {values} "
+                                         f"tiles {device_tables.line_plan(k_, w_.data.element_size())}")
+                err[("line_restrict", field.backend)] = max(err.get(("line_restrict", field.backend), 0), e)
+                checks += 1
+        plans = sorted({tuple(device_tables.line_plan(k_, 8 if field is GOLDILOCKS else 4)) for k_ in (2, 10, 11, gw)})
+        log(f"line-restriction kernel == plain (exact) over {field.name} in {checks} cases: k = 2..{gw} through the "
+            f"fused path's form (u and c from one challenge vector), the delta form at k = "
+            f"{[k_ for k_ in range(2, gw + 1) if k_ % 6 == 2]}; random words "
+            f"and every value p - 1; tiles per restriction e.g. {plans}")
 
     tail_blocks = cuda_round.blocks_for(1, 1 << (gw - 2))
     trng = np.random.default_rng(args.seed + 5)
@@ -525,7 +679,8 @@ def main(argv=None) -> int:
     # ---- phase 3: the paths at full size -----------------------------
     counters = {"round_kernel": cuda_round.launches, "fs_tail": fs_kernel.launches,
                 "libra_round": cuda_round.libra_launches, "phase_tables": device_tables.launches,
-                "eq_table": device_tables.eq_launches, "line_restrict": device_tables.line_launches,
+                "eq_table": device_tables.eq_launches, "eq_table_dot": device_tables.eq_dot_launches,
+                "line_restrict": device_tables.line_launches,
                 "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches}
 
     def reset_counts():
@@ -635,18 +790,6 @@ def main(argv=None) -> int:
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def device_spans(prof):
-        """The device records of a trace, sorted, and the microseconds their
-        union covers."""
-        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for s0, s1, _ in spans:
-            if s1 > end:
-                busy_us += s1 - max(s0, end)
-                end = s1
-        return spans, busy_us
 
     def time_launches(fn, reps):
         fn()
@@ -885,31 +1028,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # ---- GKR: phase 3 (paths) and phase 4 (timing) ----------------------
-    def gate_circuit(widths, grng):
-        """A random circuit of the given layer widths (output layer first,
-        then the input count), wiring and gate types drawn as
-        benches/gkr_benchmark.py draws them: b, c, then MUL with probability
-        0.5, per layer."""
-        layers = []
-        for width, nxt in zip(widths[:-1], widths[1:]):
-            b = grng.integers(0, nxt, width)
-            c = grng.integers(0, nxt, width)
-            mul = grng.random(width) < 0.5
-            layers.append(gkr.CircuitLayer([
-                gkr.Gate(gkr.GateType.MUL if m else gkr.GateType.ADD, (x, y))
-                for x, y, m in zip(b.tolist(), c.tolist(), mul.tolist())
-            ]))
-        return gkr.Circuit(layers, widths[-1])
-
     def gkr_launch_counts(circuit, fused_path=False):
         """The launches of one proof: per layer 2k of K1 (one per round), 2
-        of K2 and 2 of the eq table; on the fused path 2k - 1 of the 2k K1
-        launches carry the round tail (TAIL), and one final tail and k fold
-        steps of the line restriction follow."""
+        of K2, one of the eq table (phase 1) and one of the eq table with
+        the dot (phase 2); on the fused path 2k - 1 of the 2k K1 launches
+        carry the round tail (TAIL), and one final tail and the line
+        restriction's launches (one at k = 20) follow."""
         ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
-        want = {"libra_round": sum(2 * k for k in ks), "phase_tables": 2 * len(ks), "eq_table": 2 * len(ks)}
+        want = {"libra_round": sum(2 * k for k in ks), "phase_tables": 2 * len(ks), "eq_table": len(ks),
+                "eq_table_dot": len(ks)}
         if fused_path:
-            want.update(libra_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks), line_restrict=sum(ks))
+            want.update(libra_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks),
+                        line_restrict=sum(len(device_tables.line_launches_of(device_tables.line_plan(k, 8)))
+                                          for k in ks))
         return want
 
     def accepts(t, circuit, inputs, field) -> bool:
@@ -925,6 +1056,7 @@ def main(argv=None) -> int:
         return counts == want
 
     gkr_launches = {}
+    gkr_names = ("libra_round", "phase_tables", "eq_table", "eq_table_dot")
     mixed = [4, 1 << 12, 2, 1 << 10, 1 << 6, 1 << 8]
     for label, field in (("book circuit", F389), ("5-layer mixed-width circuit", GOLDILOCKS),
                          ("5-layer mixed-width circuit", BABYBEAR)):
@@ -932,7 +1064,7 @@ def main(argv=None) -> int:
             circuit, inputs = gkr.circuit_from_book(), [3, 2, 3, 1]
         else:
             srng = np.random.default_rng(args.seed + 2)
-            circuit = gate_circuit(mixed, srng)
+            circuit = gate_circuit(gkr, mixed, srng)
             inputs = [field.p - 1] + srng.integers(0, min(field.p, 1 << 62), mixed[-1] - 1).tolist()
         felts = field.felts(inputs)
         torch.cuda.synchronize()
@@ -941,8 +1073,7 @@ def main(argv=None) -> int:
         counts = read_counts()
         if not gkr_counts_ok(counts, field, circuit):
             raise AssertionError(f"GKR {label} {field.name}: launches {counts}, expected {gkr_launch_counts(circuit)}")
-        gkr_launches[field.backend] = {name: counts[name][field.backend]
-                                       for name in ("libra_round", "phase_tables", "eq_table")}
+        gkr_launches[field.backend] = {name: counts[name][field.backend] for name in gkr_names}
         t_cpu = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, device="cpu"), field)
         if t_card.to_bytes() != t_cpu.to_bytes():
             raise AssertionError(f"GKR {label} {field.name}: card transcript != device='cpu'")
@@ -964,7 +1095,7 @@ def main(argv=None) -> int:
     for label, widths, seed in (("mixed-width", [1 << 4, 1 << 6, 1 << 4, 1 << 8, 1 << 6, 1 << 6], 3),
                                 ("uniform", [1 << 8] * 5, 4)):
         srng = np.random.default_rng(args.seed + seed)
-        circuit = gate_circuit(widths, srng)
+        circuit = gate_circuit(gkr, widths, srng)
         felts = GOLDILOCKS.felts([GOLDILOCKS.p - 1] + srng.integers(0, 1 << 62, widths[-1] - 1).tolist())
         torch.cuda.synchronize()
         reset_counts()
@@ -989,7 +1120,7 @@ def main(argv=None) -> int:
     F = GOLDILOCKS
     grng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    circuit = gate_circuit([width] * depth + [width], grng)
+    circuit = gate_circuit(gkr, [width] * depth + [width], grng)
     construct_s = time.perf_counter() - t0
     inputs = grng.integers(0, 1 << 62, width)
     log(f"GKR flagship circuit {depth} x 2^{args.gkr_log} ({depth * width} gates) built in Python in "
@@ -1002,7 +1133,7 @@ def main(argv=None) -> int:
     counts = read_counts()
     if not gkr_counts_ok(counts, F, circuit):
         raise AssertionError(f"GKR flagship: launches {counts}, expected {gkr_launch_counts(circuit)}")
-    gkr_launches[F.backend] = {name: counts[name][F.backend] for name in ("libra_round", "phase_tables", "eq_table")}
+    gkr_launches[F.backend] = {name: counts[name][F.backend] for name in gkr_names}
     n_msgs = 1 + sum(1 + 2 * circuit.num_vars_at(i + 1) for i in range(depth))
     if len(transcript.g) != n_msgs:
         raise AssertionError(f"GKR flagship: {len(transcript.g)} messages, expected {n_msgs}")
@@ -1094,7 +1225,8 @@ def main(argv=None) -> int:
     # the fused path on the flagship: the same bytes as the per-layer run,
     # every layer's rounds on the card, one device-to-host read after the
     # prelude
-    fused_keys = ("libra_round", "libra_round_tail", "phase_tables", "eq_table", "line_restrict", "gkr_final_tail")
+    fused_keys = ("libra_round", "libra_round_tail", "phase_tables", "eq_table", "eq_table_dot", "line_restrict",
+                  "gkr_final_tail")
     torch.cuda.synchronize()
     reset_counts()
     f0 = gkr_fused.fallbacks
@@ -1163,29 +1295,13 @@ def main(argv=None) -> int:
         f"native SHA-256 midstate over {len(begin_raw) / 1e6:.2f} MB {(t2 - t1) * 1e3:.2f} ms "
         f"({len(begin_raw) / (t2 - t1) / 1e6:.0f} MB/s), r_0's draw ({circuit.num_vars_at(0)} elements, Python "
         f"compressions) {(t3 - t2) * 1e3:.2f} ms {tag}")
-    fprover = gkr.Prover(circuit, inputs, F)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gkr.generate_gkr_transcript_fused(fprover, F)
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    spans, busy_us = device_spans(prof)
-    del fprover
-    fused_kernels = {}
-    for s0, s1, name in spans:
-        label = next((k_ for k_ in ("libra_round_kernel", "phase_tables_kernel", "eq_table_kernel",
-                                    "line_fold_kernel", "gkr_final_tail_kernel", "Memcpy DtoH", "Memcpy HtoD")
-                      if k_ in name), "other")
-        if label == "libra_round_kernel" and name.split("libra_round_kernel<", 1)[-1].split(">", 1)[0].endswith("true"):
-            label = "libra_round_kernel TAIL"  # the last template argument
-        ms_, n_ = fused_kernels.get(label, (0.0, 0))
-        fused_kernels[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
+    traced_ms, spans, busy_us, fused_kernels, fused_aten = fused_trace(gkr, circuit, inputs, F)
     if any("gkr_round_tail" in name for _, _, name in spans):
         raise AssertionError("GKR flagship fused: a standalone round-tail kernel ran")
     # the TAIL launches by inner round (2k - 1 per layer, in issue order),
     # grouped by table size: rounds 0-2 of each phase are the large ones
-    tail_us = [s1 - s0 for s0, s1, name in spans if "libra_round_kernel<" in name and
-               name.split("libra_round_kernel<", 1)[1].split(">", 1)[0].endswith("true")]
+    tail_us = [s1 - s0 for s0, s1, name in spans
+               if "libra_round_kernel<" in name and template_flag(name, "libra_round_kernel")]
     k_f = circuit.num_vars_at(1)
     if spans and len(tail_us) == depth * (2 * k_f - 1):
         per_j = [statistics.mean(tail_us[j :: 2 * k_f - 1]) for j in range(2 * k_f - 1)]
@@ -1204,8 +1320,7 @@ def main(argv=None) -> int:
         reads_note = "device-to-host copies: not measured (no copy records in the trace)"
     fused_idle = 1 - busy_us / 1e3 / traced_ms if spans else None
     log(f"GKR flagship fused, traced proof: {traced_ms:.3f} ms wall (profiler on), device busy {busy_us / 1e3:.3f} ms "
-        f"(union of {len(spans)} device records; "
-        f"{', '.join(f'{k_} {v[0]:.3f} ms over {v[1]}' for k_, v in sorted(fused_kernels.items()))}); {reads_note}; "
+        f"(union of {len(spans)} device records; {split_line(fused_kernels, fused_aten)}); {reads_note}; "
         "device idle share " + (f"{fused_idle:.1%}" if spans else "not measured (no device records)") + f" {tag}")
     log(f"GKR flagship fused breakdown (a sync after every step): prelude {parts['prelude']:.4f} s, phase 1 "
         f"{parts['phase1']:.4f} s, phase 2 {parts['phase2']:.4f} s over {depth} layers (per layer "
@@ -1220,7 +1335,8 @@ def main(argv=None) -> int:
                       "phase1_s": parts["phase1"], "phase2_s": parts["phase2"], "prelude_s": parts["prelude"],
                       "assemble_s": parts["assemble"], "final_pull_s": parts["pull"]},
         "prover_s_all": fused_s, "reps": len(fused_s), "per_layer_path_prover_s": prove_s,
-        "device_idle_share": fused_idle, "traced_ms": traced_ms, "launches": fused_launches, "card": card,
+        "device_idle_share": fused_idle, "traced_ms": traced_ms, "device_records": len(spans),
+        "device_busy_ms": busy_us / 1e3, "launches": fused_launches, "card": card,
     }))
     del transcript, timed_t, bad, fused_t, again
 
@@ -1356,31 +1472,49 @@ def main(argv=None) -> int:
         + ", ".join(f"2^{m_}: {a:.2f} / {b:.2f} (+{b - a:.2f})" for m_, a, b in sweep) + f" {tag}")
     del chain_, st_, layer_tail, tabs, outs_
 
-    # the fused path's kernels at the flagship's shapes, from CUDA graphs:
-    # the eq table (n = 2^k_cur entries, both fields), the line restriction
-    # (k fold steps, timed per restriction), the round tail at a chain fill
-    # of 40 with K1's partials, the final tail at k
+    # the GKR table kernels at the flagship's shapes, from CUDA graphs: the
+    # eq table (n = k entries; both fields), the eq table with the dot (the
+    # phase-2 build's, W of the same width), the line restriction (its
+    # tiles, timed per restriction; Goldilocks, the fused path's field);
+    # then the final tail at a chain fill of 40 at k
     F = GOLDILOCKS
     for field in (GOLDILOCKS, BABYBEAR):
         wb = 8 if field.backend == "goldilocks" else 4
-        r_ = FArray(words(field, k), field)
+        r_, w_ = FArray(words(field, k), field), FArray(words(field, 1 << k), field)
         eq_ms = graph_ms(lambda: device_tables.eq_table_dev(r_, k))
         eq_plain = time_launches(lambda: device_tables.eq_table_plain(r_, k), 3)
-        eq_bytes = (1 << k) * wb + k * wb
+        eq_bytes = (1 << k) * wb + k * wb  # r read, the table written
+        dot_ms = graph_ms(lambda: device_tables.eq_table_dot(r_, w_, k))
+        dot_plain = time_launches(lambda: device_tables.dot_mod(w_, device_tables.eq_table_plain(r_, k)), 3)
+        dot_bytes = 2 * (1 << k) * wb + (k + 1) * wb  # r and W read, the table and W~(u) written
         gkr_timing[field.backend]["eq_table"] = (eq_ms, eq_plain, eq_bytes / PEAK_BYTES_PER_S * 1e3)
-        log(f"{field.name} eq-table kernel at n = {k}: {eq_ms:.4f} ms per launch from a CUDA graph, bound "
-            f"{eq_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({eq_bytes / 1e6:.1f} MB written at 3.35 TB/s), "
-            f"{eq_bytes / PEAK_BYTES_PER_S * 1e3 / eq_ms:.1%} of the bound; plain torch {eq_plain:.3f} ms {tag}")
-    w_, u_, d_ = (FArray(words(F, n_), F) for n_ in (1 << k, k, k))
-    lr_ms = graph_ms(lambda: device_tables.line_restrict_coeffs(w_, u_, d_, k), count=5)
-    lr_plain = time_launches(lambda: device_tables.line_restrict_coeffs_plain(w_, u_, d_, k), 3)
-    lr_bytes = ((1 << k) + 2 * k + k + 1) * 8  # W, u and delta read once; q written
-    lr_steps = sum(((1 << (k - j)) * (j + 1) + (1 << (k - j - 1)) * (j + 2)) * 8 for j in range(k))
+        gkr_timing[field.backend]["eq_table_dot"] = (dot_ms, dot_plain, dot_bytes / PEAK_BYTES_PER_S * 1e3)
+        for name, ms, plain, nbytes, what in (("eq-table kernel", eq_ms, eq_plain, eq_bytes, "written"),
+                                              ("eq-with-dot kernel", dot_ms, dot_plain, dot_bytes,
+                                               "W read, the table written")):
+            log(f"{field.name} {name} at n = {k}: {ms:.4f} ms per launch from a CUDA graph, bound "
+                f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB {what} at 3.35 TB/s), "
+                f"{nbytes / PEAK_BYTES_PER_S * 1e3 / ms:.1%} of the bound; plain torch {plain:.3f} ms {tag}")
+    w_, chal_ = FArray(words(F, 1 << k), F), FArray(words(F, 2 * k), F)
+    tiles = device_tables.line_plan(k, 8)
+    lr_ms = graph_ms(lambda: device_tables.line_restrict_chal(w_, chal_, k))
+    lr_plain = time_launches(lambda: device_tables.line_restrict_coeffs_plain(w_, chal_[:k], chal_[k:] - chal_[:k], k), 3)
+    lr_bytes = ((1 << k) + 2 * k + k + 1) * 8  # W and the 2k challenges read once; q written
     gkr_timing["goldilocks"]["line_restrict"] = (lr_ms, lr_plain, lr_bytes / PEAK_BYTES_PER_S * 1e3)
-    log(f"line-restriction kernel at k = {k} ({k} fold-step launches): {lr_ms:.4f} ms per restriction from a CUDA "
-        f"graph, bound {lr_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({lr_bytes / 1e6:.1f} MB: W read once), "
-        f"{lr_bytes / PEAK_BYTES_PER_S * 1e3 / lr_ms:.1%} of the bound; the steps move {lr_steps / 1e6:.1f} MB "
-        f"({lr_steps / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s); plain torch {lr_plain:.3f} ms {tag}")
+    log(f"line-restriction kernel at k = {k} (tiles of {tiles} variables in "
+        f"{len(device_tables.line_launches_of(tiles))} launch(es)): {lr_ms:.4f} ms per "
+        f"restriction from a CUDA graph, bound {lr_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms ({lr_bytes / 1e6:.1f} MB: W "
+        f"read once), {lr_bytes / PEAK_BYTES_PER_S * 1e3 / lr_ms:.1%} of the bound; plain torch {lr_plain:.3f} ms {tag}")
+    # by width: how the time grows with the bytes (a latency-bound fold
+    # grows with its levels, a bytes-bound one with 2^k)
+    sweep = []
+    for k_ in range(max(2, k - 8), k + 1, 4):
+        w_k, chal_k = FArray(words(F, 1 << k_), F), FArray(words(F, 2 * k_), F)
+        sweep.append((k_, graph_ms(lambda: device_tables.line_restrict_chal(w_k, chal_k, k_)) * 1e3,
+                      device_tables.line_plan(k_, 8)))
+    log("line-restriction kernel by k (CUDA graphs, us; tiles): "
+        + ", ".join(f"k = {k_}: {us:.2f} {tl}" for k_, us, tl in sweep) + f" {tag}")
+    del w_k, chal_k
     m = gkr_tail.final_len(k)
     (chain_, st_), _ = gkr_tail_case(40, m, k)
     st_["q"] = words(F, k + 1)
@@ -1437,11 +1571,17 @@ def main(argv=None) -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             })
     # the fused path's kernels: launches on the flagship's fused proof (the
-    # eq table over mont32: the BabyBear 5-layer per-layer proof); the line
-    # restriction's ms and bound are per restriction of k fold-step launches
+    # eq tables over mont32: the BabyBear 5-layer per-layer proof); the line
+    # restriction's ms and bound are per restriction (its tile launches);
+    # the eq table with the dot replaces eq_table_dev (:316) and dot_mod
+    # (:350) as phase2_tables (:411) applies them
     fused_sources = {
         ("eq_table", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:316"),
         ("eq_table", "mont32"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:316"),
+        ("eq_table_dot", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu",
+                                         "thaler_study_tpu/gkr/device_tables.py:350"),
+        ("eq_table_dot", "mont32"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu",
+                                     "thaler_study_tpu/gkr/device_tables.py:350"),
         ("line_restrict", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tables.cu", "thaler_study_tpu/gkr/device_tables.py:454"),
         ("libra_round_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cuh", "thaler_study_tpu/gkr/fused.py:161"),
         ("gkr_final_tail", "goldilocks"): ("thaler_study_tpu_torch/csrc/gkr_tail.cu", "thaler_study_tpu/gkr/fused.py:318"),

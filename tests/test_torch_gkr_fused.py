@@ -13,10 +13,11 @@
   non-empty DST), the per-layer transcript for each, ``mesh=`` raising, and
   a forced zero flag giving the per-layer transcript, each counted in
   ``fallbacks``;
-- ``eq_table_plain`` and ``line_restrict_coeffs_plain`` (and the wrappers,
-  which take them for CPU tensors) against the JAX ``eq_table_dev`` and
-  ``line_restrict_coeffs`` at k = 2..6, random values and every value
-  p - 1;
+- ``eq_table_plain``, ``eq_table_dot`` and ``line_restrict_coeffs_plain``
+  (and the wrappers, which take them for CPU tensors, the line
+  restriction in both forms) against the JAX ``eq_table_dev``,
+  ``dot_mod`` and ``line_restrict_coeffs`` at k = 0..6, random values and
+  every value p - 1 (the JAX side at 6 variables, the case embedded);
 - K1 and the round tail as one call (``gkr_tail.libra_round_tail``, the
   composition the kernel's epilogue runs) at every buffer fill against
   Python-int round sums and the JAX package's codec and chain;
@@ -183,9 +184,24 @@ def test_zero_flag_falls_back_to_the_per_layer_path(monkeypatch):
     assert _accepts(t, circuit, inputs)
 
 
+def _embed(x: np.ndarray, n: int) -> np.ndarray:
+    """x padded with zeros to n entries."""
+    return np.concatenate([x, np.zeros(n - len(x), dtype=np.uint64)])
+
+
 def test_eq_table_and_line_restriction_match_jax():
+    """At k = 0..6 (random values, every value p - 1): the plain versions
+    and the CPU wrappers of the eq table, the eq table with the dot, and
+    the line restriction in both forms against the JAX package.
+
+    The JAX side runs each case at K = 6 variables: W padded with zeros, u
+    and c with zeros, so delta is 0 there and r_j(t) = 0 for the extra
+    variables. Then q_K = (q_k, 0, ...), eq_K = (eq_k, 0, ...) and W~(u) is
+    unchanged, exactly, and every eager JAX primitive runs at one set of
+    shapes (its per-shape compilation was most of this test's time)."""
     rng = np.random.default_rng(41)
-    for k in range(2, 7):
+    K = 6
+    for k in range(0, K + 1):
         for values in ("random", "p - 1"):
             size = 1 << k
             if values == "random":
@@ -193,21 +209,30 @@ def test_eq_table_and_line_restriction_match_jax():
             else:
                 w, u, c = (np.full(n, P - 1, dtype=np.uint64) for n in (size, k, k))
             fw, fu, fc = (FArray.from_ints(x, F, device="cpu") for x in (w, u, c))
-            jw, ju, jc = (jfields.FArray.from_ints(x, JF) for x in (w, u, c))
+            jw, ju, jc = (jfields.FArray.from_ints(_embed(x, n), JF) for x, n in ((w, 1 << K), (u, K), (c, K)))
             with jax.disable_jit():
-                jq = jdt.line_restrict_coeffs(jw, ju, jc - ju, k)
-                jeq = jdt.eq_table_dev(ju, k)
-            want_q = np.asarray(jq.to_u64(), dtype=np.uint64)
-            for fn in (dt.line_restrict_coeffs_plain, dt.line_restrict_coeffs):
-                q = fn(fw, fu, fc - fu, k)
+                jq = jdt.line_restrict_coeffs(jw, ju, jc - ju, K)
+                jeq = jdt.eq_table_dev(ju, K)
+                jwu = jdt.dot_mod(jw, jeq)
+            q_all = np.asarray(jq.to_u64(), dtype=np.uint64)
+            eq_all = np.asarray(jeq.to_u64(), dtype=np.uint64)
+            assert not q_all[k + 1 :].any() and not eq_all[size:].any()
+            want_q, want_eq = q_all[: k + 1], eq_all[:size]
+            want_wu = int(np.asarray(jwu.to_u64()).reshape(-1)[0])
+            chal = FArray.from_ints(np.concatenate([u, c]), F, device="cpu")
+            qs_port = [fn(fw, fu, fc - fu, k) for fn in (dt.line_restrict_coeffs_plain, dt.line_restrict_coeffs)]
+            qs_port.append(dt.line_restrict_chal(fw, chal, k))
+            for q in qs_port:
                 assert q.shape == (k + 1,)
-                assert np.array_equal(q.to_u64(), want_q), (k, values, fn.__name__)
-            want_eq = np.asarray(jeq.to_u64(), dtype=np.uint64)
+                assert np.array_equal(q.to_u64(), want_q), (k, values)
             for fn in (dt.eq_table_plain, dt.eq_table_dev):
                 assert np.array_equal(fn(fu, k).to_u64(), want_eq), (k, values, fn.__name__)
+            eq_u, w_u = dt.eq_table_dot(fu, fw, k)
+            assert np.array_equal(eq_u.to_u64(), want_eq), (k, values)
+            assert w_u.shape == (1,) and int(w_u.to_u64()[0]) == want_wu, (k, values)
             # q(t) = W~(u + t (c - u)) at t = 0, 1: W~(u) and W~(c)
             qs = [int(x) for x in want_q]
-            assert qs[0] == runtime.mle_eval(w, u, P)
+            assert qs[0] == want_wu == runtime.mle_eval(w, u, P)
             assert sum(qs) % P == runtime.mle_eval(w, c, P)
     assert np.array_equal(dt.eq_table_dev(FArray.from_ints([5], F, device="cpu"), 0).to_u64(), [1])
 

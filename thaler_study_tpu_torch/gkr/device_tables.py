@@ -27,20 +27,27 @@ reverses, so the two agree only if the plan is right.
 Two more builders have kernels of their own, ``csrc/gkr_tables.cu``:
 
 - :func:`eq_table_dev`, eq(x, r) over 2^n indices (plain version
-  :func:`eq_table_plain`, n interleave steps);
-- :func:`line_restrict_coeffs`, the k + 1 coefficients of
-  q(t) = W~(u + t delta), the fused GKR prover's line restriction (plain
-  version :func:`line_restrict_coeffs_plain`, the JAX package's symbolic
-  fold in FArray ops).
+  :func:`eq_table_plain`, n interleave steps), and :func:`eq_table_dot`,
+  the same table of u and W~(u) = sum_x W[x] eq(x, u) in the same pass
+  (plain version: the table, then :func:`dot_mod`), the phase-2 build's
+  pair;
+- :func:`line_restrict_coeffs` / :func:`line_restrict_chal`, the k + 1
+  coefficients of q(t) = W~(u + t delta), the fused GKR prover's line
+  restriction, given delta or the layer's challenge vector (u, c) with
+  delta = c - u formed in the kernel (plain version
+  :func:`line_restrict_coeffs_plain`, the JAX package's symbolic fold in
+  FArray ops). The kernel folds in tiles (:func:`line_plan`);
+  :func:`line_restrict_tiled_plain` mirrors its tiles and indexing in
+  torch ops.
 
-Everything else here is plain torch, exact: the gathers, the dot product,
-the bit reversal (the JAX package's jnp programs).
+Everything else here is plain torch, exact: the gathers, the bit reversal
+(the JAX package's jnp programs).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -52,14 +59,22 @@ from ..mle.dense import bitrev
 
 THREADS = 256  # csrc/phase_tables.cu THREADS
 
+EQ_LOW = 12  # csrc/gkr_tables.cu LOW: eq entries per block, log2
+LINE_SMEM_BYTES = 96 * 1024  # csrc/gkr_tables.cu LINE_SMEM_BYTES
+LINE_REG = 4  # csrc/gkr_tables.cu LINE_REG
+LINE_ONE = 10  # the line restriction takes one tile up to this k
+LINE_WAVE = 7  # log2 of the first tile's least block count (132 SMs)
+
 # launches of the CUDA kernels (not of the plain versions), per instantiation:
-# K2, the eq table, and the line restriction's fold steps
+# K2, the eq table, the eq table with the dot, the line restriction's tiles
 launches = {"goldilocks": 0, "mont32": 0}
 eq_launches = {"goldilocks": 0, "mont32": 0}
+eq_dot_launches = {"goldilocks": 0, "mont32": 0}
 line_launches = {"goldilocks": 0, "mont32": 0}
 
 _fn = None
 _tables = None
+_counters = {}  # the tickets' counter per device (:func:`_counter`)
 
 
 def _kernel():
@@ -83,8 +98,10 @@ def _tables_lib():
         vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         lib.ts_eq_table_launch.argtypes = [i, u, u, vp, i, vp, vp]
         lib.ts_eq_table_launch.restype = i
-        lib.ts_line_fold_launch.argtypes = [i, u, u, vp, i, vp, vp, vp, ctypes.c_longlong, vp]
-        lib.ts_line_fold_launch.restype = i
+        lib.ts_eq_dot_launch.argtypes = [i, u, u, vp, i, vp, vp, vp, vp, vp, vp]
+        lib.ts_eq_dot_launch.restype = i
+        lib.ts_line_tile_launch.argtypes = [i, u, u, vp, i, i, vp, vp, i, vp, u, i, i, vp, vp, vp]
+        lib.ts_line_tile_launch.restype = i
         _tables = lib
     return _tables
 
@@ -92,6 +109,11 @@ def _tables_lib():
 def _field_args(field: FieldConfig):
     mont32 = field.backend == "mont32"
     return int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0
+
+
+def _check_cuda(name: str, dev) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
 
 
 def _check_vector(name: str, x: FArray, n: int) -> None:
@@ -108,8 +130,7 @@ def eq_table_dev(r: FArray, n: int) -> FArray:
     dev = r.device
     if dev.type == "cpu":
         return eq_table_plain(r, n)
-    if dev.type != "cuda":
-        raise ValueError(f"eq_table_dev runs on cpu or cuda, not {dev}")
+    _check_cuda("eq_table_dev", dev)
     out = torch.empty(1 << n, dtype=word_dtype(r.field), device=dev)
     rc = _tables_lib().ts_eq_table_launch(
         *_field_args(r.field), r.data.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
@@ -118,6 +139,36 @@ def eq_table_dev(r: FArray, n: int) -> FArray:
         raise RuntimeError(f"eq-table kernel launch failed: CUDA error {rc}")
     eq_launches[r.field.backend] += 1
     return FArray(out, r.field)
+
+
+def eq_table_dot(u: FArray, w_lsb: FArray, n: int) -> Tuple[FArray, FArray]:
+    """(eq(x, u) over the 2^n little-endian x, W~(u) = sum_x W[x] eq(x, u)
+    as a (1,) FArray) for W in label order (``w_lsb``, 2^n values): the
+    phase-2 build's eq table and the scalar K1 reads. CPU tensors run
+    :func:`eq_table_plain` then :func:`dot_mod`; CUDA tensors launch the
+    eq-table kernel with the dot in the same pass (one launch) or raise."""
+    _check_vector("u", u, n)
+    if w_lsb.shape != (1 << n,) or not w_lsb.data.is_contiguous():
+        raise ValueError(f"w_lsb must be a contiguous FArray of {1 << n} values, got {w_lsb.shape}")
+    dev = u.device
+    if w_lsb.field != u.field or w_lsb.device != dev:
+        raise ValueError("u and w_lsb must be FArrays of one field on one device")
+    if dev.type == "cpu":
+        eq = eq_table_plain(u, n)
+        return eq, dot_mod(w_lsb, eq)
+    _check_cuda("eq_table_dot", dev)
+    dtype = word_dtype(u.field)
+    out = torch.empty(1 << n, dtype=dtype, device=dev)
+    w_u = torch.empty(1, dtype=dtype, device=dev)
+    partials = torch.empty(1 << max(n - EQ_LOW, 0), dtype=dtype, device=dev)
+    rc = _tables_lib().ts_eq_dot_launch(
+        *_field_args(u.field), u.data.data_ptr(), n, out.data_ptr(), w_lsb.data.data_ptr(), partials.data_ptr(),
+        _counter(dev).data_ptr(), w_u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"eq-with-dot kernel launch failed: CUDA error {rc}")
+    eq_dot_launches[u.field.backend] += 1
+    return FArray(out, u.field), FArray(w_u, u.field)
 
 
 def eq_table_plain(r: FArray, n: int) -> FArray:
@@ -131,39 +182,129 @@ def eq_table_plain(r: FArray, n: int) -> FArray:
     return t
 
 
+def _tile_reg(d: int, t: int) -> int:
+    """The variables a tile folds in registers before shared memory:
+    ``LINE_REG`` for a tile over W itself (d = 0) of more variables, else 0."""
+    return LINE_REG if d == 0 and t > LINE_REG else 0
+
+
+def _tile_words(d: int, t: int) -> int:
+    """The shared-memory words of a line-restriction tile folding t
+    variables of polynomials of degree d: its first table (the tile, or the
+    register folds' 2^(t - R) polynomials of degree R) and, when a second
+    shared step follows, the first step's output after it (later steps fit
+    in what those two free)."""
+    r = _tile_reg(d, t)
+    polys = 1 << (t - r)
+    first = polys * (d + r + 1)
+    return first if t - r == 1 else first + (polys >> 1) * (d + r + 2)
+
+
+def line_plan(k: int, word_bytes: int, first: Optional[int] = None) -> List[int]:
+    """The line restriction's tiles: the number of variables each launch
+    folds, in order, summing to k. Up to k = ``LINE_ONE`` one tile (one
+    block); above it the first tile leaves 2^LINE_WAVE blocks or more (a
+    wave of the card's SMs) and each later tile is the largest that fits
+    ``LINE_SMEM_BYTES`` of shared memory. ``first``, when given, sets the
+    first tile (clamped to k). Goldilocks at k = 20: [13, 7]."""
+    cap = LINE_SMEM_BYTES // word_bytes
+
+    def fit(d: int) -> int:
+        return max(t for t in range(1, k - d + 1) if t == 1 or _tile_words(d, t) <= cap)
+
+    if first is not None:
+        tiles = [max(1, min(first, k))]
+    elif k <= LINE_ONE:
+        tiles = [k] if k else []
+    else:
+        tiles = [min(fit(0), k - LINE_WAVE)]
+    d = sum(tiles)
+    while d < k:
+        tiles.append(fit(d))
+        d += tiles[-1]
+    return tiles
+
+
+def _check_line(w_lsb: FArray, k: int, vectors) -> None:
+    if w_lsb.shape != (1 << k,) or not w_lsb.data.is_contiguous():
+        raise ValueError(f"w_lsb must be a contiguous FArray of {1 << k} values, got {w_lsb.shape}")
+    for name, x, n in vectors:
+        _check_vector(name, x, n)
+        if x.field != w_lsb.field or x.device != w_lsb.device:
+            raise ValueError(f"w_lsb and {name} must be FArrays of one field on one device")
+
+
+def line_launches_of(tiles: List[int]) -> List[Tuple[int, int]]:
+    """The launches of a tile plan as (t, tail_t) pairs: the last tile runs
+    in the last block of the launch before it (tail_t), so a plan of n >= 2
+    tiles is n - 1 launches (one at k = 20)."""
+    if len(tiles) < 2:
+        return [(t, 0) for t in tiles]
+    return [(t, 0) for t in tiles[:-2]] + [(tiles[-2], tiles[-1])]
+
+
+def _counter(dev) -> torch.Tensor:
+    """The tickets' counter on ``dev`` (one int, 0 between launches; the
+    eq table with the dot and the line restriction, each kernel leaving it
+    at 0, so launches on one stream share it)."""
+    counter = _counters.get(dev)
+    if counter is None:
+        counter = _counters[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return counter
+
+
+def _line_tiles(w_lsb: FArray, k: int, u: torch.Tensor, v: torch.Tensor, v_is_c: bool) -> FArray:
+    """The launches of :func:`line_plan` on the card."""
+    field, dev = w_lsb.field, w_lsb.device
+    _check_cuda("line_restrict_coeffs", dev)
+    lib, args = _tables_lib(), _field_args(field)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    word_bytes = w_lsb.data.element_size()
+    cur, d = w_lsb.data, 0
+    if k == 0:
+        return FArray(cur.clone(), field)
+    for t, tail in line_launches_of(line_plan(k, word_bytes)):
+        blocks = 1 << (k - d - t)
+        out = torch.empty(blocks * (d + t + 1), dtype=cur.dtype, device=dev)
+        final = torch.empty(d + t + tail + 1, dtype=cur.dtype, device=dev) if tail else None
+        words = max(_tile_words(d, t), _tile_words(d + t, tail) if tail else 0)
+        rc = lib.ts_line_tile_launch(
+            *args, cur.data_ptr(), d, t, u.data_ptr(), v.data_ptr(), int(v_is_c), out.data_ptr(), blocks,
+            words * word_bytes, tail, final.data_ptr() if tail else None, _counter(dev).data_ptr(), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"line-restriction kernel launch failed: CUDA error {rc}")
+        line_launches[field.backend] += 1
+        cur, d = (final if tail else out), d + t + tail
+    return FArray(cur, field)
+
+
 def line_restrict_coeffs(w_lsb: FArray, u: FArray, delta: FArray, k: int) -> FArray:
     """The coefficients (ascending powers of t) of q(t) = W~(u + t delta),
     the degree-k restriction of the multilinear W (``w_lsb``, 2^k values in
     label order) to a line: W folded one variable at a time with
     r_j(t) = u_j + t delta_j carried symbolically (``csrc/gkr_tables.cu``).
     Returns a [k + 1] FArray. CPU tensors run
-    :func:`line_restrict_coeffs_plain`; CUDA tensors launch one fold step of
-    the kernel per variable or raise."""
-    if w_lsb.shape != (1 << k,) or not w_lsb.data.is_contiguous():
-        raise ValueError(f"w_lsb must be a contiguous FArray of {1 << k} values, got {w_lsb.shape}")
-    _check_vector("u", u, k)
-    _check_vector("delta", delta, k)
-    dev = w_lsb.device
-    if u.field != w_lsb.field or delta.field != w_lsb.field or u.device != dev or delta.device != dev:
-        raise ValueError("w_lsb, u and delta must be FArrays of one field on one device")
-    if dev.type == "cpu":
+    :func:`line_restrict_coeffs_plain`; CUDA tensors launch the kernel
+    (:func:`line_plan`, :func:`line_launches_of`: one launch at k = 20) or
+    raise."""
+    _check_line(w_lsb, k, (("u", u, k), ("delta", delta, k)))
+    if w_lsb.device.type == "cpu":
         return line_restrict_coeffs_plain(w_lsb, u, delta, k)
-    if dev.type != "cuda":
-        raise ValueError(f"line_restrict_coeffs runs on cpu or cuda, not {dev}")
-    lib, args = _tables_lib(), _field_args(w_lsb.field)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cur = w_lsb.data
-    for j in range(k):
-        half = 1 << (k - j - 1)
-        out = torch.empty(half * (j + 2), dtype=cur.dtype, device=dev)
-        rc = lib.ts_line_fold_launch(
-            *args, cur.data_ptr(), j, u.data.data_ptr(), delta.data.data_ptr(), out.data_ptr(), half, stream
-        )
-        if rc != 0:
-            raise RuntimeError(f"line-restriction kernel launch failed: CUDA error {rc}")
-        line_launches[w_lsb.field.backend] += 1
-        cur = out
-    return FArray(cur, w_lsb.field)
+    return _line_tiles(w_lsb, k, u.data, delta.data, False)
+
+
+def line_restrict_chal(w_lsb: FArray, chal: FArray, k: int) -> FArray:
+    """:func:`line_restrict_coeffs` on the line through u = chal[:k] and
+    c = chal[k:2k] (delta = c - u): the fused prover's form, which reads
+    the layer's challenge vector as it lies on the card. CUDA tensors form
+    delta inside the kernel; CPU tensors run the plain version on
+    (u, c - u)."""
+    _check_line(w_lsb, k, (("chal", chal, 2 * k),))
+    if w_lsb.device.type == "cpu":
+        u = chal[:k]
+        return line_restrict_coeffs_plain(w_lsb, u, chal[k : 2 * k] - u, k)
+    return _line_tiles(w_lsb, k, chal.data, chal.data[k:], True)
 
 
 def line_restrict_coeffs_plain(w_lsb: FArray, u: FArray, delta: FArray, k: int) -> FArray:
@@ -182,6 +323,64 @@ def line_restrict_coeffs_plain(w_lsb: FArray, u: FArray, delta: FArray, k: int) 
         b = torch.cat([zero, (diff * delta[j]).data], dim=1)
         arr = FArray(torch.cat([even.data, zero], dim=1), field) + FArray(a, field) + FArray(b, field)
     return arr.reshape(-1)
+
+
+def _mirror_step(src: torch.Tensor, at: int, nout: int, deg: int, uj: FArray, dj: FArray) -> torch.Tensor:
+    """One fold step of the kernel's ``line_step`` over each row of ``src``
+    (a block's words): input polynomials of deg + 1 coefficients from word
+    ``at``, nout * (deg + 2) output words, one per index as the kernel's
+    threads take them."""
+    field = uj.field
+    width = deg + 2
+    idx = torch.arange(nout * width, device=src.device)
+    i, m = idx // width, idx % width
+    e_at = at + 2 * i * (deg + 1)
+    zero = torch.zeros((), dtype=src.dtype, device=src.device)
+
+    def word(pos, ok):
+        return FArray(torch.where(ok, src[:, torch.where(ok, pos, at)], zero), field)
+
+    lo, hi = m <= deg, m >= 1
+    e, o = word(e_at + m, lo), word(e_at + deg + 1 + m, lo)
+    e1, o1 = word(e_at + m - 1, hi), word(e_at + deg + m, hi)
+    y = FArray(torch.where(lo, (e + (o - e) * uj).data, zero), field)
+    return (y + (o1 - e1) * dj).data
+
+
+def line_restrict_tiled_plain(w_lsb: FArray, u: FArray, delta: FArray, k: int, first: Optional[int] = None) -> FArray:
+    """The line-restriction kernel's tiles and indexing in torch ops (any
+    device), to find indexing faults off the card: each tile of
+    :func:`line_plan` (``first`` sets the first) folds its first R
+    variables per group of 2^R words (the kernel's registers,
+    :func:`_tile_reg`), lays the polynomials into a per-block buffer of
+    :func:`_tile_words` words, runs the remaining steps between the
+    buffer's two regions with the kernel's offsets and one output word per
+    index, and writes one polynomial per tile. Equal to
+    :func:`line_restrict_coeffs_plain`."""
+    dev = w_lsb.device
+    cur, d = w_lsb.data, 0
+    for t in line_plan(k, w_lsb.data.element_size(), first):
+        blocks, r = 1 << (k - d - t), _tile_reg(d, t)
+        tile = cur.reshape(blocks, (1 << t) * (d + 1))
+        if r:  # each group of 2^r words folded alone, as one thread does
+            groups = tile.reshape(-1, 1 << r)
+            for s in range(r):
+                groups = _mirror_step(groups, 0, 1 << (r - s - 1), s, u[s], delta[s])
+            tile = groups.reshape(blocks, -1)
+        buf = torch.zeros(blocks, _tile_words(d, t), dtype=cur.dtype, device=dev)
+        buf[:, : tile.shape[1]] = tile
+        in_off, in_size, nin = 0, tile.shape[1], 1 << (t - r)
+        for s in range(r, t):
+            deg, nout = d + s, nin >> 1
+            y = _mirror_step(buf, in_off, nout, deg, u[deg], delta[deg])
+            out_off = in_size if in_off == 0 else 0
+            if s == t - 1:
+                cur = y.reshape(-1)
+            else:
+                buf[:, out_off : out_off + y.shape[1]] = y
+            in_off, in_size, nin = out_off, y.shape[1], nout
+        d += t
+    return FArray(cur.reshape(-1), w_lsb.field)
 
 
 def gather(table: FArray, idx: torch.Tensor) -> FArray:
@@ -249,8 +448,7 @@ def phase_tables(phase: int, wiring, eq_r: FArray, table: FArray, k: int) -> Tup
     if dev.type == "cpu":
         key, gidx = (wiring.b, wiring.c) if phase == 1 else (wiring.c, wiring.b)
         return phase_tables_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k)
-    if dev.type != "cuda":
-        raise ValueError(f"phase_tables runs on cpu or cuda, not {dev}")
+    _check_cuda("phase_tables", dev)
     field = eq_r.field
     size = 1 << k
     out1 = torch.empty(size, dtype=word_dtype(field), device=dev)
@@ -294,7 +492,8 @@ def phase1_tables(r_i: FArray, w_lsb: FArray, wiring, k_cur: int, k: int):
 
 def phase2_tables(u: FArray, w_lsb: FArray, eq_r: FArray, wiring, k: int):
     """LibraW phase-2 build: (u [k], W in label order, eq_r, wiring) ->
-    (b1, b2 in MSB-first order, w_u = W~(u) as a (1,) FArray)."""
-    eq_u = eq_table_dev(u, k)
+    (b1, b2 in MSB-first order, w_u = W~(u) as a (1,) FArray); the eq table
+    of u and W~(u) come out of one pass (:func:`eq_table_dot`)."""
+    eq_u, w_u = eq_table_dot(u, w_lsb, k)
     b1, b2 = phase_tables(2, wiring, eq_r, eq_u, k)
-    return b1, b2, dot_mod(w_lsb, eq_u)
+    return b1, b2, w_u

@@ -9,11 +9,12 @@ scalars (claims, challenges, the chain's state, r_{i+1}) stay on the card:
 - phase 1: the eq table of r_i over k_cur variables, the phase-1 tables
   (K2), then k rounds of K1 with the round tail as its epilogue (one
   launch each), the first also writing StartSumCheck;
-- phase 2: the eq table of u, the phase-2 tables (K2) and W~(u) (a dot
-  product kept on the card as K1's phase-2 scalar), k - 1 rounds of K1
-  with the round tail, the second-to-last message drawing r_{2k-2} and
-  r_last, then the final K1, the line restriction and the final tail (the
-  FinalRoundMessage, r* and r_{i+1} = u + (c - u) r*).
+- phase 2: the eq table of u with W~(u) in the same launch (kept on the
+  card as K1's phase-2 scalar), the phase-2 tables (K2), k - 1 rounds of
+  K1 with the round tail, the second-to-last message drawing r_{2k-2} and
+  r_last, then the final K1, the line restriction (its tiles read u and c
+  from the layer's challenge vector and form c - u themselves) and the
+  final tail (the FinalRoundMessage, r* and r_{i+1} = u + (c - u) r*).
 
 The tails (``ops/gkr_tail.py``) write every message into one byte buffer
 on the card. After the Begin message, which the host serializes and whose
@@ -57,7 +58,7 @@ from ..ops.gkr_tail import (
     midstate,
 )
 from ..ops.sha_chain import draw_many_py
-from .device_tables import line_restrict_coeffs, lsb_to_msb, phase1_tables, phase2_tables
+from .device_tables import line_restrict_chal, lsb_to_msb, phase1_tables, phase2_tables
 from .transcript import GKRTranscript, generate_gkr_transcript, serialize_gkr_message
 
 # proofs routed to the per-layer path: unsupported inputs and zero flags
@@ -139,8 +140,7 @@ class _Layer:
             tables = self.round(tables, j, r, True, 2, [w_u.data], k + j, 1 if j < k - 2 else 2)
         r = chal[2 * k - 2 : 2 * k - 1]  # k >= 2: the last round folds
         _, partials = round_partials(tables, r, True, self._out(tables, k - 1), field, LIBRA_PHASE2, [w_u.data])
-        c = FArray(chal[k:], field)
-        q = line_restrict_coeffs(self.w_lsb, u, c - u, k)
+        q = line_restrict_chal(self.w_lsb, FArray(chal, field), k)  # delta = c - u in the kernel
         r_next = torch.empty(k, dtype=torch.int64, device=chal.device)
         self.off += final_tail(
             partials, self.claim, q.data, chal, k, self.tail.chain, self.tail.msgs, self.off, self.tail.zero, r_next

@@ -19,7 +19,7 @@ Folds (``fix_variables``, :func:`fold_msb`), the bit reversal and
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,17 +36,31 @@ def bitrev_perm(n: int) -> np.ndarray:
     return rev
 
 
-def _bitrev_index(n: int, device) -> torch.Tensor:
-    """:func:`bitrev_perm` built on ``device``."""
-    rev = torch.zeros(1, dtype=torch.int64, device=device)
-    for _ in range(n):
-        rev = torch.cat([2 * rev, 2 * rev + 1])
+# the cached indices: a GKR proof reverses every layer's table at the same
+# few widths; a wider table (the matmul entry's 2^26) builds its index per
+# call, since keeping it would hold another table's worth of device memory
+_BITREV_CACHE_MAX_N = 22
+_bitrev_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _bitrev_index(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`bitrev_perm` built on ``device`` (n doubling steps), kept per
+    (n, device) for n <= 22."""
+    key = (n, device)
+    rev = _bitrev_cache.get(key)
+    if rev is None:
+        rev = torch.zeros(1, dtype=torch.int64, device=device)
+        for _ in range(n):
+            rev = torch.cat([2 * rev, 2 * rev + 1])
+        if n <= _BITREV_CACHE_MAX_N:
+            _bitrev_cache[key] = rev
     return rev
 
 
 def bitrev(table: FArray, n: int) -> FArray:
     """Bit-reverse a 2^n-entry table on its device (an involution: label
-    order <-> internal MSB-first order)."""
+    order <-> internal MSB-first order): one gather, by the cached index up
+    to n = 22."""
     return FArray(table.data[_bitrev_index(n, table.device)], table.field)
 
 
