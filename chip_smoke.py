@@ -4,7 +4,9 @@
 Usage, from the repository root on a machine with a card:
 
     python3 chip_smoke.py [--seed 42] [--n 22] [--batch 64] [--reps 5] [--mm-log 13]
-                          [--gkr-depth 16] [--gkr-log 20] [--fused-trace-only]
+                          [--gkr-depth 16] [--gkr-log 20] [--tri-nodes 4096]
+                          [--tri-nodes-small 1024] [--tri-nodes-cmp 256]
+                          [--wide-depth 8] [--wide-log 11] [--fused-trace-only]
 
 ``--fused-trace-only`` builds the kernels and the flagship circuit, traces
 one fused GKR proof and prints its device time by kernel and by aten op
@@ -31,7 +33,14 @@ The paths, each driven through the entry points a user calls:
   on the book circuit (F389) and a 5-layer mixed-width circuit (Goldilocks
   and BabyBear);
 - the fused GKR prover (``gkr.generate_gkr_transcript_fused``) on two small
-  Goldilocks circuits and on the flagship.
+  Goldilocks circuits and on the flagship;
+- the triangle-counting IP (``api.prove_triangle_count`` /
+  ``verify_triangle_count``) on the symmetric G(n, 0.05) drawn from the
+  seed: 4096 nodes over Goldilocks (36 variables, three 2^24-entry factor
+  tables), 1024 nodes over Goldilocks and BabyBear, 256 nodes against
+  ``device="cpu"``; and the dense-W GKR prover (``gkr.Prover(...,
+  use_linear=False)``) on the book circuit, the 5-layer mixed-width circuit
+  and an 8 x 2^11 circuit (2^22-entry wiring tables).
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -56,7 +65,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    its epilogue
    (TAIL) against K1's plain version then the tail's at every fill x
    (StartSumCheck, one draw, two draws), and the final tail at k in
-   (2, 3, 10, 20) x every fill;
+   (2, 3, 10, 20) x every fill; the multi-block round kernel and its flat
+   fold (the triangle spec at every block transition, dense W in both
+   phases, single-block k = 1, k = 4 and a scalar-table product; fold and
+   skip-1 on and off) and the modular matmul (C = A B^T and the
+   contraction's partials, M, N, K off the tile, K up to 4096) over the five
+   fields, random words and words at p - 1;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -68,7 +82,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    to the plain forward pass on the CPU, accepted by the verifier and
    rejected when tampered; the fused path byte-identical to ``device="cpu"``
    and to the per-layer path (small circuits) and to the per-layer run
-   (flagship), with no fallback and the launch counts of its design;
+   (flagship), with no fallback and the launch counts of its design; the
+   triangle IP's 6 Delta against trace(A^3) (float64 on the card, exact for
+   these sizes), accepted, a tampered copy rejected, the launches of each
+   kernel (the X phase on the modular matmul) per proof; the dense W
+   byte-identical to the LibraW run on the card and on the CPU, accepted,
+   tampered copy rejected;
 4. timing with CUDA events, a dependent host read and a profiler trace,
    and the FS tail's latency floor (one thread's chain of dependent SHA-256
    compressions, times the compressions on a round's chain); for GKR, the
@@ -79,7 +98,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    device-to-host read after the prelude, no standalone round tail, the
    plain-torch time by aten op), and its kernels at the flagship's shapes
    (K1 with TAIL beside K1 alone; the eq table, the eq table with the dot
-   and the line restriction);
+   and the line restriction); each triangle proof split into input
+   building, c_1, the X, Y and Z phases and hashing; the multi-block kernels
+   and the modular matmul at the triangle path's shapes, the matmul against
+   an operations bound from its SASS (``cuobjdump -sass``);
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -230,6 +252,592 @@ def fused_trace_only(args, card: str) -> int:
     return 0
 
 
+# ---- the multi-block slice: the triangle IP and the dense GKR W ----------
+#
+# Module-level so that a rehearsal can drive it with CPU tensors (dev =
+# cpu): every kernel call, entry point and timer below goes through ``dev``,
+# ``sync`` and the timers passed in.
+
+TRI_BLOCKS = ((0, 1), (1, 2), (0, 2))
+W_BLOCKS = ((0, 1), (0, 1), (0,), (1,))
+W_TERMS = ((0, 2), (0, 3), (1, 2, 3))
+FIELDS5 = ("GOLDILOCKS", "BABYBEAR", "F1572869", "F389", "F5")
+# csrc/modmatmul.cu: each thread's pass of the K loop makes BK x TM x TN
+# products (16 x 4 x 4)
+MM_PRODUCTS_PER_LOOP = 256
+# The modular matmul's operations bound holds the kernel to fixed counts of
+# SASS instructions per product (all, IMAD-family), counted once in the K
+# loop of csrc/modmatmul.cu's first version (cuobjdump -sass, sm_90a), so
+# that a redesign is measured against the same yardstick; each run prints
+# the current build's counts beside them.
+MM_SASS_PER_PRODUCT = {"goldilocks": (28.390625, 12.59765625), "mont32": (9.37109375, 2.453125)}
+# the slice's sizes: the triangle IP's main-path graph, its graphs over
+# Goldilocks and BabyBear at BENCHMARKS.md config 4's scale, the graph held
+# against device="cpu", and the wide dense-W GKR circuit (layers, log2 width)
+TRI_NODES, TRI_NODES_SMALL, TRI_NODES_CMP = 4096, 1024, 256
+WIDE_DEPTH, WIDE_LOG = 8, 11
+
+
+def slice_words(gen, field, shape, dev, fill="random"):
+    """Words of ``field`` (canonical Goldilocks, Montgomery mont32): random
+    with boundary words first (0, 1, p - 1, p - 2 and, for mont32, their
+    Montgomery images), or every word p - 1 (``fill="max"``: the largest
+    word, the lazy accumulators' worst case)."""
+    import torch
+
+    from thaler_study_tpu_torch.fields import goldilocks as gl
+
+    if field.backend == "goldilocks":
+        if fill == "max":
+            return torch.full(shape, gl.to_i64(gl.P - 1), dtype=torch.int64, device=dev)
+        lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev, dtype=torch.int64)
+        hi = torch.randint(0, (1 << 32) - 1, shape, generator=gen, device=dev, dtype=torch.int64)
+        x = (hi << 32) | lo
+        edge = torch.tensor([gl.to_i64(v) for v in (0, 1, gl.P - 1, gl.P - 2)], dtype=torch.int64, device=dev)
+    else:
+        p = field.p
+        if fill == "max":
+            return torch.full(shape, p - 1, dtype=torch.int32, device=dev)
+        x = torch.randint(0, p, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+        e = [v % p for v in (0, 1, p - 1, p - 2)]
+        edge = torch.tensor(e + [v * field.mont_r % p for v in e], dtype=torch.int32, device=dev)
+    m = min(x.numel(), edge.numel())
+    x.view(-1)[:m] = edge[:m]
+    return x
+
+
+def word_err(a, b) -> int:
+    """0 when the word tensors are equal, else the largest |a - b| over
+    (up to 64 of) the words that differ, as integers."""
+    import torch
+
+    from thaler_study_tpu_torch.fields.farray import tensor_u64
+
+    if a.shape == b.shape and torch.equal(a, b):
+        return 0
+    if a.shape != b.shape:
+        return 1 << 64
+    diff = (a != b).nonzero()[:64]
+    ua, ub = tensor_u64(a[tuple(diff.T)]), tensor_u64(b[tuple(diff.T)])
+    return max(abs(int(x) - int(y)) for x, y in zip(ua, ub))
+
+
+def folded_spec(spec, j):
+    for _ in range(j):
+        spec = spec.after_fold()
+    return spec
+
+
+def triangle_graph(n_nodes: int, seed: int, p: float = 0.05):
+    """The symmetric G(n, p) of tests/test_reference_scales.py:78-83: the
+    strict upper triangle drawn from ``default_rng(seed)``, mirrored."""
+    import numpy as np
+
+    upper = np.triu(np.random.default_rng(seed).random((n_nodes, n_nodes)) < p, k=1)
+    return upper | upper.T
+
+
+def six_delta(adj, dev) -> int:
+    """trace(A^3) = 6 x the triangles, exactly: A^2 in float64 on ``dev``
+    (entries are integers below n <= 2^13, every partial sum of the product
+    and of the final sum an integer below 2^53, so no rounding occurs)."""
+    import torch
+
+    a = torch.from_numpy(adj.astype("float64")).to(dev)
+    total = ((a @ a) * a).sum()
+    if total.item() >= 2.0**53:
+        raise AssertionError("trace(A^3) is beyond float64's exact integers")
+    return int(total.item())
+
+
+def triangle_launches(k: int, threshold: int):
+    """The launches of one triangle proof over 3 blocks of k variables: the
+    modular matmul (c_1 and each contracted round: one per t, t = 1 left
+    out after round 0), the multi-block round kernel (every other round;
+    c_1 where it is not contracted), the multi-block fold (the contracted
+    rounds after round 0)."""
+    mm = mb = fold = 0
+    if 1 << (3 * k) > threshold:
+        mm += 1
+    else:
+        mb += 1
+    for j in range(3 * k):
+        x_left = k - j  # X variables before round j's sums
+        if x_left >= 1 and (1 << (x_left - 1 + 2 * k)) > threshold:
+            mm += 3 if j == 0 else 2
+            fold += j > 0
+        else:
+            mb += 1
+    return {"modmatmul": mm, "multiblock_round": mb, "multiblock_fold": fold}
+
+
+def sass_per_product(lib: str, kernel: str, backend_tag: str, products: int):
+    """Instructions in the largest loop of ``kernel``'s SASS in ``lib``
+    (``cuobjdump -sass``), per product of that loop body: (all
+    instructions, IMAD-family instructions). Raises where the SASS cannot
+    be read."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], check=True, capture_output=True, text=True).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0] and backend_tag in f.split("\n", 1)[0]), None)
+    if body is None:
+        raise AssertionError(f"no {kernel} ({backend_tag}) in the SASS of {lib}")
+    ins = []
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    best = (0, 0, 0)
+    for addr, op, rest in ins:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            loop = [o for a, o, _ in ins if int(t.group(1), 16) <= a <= addr and not o.startswith("NOP")]
+            if len(loop) > best[0]:
+                best = (len(loop), sum(o.startswith("IMAD") for o in loop), addr)
+    if not best[0]:
+        raise AssertionError(f"no loop in the SASS of {kernel} ({backend_tag})")
+    return best[0] / products, best[1] / products
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``); raises where it cannot
+    be read."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                         check=True, capture_output=True, text=True)
+    return float(out.stdout.strip())
+
+
+def outputs_err(a, b) -> int:
+    """``word_err`` over two outputs of a wrapper: tensors, None, or
+    (nested) lists and tuples of them."""
+    if a is None or b is None:
+        return 0 if a is None and b is None else 1 << 64
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return 1 << 64
+        return max([0] + [outputs_err(x, y) for x, y in zip(a, b)])
+    return word_err(a, b)
+
+
+def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_counts, tri_nodes=TRI_NODES,
+                     tri_nodes_small=TRI_NODES_SMALL, tri_nodes_cmp=TRI_NODES_CMP, wide_depth=WIDE_DEPTH,
+                     wide_log=WIDE_LOG):
+    """Phases 2-4 of the multi-block slice; returns its rows of the
+    ``kernels`` line. ``reset_counts`` / ``read_counts`` set to 0 and read
+    every launch counter of the port; the sizes default to the slice's own
+    (a CPU rehearsal passes smaller ones)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from thaler_study_tpu_torch import _build, api, gkr
+    from thaler_study_tpu_torch import fields as tf
+    from thaler_study_tpu_torch.fiat_shamir import (
+        FiatShamirTranscript,
+        SerializationError,
+        SumcheckInteractiveProver,
+        generate_transcript,
+    )
+    from thaler_study_tpu_torch.fields import GOLDILOCKS, BABYBEAR, F389, FArray
+    from thaler_study_tpu_torch.ops import modmatmul, multiblock
+    from thaler_study_tpu_torch.ops import round_kernel as rk
+    from thaler_study_tpu_torch.protocols import TriangleG
+    from thaler_study_tpu_torch.sumcheck import Prover, SumCheckError
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 8)
+    fields = [getattr(tf, name) for name in FIELDS5]
+    err = {}
+
+    def note_err(key, e, what):
+        if e:
+            raise AssertionError(f"{key[0]} kernel != plain ({key[1]}): {what}")
+        err[key] = max(err.get(key, 0), e)
+
+    # ---- phase 2: the multi-block round kernel against its plain version ----
+    k_tri, k_w, n1 = 4, 5, 10
+    start = {
+        "triangle": rk.PolySpec((k_tri,) * 3, TRI_BLOCKS, ((0, 1, 2),)),
+        "dense W": rk.PolySpec((k_w, k_w), W_BLOCKS, W_TERMS),
+        "k = 1": rk.single_block_spec(1, n1),
+        "k = 4": rk.single_block_spec(4, n1),
+        "scalar": rk.PolySpec((n1,), ((0,), (0,), ()), ((0, 2), (1,), (0, 1, 2))),
+    }
+    # the folds before each checked round: every block transition of the
+    # triangle (X with 4, 3, 2, 1 bits left, X -> Y, Y with 1 left, Y -> Z, Z)
+    # and of dense W (b, b -> c, c)
+    states = {"triangle": (0, 1, 2, 3, 4, 6, 7, 8, 10), "dense W": (0, 2, 4, 5, 8),
+              "k = 1": (0, 3), "k = 4": (0, 3), "scalar": (0, 3)}
+    for field in fields:
+        key = ("multiblock_round", field.backend)
+        checks = 0
+        for name, spec0 in start.items():
+            for j in states[name]:
+                spec = folded_spec(spec0, j)
+                for fold in (False, True):
+                    if fold and spec.num_vars() < 2:
+                        continue
+                    post = spec.after_fold() if fold else spec
+                    degree = post.degree()
+                    plan = multiblock.round_plan(spec, fold, post.terms, degree)
+                    for fill in ("random", "max"):
+                        tables = [slice_words(gen, field, (rk._table_size(spec, t),), dev, fill)
+                                  for t in range(len(spec.table_blocks))]
+                        r = slice_words(gen, field, (1,), dev, fill) if fold else None
+                        for skip in ((False, True) if degree >= 1 else (False,)):
+                            folded, parts = multiblock.round_partials(plan, tables, r, skip, field)
+                            ref_f, ref = multiblock.round_partials_plain(plan, tables, r, skip, parts.shape[0], field)
+                            sync()
+                            e = max([word_err(parts, ref)] + [word_err(a, b) for a, b in zip(folded, ref_f)
+                                                              if a is not None or b is not None])
+                            note_err(key, e, f"{name} after {j} folds, fold={fold} skip={skip} {fill}")
+                            checks += 1
+                    if fold:  # the flat fold of the same tables
+                        halves = [rk._table_size(spec, t) // 2 if 0 in tb else 0
+                                  for t, tb in enumerate(spec.table_blocks)]
+                        got = multiblock.fold_tables(tables, halves, r, field)
+                        want = multiblock.fold_tables_plain(tables, halves, r, field)
+                        sync()
+                        note_err(("multiblock_fold", field.backend),
+                                 max(word_err(a, b) for a, b in zip(got, want)), f"{name} after {j} folds")
+        log(f"multi-block round kernel == plain (exact) over {field.name} in {checks} cases: the triangle spec "
+              f"(k = {k_tri}) at every block transition, dense W (k = {k_w}) in both phases, single-block k = 1, "
+              f"k = 4 and a scalar-table product (n = {n1}); fold on / off, skip-1 on / off, random and p - 1 "
+              f"words; the flat fold kernel on the same tables")
+
+    # ---- phase 2: the modular matmul against its plain version -------------
+    shapes = ((1, 1, 1), (5, 7, 3), (63, 65, 17), (64, 64, 64), (129, 1, 4096), (100, 130, 4096))
+    for field in fields:
+        key = ("modmatmul", field.backend)
+        checks = 0
+        for m, n, kk in shapes:
+            for fill in ("random", "max"):
+                a = slice_words(gen, field, (2 * m, kk), dev, fill)
+                b = slice_words(gen, field, (n, kk), dev, fill)
+                d = slice_words(gen, field, (2 * m, n), dev, fill)
+                c = modmatmul.modmatmul(FArray(a[:m], field), FArray(b, field)).data
+                c_ref = modmatmul.modmatmul_plain(FArray(a[:m], field), FArray(b, field)).data
+                sync()
+                note_err(key, word_err(c, c_ref), f"C = A B^T at {m} x {n} x {kk} {fill}")
+                for t in (None, 0, 1, 2, 3):
+                    aa, dd = (a[:m], d[:m]) if t is None else (a, d)
+                    got = modmatmul.contract_partials(aa, b, dd, field, t)
+                    want = modmatmul.contract_partials_plain(aa, b, dd, field, t)
+                    sync()
+                    note_err(key, word_err(got, want), f"contraction at {m} x {n} x {kk}, t={t} {fill}")
+                    checks += 1
+                checks += 1
+        log(f"modular matmul kernel == plain (exact) over {field.name} in {checks} cases: (M, N, K) in {shapes}, "
+              f"C = A B^T and the contraction's partials (no view, views at t = 0..3), random and p - 1 words")
+
+    # ---- phase 3: the triangle IP at full size ------------------------------
+    thr = rk.CONTRACT_THRESHOLD
+
+    class TimedProver(SumcheckInteractiveProver):
+        """The FS adapter with each round synced and timed."""
+
+        def __init__(self, prover):
+            super().__init__(prover)
+            self.round_s = []
+
+        def g_1(self):
+            t0 = time.perf_counter()
+            out = super().g_1()
+            sync()
+            self.round_s.append(time.perf_counter() - t0)
+            return out
+
+        def round(self, j, r_j):
+            t0 = time.perf_counter()
+            out = super().round(j, r_j)
+            sync()
+            self.round_s.append(time.perf_counter() - t0)
+            return out
+
+    def rejects(adj, n_nodes, t, field) -> bool:
+        try:
+            return not api.verify_triangle_count(adj, n_nodes, t, field, device=dev)
+        except (SumCheckError, SerializationError, ValueError):
+            return True
+
+    def triangle_run(n_nodes, field, seed, main_path=False):
+        k = (n_nodes - 1).bit_length()
+        t0 = time.perf_counter()
+        adj = triangle_graph(n_nodes, seed)
+        graph_s = time.perf_counter() - t0
+        six = six_delta(adj, dev)
+        # split by step (each round synced): input building, c_1, X, Y, Z
+        t0 = time.perf_counter()
+        g = TriangleG.new_adj_matrix(2 * k, adj, field, device=dev)
+        sync()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prover = TimedProver(Prover(g))
+        sync()
+        c1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        split_t = generate_transcript(prover, field)
+        rounds_total = time.perf_counter() - t0
+        phase = [sum(prover.round_s[i * k:(i + 1) * k]) for i in range(3)]
+        hash_s = rounds_total - sum(phase)
+        # the entry points, the launch counts set to 0 just before
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        claim, t = api.prove_triangle_count(adj, n_nodes, field, device=dev)
+        prove_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = triangle_launches(k, thr)
+        got = {name: counts[name][field.backend] for name in want}
+        if got != want or (main_path and not all(got.values())):
+            raise AssertionError(f"triangle {n_nodes} {field.name}: launches {got}, expected {want}")
+        if claim != six % field.p:
+            raise AssertionError(f"triangle {n_nodes} {field.name}: 6 Delta {claim} != trace(A^3) = {six}")
+        if t.to_bytes() != split_t.to_bytes():
+            raise AssertionError(f"triangle {n_nodes} {field.name}: two proofs of one graph differ")
+        t0 = time.perf_counter()
+        ok = api.verify_triangle_count(adj, n_nodes, t, field, device=dev)
+        verify_s = time.perf_counter() - t0
+        bad = [bytearray(m) for m in t.g]
+        bad[len(bad) // 2][-1] ^= 1
+        if not ok or not rejects(adj, n_nodes, FiatShamirTranscript([bytes(m) for m in bad]), field):
+            raise AssertionError(f"triangle {n_nodes} {field.name}: accepted {ok}, tampered copy not rejected")
+        log(f"triangle IP, {n_nodes} nodes (G(n, 0.05), {int(adj.sum()) // 2} edges, {3 * k} variables, tables "
+              f"of 2^{2 * k}) over {field.name}: 6 Delta = {claim} == trace(A^3) (float64 on the card); "
+              f"api.prove_triangle_count {prove_s:.3f} s, verify_triangle_count {verify_s:.3f} s, accepted, a "
+              f"tampered copy rejected; launches {got}; split (each round synced): graph drawn (numpy) "
+              f"{graph_s:.3f} s, input building (TriangleG.new_adj_matrix) {build_s:.3f} s, c_1 {c1_s:.3f} s, "
+              f"X phase {phase[0]:.3f} s, Y {phase[1]:.3f} s, Z {phase[2]:.3f} s, hashing {hash_s:.3f} s; "
+              f"per round (s) {[round(x, 4) for x in prover.round_s]} {tag}")
+        return {"launches": got, "prove_s": prove_s, "verify_s": verify_s, "build_s": build_s, "c1_s": c1_s,
+                "phases": phase, "hash_s": hash_s, "adj": adj, "transcript": t}
+
+    n_big, n_mid = tri_nodes, tri_nodes_small
+    runs = {}
+    runs[("big", "goldilocks")] = triangle_run(n_big, GOLDILOCKS, seed, main_path=True)
+    big = runs[("big", "goldilocks")]
+    runs[("mid", "goldilocks")] = triangle_run(n_mid, GOLDILOCKS, seed + 1)
+    runs[("mid", "mont32")] = triangle_run(n_mid, BABYBEAR, seed + 1)
+    del big["adj"], big["transcript"]
+    # a smaller proof on the card byte-identical to device="cpu"
+    n_cmp = tri_nodes_cmp
+    adj = triangle_graph(n_cmp, seed + 2)
+    t_card = api.prove_triangle_count(adj, n_cmp, GOLDILOCKS, device=dev)
+    t0 = time.perf_counter()
+    t_cpu = api.prove_triangle_count(adj, n_cmp, GOLDILOCKS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if t_card[0] != t_cpu[0] or t_card[1].to_bytes() != t_cpu[1].to_bytes():
+        raise AssertionError(f"triangle {n_cmp} nodes: the card's proof != device='cpu'")
+    log(f"triangle IP, {n_cmp} nodes over Goldilocks: the card's transcript byte-identical to device='cpu' "
+          f"({len(t_card[1].to_bytes())} bytes; the CPU plain versions took {cpu_s:.2f} s)")
+
+    # ---- phase 3: the dense GKR W -------------------------------------------
+    def gkr_accepts(t, circuit, inputs, field) -> bool:
+        try:
+            return gkr.verify_gkr_transcript(t, gkr.Verifier(circuit, field), inputs, field)
+        except (gkr.GKRError, SumCheckError, SerializationError, ValueError):
+            return False
+
+    def dense_launches(circuit):
+        """Per layer of k variables: c_1 and rounds 0..k (two blocks before
+        the fold) on the multi-block kernel; rounds k + 1..2k - 1 (W_b a
+        scalar: the LibraW phase-2 shape) on K1."""
+        ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
+        return {"multiblock_round": sum(k + 2 for k in ks), "libra_round": sum(max(k - 1, 0) for k in ks)}
+
+    mixed = [4, 1 << 12, 2, 1 << 10, 1 << 6, 1 << 8]
+    cases = [("book circuit", F389, None), ("5-layer mixed-width circuit", GOLDILOCKS, mixed),
+             ("5-layer mixed-width circuit", BABYBEAR, mixed),
+             (f"{wide_depth} x 2^{wide_log} circuit", GOLDILOCKS, [1 << wide_log] * (wide_depth + 1))]
+    for label, field, widths in cases:
+        if widths is None:
+            circuit, inputs = gkr.circuit_from_book(), [3, 2, 3, 1]
+        else:
+            srng = np.random.default_rng(seed + 2)
+            circuit = gate_circuit(gkr, widths, srng)
+            inputs = [field.p - 1] + srng.integers(0, min(field.p, 1 << 62), widths[-1] - 1).tolist()
+        felts = field.felts(inputs)
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        t_dense = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, use_linear=False, device=dev), field)
+        dense_s = time.perf_counter() - t0
+        counts = read_counts()
+        got = {name: counts[name][field.backend] for name in dense_launches(circuit)}
+        if got != dense_launches(circuit):
+            raise AssertionError(f"dense W {label}: launches {got}, expected {dense_launches(circuit)}")
+        t0 = time.perf_counter()
+        t_lin = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, device=dev), field)
+        lin_s = time.perf_counter() - t0
+        same = [t_dense.to_bytes() == t_lin.to_bytes()]
+        if field is F389:
+            t_cpu = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, use_linear=False, device="cpu"),
+                                                field)
+            same.append(t_dense.to_bytes() == t_cpu.to_bytes())
+        else:
+            t_cpu = gkr.generate_gkr_transcript(gkr.Prover(circuit, felts, field, device="cpu"), field)
+            same.append(t_dense.to_bytes() == t_cpu.to_bytes())
+        if not all(same):
+            raise AssertionError(f"dense W {label} {field.name}: transcripts differ {same}")
+        bad = [bytearray(m) for m in t_dense.g]
+        bad[len(bad) // 2][-1] ^= 1
+        if not gkr_accepts(t_dense, circuit, felts, field) or gkr_accepts(
+                gkr.GKRTranscript([bytes(m) for m in bad]), circuit, felts, field):
+            raise AssertionError(f"dense W {label} {field.name}: honest rejected or tampered accepted")
+        log(f"GKR dense W (use_linear=False), {label} {field.name} (widths "
+              f"{[len(l) for l in circuit.layers] + [circuit.num_inputs]}): byte-identical to the LibraW run on the "
+              f"card and to {'the dense W' if field is F389 else 'the LibraW'} run on device='cpu' "
+              f"({len(t_dense.g)} messages), accepted, a tampered copy rejected; prove {dense_s:.3f} s "
+              f"(LibraW {lin_s:.3f} s); launches {got} {tag}")
+
+    # ---- phase 4: the two kernels at the path's shapes ----------------------
+    from thaler_study_tpu_torch.mle.dense import bitrev
+
+    k_big = (n_big - 1).bit_length()
+    adj_mle = FArray(slice_words(gen, GOLDILOCKS, (1 << (2 * k_big),), dev), GOLDILOCKS)
+    log(f"bit reversal of the {n_big}-node adjacency MLE (2^{2 * k_big} entries, its index built per call above "
+        f"2^22): {time_ms(lambda: bitrev(adj_mle, 2 * k_big), 3):.3f} ms per call (CUDA events, host issue "
+        f"included) {tag}")
+    del adj_mle
+    log("library_ms is null in the slice's rows: no PyTorch call computes a matrix product mod p, a fold mod p "
+        "or a sumcheck round's sums mod p")
+
+    def timed_vs_plain(key, what, kernel, plain, plain_reps, count=20):
+        """(kernel ms from a CUDA graph, plain ms). The wrapper runs once
+        outside the graph on the inputs it is timed on; its output is held
+        word for word against the plain version's from its timing run, so
+        that max_abs_err covers the main path's shapes."""
+        got, out = kernel(), [None]
+
+        def run_plain():
+            out[0] = plain()
+
+        plain_ms = time_ms(run_plain, plain_reps)
+        sync()
+        note_err(key, outputs_err(got, out[0]), f"{what}, at the path's shape")
+        del got, out
+        return graph_ms(kernel, count=count), plain_ms
+
+    rows = []
+    props = torch.cuda.get_device_properties(0) if dev.type == "cuda" else None
+    sms = props.multi_processor_count if props else 132
+    clock_mhz = max_sm_clock_mhz()
+    checked = []
+    # the kernels line's rows: Goldilocks at the main path's 4096 nodes,
+    # BabyBear at 1024; Goldilocks at 1024 is checked and logged too
+    for backend, field, n_nodes, run, in_line in (
+            ("goldilocks", GOLDILOCKS, n_big, big, True),
+            ("goldilocks", GOLDILOCKS, n_mid, runs[("mid", "goldilocks")], False),
+            ("mont32", BABYBEAR, n_mid, runs[("mid", "mont32")], True)):
+        wb = 8 if backend == "goldilocks" else 4
+        k = (n_nodes - 1).bit_length()
+        tri = rk.PolySpec((k,) * 3, TRI_BLOCKS, ((0, 1, 2),))
+        # the multi-block round: the path's largest launch (the first round it
+        # takes: the X -> Y transition, or the first X round below the
+        # contraction threshold) and the middle of the Y phase
+        first = next(j for j in range(1, 3 * k) if k - j < 1 or (1 << (k - j - 1 + 2 * k)) <= thr)
+        mb_rows = []
+        for label, j in (("first multi-block round", first), ("middle of the Y phase", k + k // 2)):
+            spec = folded_spec(tri, j - 1)
+            post = spec.after_fold()
+            plan = multiblock.round_plan(spec, True, post.terms, post.degree())
+            tables = [slice_words(gen, field, (rk._table_size(spec, t),), dev) for t in range(3)]
+            r = slice_words(gen, field, (1,), dev)
+            ms, plain = timed_vs_plain(
+                ("multiblock_round", backend), f"{n_nodes}-node triangle, {label}",
+                lambda: multiblock.round_partials(plan, tables, r, True, field),
+                lambda: multiblock.round_partials_plain(plan, tables, r, True, multiblock.blocks_for(plan.grid),
+                                                        field), 2)
+            nbytes = (sum(t.numel() for t in tables) + sum(s for s, f in zip(plan.sizes, plan.folded) if f)
+                      + multiblock.blocks_for(plan.grid) * (plan.degree + 1)) * wb
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            mb_rows.append((ms, plain, bound))
+            checked.append(f"multi-block round {field.name} {n_nodes} nodes {label} (grid {plan.grid})")
+            log(f"{field.name} multi-block round kernel, {n_nodes}-node triangle, {label} (sizes "
+                  f"{spec.block_sizes} -> {post.block_sizes}, grid {plan.grid}, fold and skip-1): {ms:.4f} ms per "
+                  f"launch from a CUDA graph, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB read and written at 3.35 "
+                  f"TB/s), {bound / ms:.1%} of the bound; plain torch {plain:.3f} ms; output == plain {tag}")
+        del tables
+        ms, plain, bound = mb_rows[0]
+        if in_line:
+            rows.append({"name": f"multiblock_round_{backend}", "route": "cuda",
+                         "source": "thaler_study_tpu_torch/csrc/multiblock_round.cu",
+                         "replaces": "thaler_study_tpu/ops/round_kernel.py:218",
+                         "launches": run["launches"]["multiblock_round"], "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
+        # the flat fold at the X phase's round 1 (f1 and f3 of 2^(2k), f2 kept)
+        tables = [slice_words(gen, field, (1 << (2 * k),), dev) for _ in range(3)]
+        halves = [1 << (2 * k - 1), 0, 1 << (2 * k - 1)]
+        r = slice_words(gen, field, (1,), dev)
+        ms, plain = timed_vs_plain(("multiblock_fold", backend), f"{n_nodes}-node triangle X phase round 1",
+                                   lambda: multiblock.fold_tables(tables, halves, r, field),
+                                   lambda: multiblock.fold_tables_plain(tables, halves, r, field), 2)
+        nbytes = 3 * (1 << (2 * k)) * wb
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        checked.append(f"flat fold {field.name} {n_nodes} nodes (2 x 2^{2 * k})")
+        log(f"{field.name} multi-block fold kernel, {n_nodes}-node triangle X phase round 1 (f1, f3 of 2^{2 * k} "
+              f"folded): {ms:.4f} ms per launch from a CUDA graph, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), "
+              f"{bound / ms:.1%} of the bound; plain torch {plain:.3f} ms; output == plain {tag}")
+        if in_line:
+            rows.append({"name": f"multiblock_fold_{backend}", "route": "cuda",
+                         "source": "thaler_study_tpu_torch/csrc/multiblock_round.cu",
+                         "replaces": "thaler_study_tpu/ops/round_kernel.py:110",
+                         "launches": run["launches"]["multiblock_fold"], "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
+        del tables
+        # the contraction: round 0 (X' = 2^(k-1)) and the middle (X' = 2^(k/2))
+        # of the X phase, with the views and the dot; B = f2 [2^k, 2^k]
+        side = 1 << k
+        fixed = MM_SASS_PER_PRODUCT[backend]
+        per = None
+        if dev.type == "cuda":
+            per = sass_per_product(str(_build._library_path("modmatmul")), "modmatmul_kernel",
+                                   "GlOps" if backend == "goldilocks" else "M32Ops", MM_PRODUCTS_PER_LOOP)
+        mm_rows = []
+        for label, xh in (("round 0", side // 2), ("middle", 1 << (k // 2))):
+            a = slice_words(gen, field, (2 * xh, side), dev)
+            b = slice_words(gen, field, (side, side), dev)
+            d = slice_words(gen, field, (2 * xh, side), dev)
+            ms, plain = timed_vs_plain(("modmatmul", backend), f"{n_nodes}-node triangle X phase {label}",
+                                       lambda: modmatmul.contract_partials(a, b, d, field, 2),
+                                       lambda: modmatmul.contract_partials_plain(a, b, d, field, 2), 1, count=3)
+            products = xh * side * side
+            # A's and D's halves and B read once, the partials written
+            nbytes = (4 * xh * side + side * side + (-(-xh // modmatmul.TILE)) * (side // modmatmul.TILE)) * wb
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = products * max(fixed[0] / 128, fixed[1] / 64) / (sms * clock_mhz * 1e6) * 1e3
+            bound = max(bytes_ms, ops_ms)
+            mm_rows.append((ms, plain, bound, "operations" if ops_ms >= bytes_ms else "bytes"))
+            checked.append(f"modular matmul {field.name} {n_nodes} nodes {label} (M = {xh}, N = K = {side})")
+            log(f"{field.name} modular matmul kernel, {n_nodes}-node triangle X phase {label} (M = {xh}, N = K = "
+                  f"{side}, views at t = 2 and the dot): {ms:.3f} ms per launch from a CUDA graph "
+                  f"({products / ms / 1e6:.1f} G products/s); operations bound {ops_ms:.3f} ms ({products} products "
+                  f"x {fixed} SASS instructions (all, IMAD-family) per product, the fixed yardstick; this build's K "
+                  f"loop: {per}; at 128 instructions and 64 IMAD per clock per SM, {sms} SMs, {clock_mhz} MHz: the "
+                  f"maximum SM clock), bytes bound {bytes_ms:.4f} ms; {bound / ms:.1%} of the bound; plain torch "
+                  f"{plain:.1f} ms; output == plain {tag}")
+            del a, b, d
+        ms, plain, bound, by = mm_rows[0]
+        if in_line:
+            rows.append({"name": f"modmatmul_{backend}", "route": "cuda",
+                         "source": "thaler_study_tpu_torch/csrc/modmatmul.cu",
+                         "replaces": "thaler_study_tpu/ops/modmatmul.py:35",
+                         "launches": run["launches"]["modmatmul"], "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound, "bound_by": by, "library_ms": None})
+    # max_abs_err after every comparison, the path's shapes included
+    for row in rows:
+        name, backend = row["name"].rsplit("_", 1)
+        row["max_abs_err"] = err[(name, backend)]
+    log(f"the slice's kernels == plain (exact) at the path's shapes: {'; '.join(checked)}")
+    sync()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42, help="numpy seed of the tables")
@@ -269,7 +877,7 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.gkr.circuit import layer_wiring
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, sha_chain
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, modmatmul, multiblock, sha_chain
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.protocols import (
@@ -681,7 +1289,9 @@ def main(argv=None) -> int:
                 "libra_round": cuda_round.libra_launches, "phase_tables": device_tables.launches,
                 "eq_table": device_tables.eq_launches, "eq_table_dot": device_tables.eq_dot_launches,
                 "line_restrict": device_tables.line_launches,
-                "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches}
+                "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches,
+                "multiblock_round": multiblock.launches, "multiblock_fold": multiblock.fold_launches,
+                "modmatmul": modmatmul.launches}
 
     def reset_counts():
         for counts in counters.values():
@@ -971,8 +1581,10 @@ def main(argv=None) -> int:
         claim, t = api.prove_matmul_entry(L, a, b, i, j, field)
         prove_s = time.perf_counter() - t0
         counts = read_counts()
-        if counts["round_kernel"][field.backend] != L or sum(counts["fs_tail"].values()):
-            raise AssertionError(f"matmul {field.name}: expected {L} round kernel launches, got {counts}")
+        if (counts["round_kernel"][field.backend] != L or sum(counts["fs_tail"].values())
+                or counts["multiblock_round"][field.backend] != 1):
+            raise AssertionError(f"matmul {field.name}: expected {L} round kernel launches and c_1 on the "
+                                 f"multi-block kernel, got {counts}")
         want = sum(int(x) * int(y) for x, y in zip(a[i * N : (i + 1) * N], b[j::N])) % field.p
         if claim.v != want:
             raise AssertionError(f"matmul {field.name}: claim {claim.v} != (A*B)[{i}][{j}] = {want}")
@@ -1037,6 +1649,8 @@ def main(argv=None) -> int:
         ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
         want = {"libra_round": sum(2 * k for k in ks), "phase_tables": 2 * len(ks), "eq_table": len(ks),
                 "eq_table_dot": len(ks)}
+        if not fused_path:  # each layer's c_1 on the multi-block kernel
+            want["multiblock_round"] = len(ks)
         if fused_path:
             want.update(libra_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks),
                         line_restrict=sum(len(device_tables.line_launches_of(device_tables.line_plan(k, 8)))
@@ -1540,6 +2154,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # ---- the multi-block slice: phases 2-4 ----------------------------
+    slice_rows = multiblock_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, time_launches,
+                                  reset_counts, read_counts)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ---- phase 5: summary lines --------------------------------------
     if "thaler_study_tpu" in sys.modules or (not jax_preloaded and "jax" in sys.modules):
         raise AssertionError("the port imported JAX or the JAX package")
@@ -1597,6 +2217,7 @@ def main(argv=None) -> int:
         if floor:
             row["latency_floor_ms"] = floor[0]
         kernels.append(row)
+    kernels += slice_rows
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

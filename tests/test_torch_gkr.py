@@ -8,8 +8,8 @@
 - ``resume_gkr_transcript`` byte-identical at every cut of the book
   circuit (fold-only fast-forward, and ``verify_prefix``);
 - ``api.run_gkr`` (the interactive protocol) against the JAX ``run_gkr``;
-- the bulk ``Begin`` codec against the JAX package's, and the entry points
-  of later slices, which raise.
+- the bulk ``Begin`` codec against the JAX package's, and the sharded
+  prover of a later slice, which raises.
 
 Both packages build their circuits from the same plain gate lists, with
 inputs drawn from a numpy seed. The port runs with ``device="cpu"``, which
@@ -178,7 +178,7 @@ def test_resume_every_cut_of_the_book_circuit():
 def test_run_gkr_matches_jax():
     """The interactive protocol (api.run_gkr, SeededRng challenges) on the
     book circuit and the BabyBear 5-layer circuit: the same outputs and
-    decision as the JAX run_gkr; the entry points of later slices raise."""
+    decision as the JAX run_gkr; a sharded prover (a later slice) raises."""
     for name, seed in (("book", 0), ("five-babybear", 3)):
         field, layers, n_in, inputs = _case(name)
         outs, ok = api.run_gkr(_circuit(gkr, layers, n_in), inputs, field, seed=seed, device="cpu")
@@ -188,12 +188,13 @@ def test_run_gkr_matches_jax():
         assert [f.v for f in outs] == [f.v for f in jouts], name
 
     field, circuit, inputs = _port("book")
-    with pytest.raises(NotImplementedError, match="multi-block"):
-        gkr.Prover(circuit, inputs, field, use_linear=False, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         gkr.Prover(circuit, inputs, field, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        api.prove_triangle_count(np.zeros((4, 4), dtype=np.int64), 4, field, device="cpu")
+    # the dense W and the triangle IP, the multi-block slice, are ported
+    dense = gkr.Prover(circuit, inputs, field, use_linear=False, device="cpu")
+    dense = gkr.generate_gkr_transcript(dense, field)
+    assert dense.to_bytes() == gkr.generate_gkr_transcript(_prover(circuit, inputs, field), field).to_bytes()
+    assert api.prove_triangle_count(np.zeros((4, 4), dtype=np.int64), 4, field, device="cpu")[0] == 0
 
 
 def test_begin_codec_matches_jax():

@@ -142,15 +142,15 @@ def test_product_poly_sumcheck_accepts(rng):
 
 
 def test_outside_the_slice_raises():
-    """Multi-block specs, the triangle entry points and the dense-W GKR
-    prover (a two-block spec) are later slices: each raises
-    NotImplementedError; the fused FS prover returns None for a multi-block
-    spec or a non-empty DST, as the JAX package's does for what it does not
-    cover. Every field of the port is in the fused path."""
+    """What the port does not cover raises NotImplementedError: specs of
+    more than three blocks (ROADMAP A7); the fused FS prover returns None
+    for a multi-block spec or a non-empty DST, as the JAX package's does for
+    what it does not cover (multi-block specs go through ProductPoly).
+    Every field of the port is in the fused path."""
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
-    tables = [FArray.from_ints([1] * (1 << s), GOLDILOCKS, device="cpu") for s in (1, 3)]
-    with pytest.raises(NotImplementedError):
-        rk.round_step(multi, tables, None)
+    wide = rk.PolySpec(block_sizes=(1, 1, 1, 1), table_blocks=((0, 1, 2, 3),), terms=((0,),))
+    with pytest.raises(NotImplementedError, match="A7"):
+        rk.round_step(wide, [FArray.from_ints([1] * 16, GOLDILOCKS, device="cpu")], None)
     spec = rk.single_block_spec(2, 2)
     batch = [FArray.from_ints([[1, 2, 3, 4]], GOLDILOCKS, device="cpu") for _ in range(2)]
     for s, field, dst in ((multi, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"tag")):
@@ -158,9 +158,8 @@ def test_outside_the_slice_raises():
     assert fs_kernel.supports_fused_fs(spec, F389, b"")
     assert fs_kernel.fs_prove_device_batch(multi, batch) is None
     assert fs_kernel.fs_prove_device_batch(spec, batch, b"tag") is None
-    with pytest.raises(NotImplementedError):
-        api.prove_triangle_count([False] * 16, 4, F389, device="cpu")
-    with pytest.raises(NotImplementedError):
-        api.verify_triangle_count([False] * 16, 4, None, F389, device="cpu")
-    with pytest.raises(NotImplementedError):
-        gkr.Prover(gkr.circuit_from_book(), F389.felts([3, 2, 3, 1]), F389, use_linear=False, device="cpu")
+    # the triangle entry points and the dense-W prover are ported: an empty
+    # graph proves 0 triangles, the book circuit's dense W runs
+    claim, t = api.prove_triangle_count([False] * 16, 4, F389, device="cpu")
+    assert claim == 0 and api.verify_triangle_count([False] * 16, 4, t, F389, device="cpu")
+    gkr.Prover(gkr.circuit_from_book(), F389.felts([3, 2, 3, 1]), F389, use_linear=False, device="cpu")

@@ -30,6 +30,8 @@ SOURCES = {
     "phase_tables": "phase_tables.cu",
     "gkr_tables": "gkr_tables.cu",
     "gkr_tail": "gkr_tail.cu",
+    "multiblock_round": "multiblock_round.cu",
+    "modmatmul": "modmatmul.cu",
 }
 HOST_SOURCES = {"native": Path(__file__).resolve().parent / "runtime" / "native.cpp"}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]

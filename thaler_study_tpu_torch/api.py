@@ -2,9 +2,9 @@
 
 Counterpart of ``thaler_study_tpu/api.py``: build the polynomial, run the
 Fiat-Shamir transform, verify. Each call takes ``device`` (``"cuda"`` by
-default; ``"cpu"`` runs the plain versions of the kernels). The triangle
-IP entry points are the multi-block slice of the port and raise;
-``run_gkr`` drives the GKR prover.
+default; ``"cpu"`` runs the plain versions of the kernels): the matmul
+and triangle-counting IPs through the Fiat-Shamir transform, and
+``run_gkr`` for the interactive GKR protocol.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from .fiat_shamir import (
     verify_transcript,
 )
 from .fields import GOLDILOCKS, Felt, FieldConfig
-from .protocols import MatMulG
+from .protocols import MatMulG, TriangleG
 from .sumcheck import Prover, Verifier
 
 
@@ -63,16 +63,36 @@ def verify_matmul_entry(
     return verify_transcript(transcript, verifier, field)
 
 
-def prove_triangle_count(adjacency, n_nodes: int, field: FieldConfig = GOLDILOCKS, device="cuda"):
-    raise NotImplementedError(
-        "the triangle IP needs multi-block specs in the round kernel, a later slice of the port"
-    )
+def prove_triangle_count(
+    adjacency, n_nodes: int, field: FieldConfig = GOLDILOCKS, device="cuda"
+) -> Tuple[int, FiatShamirTranscript]:
+    """Non-interactive proof of the triangle count of an undirected graph.
+
+    ``adjacency``: row-major booleans of the n x n symmetric matrix (a
+    numpy array, read flat, or an iterable). Returns (6 * triangle_count
+    mod p, transcript) — the protocol's 6-Delta convention (Thaler ch. 4.3;
+    triangle-counting/src/lib.rs:16-18).
+    """
+    k = (n_nodes - 1).bit_length()
+    g = TriangleG.new_adj_matrix(2 * k, adjacency, field, device=device)
+    prover = SumcheckInteractiveProver(Prover(g))
+    claim = prover.prover.c_1()
+    return claim.v, generate_transcript(prover, field)
 
 
-def verify_triangle_count(adjacency, n_nodes: int, transcript, field: FieldConfig = GOLDILOCKS, device="cuda"):
-    raise NotImplementedError(
-        "the triangle IP needs multi-block specs in the round kernel, a later slice of the port"
-    )
+def verify_triangle_count(
+    adjacency,
+    n_nodes: int,
+    transcript: FiatShamirTranscript,
+    field: FieldConfig = GOLDILOCKS,
+    device="cuda",
+) -> bool:
+    """Verify a :func:`prove_triangle_count` transcript (the verifier
+    re-derives the oracle polynomial from the public adjacency matrix)."""
+    k = (n_nodes - 1).bit_length()
+    g = TriangleG.new_adj_matrix(2 * k, adjacency, field, device=device)
+    verifier = SumcheckInteractiveVerifier(Verifier(g.num_vars(), g), field)
+    return verify_transcript(transcript, verifier, field)
 
 
 def run_gkr(

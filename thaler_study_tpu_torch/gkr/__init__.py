@@ -1,7 +1,6 @@
 """The GKR protocol (ref: gkr-protocol crate): the port of
-``thaler_study_tpu.gkr`` with its exports (the fused prover included),
-except the dense ``W`` (a two-block spec, the multi-block slice of the
-port)."""
+``thaler_study_tpu.gkr`` with its exports (the fused prover and the dense
+``W`` included)."""
 
 from .circuit import (
     Circuit,
@@ -27,6 +26,7 @@ from .protocol import (
     restrict_poly,
 )
 from .fused import generate_gkr_transcript_fused, supports_fused_gkr
+from .round_polynomial import W
 from .transcript import (
     GKRTranscript,
     deserialize_gkr_message,
@@ -62,6 +62,7 @@ __all__ = [
     "R",
     "line",
     "restrict_poly",
+    "W",
     "GKRError",
     "WrongVerifierState",
 ]

@@ -15,7 +15,8 @@ Two evaluation paths:
 
 The wiring arrays (``_wiring``) and their device copies with the static
 plans of the phase-table scatter-adds (``device_wiring``) are what the
-LibraW prover and the sparse verifier read.
+LibraW prover and the sparse verifier read; ``add_i_ext`` / ``mul_i_ext``
+build the dense-W prover's wiring tables from them.
 """
 
 from __future__ import annotations
@@ -215,6 +216,33 @@ class Circuit:
     def mul_i(self, i: int, a: int, b: int, c: int) -> bool:
         g = self.layers[i].gates[a]
         return g.ttype is GateType.MUL and g.inputs == (b, c)
+
+    def _wiring_ext(self, r_i: Sequence, i: int, want_mul: bool, field, device="cuda"):
+        """add~_i / mul~_i fixed at r_i, as a dense MLE over (b, c) on
+        ``device``.
+
+        Sparse construction on the host runtime: the eq table over the
+        layer-i variables at each gate's output label, scattered into the
+        (b, c) grid at ((c << k) | b) — the index layout the reference's
+        dense triple loop produces (circuit.rs:163-173: a innermost, then b,
+        then c) — then one upload and the bit reversal on ``device``.
+        """
+        from .. import runtime
+        from ..mle.dense import DenseMLE
+
+        k_next = self.num_vars_at(i + 1)
+        b_idx, c_idx, is_mul = self._wiring[i]
+        w = runtime.eq_table([f.v for f in r_i], field.p)
+        grid = runtime.wiring_scatter(b_idx, c_idx, is_mul == want_mul, w[: len(b_idx)], k_next, field.p)
+        return DenseMLE.from_evals_lsb(grid, 2 * k_next, field, device=device)
+
+    def add_i_ext(self, r_i: Sequence, i: int, device="cuda"):
+        """Dense MLE of add_i fixed at r_i (ref circuit.rs:152-181)."""
+        return self._wiring_ext(r_i, i, False, r_i[0].field, device=device)
+
+    def mul_i_ext(self, r_i: Sequence, i: int, device="cuda"):
+        """Dense MLE of mul_i fixed at r_i (ref circuit.rs:183-212)."""
+        return self._wiring_ext(r_i, i, True, r_i[0].field, device=device)
 
 
 def circuit_from_book() -> Circuit:

@@ -9,8 +9,9 @@ circuit's forward pass and every table on the prover's device; the final
 claim reduction uses the line trick (ref :139-174) with ``line`` and
 ``restrict_poly`` (ref :278-321).
 
-The dense-W formulation (``use_linear=False``: a two-block spec) is the
-multi-block slice of the port and raises; so does ``mesh=``.
+The dense-W formulation (``use_linear=False``: :class:`round_polynomial.W`,
+a two-block spec on the multi-block round kernel) gives the same
+transcripts; ``mesh=`` (a sharded prover) raises.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..sumcheck import (
 )
 from .circuit import Circuit, CircuitEvaluation
 from .linear import LibraW
+from .round_polynomial import W
 
 
 class GKRError(Exception):
@@ -151,9 +153,10 @@ class Prover:
     """GKR prover (ref :324-474).
 
     The circuit's forward pass runs on ``device`` (``Circuit.evaluate_device``)
-    and each layer's sumcheck runs over the linear-time LibraW polynomial,
-    whose tables stay there. ``device="cpu"`` runs the plain versions of
-    the kernels. Transcripts equal the reference's dense-W formulation.
+    and each layer's sumcheck runs over the linear-time LibraW polynomial
+    (or, with ``use_linear=False``, the reference's dense W over two blocks
+    of 2k variables), whose tables stay there. ``device="cpu"`` runs the
+    plain versions of the kernels. Both give the same transcripts.
     """
 
     def __init__(
@@ -166,11 +169,6 @@ class Prover:
         n_shard=None,
         device="cuda",
     ):
-        if not use_linear:
-            raise NotImplementedError(
-                "the dense-W GKR prover (use_linear=False) is a two-block spec: "
-                "the multi-block slice of the port"
-            )
         if mesh is not None or n_shard is not None:
             raise NotImplementedError("a sharded GKR prover (mesh=) is the multi-device slice of the port (ROADMAP A7)")
         self.circuit = circuit
@@ -206,8 +204,14 @@ class Prover:
     def start_round(self, i: int, r_i: Sequence[Felt]) -> StartSumCheck:
         """Spin up the layer-i sumcheck over W (ref :373-436)."""
         num_vars_next = self.circuit.num_vars_at(i + 1)
-        w = LibraW(self.circuit, i, list(r_i), self.layers_dev[i + 1], self.field)
-        self.w = DenseMLE.from_evals_msb(w._w_msb, num_vars_next)
+        if self.use_linear:
+            w = LibraW(self.circuit, i, list(r_i), self.layers_dev[i + 1], self.field)
+            self.w = DenseMLE.from_evals_msb(w._w_msb, num_vars_next)
+        else:
+            self.w = DenseMLE.from_evals_lsb_farray(self.layers_dev[i + 1], num_vars_next)
+            add_i = self.circuit.add_i_ext(list(r_i), i, device=self.device)
+            mul_i = self.circuit.mul_i_ext(list(r_i), i, device=self.device)
+            w = W.new(add_i, mul_i, self.w, self.w)
         self.i = i
         self.prover = SumCheckProver(w)
         self.r = []

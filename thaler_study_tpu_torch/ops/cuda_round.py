@@ -19,7 +19,10 @@ tables, then the per-proof scalars):
 :func:`round_partials_plain`, which takes any terms; CUDA tensors go to the
 kernel or raise. Both return the same per-block partial sums, so the two
 can be compared bit for bit; callers sum the partials mod p
-(``round_kernel._round_sums`` or the FS tail kernel).
+(``round_kernel.round_step`` or the FS tail kernel). The other
+single-block shapes (k = 1, k >= 4, other scalar terms) go to the
+multi-block kernel (``ops/multiblock.py``): :func:`takes` tells them
+apart.
 """
 
 from __future__ import annotations
@@ -65,6 +68,19 @@ def _kernel(name: str = "ts_round_launch"):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def takes(terms: Optional[Sequence[Sequence[int]]], k: int, n_scalars: int) -> Optional[Tuple[int, int]]:
+    """(phase, round degree) where the CUDA kernel takes this polynomial
+    (``terms`` None: the product of all k tables), else None: the product of
+    2 or 3 tables (phase 0, degree k) or a LibraW shape (phase 1 or 2,
+    degree 2). ``ops/multiblock.py`` runs every other single-block shape."""
+    terms = None if terms is None else tuple(map(tuple, terms))
+    if terms is None or terms == (tuple(range(k)),) and not n_scalars:
+        return (0, k) if k in (2, 3) else None
+    if terms in _LIBRA and k == 3 and n_scalars == _LIBRA[terms][1]:
+        return _LIBRA[terms][0], 2
+    return None
 
 
 def blocks_for(batch: int, half: int) -> int:
@@ -157,17 +173,14 @@ def round_partials(
         return folded, partials
     if dev.type != "cuda":
         raise ValueError(f"round_partials runs on cpu or cuda, not {dev}")
-    if terms is None or terms == (tuple(range(k)),) and not scalars:
-        phase, d = 0, k
-        if k not in (2, 3):
-            raise NotImplementedError(f"the CUDA round kernel takes k = 2 or 3 factors, not {k}")
-    elif terms in _LIBRA and k == 3 and len(scalars) == _LIBRA[terms][1]:
-        phase, d = _LIBRA[terms][0], 2
-    else:
+    shape = takes(terms, k, len(scalars))
+    if shape is None:
         raise NotImplementedError(
             f"the CUDA round kernel takes the product of 2 or 3 tables and the two LibraW shapes, "
-            f"not terms {terms} over {k} tables and {len(scalars)} scalars"
+            f"not terms {terms} over {k} tables and {len(scalars)} scalars: the multi-block kernel "
+            f"(ops/multiblock.py, through round_kernel.round_step) runs the others, one proof at a time"
         )
+    phase, d = shape
     if batch > 65535:
         raise ValueError("the CUDA round kernel takes at most 65535 proofs")
     if fold and out is None:

@@ -2,18 +2,26 @@
 
 The port's counterpart of ``thaler_study_tpu/ops/round_kernel.py``. A
 :class:`PolySpec` describes g(x) = sum over terms of products of dense MLE
-factor tables over variable blocks (matmul IP, triangle IP, GKR's W, ...).
-This port takes single-block specs: one block, any terms over the tables,
-and 0-block scalar tables (the matmul IP and the batched prover's product;
-GKR's LibraW phases, whose phase-2 scalar w_u is such a table).
-Multi-block specs (triangle IP, dense GKR W) raise ``NotImplementedError``;
-they are the multi-block slice.
+factor tables over variable blocks: the matmul IP and the batched prover's
+product (one block), GKR's LibraW phases (one block and a 0-block scalar
+w_u), GKR's dense W (two blocks), the triangle IP (three blocks). Specs of
+up to three blocks are ported; wider ones raise.
 
-Tables are flat, MSB-first: the round variable splits each in halves.
-:func:`round_step` goes through ``cuda_round.round_partials``: the CUDA
-kernel for CUDA tensors, at every table size, and its plain version for CPU
-tensors. Every function here takes Goldilocks and the mont32 fields; round
-sums of a mont32 field are Montgomery words, as in the JAX package.
+Tables are flat, MSB-first: the round variable (block 0's first) splits
+each table over block 0 in halves. :func:`round_step` runs a round on one
+of three kernels, each with a plain version for CPU tensors:
+
+- ``cuda_round.round_partials`` (``csrc/round_kernel.cu``, the Pallas
+  kernel's port) for the single-block shapes it takes: the product of 2 or
+  3 tables and the two LibraW shapes;
+- ``multiblock.round_partials`` (``csrc/multiblock_round.cu``) for every
+  other spec: the fold and the round sums in one pass over the block grid;
+- ``modmatmul.contract_partials`` (``csrc/modmatmul.cu``) for the triangle
+  term whose grid exceeds :data:`CONTRACT_THRESHOLD` (the X phase), after
+  ``multiblock.fold_tables``.
+
+Every function here takes Goldilocks and the mont32 fields; round sums of a
+mont32 field are Montgomery words, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..fields import FArray, FieldConfig
-from . import cuda_round
+from . import cuda_round, modmatmul, multiblock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,36 +110,50 @@ def check_single_product(spec: PolySpec, num_tables: int) -> None:
     ):
         raise NotImplementedError(
             "the fused batch prover takes a single-block product of all its "
-            "tables; multi-term specs go through ProductPoly, multi-block ones "
-            "(triangle IP, dense GKR W) are the multi-block slice of the port"
+            "tables; multi-term and multi-block specs (triangle IP, dense GKR W) "
+            "go through ProductPoly"
         )
 
 
-def check_single_block(spec: PolySpec, tables: Sequence[FArray]) -> None:
-    """Raise unless ``spec`` has one variable block (or none left): every
-    table over block 0 or a 0-block scalar of shape (1,), any non-empty
-    terms over the tables."""
+def _table_size(spec: PolySpec, k: int) -> int:
+    return 1 << sum(spec.block_sizes[b] for b in spec.table_blocks[k])
+
+
+def _broadcast_dims(spec: PolySpec, k: int) -> Tuple[int, ...]:
+    """Shape that table k broadcasts to within the global block grid."""
+    return tuple(
+        2 ** spec.block_sizes[b] if b in spec.table_blocks[k] else 1
+        for b in range(len(spec.block_sizes))
+    )
+
+
+def check_spec(spec: PolySpec, tables: Sequence[FArray]) -> None:
+    """Raise unless ``spec`` is a spec the port runs and ``tables`` fit it:
+    up to three variable blocks, each table over a strictly increasing
+    subset of them (a 0-block scalar of shape (1,) too), non-empty terms
+    over the tables."""
+    if len(spec.block_sizes) > multiblock.MAX_BLOCKS:
+        raise NotImplementedError(
+            f"specs of more than {multiblock.MAX_BLOCKS} variable blocks are not ported "
+            f"(got {len(spec.block_sizes)}; ROADMAP A7)"
+        )
+    nb = len(spec.block_sizes)
     ok = (
-        len(spec.block_sizes) <= 1
-        and len(spec.table_blocks) == len(tables)
-        and all(tb in ((0,), ()) for tb in spec.table_blocks)
+        len(spec.table_blocks) == len(tables)
+        and all(list(tb) == sorted(set(tb)) and all(0 <= b < nb for b in tb) for tb in spec.table_blocks)
         and spec.terms
         and all(term and all(0 <= i < len(tables) for i in term) for term in spec.terms)
     )
-    if ok:
-        size = 1 << spec.block_sizes[0] if spec.block_sizes else 1
-        ok = all(t.shape == ((size,) if tb else (1,)) for t, tb in zip(tables, spec.table_blocks))
-    if not ok:
-        raise NotImplementedError(
-            "multi-block specs (triangle IP, dense GKR W) are the multi-block "
-            "slice of the port; only single-block specs with 0-block scalar "
-            "tables are ported"
+    if not ok or any(t.shape != (_table_size(spec, k),) for k, t in enumerate(tables)):
+        raise ValueError(
+            f"tables of shapes {[t.shape for t in tables]} do not fit the spec {spec}"
         )
 
 
-def _split(spec: PolySpec, tables: Sequence[FArray]):
+def _split(spec: PolySpec):
     """(folded table ids, scalar table ids, the terms renumbered over the
-    folded tables first, then the scalars) - the kernel's view of a spec."""
+    folded tables first, then the scalars) - the round kernel's view of a
+    single-block spec."""
     fold_ids = [k for k, tb in enumerate(spec.table_blocks) if tb]
     scalar_ids = [k for k, tb in enumerate(spec.table_blocks) if not tb]
     pos = {k: i for i, k in enumerate(fold_ids + scalar_ids)}
@@ -139,14 +161,54 @@ def _split(spec: PolySpec, tables: Sequence[FArray]):
     return fold_ids, scalar_ids, terms
 
 
-def _round_sums(field: FieldConfig, partials: torch.Tensor, claim: Optional[FArray]) -> FArray:
-    """Round sums s(0..d) from the round kernel's [blocks, d+1] partials;
-    with the round claim c known (a 0-d FArray), s(1) = c - s(0), exact
-    mod p."""
-    sums = FArray(partials, field).sum(axis=0)
-    if claim is not None:
-        sums.data[1] = (claim - sums[0]).data
-    return sums
+def _round_kernel_split(spec: PolySpec):
+    """``_split(spec)`` for a single-block spec of a shape ``cuda_round``
+    takes (the product of 2 or 3 tables, the LibraW shapes), else None: the
+    multi-block kernel runs the rest."""
+    if len(spec.block_sizes) > 1 or any(tb not in ((0,), ()) for tb in spec.table_blocks):
+        return None
+    split = _split(spec)
+    fold_ids, scalar_ids, terms = split
+    return split if cuda_round.takes(terms, len(fold_ids), len(scalar_ids)) is not None else None
+
+
+# a triangle term whose (halved) grid exceeds this goes through the modular
+# matmul contraction (JAX round_kernel.py :162); any route gives the same
+# field values
+CONTRACT_THRESHOLD = 1 << 22
+
+
+def _contraction(spec: PolySpec, term, halved: bool):
+    """(k1, k2, k3), the term's factors over (X,Y), (Y,Z), (X,Z), when the
+    term is the triangle pattern over three blocks and its grid (block 0
+    halved where ``halved``) exceeds CONTRACT_THRESHOLD; else None. With
+    at most three blocks, X is block 0."""
+    tbs = [spec.table_blocks[k] for k in term]
+    if len(term) != 3 or sorted(len(tb) for tb in tbs) != [2, 2, 2]:
+        return None
+    blocks = sorted(set().union(*map(set, tbs)))
+    if len(blocks) != 3:
+        return None
+    x, y, z = blocks
+    by_cover = {frozenset(tb): k for tb, k in zip(tbs, term)}
+    ks = tuple(by_cover.get(frozenset(pair)) for pair in ((x, y), (y, z), (x, z)))
+    if None in ks:
+        return None
+    sx, sy, sz = (spec.block_sizes[b] for b in (x, y, z))
+    grid = (1 << (sx - 1 if halved else sx)) << (sy + sz)
+    return ks if grid > CONTRACT_THRESHOLD else None
+
+
+def _contract(spec: PolySpec, ks, data, field: FieldConfig, ts) -> FArray:
+    """s(t) for t in ``ts`` (None: the whole-grid sum) of the triangle term
+    (k1, k2, k3): sum over the grid of f1_t (f3_t @ f2^T), on the modular
+    matmul kernel with the dot in its epilogue."""
+    sx, sy, sz = spec.block_sizes
+    f1 = data[ks[0]].reshape(1 << sx, 1 << sy)
+    f2 = data[ks[1]].reshape(1 << sy, 1 << sz)
+    f3 = data[ks[2]].reshape(1 << sx, 1 << sz)
+    sums = [FArray(modmatmul.contract_partials(f3, f2, f1, field, t), field).sum(axis=0) for t in ts]
+    return FArray(torch.stack([s.data for s in sums]), field)
 
 
 def round_step(
@@ -159,62 +221,105 @@ def round_step(
 
     Returns (sums[degree+1], new_tables). If ``r_prev`` is given the fold
     happens first and ``new_tables`` reflect it (the caller advances the
-    spec with ``spec.after_fold()``); 0-block tables are never folded.
-    Every term is evaluated at t = 0..degree, single-factor terms
+    spec with ``spec.after_fold()``); tables without block 0 are never
+    folded. Every term is evaluated at t = 0..degree, single-factor terms
     included. ``claim`` (a 0-d FArray, = g_prev(r_prev)) lets the round
     skip the t = 1 product pass: s(1) = claim - s(0), exact mod p, sums
     unchanged.
     """
-    check_single_block(spec, tables)
+    check_spec(spec, tables)
     field = tables[0].field
-    fold_ids, scalar_ids, terms = _split(spec, tables)
-    if cuda_round.degree_of(terms, len(fold_ids)) < 1:
+    sums_spec = spec.after_fold() if r_prev is not None else spec
+    degree = sums_spec.degree()
+    if degree < 1:
         claim = None
-    data = [tables[k].data.reshape(1, -1) for k in fold_ids]
-    scalars = [tables[k].data.reshape(1) for k in scalar_ids]
+    skip_t1 = claim is not None
     r = None if r_prev is None else r_prev.data.reshape(1)
-    folded, partials = cuda_round.round_partials(
-        data, r, skip_t1=claim is not None, field=field, terms=terms, scalars=scalars
-    )
-    sums = _round_sums(field, partials[0], None if claim is None else claim.reshape(()))
-    if folded is not None:
-        tables = list(tables)
-        for k, f in zip(fold_ids, folded):
-            tables[k] = FArray(f.reshape(-1), field)
-    return sums, tuple(tables)
+    split = _round_kernel_split(spec)
+    if split is not None:
+        fold_ids, scalar_ids, terms = split
+        folded, partials = cuda_round.round_partials(
+            [tables[k].data.reshape(1, -1) for k in fold_ids], None if r is None else r.reshape(1),
+            skip_t1=skip_t1, field=field, terms=terms, scalars=[tables[k].data.reshape(1) for k in scalar_ids],
+        )
+        data = [t.data for t in tables]
+        for k, f in zip(fold_ids, folded or ()):
+            data[k] = f.reshape(-1)
+        sums = FArray(partials[0], field).sum(axis=0)
+    else:
+        contracted = [(term, _contraction(sums_spec, term, True)) for term in sums_spec.terms]
+        rest = [term for term, ks in contracted if ks is None]
+        data = [t.data for t in tables]
+        if r is not None and len(rest) < len(contracted):
+            halves = [t.shape[0] // 2 if 0 in tb else 0 for t, tb in zip(tables, spec.table_blocks)]
+            data = multiblock.fold_tables(data, halves, r, field)
+            r = None
+        sums = None
+        if rest:
+            plan = multiblock.round_plan(spec if r is not None else sums_spec, r is not None, rest, degree)
+            folded, partials = multiblock.round_partials(plan, data, r, skip_t1, field)
+            data = [d if f is None else f for d, f in zip(data, folded)]
+            sums = FArray(partials, field).sum(axis=0)
+        ts = [t for t in range(degree + 1) if not (skip_t1 and t == 1)]
+        for _, ks in contracted:
+            if ks is None:
+                continue
+            part = _contract(sums_spec, ks, data, field, ts)
+            if skip_t1:
+                part = FArray(torch.cat([part.data[:1], torch.zeros_like(part.data[:1]), part.data[1:]]), field)
+            sums = part if sums is None else sums + part
+    if claim is not None:
+        sums.data[1] = (claim - sums[0]).data
+    return sums, tuple(FArray(d, field) for d in data)
 
 
 def fold_step(
     spec: PolySpec, tables: Sequence[FArray], r: FArray
 ) -> Tuple[FArray, ...]:
-    """Fold the current (MSB) variable at r in every table over block 0:
-    the parity ``fix_variables`` path (the reference's ``_fold_tables``),
-    plain torch."""
-    check_single_block(spec, tables)
-    return tuple(
-        FArray.fold(t[: t.shape[0] // 2], t[t.shape[0] // 2 :], r) if tb else t
-        for t, tb in zip(tables, spec.table_blocks)
-    )
-
-
-def _term_products(spec: PolySpec, tables: Sequence[FArray]):
-    size = 1 << spec.num_vars()
-    for term in spec.terms:
-        prod = tables[term[0]]
-        for k in term[1:]:
-            prod = prod * tables[k]
-        yield term, FArray(prod.data.expand(size), prod.field)
-
-
-def product_evals(spec: PolySpec, tables: Sequence[FArray]) -> FArray:
-    """Dense evaluations of g on the hypercube, internal MSB-first order."""
-    check_single_block(spec, tables)
-    acc = None
-    for _, prod in _term_products(spec, tables):
-        acc = prod if acc is None else acc + prod
-    return FArray(acc.data.contiguous(), acc.field)
+    """Fold the current (block-0 MSB) variable at r in every table that
+    contains block 0: the parity ``fix_variables`` path (the reference's
+    ``_fold_tables``), one launch of the multi-block fold kernel."""
+    check_spec(spec, tables)
+    field = tables[0].field
+    halves = [t.shape[0] // 2 if 0 in tb else 0 for t, tb in zip(tables, spec.table_blocks)]
+    data = multiblock.fold_tables([t.data for t in tables], halves, r.data.reshape(1), field)
+    return tuple(FArray(d, field) for d in data)
 
 
 def sum_products(spec: PolySpec, tables: Sequence[FArray]) -> FArray:
-    """Sum of g over the whole hypercube — the prover's C_1."""
-    return product_evals(spec, tables).sum(axis=0)
+    """Sum of g over the whole hypercube — the prover's C_1: s(0) + s(1)
+    of one round without a fold on the multi-block kernel, and the triangle
+    contraction on the modular matmul kernel where its grid is large."""
+    check_spec(spec, tables)
+    field = tables[0].field
+    if not spec.block_sizes:
+        return product_evals(spec, tables).sum(axis=0)
+    data = [t.data for t in tables]
+    contracted = [(term, _contraction(spec, term, False)) for term in spec.terms]
+    rest = [term for term, ks in contracted if ks is None]
+    total = None
+    if rest:
+        _, partials = multiblock.round_partials(multiblock.round_plan(spec, False, rest, 1), data, None, False, field)
+        s = FArray(partials, field).sum(axis=0)
+        total = s[0] + s[1]
+    for _, ks in contracted:
+        if ks is not None:
+            part = _contract(spec, ks, data, field, [None])[0]
+            total = part if total is None else total + part
+    return total
+
+
+def product_evals(spec: PolySpec, tables: Sequence[FArray]) -> FArray:
+    """Dense evaluations of g on the hypercube, internal MSB-first order
+    (plain torch: the parity ``to_evaluations``)."""
+    check_spec(spec, tables)
+    full = tuple(1 << s for s in spec.block_sizes) or (1,)
+    acc = None
+    for term in spec.terms:
+        prod = None
+        for k in term:
+            v = tables[k].reshape(*(_broadcast_dims(spec, k) or (1,)))
+            prod = v if prod is None else prod * v
+        prod = FArray(prod.data.expand(full), prod.field)
+        acc = prod if acc is None else acc + prod
+    return FArray(acc.data.reshape(-1).contiguous(), acc.field)

@@ -4,12 +4,14 @@ A :class:`ProductPoly` holds dense MLE factor tables (internal MSB-first
 order) plus a static :class:`PolySpec`, and implements the
 SumCheckPolynomial parity API of the reference — ``evaluate``,
 ``fix_variables``, ``to_univariate``, ``num_vars``, ``to_evaluations`` —
-while its hot path (``round_univariate``) is one round kernel launch per
-sumcheck round (fold + partial sums; ref hot loop:
-matrix-multiplication/src/lib.rs:110-131). Any field of the port; any
-single-block spec (``round_kernel.check_single_block``): the product of
-the matmul IP and the multi-term LibraW phases of GKR, whose 0-block
-scalar tables are carried unchanged through every fold.
+while its hot path (``round_univariate``) is one round of
+``round_kernel.round_step`` per sumcheck round (fold + partial sums; ref hot
+loop: matrix-multiplication/src/lib.rs:110-131). Any field of the port;
+any spec of up to three blocks (``round_kernel.check_spec``): the product
+of the matmul IP, the multi-term LibraW phases of GKR (whose 0-block scalar
+tables are carried unchanged through every fold), GKR's dense W and the
+triangle IP. :func:`from_jax_state` builds one from the JAX package's
+``(spec, tables)`` mid-protocol.
 """
 
 from __future__ import annotations
@@ -119,3 +121,14 @@ class ProductPoly(SumCheckPolynomial):
         flat = product_evals(self.spec, self.tables)
         ints = flat.to_u64()[bitrev_perm(self.num_vars())]
         return [Felt(int(v), self.field) for v in ints]
+
+
+def from_jax_state(spec, limbs: Sequence[Sequence], field: FieldConfig, cls=None, device="cuda") -> ProductPoly:
+    """The port's polynomial holding a JAX ``ProductPoly``'s state: ``spec``
+    (any object with ``block_sizes``, ``table_blocks`` and ``terms``, such
+    as the JAX ``PolySpec``) and per table its numpy uint32 limbs (``(lo,
+    hi)`` for Goldilocks, ``(mont,)`` for a mont32 field). ``cls`` is the
+    class to build (``ProductPoly`` by default; ``TriangleG``, ``gkr.W``)."""
+    port_spec = PolySpec(tuple(spec.block_sizes), tuple(map(tuple, spec.table_blocks)), tuple(map(tuple, spec.terms)))
+    tables = [FArray.from_jax_limbs(*t, field=field, device=device) for t in limbs]
+    return (cls or ProductPoly)(port_spec, tables)

@@ -1,8 +1,9 @@
 """Host C++ runtime: exact u64 field work for the GKR verifier.
 
 Counterpart of ``thaler_study_tpu/runtime``: ``native.cpp`` here is the
-port's own copy of the functions it uses (eq tables, the sparse wiring
-predicate evaluation, MLE evaluation, the SHA-256 midstate), built with ``g++`` into ``_build/``
+port's own copy of the functions it uses (eq tables, the dense wiring
+scatter, the sparse wiring predicate evaluation, MLE evaluation, the
+SHA-256 midstate), built with ``g++`` into ``_build/``
 at first use (``_build.load_host``). A failed build raises; there is no
 Python fallback.
 """
@@ -31,6 +32,9 @@ def _load() -> ctypes.CDLL:
             _U64P, _U64P, _U64P, _I32P, _I32P, _U8P, ctypes.c_int64, ctypes.c_uint64,
         ]
         lib.ts_wiring_eval_sparse.restype = ctypes.c_uint64
+        lib.ts_wiring_scatter.argtypes = [
+            _I32P, _I32P, _U8P, _U64P, ctypes.c_int64, ctypes.c_int32, _U64P, ctypes.c_uint64,
+        ]
         lib.ts_mle_eval.argtypes = [_U64P, ctypes.c_int64, _U64P, ctypes.c_int32, _U64P, ctypes.c_uint64]
         lib.ts_mle_eval.restype = ctypes.c_uint64
         lib.ts_sha256_blocks.argtypes = [_U8P, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32)]
@@ -66,6 +70,26 @@ def wiring_eval_sparse(eq_r, eq_b, eq_c, b_idx, c_idx, sel, p: int) -> int:
             _ptr(b_idx, _I32P), _ptr(c_idx, _I32P), _ptr(sel, _U8P), len(b_idx), p,
         )
     )
+
+
+def wiring_scatter(b_idx, c_idx, sel, eq_w, k_next: int, p: int) -> np.ndarray:
+    """The dense wiring table over (b, c): grid[(c << k_next) | b] = sum of
+    eq_w[g] mod p over the selected gates g wired to (b, c)."""
+    b_idx = np.ascontiguousarray(b_idx, dtype=np.int32)
+    c_idx = np.ascontiguousarray(c_idx, dtype=np.int32)
+    sel = np.ascontiguousarray(sel, dtype=np.uint8)
+    eq_w = _u64(eq_w)
+    if not len(b_idx) == len(c_idx) == len(sel) == len(eq_w):
+        raise ValueError("one b, c, selection flag and eq weight per gate")
+    size = 1 << k_next
+    if len(b_idx) and (min(b_idx.min(), c_idx.min()) < 0 or max(b_idx.max(), c_idx.max()) >= size):
+        raise ValueError(f"a wire label lies outside the next layer's {size} values")
+    grid = np.zeros(1 << (2 * k_next), dtype=np.uint64)
+    _load().ts_wiring_scatter(
+        _ptr(b_idx, _I32P), _ptr(c_idx, _I32P), _ptr(sel, _U8P), _ptr(eq_w, _U64P), len(b_idx), k_next,
+        _ptr(grid, _U64P), p,
+    )
+    return grid
 
 
 def mle_eval(evals, point, p: int) -> int:

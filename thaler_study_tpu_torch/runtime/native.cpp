@@ -1,11 +1,12 @@
 // Host runtime of the port: exact u64 field arithmetic for the GKR
 // verifier's O(gates) and O(2^n) work (eq tables, the sparse wiring
-// predicates, MLE evaluations) and the fused GKR prover's SHA-256 midstate
+// predicates, MLE evaluations), the dense-W prover's wiring tables and the fused GKR prover's SHA-256 midstate
 // over its Begin message.
 //
 // The port's own copy of the functions it uses from
-// thaler_study_tpu/runtime/native.cpp (ts_eq_table, ts_wiring_eval_sparse,
-// ts_mle_fold, ts_mle_eval, ts_sha256_blocks), with one addition: products
+// thaler_study_tpu/runtime/native.cpp (ts_eq_table, ts_wiring_scatter,
+// ts_wiring_eval_sparse, ts_mle_fold, ts_mle_eval, ts_sha256_blocks), with
+// one addition: products
 // mod Goldilocks reduce with 2^64 == 2^32 - 1 instead of a 128-bit
 // division.
 //
@@ -129,6 +130,19 @@ u64 ts_wiring_eval_sparse(const u64* eq_r, const u64* eq_b, const u64* eq_c,
         acc = addmod(acc, mulmod(t, eq_c[c_idx[g]] % p, p), p);
     }
     return acc;
+}
+
+// GKR wiring scatter: grid[(c_idx[g] << k_next) | b_idx[g]] += eq_w[g]
+// for every gate g with sel[g] != 0. grid has 2^(2*k_next) entries and
+// must be zero-initialized by the caller.
+void ts_wiring_scatter(const int32_t* b_idx, const int32_t* c_idx,
+                       const uint8_t* sel, const u64* eq_w, int64_t n_gates,
+                       int32_t k_next, u64* grid, u64 p) {
+    for (int64_t g = 0; g < n_gates; ++g) {
+        if (!sel[g]) continue;
+        const int64_t pos = ((int64_t)c_idx[g] << k_next) | (int64_t)b_idx[g];
+        grid[pos] = addmod(grid[pos], eq_w[g] % p, p);
+    }
 }
 
 // MLE fold in half (little-endian pairs): out[i] = e[2i] + r (e[2i+1] - e[2i]).
