@@ -68,9 +68,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (2, 3, 10, 20) x every fill; the multi-block round kernel and its flat
    fold (the triangle spec at every block transition, dense W in both
    phases, single-block k = 1, k = 4 and a scalar-table product; fold and
-   skip-1 on and off) and the modular matmul (C = A B^T and the
-   contraction's partials, M, N, K off the tile, K up to 4096) over the five
-   fields, random words and words at p - 1;
+   skip-1 on and off), and the two modular matmuls, the CUDA-core kernel
+   and the tensor-core kernel (C = A B^T and the contraction's partials
+   without a view and at t = 0..3, M, N, K off the tiles, K up to 4096; the
+   tensor-core kernel also at M = 1, a ragged N and K at its flush length
+   K_c and K_c + 1, and its digit pre-pass against the plain digit planes)
+   over the five fields, random words and words at p - 1 and p - 2;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -85,7 +88,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (flagship), with no fallback and the launch counts of its design; the
    triangle IP's 6 Delta against trace(A^3) (float64 on the card, exact for
    these sizes), accepted, a tampered copy rejected, the launches of each
-   kernel (the X phase on the modular matmul) per proof; the dense W
+   kernel per proof (c_1 and the X phase on the tensor-core matmul, none
+   on the CUDA-core matmul); the dense W
    byte-identical to the LibraW run on the card and on the CPU, accepted,
    tampered copy rejected;
 4. timing with CUDA events, a dependent host read and a profiler trace,
@@ -100,8 +104,14 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (K1 with TAIL beside K1 alone; the eq table, the eq table with the dot
    and the line restriction); each triangle proof split into input
    building, c_1, the X, Y and Z phases and hashing; the multi-block kernels
-   and the modular matmul at the triangle path's shapes, the matmul against
-   an operations bound from its SASS (``cuobjdump -sass``);
+   and both modular matmuls at the triangle path's shapes (round 0, the
+   middle and the last contracted round of the X phase at 4096 and 1024
+   nodes, round 0 at 256 nodes) and at C = A B^T from 1^3 to 256^3: the
+   crossover that sends every shape to the tensor cores; the CUDA-core
+   matmul against an operations bound from its SASS (``cuobjdump -sass``),
+   the tensor-core matmul against the int8 rate (its SASS shown to hold
+   warpgroup MMA instructions; at K = 128 to show what its epilogue costs),
+   ``torch._int_mm`` over the same digit planes as a yardstick;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -271,6 +281,12 @@ MM_PRODUCTS_PER_LOOP = 256
 # that a redesign is measured against the same yardstick; each run prints
 # the current build's counts beside them.
 MM_SASS_PER_PRODUCT = {"goldilocks": (28.390625, 12.59765625), "mont32": (9.37109375, 2.453125)}
+# The tensor-core matmul's operations bound (csrc/modmatmul_tc.cu): P digit
+# products of 8 bits per field product (8 x 8 bytes Goldilocks, 4 x 4
+# mont32) at the card's dense int8 rate, 1,979 T operations/s = 989.5 T
+# multiply-adds/s; each run prints the design's own pair count beside it.
+TC_MACS_PER_S = 989.5e12
+TC_PAIRS = {"goldilocks": 64, "mont32": 16}
 # the slice's sizes: the triangle IP's main-path graph, its graphs over
 # Goldilocks and BabyBear at BENCHMARKS.md config 4's scale, the graph held
 # against device="cpu", and the wide dense-W GKR circuit (layers, log2 width)
@@ -282,22 +298,24 @@ def slice_words(gen, field, shape, dev, fill="random"):
     """Words of ``field`` (canonical Goldilocks, Montgomery mont32): random
     with boundary words first (0, 1, p - 1, p - 2 and, for mont32, their
     Montgomery images), or every word p - 1 (``fill="max"``: the largest
-    word, the lazy accumulators' worst case)."""
+    word, the lazy accumulators' worst case), or every word p - 2
+    (``fill="p-2"``: the Goldilocks word with most digits at 255,
+    0xFFFFFFFEFFFFFFFF, the tensor-core digit sums' worst case)."""
     import torch
 
     from thaler_study_tpu_torch.fields import goldilocks as gl
 
     if field.backend == "goldilocks":
-        if fill == "max":
-            return torch.full(shape, gl.to_i64(gl.P - 1), dtype=torch.int64, device=dev)
+        if fill in ("max", "p-2"):
+            return torch.full(shape, gl.to_i64(gl.P - (1 if fill == "max" else 2)), dtype=torch.int64, device=dev)
         lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev, dtype=torch.int64)
         hi = torch.randint(0, (1 << 32) - 1, shape, generator=gen, device=dev, dtype=torch.int64)
         x = (hi << 32) | lo
         edge = torch.tensor([gl.to_i64(v) for v in (0, 1, gl.P - 1, gl.P - 2)], dtype=torch.int64, device=dev)
     else:
         p = field.p
-        if fill == "max":
-            return torch.full(shape, p - 1, dtype=torch.int32, device=dev)
+        if fill in ("max", "p-2"):
+            return torch.full(shape, p - (1 if fill == "max" else 2), dtype=torch.int32, device=dev)
         x = torch.randint(0, p, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
         e = [v % p for v in (0, 1, p - 1, p - 2)]
         edge = torch.tensor(e + [v * field.mont_r % p for v in e], dtype=torch.int32, device=dev)
@@ -352,23 +370,45 @@ def six_delta(adj, dev) -> int:
 
 def triangle_launches(k: int, threshold: int):
     """The launches of one triangle proof over 3 blocks of k variables: the
-    modular matmul (c_1 and each contracted round: one per t, t = 1 left
-    out after round 0), the multi-block round kernel (every other round;
-    c_1 where it is not contracted), the multi-block fold (the contracted
-    rounds after round 0)."""
-    mm = mb = fold = 0
+    tensor-core matmul (c_1 and each contracted round: one per t, t = 1
+    left out after round 0) and its digit pre-pass (B's planes once per
+    round, A_t's per launch), none of the CUDA-core matmul; the multi-block
+    round kernel (every other round; c_1 where it is not contracted), the
+    multi-block fold (the contracted rounds after round 0)."""
+    n = {"modmatmul": 0, "modmatmul_tc": 0, "modmatmul_digits": 0, "multiblock_round": 0, "multiblock_fold": 0}
+
+    def contract(ts):
+        n["modmatmul_tc"] += ts
+        n["modmatmul_digits"] += 1 + ts
+
     if 1 << (3 * k) > threshold:
-        mm += 1
+        contract(1)
     else:
-        mb += 1
+        n["multiblock_round"] += 1
     for j in range(3 * k):
         x_left = k - j  # X variables before round j's sums
-        if x_left >= 1 and (1 << (x_left - 1 + 2 * k)) > threshold:
-            mm += 3 if j == 0 else 2
-            fold += j > 0
+        grid = 1 << (x_left - 1 + 2 * k) if x_left >= 1 else 0
+        if grid > threshold:
+            contract(3 if j == 0 else 2)
+            n["multiblock_fold"] += j > 0
         else:
-            mb += 1
-    return {"modmatmul": mm, "multiblock_round": mb, "multiblock_fold": fold}
+            n["multiblock_round"] += 1
+    return n
+
+
+def gmma_count(lib: str, kernel: str) -> int:
+    """Warpgroup MMA instructions (``*GMMA*``) in the SASS of ``kernel``'s
+    instantiations in ``lib`` (``cuobjdump -sass``); raises where the SASS
+    cannot be read."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], check=True, capture_output=True, text=True).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:] if kernel in f.split("\n", 1)[0]]
+    if not funcs:
+        raise AssertionError(f"no {kernel} in the SASS of {lib}")
+    return sum(len(re.findall(r"\b[A-Z]*GMMA\b", f)) for f in funcs)
 
 
 def sass_per_product(lib: str, kernel: str, backend_tag: str, products: int):
@@ -510,30 +550,69 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
               f"k = 4 and a scalar-table product (n = {n1}); fold on / off, skip-1 on / off, random and p - 1 "
               f"words; the flat fold kernel on the same tables")
 
-    # ---- phase 2: the modular matmul against its plain version -------------
+    # ---- phase 2: the modular matmuls against their plain versions ---------
+    # the CUDA-core kernel (csrc/modmatmul.cu) and the tensor-core kernel
+    # (csrc/modmatmul_tc.cu) each at every shape, in every mode, whatever the
+    # routing rule would pick; the tensor-core kernel also at M = 1, a ragged
+    # N and K at its flush length K_c and K_c + 1, and its digit pre-pass
     shapes = ((1, 1, 1), (5, 7, 3), (63, 65, 17), (64, 64, 64), (129, 1, 4096), (100, 130, 4096))
     for field in fields:
-        key = ("modmatmul", field.backend)
-        checks = 0
-        for m, n, kk in shapes:
-            for fill in ("random", "max"):
+        kc = modmatmul.FLUSH_K[field.backend]
+        tc_shapes = shapes + ((1, 300, 520), (33, 200, 96), (3, 5, kc), (3, 5, kc + 1))
+        tc_tile, cc_tile = modmatmul.tile(field, True), modmatmul.tile(field, False)
+        checks = {"cc": 0, "tc": 0, "digits": 0}
+        for m, n, kk in tc_shapes:
+            for fill in ("random", "max", "p-2"):
                 a = slice_words(gen, field, (2 * m, kk), dev, fill)
                 b = slice_words(gen, field, (n, kk), dev, fill)
                 d = slice_words(gen, field, (2 * m, n), dev, fill)
-                c = modmatmul.modmatmul(FArray(a[:m], field), FArray(b, field)).data
-                c_ref = modmatmul.modmatmul_plain(FArray(a[:m], field), FArray(b, field)).data
-                sync()
-                note_err(key, word_err(c, c_ref), f"C = A B^T at {m} x {n} x {kk} {fill}")
-                for t in (None, 0, 1, 2, 3):
-                    aa, dd = (a[:m], d[:m]) if t is None else (a, d)
-                    got = modmatmul.contract_partials(aa, b, dd, field, t)
-                    want = modmatmul.contract_partials_plain(aa, b, dd, field, t)
+                fa, fb = FArray(a[:m], field), FArray(b, field)
+                c_ref = modmatmul.modmatmul_plain(fa, fb).data
+                kernels = [("tc", "modmatmul_tc", modmatmul.modmatmul_tc, modmatmul.contract_partials_tc, tc_tile)]
+                if (m, n, kk) in shapes and fill != "p-2":
+                    kernels.append(("cc", "modmatmul", modmatmul.modmatmul_cc, modmatmul.contract_partials_cc,
+                                    cc_tile))
+                for tag_, name, mm_fn, contract_fn, tiles in kernels:
+                    key = (name, field.backend)
+                    c = mm_fn(fa, fb).data
                     sync()
-                    note_err(key, word_err(got, want), f"contraction at {m} x {n} x {kk}, t={t} {fill}")
-                    checks += 1
-                checks += 1
-        log(f"modular matmul kernel == plain (exact) over {field.name} in {checks} cases: (M, N, K) in {shapes}, "
-              f"C = A B^T and the contraction's partials (no view, views at t = 0..3), random and p - 1 words")
+                    note_err(key, word_err(c, c_ref), f"C = A B^T at {m} x {n} x {kk} {fill}")
+                    for t in (None, 0, 1, 2, 3):
+                        aa, dd = (a[:m], d[:m]) if t is None else (a, d)
+                        got = contract_fn(aa, b, dd, field, t)
+                        want = modmatmul.contract_partials_plain(aa, b, dd, field, t, tiles)
+                        sync()
+                        note_err(key, word_err(got, want), f"contraction at {m} x {n} x {kk}, t={t} {fill}")
+                    checks[tag_] += 6
+                for t in (None, 3):
+                    got = modmatmul.digit_planes(a if t is not None else a[:m], field, t)
+                    want = modmatmul.digit_planes_plain(a if t is not None else a[:m], field, t)
+                    sync()
+                    note_err(("modmatmul_digits", field.backend), word_err(got, want),
+                             f"digit planes of {m if t is None else 2 * m} x {kk}, t={t} {fill}")
+                    checks["digits"] += 1
+        # the routing: a CUDA tensor at any shape reaches the tensor-core kernel
+        for m, n, kk in (shapes[1], shapes[-1]):
+            a, b, d = (slice_words(gen, field, shape, dev) for shape in ((m, kk), (n, kk), (m, n)))
+            before = (modmatmul.tc_launches[field.backend], modmatmul.launches[field.backend])
+            routed = modmatmul.contract_partials(a, b, d, field)
+            c = modmatmul.modmatmul(FArray(a, field), FArray(b, field)).data
+            sync()
+            after = (modmatmul.tc_launches[field.backend], modmatmul.launches[field.backend])
+            if dev.type == "cuda" and (after[0] != before[0] + 2 or after[1] != before[1]):
+                raise AssertionError(f"contract_partials or modmatmul at {m} x {n} x {kk} did not take the "
+                                     "tensor-core kernel")
+            note_err(("modmatmul_tc", field.backend),
+                     word_err(routed, modmatmul.contract_partials_plain(a, b, d, field, None, tc_tile)),
+                     f"routed contraction at {m} x {n} x {kk}")
+            note_err(("modmatmul_tc", field.backend),
+                     word_err(c, modmatmul.modmatmul_plain(FArray(a, field), FArray(b, field)).data),
+                     f"routed C = A B^T at {m} x {n} x {kk}")
+        log(f"modular matmul kernels == plain (exact) over {field.name}: the CUDA-core kernel in {checks['cc']} cases "
+            f"(M, N, K) in {shapes}; the tensor-core kernel in {checks['tc']} cases, also at M = 1, a ragged N and "
+            f"K = K_c = {kc} and K_c + 1 (its flush); C = A B^T and the contraction's partials (no view, views at "
+            f"t = 0..3), random, p - 1 and p - 2 words; its digit pre-pass in {checks['digits']} cases; "
+            f"contract_partials and modmatmul at {shapes[1]} and {shapes[-1]} routed to the tensor cores")
 
     # ---- phase 3: the triangle IP at full size ------------------------------
     thr = rk.CONTRACT_THRESHOLD
@@ -594,7 +673,9 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         counts = read_counts()
         want = triangle_launches(k, thr)
         got = {name: counts[name][field.backend] for name in want}
-        if got != want or (main_path and not all(got.values())):
+        # the main path's kernels all launch; the CUDA-core matmul is on no
+        # path
+        if got != want or (main_path and not all(v for name, v in got.items() if name != "modmatmul")):
             raise AssertionError(f"triangle {n_nodes} {field.name}: launches {got}, expected {want}")
         if claim != six % field.p:
             raise AssertionError(f"triangle {n_nodes} {field.name}: 6 Delta {claim} != trace(A^3) = {six}")
@@ -728,6 +809,109 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
     sms = props.multi_processor_count if props else 132
     clock_mhz = max_sm_clock_mhz()
     checked = []
+    sass = {}
+    if dev.type == "cuda":
+        for backend, tag_ in (("goldilocks", "GlOps"), ("mont32", "M32Ops")):
+            sass[backend] = sass_per_product(str(_build._library_path("modmatmul")), "modmatmul_kernel", tag_,
+                                             MM_PRODUCTS_PER_LOOP)
+        gmma = gmma_count(str(_build._library_path("modmatmul_tc")), "tc_kernel")
+        if not gmma:
+            raise AssertionError("the tensor-core kernel's SASS holds no warpgroup MMA instruction")
+    else:
+        gmma = None
+
+    def contraction_times(field, n_nodes, label, xh, side, extras):
+        """Both modular matmuls at an X round's contraction (M = xh, N = K =
+        side, views at t = 2 and the dot; B = f2), each held word for word
+        against one plain run and timed from CUDA graphs, beside their
+        bounds; with ``extras`` also the epilogue probe and torch._int_mm.
+        Returns the tensor-core kernel's and B's digit pass's (ms, plain ms,
+        bound ms, bound_by)."""
+        backend = field.backend
+        wb, nd, pairs, fixed = (8 if backend == "goldilocks" else 4, modmatmul.DIGITS[backend], TC_PAIRS[backend],
+                                MM_SASS_PER_PRODUCT[backend])
+        a = slice_words(gen, field, (2 * xh, side), dev)
+        b = slice_words(gen, field, (side, side), dev)
+        d = slice_words(gen, field, (2 * xh, side), dev)
+        planes = modmatmul.digit_planes(b, field)
+        got = {"tc": modmatmul.contract_partials_tc(a, b, d, field, 2, planes),
+               "cc": modmatmul.contract_partials_cc(a, b, d, field, 2)}
+        out = [None]
+
+        def run_plain():
+            out[0] = modmatmul.contract_products_plain(a, b, d, field, 2)
+
+        plain = time_ms(run_plain, 1)
+        sync()
+        what = f"{n_nodes}-node triangle X phase {label}, at the path's shape"
+        note_err(("modmatmul_tc", backend), word_err(got["tc"], modmatmul.tile_sums(out[0], modmatmul.tile(field, True))),
+                 what)
+        note_err(("modmatmul", backend), word_err(got["cc"], modmatmul.tile_sums(out[0], modmatmul.tile(field, False))),
+                 what)
+        plain_digits = time_ms(lambda: modmatmul.digit_planes_plain(b, field), 1)
+        note_err(("modmatmul_digits", backend), word_err(planes, modmatmul.digit_planes_plain(b, field)), what)
+        del got, out
+        cc_ms = graph_ms(lambda: modmatmul.contract_partials_cc(a, b, d, field, 2), count=3 if xh > 64 else 10)
+        tc_ms = graph_ms(lambda: modmatmul.contract_partials_tc(a, b, d, field, 2, planes), count=10)
+        a_digits_ms = graph_ms(lambda: modmatmul.digit_planes(a, field, 2), count=10)
+        b_digits_ms = graph_ms(lambda: modmatmul.digit_planes(b, field), count=10)
+        products = xh * side * side
+        # A's and D's halves and B read once, the partials written
+        words = 4 * xh * side + side * side
+        cc_bytes_ms = (words + modmatmul.tile_count(field, False, xh, side)) * wb / PEAK_BYTES_PER_S * 1e3
+        cc_ops_ms = products * max(fixed[0] / 128, fixed[1] / 64) / (sms * clock_mhz * 1e6) * 1e3
+        cc_bound = max(cc_bytes_ms, cc_ops_ms)
+        tc_bytes_ms = (words + modmatmul.tile_count(field, True, xh, side)) * wb / PEAK_BYTES_PER_S * 1e3
+        tc_ops_ms = products * pairs / TC_MACS_PER_S * 1e3
+        tc_bound = max(tc_bytes_ms, tc_ops_ms)
+        # the pre-pass over B: words read, D bytes per word written
+        dig_bound = side * side * (wb + nd) / PEAK_BYTES_PER_S * 1e3
+        ts = 3 if label == "round 0" else 2
+        checked.append(f"modular matmuls {field.name} {n_nodes} nodes {label} (M = {xh}, N = K = {side})")
+        log(f"{field.name} modular matmul, {n_nodes}-node triangle X phase {label} (M = {xh}, N = K = {side}, grid "
+            f"2^{products.bit_length() - 1}, views at t = 2 and the dot), from CUDA graphs: tensor cores {tc_ms:.4f} "
+            f"ms per launch (its A_t digit pass alone {a_digits_ms:.4f} ms; {products / tc_ms / 1e6:.1f} G "
+            f"products/s), operations bound {tc_ops_ms:.4f} ms ({products} products x {pairs} digit pairs, the "
+            f"design's own count {nd} x {nd} = {nd * nd}, at 989.5 T int8 multiply-adds/s), bytes bound "
+            f"{tc_bytes_ms:.4f} ms: {tc_bound / tc_ms:.1%} of the bound; B's digit planes {b_digits_ms:.4f} ms once "
+            f"per round (bytes bound {dig_bound:.4f} ms: {dig_bound / b_digits_ms:.1%}; plain torch "
+            f"{plain_digits:.2f} ms); CUDA cores {cc_ms:.4f} ms ({products / cc_ms / 1e6:.1f} G products/s), "
+            f"operations bound {cc_ops_ms:.4f} ms ({fixed} SASS instructions (all, IMAD-family) per product, the "
+            f"fixed yardstick; this build's K loop: {sass.get(backend)}; at 128 instructions and 64 IMAD per clock "
+            f"per SM, {sms} SMs, {clock_mhz} MHz: the maximum SM clock), bytes bound {cc_bytes_ms:.4f} ms: "
+            f"{cc_bound / cc_ms:.1%} of the bound; tensor cores {cc_ms / tc_ms:.1f}x faster per launch, per round "
+            f"of {ts} launches {b_digits_ms + ts * tc_ms:.4f} ms (B's planes included) against {ts * cc_ms:.4f} ms; "
+            f"plain torch {plain:.2f} ms; both == plain; {gmma} warpgroup MMA instructions in the tensor-core "
+            f"kernel's SASS {tag}")
+        if extras:
+            # what the epilogue costs: the same M and N at K = 128, one
+            # stage of products (1/(K/128) of them) and the whole epilogue
+            kp = 128
+            ak, bk = a[:, :kp].contiguous(), b[:, :kp].contiguous()
+            bk_planes = modmatmul.digit_planes(bk, field)
+            probe_ms = graph_ms(lambda: modmatmul.contract_partials_tc(ak, bk, d, field, 2, bk_planes), count=10)
+            log(f"{field.name} {n_nodes}-node round 0, epilogue probe: the tensor-core kernel at M = {xh}, N = "
+                f"{side}, K = {kp} (one stage of products, the same D_t reads, recombination and dot): "
+                f"{probe_ms:.4f} ms, against {tc_ms:.4f} ms at K = {side} ({tc_ms * kp / side:.4f} ms of it per "
+                f"{kp} of K) {tag}")
+            del ak, bk, bk_planes
+        if extras and dev.type == "cuda":
+            # a yardstick, not library_ms: cuBLAS's int8 product over the
+            # same digit planes, D^2 pair grids and no recombination
+            try:
+                x = modmatmul.digit_planes(a, field, 2).view(torch.int8).reshape(nd * xh, -1)
+                y = planes.view(torch.int8).reshape(nd * side, -1).t()
+                int_mm_ms = graph_ms(lambda: torch._int_mm(x, y), count=3)
+                log(f"{field.name} {n_nodes}-node round 0: torch._int_mm over the same digit planes ([{nd * xh}, "
+                    f"{x.shape[1]}] x [{x.shape[1]}, {nd * side}] int8 -> int32, the same multiply-adds, no "
+                    f"recombination) {int_mm_ms:.4f} ms from a CUDA graph {tag}")
+                del x, y
+            except (RuntimeError, AttributeError) as exc:
+                log(f"{field.name} {n_nodes}-node round 0: torch._int_mm yardstick not measured ({exc})")
+        del a, b, d, planes
+        return ((tc_ms, plain, tc_bound, "operations" if tc_ops_ms >= tc_bytes_ms else "bytes"),
+                (b_digits_ms, plain_digits, dig_bound, "bytes"))
+
     # the kernels line's rows: Goldilocks at the main path's 4096 nodes,
     # BabyBear at 1024; Goldilocks at 1024 is checked and logged too
     for backend, field, n_nodes, run, in_line in (
@@ -790,45 +974,42 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
                          "launches": run["launches"]["multiblock_fold"], "ms": ms, "plain_ms": plain,
                          "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
         del tables
-        # the contraction: round 0 (X' = 2^(k-1)) and the middle (X' = 2^(k/2))
-        # of the X phase, with the views and the dot; B = f2 [2^k, 2^k]
-        side = 1 << k
-        fixed = MM_SASS_PER_PRODUCT[backend]
-        per = None
-        if dev.type == "cuda":
-            per = sass_per_product(str(_build._library_path("modmatmul")), "modmatmul_kernel",
-                                   "GlOps" if backend == "goldilocks" else "M32Ops", MM_PRODUCTS_PER_LOOP)
-        mm_rows = []
-        for label, xh in (("round 0", side // 2), ("middle", 1 << (k // 2))):
-            a = slice_words(gen, field, (2 * xh, side), dev)
-            b = slice_words(gen, field, (side, side), dev)
-            d = slice_words(gen, field, (2 * xh, side), dev)
-            ms, plain = timed_vs_plain(("modmatmul", backend), f"{n_nodes}-node triangle X phase {label}",
-                                       lambda: modmatmul.contract_partials(a, b, d, field, 2),
-                                       lambda: modmatmul.contract_partials_plain(a, b, d, field, 2), 1, count=3)
-            products = xh * side * side
-            # A's and D's halves and B read once, the partials written
-            nbytes = (4 * xh * side + side * side + (-(-xh // modmatmul.TILE)) * (side // modmatmul.TILE)) * wb
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = products * max(fixed[0] / 128, fixed[1] / 64) / (sms * clock_mhz * 1e6) * 1e3
-            bound = max(bytes_ms, ops_ms)
-            mm_rows.append((ms, plain, bound, "operations" if ops_ms >= bytes_ms else "bytes"))
-            checked.append(f"modular matmul {field.name} {n_nodes} nodes {label} (M = {xh}, N = K = {side})")
-            log(f"{field.name} modular matmul kernel, {n_nodes}-node triangle X phase {label} (M = {xh}, N = K = "
-                  f"{side}, views at t = 2 and the dot): {ms:.3f} ms per launch from a CUDA graph "
-                  f"({products / ms / 1e6:.1f} G products/s); operations bound {ops_ms:.3f} ms ({products} products "
-                  f"x {fixed} SASS instructions (all, IMAD-family) per product, the fixed yardstick; this build's K "
-                  f"loop: {per}; at 128 instructions and 64 IMAD per clock per SM, {sms} SMs, {clock_mhz} MHz: the "
-                  f"maximum SM clock), bytes bound {bytes_ms:.4f} ms; {bound / ms:.1%} of the bound; plain torch "
-                  f"{plain:.1f} ms; output == plain {tag}")
-            del a, b, d
-        ms, plain, bound, by = mm_rows[0]
+        # the contraction at the X phase's round 0, middle and last contracted
+        # round, with the views and the dot
+        last = max(j for j in range(k) if (1 << (k - j - 1 + 2 * k)) > thr)
+        got = [contraction_times(field, n_nodes, label, xh, 1 << k, label == "round 0")
+               for label, xh in (("round 0", 1 << (k - 1)), ("middle", 1 << (k // 2)),
+                                 (f"round {last} (the last contracted)", 1 << (k - last - 1)))]
         if in_line:
-            rows.append({"name": f"modmatmul_{backend}", "route": "cuda",
-                         "source": "thaler_study_tpu_torch/csrc/modmatmul.cu",
-                         "replaces": "thaler_study_tpu/ops/modmatmul.py:35",
-                         "launches": run["launches"]["modmatmul"], "ms": ms, "plain_ms": plain,
-                         "bound_ms": bound, "bound_by": by, "library_ms": None})
+            for name, source, replaces, (ms, plain, bound, by), launched in (
+                    ("modmatmul_tc", "modmatmul_tc.cu", "modmatmul.py:160", got[0][0], run["launches"]["modmatmul_tc"]),
+                    ("modmatmul_digits", "modmatmul_tc.cu", "modmatmul.py:106", got[0][1],
+                     run["launches"]["modmatmul_digits"])):
+                rows.append({"name": f"{name}_{backend}", "route": "cuda",
+                             "source": f"thaler_study_tpu_torch/csrc/{source}",
+                             "replaces": f"thaler_study_tpu/ops/{replaces}", "launches": launched, "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None})
+    # the 256-node proof's one contracted round (round 0, grid 2^23), both fields
+    k = (tri_nodes_cmp - 1).bit_length()
+    for field in (GOLDILOCKS, BABYBEAR):
+        contraction_times(field, tri_nodes_cmp, "round 0", 1 << (k - 1), 1 << k, False)
+    # C = A B^T (mode 0) on both kernels from 1^3 to 256^3: where the
+    # tensor cores' extra launches (two digit passes) would lose
+    for field in (GOLDILOCKS, BABYBEAR):
+        line = []
+        for side in (1, 16, 64, 256):
+            fa, fb = (FArray(slice_words(gen, field, (side, side), dev), field) for _ in range(2))
+            c_ref = modmatmul.modmatmul_plain(fa, fb).data
+            for name, fn in (("modmatmul_tc", modmatmul.modmatmul_tc), ("modmatmul", modmatmul.modmatmul_cc)):
+                c = fn(fa, fb).data
+                sync()
+                note_err((name, field.backend), word_err(c, c_ref),
+                         f"C = A B^T at {side}^3")
+            line.append(f"{side}^3 tensor cores {graph_ms(lambda: modmatmul.modmatmul_tc(fa, fb)):.5f} ms, CUDA "
+                        f"cores {graph_ms(lambda: modmatmul.modmatmul_cc(fa, fb)):.5f} ms")
+        checked.append(f"C = A B^T {field.name} 1^3..256^3 (both kernels)")
+        log(f"{field.name} C = A B^T (modmatmul, mode 0) from CUDA graphs, the tensor cores with both digit passes: "
+            f"{'; '.join(line)}; both == plain {tag}")
     # max_abs_err after every comparison, the path's shapes included
     for row in rows:
         name, backend = row["name"].rsplit("_", 1)
@@ -1291,7 +1472,8 @@ def main(argv=None) -> int:
                 "line_restrict": device_tables.line_launches,
                 "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches,
                 "multiblock_round": multiblock.launches, "multiblock_fold": multiblock.fold_launches,
-                "modmatmul": modmatmul.launches}
+                "modmatmul": modmatmul.launches, "modmatmul_tc": modmatmul.tc_launches,
+                "modmatmul_digits": modmatmul.digit_launches}
 
     def reset_counts():
         for counts in counters.values():

@@ -9,8 +9,9 @@ package, on the CPU.
   products and a product with a scalar table; fold, claim shortcut, values
   at p - 1; ``sum_products`` (c_1), ``product_evals`` and ``fold_step``
   too;
-- ``ops.modmatmul`` (C = A B^T and the contraction's per-tile partials)
-  against the JAX ``modmatmul_impl`` and ``_mxu_modmatmul_impl``;
+- ``ops.modmatmul`` (C = A B^T and the contraction's per-tile partials,
+  the plain version and the tensor-core kernel's digit form) against the
+  JAX ``modmatmul_impl`` and ``_mxu_modmatmul_impl``;
 - the contraction forced at small sizes (threshold 0) in both packages;
 - ``api.prove_triangle_count`` / ``verify_triangle_count`` transcripts
   byte for byte against the JAX package's: the reference's 4-node graph
@@ -160,7 +161,9 @@ def test_round_step_multiblock_matches_jax():
 def test_modmatmul_matches_jax():
     """C = A B^T mod p and the contraction's partials (summed) against the
     JAX modmatmul_impl and its int8-digit form, at shapes that are not
-    multiples of the kernel's tile, random and p - 1 values."""
+    multiples of the kernels' tiles, random and p - 1 values: the plain
+    version and the tensor-core kernel's digit form, and the partials at
+    both kernels' tiles (the routed ones at the tensor-core kernel's)."""
     rng = np.random.default_rng(12)
     for field in (GOLDILOCKS, F1572869):
         for m, n, k in ((1, 1, 1), (3, 70, 5), (65, 2, 9)):
@@ -178,9 +181,17 @@ def test_modmatmul_matches_jax():
                         np.testing.assert_array_equal(np.asarray(jmm._mxu_modmatmul_impl(ja[:m], jb).to_u64()), jc)
                 c = modmatmul.modmatmul(a[:m], b)
                 np.testing.assert_array_equal(c.to_u64(), jc)
+                # the tensor-core kernel's digit form (byte planes, diagonal sums, recombination)
+                np.testing.assert_array_equal(modmatmul.modmatmul_digits_plain(a[:m], b).to_u64(), jc)
+                tm, tn = modmatmul.TC_TILE[field.backend]
                 parts = modmatmul.contract_partials(a[:m].data.contiguous(), b.data, d[:m].data.contiguous(), field)
-                assert parts.shape == ((-(-m // modmatmul.TILE)) * (-(-n // modmatmul.TILE)),)
+                assert parts.shape == ((-(-m // tm)) * (-(-n // tn)),)
                 assert FArray(parts, field).sum(axis=0).item().v == jdot
+                tc = modmatmul.contract_partials_tc(a[:m].data.contiguous(), b.data, d[:m].data.contiguous(), field)
+                assert torch.equal(tc, parts)
+                cc = modmatmul.contract_partials_cc(a[:m].data.contiguous(), b.data, d[:m].data.contiguous(), field)
+                assert cc.shape == ((-(-m // modmatmul.TILE)) * (-(-n // modmatmul.TILE)),)
+                assert FArray(cc, field).sum(axis=0).item().v == jdot
                 # the view at t = 3 equals the contraction of the tables' views
                 three = FArray.from_ints([3], field, device="cpu").reshape(())
                 a3, d3 = FArray.fold(a[:m], a[m:], three), FArray.fold(d[:m], d[m:], three)

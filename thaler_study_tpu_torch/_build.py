@@ -32,7 +32,11 @@ SOURCES = {
     "gkr_tail": "gkr_tail.cu",
     "multiblock_round": "multiblock_round.cu",
     "modmatmul": "modmatmul.cu",
+    "modmatmul_tc": "modmatmul_tc.cu",
 }
+# per-library flags after the sources: modmatmul_tc.cu finds libcuda's
+# cuTensorMapEncodeTiled with dlsym
+LINK_FLAGS = {"modmatmul_tc": ["-ldl"]}
 HOST_SOURCES = {"native": Path(__file__).resolve().parent / "runtime" / "native.cpp"}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 NVCC_FLAGS = [
@@ -76,7 +80,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name]), *LINK_FLAGS.get(name, [])]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

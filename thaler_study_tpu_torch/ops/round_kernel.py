@@ -16,9 +16,9 @@ of three kernels, each with a plain version for CPU tensors:
   3 tables and the two LibraW shapes;
 - ``multiblock.round_partials`` (``csrc/multiblock_round.cu``) for every
   other spec: the fold and the round sums in one pass over the block grid;
-- ``modmatmul.contract_partials`` (``csrc/modmatmul.cu``) for the triangle
-  term whose grid exceeds :data:`CONTRACT_THRESHOLD` (the X phase), after
-  ``multiblock.fold_tables``.
+- ``modmatmul.contract_partials_many`` for the triangle term whose grid
+  exceeds :data:`CONTRACT_THRESHOLD` (the X phase), after
+  ``multiblock.fold_tables``: ``csrc/modmatmul_tc.cu`` (tensor cores).
 
 Every function here takes Goldilocks and the mont32 fields; round sums of a
 mont32 field are Montgomery words, as in the JAX package.
@@ -202,12 +202,13 @@ def _contraction(spec: PolySpec, term, halved: bool):
 def _contract(spec: PolySpec, ks, data, field: FieldConfig, ts) -> FArray:
     """s(t) for t in ``ts`` (None: the whole-grid sum) of the triangle term
     (k1, k2, k3): sum over the grid of f1_t (f3_t @ f2^T), on the modular
-    matmul kernel with the dot in its epilogue."""
+    matmul kernel with the dot in its epilogue (f2's digit planes made once
+    for all of ``ts``)."""
     sx, sy, sz = spec.block_sizes
     f1 = data[ks[0]].reshape(1 << sx, 1 << sy)
     f2 = data[ks[1]].reshape(1 << sy, 1 << sz)
     f3 = data[ks[2]].reshape(1 << sx, 1 << sz)
-    sums = [FArray(modmatmul.contract_partials(f3, f2, f1, field, t), field).sum(axis=0) for t in ts]
+    sums = [FArray(p, field).sum(axis=0) for p in modmatmul.contract_partials_many(f3, f2, f1, field, ts)]
     return FArray(torch.stack([s.data for s in sums]), field)
 
 
