@@ -396,6 +396,85 @@ def triangle_launches(k: int, threshold: int):
     return n
 
 
+# the port's kernels by name (csrc/*.cu); every other kernel record of a
+# trace is a plain-torch launch
+PORT_KERNELS = ("mb_round_kernel", "mb_fold_kernel", "tc_kernel", "digits_kernel", "modmatmul_kernel",
+                "round_kernel", "libra_round_kernel", "fs_tail_kernel", "sha_chain_kernel", "phase_tables_kernel",
+                "eq_table_kernel", "line_tile_kernel", "gkr_final_tail_kernel")
+
+
+def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
+    """Two traces of warm triangle proofs over Goldilocks on the card, with
+    the ``thaler_study_tpu_torch`` first on ``sys.path`` (so that
+    ``scripts/triangle_trace.py`` runs it on any tree of the port): one
+    ``api.prove_triangle_count`` (MB's device records, their count and
+    sum, the device idle share), and one proof driven round by round, each
+    round synced inside a ``record_function`` range (the device records
+    that start in it: the port's kernels, plain-torch kernels, copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from thaler_study_tpu_torch import api
+    from thaler_study_tpu_torch.fiat_shamir import SumcheckInteractiveProver, generate_transcript
+    from thaler_study_tpu_torch.fields import GOLDILOCKS
+    from thaler_study_tpu_torch.protocols import TriangleG
+    from thaler_study_tpu_torch.sumcheck import Prover
+
+    k = (n_nodes - 1).bit_length()
+    adj = triangle_graph(n_nodes, seed)
+    for _ in range(2):  # warm: kernels built, caches, allocator
+        api.prove_triangle_count(adj, n_nodes, GOLDILOCKS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        api.prove_triangle_count(adj, n_nodes, GOLDILOCKS)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, busy_us = device_spans(prof)
+    mb = [(s1 - s0) / 1e3 for s0, s1, name in spans if "mb_round_kernel" in name]
+    out = {"wall_ms": wall_ms, "records": len(spans), "busy_ms": busy_us / 1e3, "idle": 1 - busy_us / 1e3 / wall_ms,
+           "mb_launches": len(mb), "mb_ms": sum(mb)}
+
+    class Ranged(SumcheckInteractiveProver):
+        def g_1(self):
+            with record_function("tri round 0"):
+                v = super().g_1()
+                torch.cuda.synchronize()
+            return v
+
+        def round(self, j, r_j):
+            with record_function(f"tri round {j}"):
+                v = super().round(j, r_j)
+                torch.cuda.synchronize()
+            return v
+
+    g = TriangleG.new_adj_matrix(2 * k, adj, GOLDILOCKS, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        generate_transcript(Ranged(Prover(g)), GOLDILOCKS)
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CPU and e.name.startswith("tri round ")}
+    dev = [(e.time_range.start, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per = {}
+    for name, (a, b) in ranges.items():
+        recs = [n for t, n in dev if a <= t <= b]
+        copies = sum("Memcpy" in n or "Memset" in n for n in recs)
+        port = sum(any(kn in n for kn in PORT_KERNELS) for n in recs)
+        per[name] = (port, len(recs) - port - copies, copies)
+    phases = {"X": range(0, k), "Y": range(k, 2 * k), "Z": range(2 * k, 3 * k)}
+    out["per_round"] = {ph: [per.get(f"tri round {j}", (None, None, None)) for j in js] for ph, js in phases.items()}
+    for ph in ("Y", "Z"):
+        plain = [p[1] for p in out["per_round"][ph] if p[1] is not None]
+        out[f"plain_per_{ph}_round"] = sum(plain) / len(plain) if plain else None
+    log(f"triangle trace, {n_nodes} nodes over Goldilocks (warm): api.prove_triangle_count {wall_ms:.3f} ms wall "
+        f"(profiler on), {len(spans)} device records, busy {busy_us / 1e3:.3f} ms, idle share {out['idle']:.1%}; "
+        f"MB (mb_round_kernel) {len(mb)} records, {sum(mb):.4f} ms in all; per round, driven round by round and "
+        f"synced (port kernels, plain-torch kernels, copies): Y {out['per_round']['Y']}, Z {out['per_round']['Z']}, "
+        f"X {out['per_round']['X']}; plain-torch kernels per Y round {out['plain_per_Y_round']}, per Z round "
+        f"{out['plain_per_Z_round']} {card}")
+    return out
+
+
 def gmma_count(lib: str, kernel: str) -> int:
     """Warpgroup MMA instructions (``*GMMA*``) in the SASS of ``kernel``'s
     instantiations in ``lib`` (``cuobjdump -sass``); raises where the SASS
@@ -529,13 +608,16 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
                         tables = [slice_words(gen, field, (rk._table_size(spec, t),), dev, fill)
                                   for t in range(len(spec.table_blocks))]
                         r = slice_words(gen, field, (1,), dev, fill) if fold else None
-                        for skip in ((False, True) if degree >= 1 else (False,)):
-                            folded, parts = multiblock.round_partials(plan, tables, r, skip, field)
-                            ref_f, ref = multiblock.round_partials_plain(plan, tables, r, skip, parts.shape[0], field)
+                        claim = slice_words(gen, field, (1,), dev, fill)
+                        # skip-1 off; on with the claim (s(1) = claim - s(0)); on without (s(1) = 0)
+                        for skip, cl in ((False, None), (True, claim), (True, None)) if degree >= 1 else ((False, None),):
+                            folded, sums = multiblock.round_sums(plan, tables, r, field, skip, cl)
+                            ref_f, ref = multiblock.round_sums_plain(plan, tables, r, field, skip, cl)
                             sync()
-                            e = max([word_err(parts, ref)] + [word_err(a, b) for a, b in zip(folded, ref_f)
-                                                              if a is not None or b is not None])
-                            note_err(key, e, f"{name} after {j} folds, fold={fold} skip={skip} {fill}")
+                            e = max([word_err(sums, ref)] + [word_err(a, b) for a, b in zip(folded, ref_f)
+                                                             if a is not None or b is not None])
+                            note_err(key, e, f"{name} after {j} folds, fold={fold} skip={skip} claim="
+                                             f"{cl is not None} {fill} ({multiblock.kernel_class(plan)})")
                             checks += 1
                     if fold:  # the flat fold of the same tables
                         halves = [rk._table_size(spec, t) // 2 if 0 in tb else 0
@@ -547,8 +629,9 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
                                  max(word_err(a, b) for a, b in zip(got, want)), f"{name} after {j} folds")
         log(f"multi-block round kernel == plain (exact) over {field.name} in {checks} cases: the triangle spec "
               f"(k = {k_tri}) at every block transition, dense W (k = {k_w}) in both phases, single-block k = 1, "
-              f"k = 4 and a scalar-table product (n = {n1}); fold on / off, skip-1 on / off, random and p - 1 "
-              f"words; the flat fold kernel on the same tables")
+              f"k = 4 and a scalar-table product (n = {n1}); fold on / off, skip-1 off / on with the claim / on "
+              f"without, random and p - 1 words, s(0..D) and the folded tables; the flat fold kernel on the same "
+              f"tables")
 
     # ---- phase 2: the modular matmuls against their plain versions ---------
     # the CUDA-core kernel (csrc/modmatmul.cu) and the tensor-core kernel
@@ -787,6 +870,12 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
     del adj_mle
     log("library_ms is null in the slice's rows: no PyTorch call computes a matrix product mod p, a fold mod p "
         "or a sumcheck round's sums mod p")
+    # a warm main-path proof traced: MB's launches and their sum, the
+    # plain-torch launches per Y and Z round, the device idle share
+    if dev.type == "cuda":
+        triangle_trace(n_big, seed, tag)
+    else:
+        log("triangle trace: not measured (no card)")
 
     def timed_vs_plain(key, what, kernel, plain, plain_reps, count=20):
         """(kernel ms from a CUDA graph, plain ms). The wrapper runs once
@@ -912,6 +1001,55 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         return ((tc_ms, plain, tc_bound, "operations" if tc_ops_ms >= tc_bytes_ms else "bytes"),
                 (b_digits_ms, plain_digits, dig_bound, "bytes"))
 
+    def mb_bound(plan, backend, wb, skip):
+        """MB's least time for one round of ``plan``: the larger of its bytes
+        (each table read once, before the fold; each folded entry and
+        s(0..D) written once) at 3.35 TB/s and its products (one per folded
+        entry written, plus, per summed t and per term of two or more
+        factors, one per point of the term's grid) at the IMAD-family count
+        per product of MM_SASS_PER_PRODUCT, 64 IMAD per clock per SM.
+        Returns (bound ms, bound_by, bytes, products, bytes ms, ops ms)."""
+        folded = sum(size for size, f in zip(plan.sizes, plan.folded) if f)
+        nbytes = (sum(plan.sizes) + 2 * folded + plan.degree + 1) * wb
+        half = [plan.half0] + [1 << lg for lg in plan.log_sizes[1:]]
+        products = folded
+        for counts in plan.counts:
+            if sum(counts) >= 2:
+                covered = {b for kk, c in enumerate(counts) if c for b in range(3) if plan.strides[kk][b]}
+                products += (plan.degree + 1 - int(skip)) * int(np.prod([half[b] for b in covered]))
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = products * MM_SASS_PER_PRODUCT[backend][1] / (64 * sms * clock_mhz * 1e6) * 1e3
+        return (max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes", nbytes, products, bytes_ms,
+                ops_ms)
+
+    def mb_times(field, what, spec, fold, skip):
+        """MB at one round of ``spec`` (random words; the round's degree, or
+        c_1's without a fold and skip-1), held word for word against one
+        plain run and timed from a CUDA graph: (ms, plain ms, bound ms,
+        bound_by)."""
+        backend, wb = field.backend, 8 if field.backend == "goldilocks" else 4
+        post = spec.after_fold() if fold else spec
+        plan = multiblock.round_plan(spec, fold, post.terms, post.degree())
+        tables = [slice_words(gen, field, (rk._table_size(spec, t),), dev) for t in range(len(spec.table_blocks))]
+        r = slice_words(gen, field, (1,), dev) if fold else None
+        claim = slice_words(gen, field, (1,), dev) if skip else None
+        ms, plain = timed_vs_plain(("multiblock_round", backend), what,
+                                   lambda: multiblock.round_sums(plan, tables, r, field, skip, claim),
+                                   lambda: multiblock.round_sums_plain(plan, tables, r, field, skip, claim), 2)
+        bound, by, nbytes, products, bytes_ms, ops_ms = mb_bound(plan, backend, wb, skip)
+        sp, lay = multiblock.split(plan), multiblock.layout(plan, wb)
+        checked.append(f"multi-block round {field.name} {what} (grid {plan.grid})")
+        log(f"{field.name} multi-block round kernel, {what} (sizes {spec.block_sizes} -> {post.block_sizes}, grid "
+            f"{plan.grid} = {sp.rows} rows x {sp.inner}, fold {fold}, skip-1 {skip}; instantiation "
+            f"{multiblock.kernel_class(plan)}, {lay.tiles} tiles of {lay.rt} rows x {lay.span}, pipeline "
+            f"{lay.pipe_stages} stages of {lay.pipe_k} slots): {ms:.4f} ms per "
+            f"launch from a CUDA graph (s(0..D) finished in it), bound {bound:.4f} ms by {by} (bytes {bytes_ms:.4f} "
+            f"ms: {nbytes / 1e6:.1f} MB at 3.35 TB/s; operations {ops_ms:.4f} ms: {products} products x "
+            f"{MM_SASS_PER_PRODUCT[backend][1]} IMAD at 64 per clock per SM, {sms} SMs, {clock_mhz} MHz), "
+            f"{bound / ms:.1%} of the bound; plain torch {plain:.3f} ms; output == plain {tag}")
+        del tables
+        return ms, plain, bound, by
+
     # the kernels line's rows: Goldilocks at the main path's 4096 nodes,
     # BabyBear at 1024; Goldilocks at 1024 is checked and logged too
     for backend, field, n_nodes, run, in_line in (
@@ -923,37 +1061,19 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         tri = rk.PolySpec((k,) * 3, TRI_BLOCKS, ((0, 1, 2),))
         # the multi-block round: the path's largest launch (the first round it
         # takes: the X -> Y transition, or the first X round below the
-        # contraction threshold) and the middle of the Y phase
+        # contraction threshold), the second round after it and the middle of
+        # the Y phase
         first = next(j for j in range(1, 3 * k) if k - j < 1 or (1 << (k - j - 1 + 2 * k)) <= thr)
-        mb_rows = []
-        for label, j in (("first multi-block round", first), ("middle of the Y phase", k + k // 2)):
-            spec = folded_spec(tri, j - 1)
-            post = spec.after_fold()
-            plan = multiblock.round_plan(spec, True, post.terms, post.degree())
-            tables = [slice_words(gen, field, (rk._table_size(spec, t),), dev) for t in range(3)]
-            r = slice_words(gen, field, (1,), dev)
-            ms, plain = timed_vs_plain(
-                ("multiblock_round", backend), f"{n_nodes}-node triangle, {label}",
-                lambda: multiblock.round_partials(plan, tables, r, True, field),
-                lambda: multiblock.round_partials_plain(plan, tables, r, True, multiblock.blocks_for(plan.grid),
-                                                        field), 2)
-            nbytes = (sum(t.numel() for t in tables) + sum(s for s, f in zip(plan.sizes, plan.folded) if f)
-                      + multiblock.blocks_for(plan.grid) * (plan.degree + 1)) * wb
-            bound = nbytes / PEAK_BYTES_PER_S * 1e3
-            mb_rows.append((ms, plain, bound))
-            checked.append(f"multi-block round {field.name} {n_nodes} nodes {label} (grid {plan.grid})")
-            log(f"{field.name} multi-block round kernel, {n_nodes}-node triangle, {label} (sizes "
-                  f"{spec.block_sizes} -> {post.block_sizes}, grid {plan.grid}, fold and skip-1): {ms:.4f} ms per "
-                  f"launch from a CUDA graph, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB read and written at 3.35 "
-                  f"TB/s), {bound / ms:.1%} of the bound; plain torch {plain:.3f} ms; output == plain {tag}")
-        del tables
-        ms, plain, bound = mb_rows[0]
+        mb_rows = [mb_times(field, f"{n_nodes}-node triangle, {label}", folded_spec(tri, j - 1), True, True)
+                   for label, j in (("first multi-block round", first), ("the round after it", first + 1),
+                                    ("middle of the Y phase", k + k // 2))]
+        ms, plain, bound, by = mb_rows[0]
         if in_line:
             rows.append({"name": f"multiblock_round_{backend}", "route": "cuda",
                          "source": "thaler_study_tpu_torch/csrc/multiblock_round.cu",
                          "replaces": "thaler_study_tpu/ops/round_kernel.py:218",
                          "launches": run["launches"]["multiblock_round"], "ms": ms, "plain_ms": plain,
-                         "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
+                         "bound_ms": bound, "bound_by": by, "library_ms": None})
         # the flat fold at the X phase's round 1 (f1 and f3 of 2^(2k), f2 kept)
         tables = [slice_words(gen, field, (1 << (2 * k),), dev) for _ in range(3)]
         halves = [1 << (2 * k - 1), 0, 1 << (2 * k - 1)]
@@ -989,6 +1109,9 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
                              "source": f"thaler_study_tpu_torch/csrc/{source}",
                              "replaces": f"thaler_study_tpu/ops/{replaces}", "launches": launched, "ms": ms,
                              "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None})
+    # dense W's first b round (no fold, degree 2) at the wide circuit's width
+    mb_times(GOLDILOCKS, f"dense W {wide_depth} x 2^{wide_log} gates, the first b round",
+             rk.PolySpec((wide_log, wide_log), W_BLOCKS, W_TERMS), False, False)
     # the 256-node proof's one contracted round (round 0, grid 2^23), both fields
     k = (tri_nodes_cmp - 1).bit_length()
     for field in (GOLDILOCKS, BABYBEAR):
@@ -1084,7 +1207,9 @@ def main(argv=None) -> int:
         return fused_trace_only(args, card)
     t0 = time.perf_counter()
     logs = _build.build()
-    log(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    log(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process per "
+        f"source, all started together); each source's end: "
+        f"{', '.join(f'{_build.SOURCES[n]} {sec:.1f} s' for n, sec in sorted(_build.build_seconds.items()))}")
     for name, text in logs.items():
         for line in text.splitlines():
             if "Function properties for" in line or "registers" in line or "spill" in line:

@@ -14,11 +14,13 @@ it serves CPU and CUDA runs alike.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -51,6 +53,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -71,10 +74,13 @@ def _library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named libraries (all by default) that are not built yet,
     in parallel. Returns nvcc's output (``-Xptxas -v``: registers, spills)
-    per library built; raises if any build fails."""
+    per library built, and records in :data:`build_seconds` the seconds from
+    the start of the builds to the end of each; raises if any build
+    fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = []
+    t0 = time.perf_counter()
     for name in names:
         out = _library_path(name)
         if out.exists():
@@ -87,9 +93,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         jobs.append((name, out, tmp, proc))
     logs = {}
     failed = []
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
+
+    def finish(job):
+        log, _ = job[3].communicate()
+        return log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(jobs))) as pool:
+        ends = list(pool.map(finish, jobs))
+    for (name, out, tmp, proc), (log, seconds) in zip(jobs, ends):
         logs[name] = log
+        build_seconds[name] = seconds
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
         else:

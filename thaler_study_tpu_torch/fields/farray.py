@@ -144,8 +144,13 @@ class FArray:
 
     @classmethod
     def scalar(cls, value: Felt, device="cuda") -> "FArray":
-        """A 0-d FArray (broadcasts against any shape)."""
-        return cls.from_ints([value.v], value.field, device=device).reshape(())
+        """A 0-d FArray (broadcasts against any shape). Its word is made on
+        the host, so that the card sees one copy and no kernel (a sumcheck
+        round takes two: its challenge and its claim)."""
+        field = value.field
+        v = value.v % field.p
+        word = v * field.mont_r % field.p if field.backend == "mont32" else v
+        return cls(u64_tensor(np.array([word], dtype=np.uint64), device, word_dtype(field)).reshape(()), field)
 
     # -- extraction (device -> host, exact) --
     def to_u64(self) -> np.ndarray:

@@ -14,8 +14,9 @@ of three kernels, each with a plain version for CPU tensors:
 - ``cuda_round.round_partials`` (``csrc/round_kernel.cu``, the Pallas
   kernel's port) for the single-block shapes it takes: the product of 2 or
   3 tables and the two LibraW shapes;
-- ``multiblock.round_partials`` (``csrc/multiblock_round.cu``) for every
-  other spec: the fold and the round sums in one pass over the block grid;
+- ``multiblock.round_sums`` (``csrc/multiblock_round.cu``) for every
+  other spec: the fold and the round sums s(0..D), the claim shortcut's
+  s(1) included, in one launch;
 - ``modmatmul.contract_partials_many`` for the triangle term whose grid
   exceeds :data:`CONTRACT_THRESHOLD` (the X phase), after
   ``multiblock.fold_tables``: ``csrc/modmatmul_tc.cu`` (tensor cores).
@@ -235,6 +236,7 @@ def round_step(
     if degree < 1:
         claim = None
     skip_t1 = claim is not None
+    filled = False
     r = None if r_prev is None else r_prev.data.reshape(1)
     split = _round_kernel_split(spec)
     if split is not None:
@@ -257,10 +259,13 @@ def round_step(
             r = None
         sums = None
         if rest:
+            # the kernel writes s(1) = claim - s(0) where it sums every term
+            filled = claim is not None and len(rest) == len(contracted)
             plan = multiblock.round_plan(spec if r is not None else sums_spec, r is not None, rest, degree)
-            folded, partials = multiblock.round_partials(plan, data, r, skip_t1, field)
+            folded, s = multiblock.round_sums(plan, data, r, field, skip_t1,
+                                              claim.data.reshape(1) if filled else None)
             data = [d if f is None else f for d, f in zip(data, folded)]
-            sums = FArray(partials, field).sum(axis=0)
+            sums = FArray(s, field)
         ts = [t for t in range(degree + 1) if not (skip_t1 and t == 1)]
         for _, ks in contracted:
             if ks is None:
@@ -269,7 +274,7 @@ def round_step(
             if skip_t1:
                 part = FArray(torch.cat([part.data[:1], torch.zeros_like(part.data[:1]), part.data[1:]]), field)
             sums = part if sums is None else sums + part
-    if claim is not None:
+    if claim is not None and not filled:
         sums.data[1] = (claim - sums[0]).data
     return sums, tuple(FArray(d, field) for d in data)
 
@@ -300,9 +305,8 @@ def sum_products(spec: PolySpec, tables: Sequence[FArray]) -> FArray:
     rest = [term for term, ks in contracted if ks is None]
     total = None
     if rest:
-        _, partials = multiblock.round_partials(multiblock.round_plan(spec, False, rest, 1), data, None, False, field)
-        s = FArray(partials, field).sum(axis=0)
-        total = s[0] + s[1]
+        _, s = multiblock.round_sums(multiblock.round_plan(spec, False, rest, 1), data, None, field)
+        total = FArray(s[0], field) + FArray(s[1], field)
     for _, ks in contracted:
         if ks is not None:
             part = _contract(spec, ks, data, field, [None])[0]
