@@ -29,9 +29,11 @@ The paths, each driven through the entry points a user calls:
   ``gkr.verify_gkr_transcript``) on the flagship circuit of
   ``benches/gkr_benchmark.py``: 16 layers x 2^20 gates over Goldilocks,
   wiring, gate types and inputs drawn from the seed with numpy as the
-  benchmark draws them; and ``api.run_gkr`` with ``generate_gkr_transcript``
-  on the book circuit (F389) and a 5-layer mixed-width circuit (Goldilocks
-  and BabyBear);
+  benchmark draws them, and over BabyBear on the same circuit with inputs
+  drawn below p (the path of K1's mont32 form at full width); and
+  ``api.run_gkr`` with ``generate_gkr_transcript`` on the book circuit
+  (F389), a 5-layer mixed-width circuit (Goldilocks and BabyBear) and the
+  BabyBear flagship;
 - the fused GKR prover (``gkr.generate_gkr_transcript_fused``) on two small
   Goldilocks circuits and on the flagship;
 - the triangle-counting IP (``api.prove_triangle_count`` /
@@ -53,7 +55,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    (nbytes % 64 = 0..63), degree 2 and 3, round 0 / middle / last, its
    transcript bytes included; the SHA-256 chain helper against Python; the
    round kernel's two LibraW shapes (K1) with and without fold and skip-1
-   at several sizes, and the phase-table kernel (K2, over its static plan)
+   at several sizes, per-block partials and the round finished in the
+   launch (``libra_round_sums``: s(0..2), skip-1 with and without the
+   claim) at 2^2 to 2^20 entries, tables at p - 1 and one word off 16
+   bytes, and the phase-table kernel (K2, over its static plan)
    on skewed and sparse wirings and on random ones at every k = 4..20
    (Goldilocks and BabyBear; k = 4 for the other fields) with random
    values and values at p - 1, over the same five fields (and in phase 4
@@ -83,7 +88,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    call on the CPU; the GKR circuits: the small ones byte-identical to
    ``device="cpu"`` through both entry points, the flagship's outputs equal
    to the plain forward pass on the CPU, accepted by the verifier and
-   rejected when tampered; the fused path byte-identical to ``device="cpu"``
+   rejected when tampered, over Goldilocks and over BabyBear (K1's launch
+   counts, ``api.run_gkr``, and a 2 x 2^12 cut byte-identical to
+   ``device="cpu"``); the fused path byte-identical to ``device="cpu"``
    and to the per-layer path (small circuits) and to the per-layer run
    (flagship), with no fallback and the launch counts of its design; the
    triangle IP's 6 Delta against trace(A^3) (float64 on the card, exact for
@@ -95,8 +102,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 4. timing with CUDA events, a dependent host read and a profiler trace,
    and the FS tail's latency floor (one thread's chain of dependent SHA-256
    compressions, times the compressions on a round's chain); for GKR, the
-   proof's seconds with a breakdown by step, the device idle share from a
-   trace of one layer, and K1 and K2 at the flagship's shapes; for the
+   proof's seconds with a breakdown by step, the device idle share and the
+   plain-torch kernels per sumcheck round from a trace of one layer (both
+   fields), and K1 and K2 at the flagship's shapes; for the
    fused path, the median of warm proofs, its ``timings`` breakdown, the
    prelude's parts, a trace of one proof (device idle share, one
    device-to-host read after the prelude, no standalone round tail, the
@@ -146,13 +154,15 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def device_spans(prof):
+def device_spans(prof, ranges: str = ""):
     """The device records of a trace, sorted, and the microseconds their
-    union covers."""
+    union covers; records named with the prefix ``ranges`` (a
+    ``record_function`` range's own record on the device timeline, which
+    spans the kernels inside it) are left out."""
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA and not (ranges and e.name.startswith(ranges)))
     busy_us, end = 0.0, float("-inf")
     for s0, s1, _ in spans:
         if s1 > end:
@@ -192,6 +202,84 @@ def gate_circuit(gkr, widths, grng):
     return gkr.Circuit(layers, widths[-1])
 
 
+def field_inputs(seed: int, field, width: int):
+    """A GKR circuit's inputs in ``field`` other than Goldilocks, drawn below
+    p from the seed (the flagship's Goldilocks inputs come from its own
+    generator, as benches/gkr_benchmark.py draws them)."""
+    import numpy as np
+
+    return np.random.default_rng(seed + 7).integers(0, field.p, width)
+
+
+def gkr_layer_trace(circuit, inputs, field, layer: int, card: str = "") -> dict:
+    """One per-layer GKR proof on the card (``gkr.generate_gkr_transcript``)
+    with ``layer`` traced by the profiler, each of its rounds in a
+    ``record_function`` range that ends in a sync (the round already ends in
+    its host read): the layer's wall time, device busy time and idle share,
+    and per round the device records that start in it, split into the
+    port's kernels, plain-torch kernels and copies. Imports
+    ``thaler_study_tpu_torch`` as ``sys.path`` finds it, so that
+    ``scripts/k1_times.py`` runs it on any tree of the port."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from thaler_study_tpu_torch import gkr
+
+    out = {}
+
+    def step(name, at, j, fn):
+        if at != layer or name not in ("layer", "round"):
+            return fn()
+        if name == "round":
+            with record_function(f"gkr round {j}"):
+                v = fn()
+                torch.cuda.synchronize()
+            return v
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            v = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans, busy_us = device_spans(prof, "gkr round ")
+        ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CPU and e.name.startswith("gkr round ")]
+        per, plain = [], []
+        for a, b in sorted(ranges):
+            recs = [n for t, _, n in spans if a <= t <= b]
+            copies = sum("Memcpy" in n or "Memset" in n for n in recs)
+            port = sum(any(kn in n for kn in PORT_KERNELS) for n in recs)
+            per.append((port, len(recs) - port - copies, copies))
+            plain.append([n for n in recs if not ("Memcpy" in n or "Memset" in n
+                                                  or any(kn in n for kn in PORT_KERNELS))])
+        out.update(wall_ms=wall_ms, busy_ms=busy_us / 1e3, idle=1 - busy_us / 1e3 / wall_ms, records=len(spans),
+                   per_round=per, plain=plain)
+        return v
+
+    torch.cuda.synchronize()
+    gkr.generate_gkr_transcript(gkr.Prover(circuit, inputs, field), field, step=step)
+    rounds = out["per_round"]
+    # the sumcheck rounds alone: round k also builds phase 2's tables, and
+    # round 2k - 1 is the final message
+    k = circuit.num_vars_at(layer + 1)
+    pure = [j for j in range(len(rounds)) if j not in (k, 2 * k - 1)]
+    inner = [rounds[j] for j in pure]
+    plain, names = out.pop("plain"), {}
+    for j in pure:
+        for n in plain[j]:
+            names[n[:80]] = names.get(n[:80], 0) + 1
+    out["plain_names"] = sorted(names.items(), key=lambda x: -x[1])[:4]
+    out["plain_per_round"] = sum(r[1] for r in inner) / len(inner)
+    out["copies_per_round"] = sum(r[2] for r in inner) / len(inner)
+    log(f"GKR per-layer {field.name} trace of layer {layer}: {out['wall_ms']:.3f} ms wall (profiler on), "
+        f"{out['records']} device records, busy {out['busy_ms']:.3f} ms, idle share {out['idle']:.1%}; per round "
+        f"(port kernels, plain-torch kernels, copies): {rounds}; plain-torch kernels per sumcheck round "
+        f"{out['plain_per_round']:.2f}, copies {out['copies_per_round']:.2f}; the plain-torch kernels of those "
+        f"rounds by name {out['plain_names']} {card}")
+    return out
+
+
 # the fused proof's device records by kernel (the first match of a name);
 # line_fold_kernel is the line restriction of trees before the tiles
 FUSED_KERNELS = ("libra_round_kernel", "phase_tables_kernel", "eq_table_kernel", "line_tile_kernel",
@@ -225,6 +313,18 @@ def fused_trace(gkr, circuit, inputs, field):
         ms_, n_ = by_kernel.get(label, (0.0, 0))
         by_kernel[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
     return traced_ms, spans, busy_us, by_kernel, aten_split(prof)
+
+
+def tail_by_round(spans, k: int, depth: int):
+    """K1 with the round tail (TAIL) in a traced fused proof of ``depth``
+    layers of k variables: each inner round's mean over the layers (us; 2k
+    - 1 launches per layer, in issue order), or None where the trace does
+    not hold them all."""
+    tail_us = [s1 - s0 for s0, s1, name in spans
+               if "libra_round_kernel<" in name and template_flag(name, "libra_round_kernel")]
+    if not spans or len(tail_us) != depth * (2 * k - 1):
+        return None
+    return [statistics.mean(tail_us[j :: 2 * k - 1]) for j in range(2 * k - 1)]
 
 
 def split_line(by_kernel, aten, top=14) -> str:
@@ -454,7 +554,7 @@ def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
         generate_transcript(Ranged(Prover(g)), GOLDILOCKS)
     ranges = {e.name: (e.time_range.start, e.time_range.end) for e in prof.events()
               if e.device_type == DeviceType.CPU and e.name.startswith("tri round ")}
-    dev = [(e.time_range.start, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [(s0, name) for s0, _, name in device_spans(prof, "tri round ")[0]]
     per = {}
     for name, (a, b) in ranges.items():
         recs = [n for t, n in dev if a <= t <= b]
@@ -1370,6 +1470,51 @@ def main(argv=None) -> int:
         log(f"round kernel, LibraW shapes (K1) == plain (exact) over {field.name} in {checks} cases: phases 1 "
             f"and 2, (B, N) in (1, 4), (1, 8), (4, 2^12), (1, 2^{gw}), all four modes, boundary words")
 
+    # K1's round finished in its launch (libra_round_sums: the last block
+    # sums every block's partials and writes s(0..2), s(1) = claim - s(0)
+    # where a claim is given) against its plain version: every table of
+    # words at p - 1 (Goldilocks p - 1 = 2^64 - 2^32) or random with the
+    # boundary words; tables one word off 16 bytes (the scalar path
+    # throughout) and halves below one 16-byte group (N = 2^2); the ticket
+    # counter back at 0 after every launch
+    sums_modes = ((False, False, False), (False, True, False), (False, True, True), (True, False, False),
+                  (True, True, False), (True, True, True))
+    sums_sizes = ((1, 1 << 2, "random"), (1, 1 << 10, "random"), (3, 1 << 11, "p - 1"), (1, 1 << 13, "random"),
+                  (2, 1 << 13, "offset"), (1, 1 << gw, "random"), (1, 1 << gw, "p - 1"))
+    for field in (GOLDILOCKS, BABYBEAR, F1572869, F389, F5):
+        key = ("libra_round", field.backend)
+        top = gl.to_i64(gl.P - 1) if field is GOLDILOCKS else (field.p - 1) * field.mont_r % field.p
+        checks = 0
+        for phase, terms, n_scalars in libra:
+            for batch, size, fill in sums_sizes:
+                if fill == "offset":  # a contiguous view one word past a 16-byte boundary
+                    tables = [words(field, batch * size + 1)[1:].view(batch, size) for _ in range(3)]
+                else:
+                    tables = [words(field, batch, size) for _ in range(3)]
+                scalars = [words(field, batch) for _ in range(n_scalars)]
+                r, claim = words(field, batch), words(field, batch)
+                if fill == "p - 1":
+                    for t_ in tables + scalars + [r, claim]:
+                        t_.fill_(top)
+                for fold, skip, with_claim in sums_modes:
+                    rr, cl = (r if fold else None), (claim if with_claim else None)
+                    folded, s = cuda_round.libra_round_sums(tables, rr, skip, None, field, terms, scalars, cl)
+                    ref_folded, ref = cuda_round.libra_round_sums_plain(tables, rr, skip, field, terms, scalars, cl)
+                    torch.cuda.synchronize()
+                    e = max_abs_err(s, ref)
+                    if fold:
+                        e = max([e] + [max_abs_err(a, b) for a, b in zip(folded, ref_folded)])
+                    if e or int(cuda_round._counter(dev)) != 0:
+                        raise AssertionError(f"K1 round sums != plain: {field.name} phase={phase} B={batch} N={size} "
+                                             f"{fill} fold={fold} skip={skip} claim={with_claim}; ticket counter "
+                                             f"{int(cuda_round._counter(dev))}")
+                    err[key] = max(err.get(key, 0), e)
+                    checks += 1
+                del tables, scalars
+        log(f"K1 round sums in the launch (libra_round_sums) == plain (exact) over {field.name} in {checks} cases: "
+            f"phases 1 and 2, (B, N, words) in {[(b_, f'2^{s_.bit_length() - 1}', f_) for b_, s_, f_ in sums_sizes]}, "
+            "fold / no fold x skip-1 with the claim, without it, and off; ticket counter back at 0")
+
     # K2: the phase-table scatter-add over its static plan: random wirings
     # at every k = 4..gw (the flagship's wiring law), skewed and sparse ones
     wrng = np.random.default_rng(args.seed + 1)
@@ -2142,6 +2287,65 @@ def main(argv=None) -> int:
         "breakdown_s": buckets, "breakdown_total_s": sum(buckets.values()),
         "circuit_construct_s": construct_s, "device_idle_share_one_layer": idle, "card": card,
     }))
+    gl_trace = gkr_layer_trace(circuit, inputs, F, depth // 2, tag)
+
+    # the per-layer prover over BabyBear at the flagship's width, the path
+    # K1 mont32 serves: the same circuit (benches/gkr_benchmark.py's wiring
+    # and MUL probability), inputs drawn below p from the seed, through
+    # generate_gkr_transcript and api.run_gkr; a 2-layer cut at 2^12 gates
+    # against device="cpu"
+    BB = BABYBEAR
+    bb_inputs = field_inputs(args.seed, BB, width)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    bb_t = gkr.generate_gkr_transcript(gkr.Prover(circuit, bb_inputs, BB), BB)
+    bb_prove_s = time.perf_counter() - t0
+    counts = read_counts()
+    if not gkr_counts_ok(counts, BB, circuit):
+        raise AssertionError(f"GKR BabyBear {depth} x 2^{args.gkr_log}: launches {counts}, expected "
+                             f"{gkr_launch_counts(circuit)}")
+    gkr_launches[BB.backend] = {name: counts[name][BB.backend] for name in gkr_names}
+    if len(bb_t.g) != n_msgs:
+        raise AssertionError(f"GKR BabyBear: {len(bb_t.g)} messages, expected {n_msgs}")
+    bb_outs = gkr.deserialize_gkr_message(bb_t.g[0], BB).circuit_outputs
+    bb_want = circuit.evaluate_device(FArray.from_ints(bb_inputs, BB, device="cpu"))[0].to_u64()
+    bb_ints = bb_outs.ints if isinstance(bb_outs, FeltVector) else [f.v for f in bb_outs]
+    if not np.array_equal(np.asarray(bb_ints, dtype=np.uint64), bb_want):
+        raise AssertionError("GKR BabyBear: the claimed outputs != the plain forward pass on the CPU")
+    t0 = time.perf_counter()
+    if not gkr.verify_gkr_transcript(bb_t, gkr.Verifier(circuit, BB), bb_inputs, BB):
+        raise AssertionError("GKR BabyBear: the verifier rejected an honest transcript")
+    bb_verify_s = time.perf_counter() - t0
+    bad = list(bb_t.g)
+    bad[flip] = bad[flip][:-1] + bytes([bad[flip][-1] ^ 1])
+    if accepts(gkr.GKRTranscript(bad), circuit, bb_inputs, BB):
+        raise AssertionError("GKR BabyBear: a tampered transcript was accepted")
+    bb_run_outs, bb_ok = api.run_gkr(circuit, bb_inputs, BB, seed=args.seed)
+    if not bb_ok or [f.v for f in bb_run_outs] != [int(x) for x in bb_want]:
+        raise AssertionError("GKR BabyBear: api.run_gkr rejected or its outputs differ")
+    cut = gate_circuit(gkr, [1 << 12] * 3, np.random.default_rng(args.seed + 11))
+    cut_inputs = field_inputs(args.seed, BB, 1 << 12)
+    cut_card = gkr.generate_gkr_transcript(gkr.Prover(cut, cut_inputs, BB), BB)
+    cut_cpu = gkr.generate_gkr_transcript(gkr.Prover(cut, cut_inputs, BB, device="cpu"), BB)
+    if cut_card.to_bytes() != cut_cpu.to_bytes():
+        raise AssertionError("GKR BabyBear 2 x 2^12 cut: card transcript != device='cpu'")
+    bb_trace = gkr_layer_trace(circuit, bb_inputs, BB, depth // 2, tag)
+    log(f"GKR per-layer BabyBear {depth} x 2^{args.gkr_log} (depth {depth}; the flagship's circuit, inputs below p): "
+        f"generate_gkr_transcript {bb_prove_s:.3f} s (host clock, forward pass included), {len(bb_t.g)} messages, "
+        f"{sum(len(m) for m in bb_t.g)} bytes; launches {gkr_launches[BB.backend]}; outputs == the plain forward pass "
+        f"on the CPU; verify_gkr_transcript accepted in {bb_verify_s:.3f} s; rejected with one byte flipped in "
+        f"sumcheck message {flip}; api.run_gkr accepted; the 2 x 2^12 cut byte-identical to device='cpu' "
+        f"({len(cut_card.g)} messages); traced layer {depth // 2}: idle {bb_trace['idle']:.1%}, plain-torch kernels "
+        f"per sumcheck round {bb_trace['plain_per_round']:.2f} (Goldilocks {gl_trace['plain_per_round']:.2f}) {tag}")
+    log(json.dumps({
+        "bench": "gkr_prover_per_layer_babybear", "gates": depth * width, "depth": depth, "width": width,
+        "field": BB.name, "accepted": True, "prover_s": bb_prove_s, "verifier_s": bb_verify_s,
+        "messages": len(bb_t.g), "launches": gkr_launches[BB.backend], "idle_one_layer": bb_trace["idle"],
+        "plain_per_round": bb_trace["plain_per_round"], "goldilocks_plain_per_round": gl_trace["plain_per_round"],
+        "card": card,
+    }))
+    del bb_t, bad, cut, cut_card, cut_cpu
 
     # the fused path on the flagship: the same bytes as the per-layer run,
     # every layer's rounds on the card, one device-to-host read after the
@@ -2221,11 +2425,9 @@ def main(argv=None) -> int:
         raise AssertionError("GKR flagship fused: a standalone round-tail kernel ran")
     # the TAIL launches by inner round (2k - 1 per layer, in issue order),
     # grouped by table size: rounds 0-2 of each phase are the large ones
-    tail_us = [s1 - s0 for s0, s1, name in spans
-               if "libra_round_kernel<" in name and template_flag(name, "libra_round_kernel")]
     k_f = circuit.num_vars_at(1)
-    if spans and len(tail_us) == depth * (2 * k_f - 1):
-        per_j = [statistics.mean(tail_us[j :: 2 * k_f - 1]) for j in range(2 * k_f - 1)]
+    per_j = tail_by_round(spans, k_f, depth)
+    if per_j is not None:
         log(f"GKR flagship fused trace, K1 with TAIL by inner round (mean over {depth} layers, us): phase 1 "
             f"{[round(x, 1) for x in per_j[:k_f]]}; phase 2 {[round(x, 1) for x in per_j[k_f:]]} {tag}")
     layer_start = min((s0 for s0, _, name in spans if "eq_table_kernel" in name), default=None)
@@ -2284,18 +2486,27 @@ def main(argv=None) -> int:
         tables = [words(field, 1, N) for _ in range(3)]
         r1, scalar = words(field, 1), [words(field, 1)]
         outs = [torch.empty((1, N // 2), dtype=word_dtype(field), device=dev) for _ in range(3)]
-        blocks = cuda_round.blocks_for(1, N // 4)
+        claim1 = words(field, 1)
+        vec = cuda_round.vec_words(N // 4, wb, tables + outs)
         rows = {}
         for phase, terms, n_scalars in libra:
             sc = scalar[:n_scalars]
+            blocks = cuda_round.libra_blocks(N // 4, vec, cuda_round.wave_blocks(dev, field.backend, phase, True, True))
 
             def k1():
-                cuda_round.round_partials(tables, r1, True, outs, field, terms, sc)
+                cuda_round.libra_round_sums(tables, r1, True, outs, field, terms, sc, claim1)
 
             issued_ms = time_launches(k1, 20)
-            plain_ms = time_launches(lambda: cuda_round.round_partials_plain(tables, r1, True, blocks, field, terms, sc), 3)
-            nbytes = 3 * (N + N // 2) * wb + (1 + n_scalars) * wb + blocks * 3 * wb
+            plain_ms = time_launches(
+                lambda: cuda_round.libra_round_sums_plain(tables, r1, True, field, terms, sc, claim1), 3)
+            # the tables read and the folded tables written once; r, the
+            # scalars and the claim read; each block's partials written and
+            # read again by the last block; s(0..2) written
+            base = 3 * (N + N // 2) * wb + (1 + n_scalars) * wb
+            nbytes = base + (1 + 2 * 3 * blocks + 3) * wb
             rows[f"K1 phase {phase}"] = (graph_ms(k1), plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3, nbytes, issued_ms)
+            log(f"{field.name} K1 phase {phase} at 2^{k} entries: {blocks} blocks, {vec} words per access, "
+                f"{N // 4} pair indices")
             if field is not GOLDILOCKS:
                 continue
             # K1 with the round tail as its epilogue, at a chain fill of 40
@@ -2315,13 +2526,16 @@ def main(argv=None) -> int:
 
             issued_ms = time_launches(k1_tail, 20)
             plain_ms = time_launches(k1_tail_plain, 3)
-            # K1's bytes; then the partials read again, the chain's state and
-            # block and the zero flag read and written, the message written,
-            # the claim read and written, one challenge written
+            # K1's bytes with its partials written; then the partials read
+            # again, the chain's state and block and the zero flag read and
+            # written, the message written, the claim read and written, one
+            # challenge written
             m_ = gkr_tail.ROUND_LEN
-            tail_bytes = blocks * 3 * 8 + 2 * (32 + 64 + 4) + m_ + 3 * 8
+            tblocks = cuda_round.libra_blocks(N // 4, vec, cuda_round.wave_blocks(dev, "goldilocks", phase, True, True,
+                                                                                   tail=True))
+            tail_bytes = tblocks * 3 * 8 + 2 * (32 + 64 + 4) + m_ + 3 * 8
             floor_ms = compressions(64 * 131072 + 40, m_, True) * compress_ms
-            all_bytes = nbytes + tail_bytes
+            all_bytes = base + tblocks * 3 * 8 + tail_bytes
             rows[f"K1+TAIL phase {phase}"] = (graph_ms(k1_tail), plain_ms, all_bytes / PEAK_BYTES_PER_S * 1e3,
                                               all_bytes, issued_ms, floor_ms)
             del chain_, st_
@@ -2485,8 +2699,8 @@ def main(argv=None) -> int:
             if floor:
                 row["latency_floor_ms"] = floor[0]
             kernels.append(row)
-    # the GKR kernels: launches per proof (Goldilocks: the flagship; mont32:
-    # the BabyBear 5-layer circuit), times at the flagship's shapes (phase 1)
+    # the GKR kernels: launches per per-layer flagship proof (Goldilocks, and
+    # BabyBear on the same circuit), times at the flagship's shapes (phase 1)
     gkr_sources = {"libra_round": ("thaler_study_tpu_torch/csrc/round_kernel.cu", "thaler_study_tpu/ops/pallas_round.py:341"),
                    "phase_tables": ("thaler_study_tpu_torch/csrc/phase_tables.cu", "thaler_study_tpu/gkr/device_tables.py:192")}
     for name, (source, replaces) in gkr_sources.items():
@@ -2498,7 +2712,7 @@ def main(argv=None) -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
             })
     # the fused path's kernels: launches on the flagship's fused proof (the
-    # eq tables over mont32: the BabyBear 5-layer per-layer proof); the line
+    # eq tables over mont32: the BabyBear per-layer flagship proof); the line
     # restriction's ms and bound are per restriction (its tile launches);
     # the eq table with the dot replaces eq_table_dev (:316) and dot_mod
     # (:350) as phase2_tables (:411) applies them

@@ -83,8 +83,8 @@ struct GlOps {
   }
 };
 
+// r2 = 2^64 mod p (m32::Field) is the Montgomery word of 2^32.
 struct M32Ops : m32::Field {
-  uint32_t r2;  // 2^64 mod p: the Montgomery word of 2^32
   using word = uint32_t;
   __device__ __forceinline__ word canonical(word a) const { return from_mont(a); }
   // the Montgomery word of any x < 2^32 (x need not be reduced): x * r2 < p * 2^32
@@ -301,13 +301,13 @@ __global__ void sha_chain_kernel(int n, uint32_t* out) {
 
 // Returns cudaGetLastError() after the launch (0 = launched). mont32 = 0
 // takes Goldilocks int64 words; mont32 = 1 takes Montgomery words of the
-// field with modulus p < 2^31, pinv = -p^-1 mod 2^32 and r2 = 2^64 mod p.
+// field with modulus p < 2^31 and pinv = -p^-1 mod 2^32.
 // byte_size is the serialized width of one element, len the uniform bytes
 // of one draw (17..20 for mont32, 24 for Goldilocks). degree must be 2 or
 // 3. msgs is a [batch, msg_stride] byte buffer whose row b receives the
 // round's message at offset nbytes (the wrapper checks every argument
 // first).
-extern "C" int ts_fs_tail_launch(int mont32, unsigned p, unsigned pinv, unsigned r2,
+extern "C" int ts_fs_tail_launch(int mont32, unsigned p, unsigned pinv,
                                  int byte_size, int len, int degree, const void* partials,
                                  int blocks, void* state, void* buf, void* claim, void* r,
                                  void* c1, void* coeffs, int ncoef, int coeff_off, void* msgs,
@@ -316,7 +316,7 @@ extern "C" int ts_fs_tail_launch(int mont32, unsigned p, unsigned pinv, unsigned
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
-      mont32 ? launch(M32Ops{{p, pinv}, r2}, byte_size, len, degree, partials, blocks, state,
+      mont32 ? launch(M32Ops{{p, pinv}}, byte_size, len, degree, partials, blocks, state,
                       buf, claim, r, c1, coeffs, ncoef, coeff_off, msgs, msg_stride, any_zero,
                       vinv, batch, round, nbytes, draw_next, s)
              : launch(GlOps{}, byte_size, len, degree, partials, blocks, state, buf, claim, r, c1,

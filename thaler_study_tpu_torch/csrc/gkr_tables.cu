@@ -467,9 +467,10 @@ int eq_launch(F f, typename F::word one, const void* r, int n, void* out, const 
 extern "C" int ts_eq_table_launch(int mont32, unsigned p, unsigned pinv, const void* r, int n, void* out,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mont32)
-    return eq_launch<M32Ops, false>(M32Ops{{p, pinv}}, (uint32_t)((1ull << 32) % p), r, n, out, nullptr, nullptr,
-                                    nullptr, nullptr, s);
+  if (mont32) {
+    const M32Ops f{{p, pinv}};
+    return eq_launch<M32Ops, false>(f, f.r1, r, n, out, nullptr, nullptr, nullptr, nullptr, s);
+  }
   return eq_launch<GlOps, false>(GlOps{}, (uint64_t)1, r, n, out, nullptr, nullptr, nullptr, nullptr, s);
 }
 
@@ -479,9 +480,10 @@ extern "C" int ts_eq_table_launch(int mont32, unsigned p, unsigned pinv, const v
 extern "C" int ts_eq_dot_launch(int mont32, unsigned p, unsigned pinv, const void* r, int n, void* out,
                                 const void* w, void* partials, void* counter, void* w_u, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mont32)
-    return eq_launch<M32Ops, true>(M32Ops{{p, pinv}}, (uint32_t)((1ull << 32) % p), r, n, out, w, partials,
-                                   counter, w_u, s);
+  if (mont32) {
+    const M32Ops f{{p, pinv}};
+    return eq_launch<M32Ops, true>(f, f.r1, r, n, out, w, partials, counter, w_u, s);
+  }
   return eq_launch<GlOps, true>(GlOps{}, (uint64_t)1, r, n, out, w, partials, counter, w_u, s);
 }
 

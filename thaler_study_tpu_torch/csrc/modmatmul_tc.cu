@@ -469,9 +469,7 @@ int launch_digits(const F& f, const void* x, uint64_t t, int view, void* out, in
 }
 
 M32Tc m32_ops(unsigned p, unsigned pinv) {
-  M32Tc f;
-  f.p = p;
-  f.pinv = pinv;
+  M32Tc f{{p, pinv}};
   uint64_t w = 1 % p;
   for (int s = 0; s < 2 * M32Tc::D - 1; ++s) {
     f.pow256[s] = (uint32_t)w;

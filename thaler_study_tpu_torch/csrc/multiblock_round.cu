@@ -114,12 +114,11 @@ struct GlOps {
 
 // mont32 words are Montgomery words x R mod p (R = 2^32). The accumulator
 // sums raw products x y R^2; acc_add1 enters a word as its product with
-// R mod p, so that every entry has that form. r1, r2, r3: R, R^2, R^3 mod p.
+// R mod p (m32::Field's r1), so that every entry has that form.
 struct M32Ops : m32::Field {
   using word = uint32_t;
   using word2 = uint2;
   using Acc = m32::Acc;
-  uint32_t r1, r2, r3;
   __device__ __forceinline__ word one() const { return r1; }
   __device__ __forceinline__ word small(int t) const { return redc((uint64_t)t * r2); }
   __device__ __forceinline__ void acc_add(Acc& acc, word a, word b) const { acc_raw(acc, (uint64_t)a * b); }
@@ -128,15 +127,7 @@ struct M32Ops : m32::Field {
   __device__ __forceinline__ void acc_raw(Acc& acc, uint64_t t) const {
     asm("add.cc.u64 %0, %0, %2;\n\taddc.u64 %1, %1, 0;" : "+l"(acc.lo), "+l"(acc.hi) : "l"(t));
   }
-  // S R^-1 mod p for S = hi 2^64 + lo, from its four 32-bit pieces:
-  // S R^-1 = redc(s0) + s1 + s2 R + s3 R^2 (mod p), each term one REDC (no
-  // 64-bit division: the flush at every row's end runs this)
-  __device__ __forceinline__ word acc_reduce(const Acc& acc) const {
-    word x = redc((uint32_t)acc.lo);
-    x = add(x, redc((acc.lo >> 32) * r1));
-    x = add(x, redc((uint64_t)(uint32_t)acc.hi * r2));
-    return add(x, redc((acc.hi >> 32) * r3));
-  }
+  __device__ __forceinline__ word acc_reduce(const Acc& acc) const { return m32::acc_reduce(*this, acc); }
 };
 
 __device__ __forceinline__ uint32_t shfl_down(uint32_t x, int off) {
@@ -771,13 +762,7 @@ extern "C" int ts_mb_round_launch(int mont32, unsigned p, unsigned pinv, const v
   const Args* args = static_cast<const Args*>(args_);
   int rc;
   if (mont32) {
-    M32Ops f{};
-    f.p = p;
-    f.pinv = pinv;
-    f.r1 = (uint32_t)((1ull << 32) % p);
-    f.r2 = (uint32_t)((uint64_t)f.r1 * f.r1 % p);
-    f.r3 = (uint32_t)((uint64_t)f.r2 * f.r1 % p);
-    rc = launch_round(f, *args, smem, s);
+    rc = launch_round(M32Ops{{p, pinv}}, *args, smem, s);
   } else {
     rc = launch_round(GlOps{}, *args, smem, s);
   }

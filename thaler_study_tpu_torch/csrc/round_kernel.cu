@@ -22,10 +22,11 @@
 // per-block partials are summed mod p by the caller (the FS tail kernel,
 // or torch for a single round). Modular addition is exact, so the order
 // of the sums cannot change a bit. mont32 words stay Montgomery throughout:
-// the partials are the Montgomery words of the sums. On the fused GKR path
-// libra_round_kernel also runs the GKR round tail on them in its last
-// block (TAIL, tail_epilogue below; csrc/gkr_tail.cuh), so that a round
-// is one launch.
+// the partials are the Montgomery words of the sums. libra_round_kernel
+// (K1) can finish its round in its last block instead: the sums s(0..2)
+// with the claim's s(1), or on the fused GKR path the GKR round tail
+// (TAIL, tail_epilogue below; csrc/gkr_tail.cuh), so that a round is one
+// launch.
 //
 // What bounds it on the H100: device memory. A FOLD round reads 2 x 4 and
 // writes 2 x 2 words per table per quarter index, 8 or 4 bytes each; the
@@ -34,10 +35,11 @@
 // addresses (coalesced loads), folds and sums in registers, and keeps the
 // sums as unreduced accumulators: 192-bit sums of 128-bit products for
 // Goldilocks, 128-bit sums of raw 64-bit Montgomery products for mont32
-// (one modular reduction, and for mont32 one REDC, per thread per t, not
-// per product; the Pallas kernel's _lane_reduce_words does the same per
-// tile). The TPU kernel's sequential-grid accumulator has no counterpart:
-// blocks run in parallel and reduce their threads' sums in shared memory.
+// (one modular reduction per thread per t, not per product; for mont32
+// four REDCs, no division; the Pallas kernel's _lane_reduce_words does the
+// same per tile). The TPU kernel's sequential-grid accumulator has no
+// counterpart: blocks run in parallel and reduce their threads' sums in
+// shared memory.
 #include <cuda_runtime.h>
 
 #include "gkr_tail.cuh"
@@ -61,6 +63,7 @@ struct GlOps {
     gl::acc_add(acc, a * b, __umul64hi(a, b));
   }
   __device__ __forceinline__ word acc_reduce(const Acc& acc) const { return gl::acc_reduce(acc); }
+  __device__ __forceinline__ word one() const { return 1; }
 };
 
 struct M32Ops : m32::Field {
@@ -70,13 +73,36 @@ struct M32Ops : m32::Field {
     m32::acc_add(acc, (uint64_t)a * b);
   }
   __device__ __forceinline__ word acc_reduce(const Acc& acc) const { return m32::acc_reduce(*this, acc); }
+  __device__ __forceinline__ word one() const { return r1; }  // the Montgomery word of 1
 };
 
-__device__ __forceinline__ uint32_t shfl_down(uint32_t x, int off) {
-  return __shfl_down_sync(0xffffffffu, x, off);
+__device__ __forceinline__ uint32_t shfl_xor(uint32_t x, int off) {
+  return __shfl_xor_sync(0xffffffffu, x, off);
 }
-__device__ __forceinline__ uint64_t shfl_down(uint64_t x, int off) {
-  return (uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)x, off);
+__device__ __forceinline__ uint64_t shfl_xor(uint64_t x, int off) {
+  return (uint64_t)__shfl_xor_sync(0xffffffffu, (unsigned long long)x, off);
+}
+
+// x[0..N-1] summed over the block's threads, in every thread
+template <class F, int N>
+__device__ __forceinline__ void block_sum(const F& f, typename F::word (&x)[N]) {
+  using W = typename F::word;
+  __shared__ W warp_sums[THREADS / 32][N];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x[e] = f.add(x[e], shfl_xor(x[e], off));
+    if (lane == 0) warp_sums[warp][e] = x[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    x[e] = warp_sums[0][e];
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) x[e] = f.add(x[e], warp_sums[w][e]);
+  }
+  __syncthreads();  // warp_sums free for the next call
 }
 
 template <class W, int K>
@@ -145,25 +171,17 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  __shared__ W warp_sums[THREADS / 32][D + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  W sums[D + 1];
 #pragma unroll
-  for (int s = 0; s <= D; ++s) {
-    W x = f.acc_reduce(acc[s]);
+  for (int s = 0; s <= D; ++s) sums[s] = f.acc_reduce(acc[s]);
+  block_sum<F, D + 1>(f, sums);
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x = f.add(x, shfl_down(x, off));
-    if (lane == 0) warp_sums[warp][s] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x <= D) {
-    W total = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) total = f.add(total, warp_sums[w][threadIdx.x]);
-    partials[(b * gridDim.x + blockIdx.x) * (D + 1) + threadIdx.x] = total;
+    for (int s = 0; s <= D; ++s) partials[(b * gridDim.x + blockIdx.x) * (D + 1) + s] = sums[s];
   }
 }
 
-// ---- the LibraW shapes (GKR layer sumcheck, gkr/linear.py) ----------------
+// ---- the LibraW shapes (GKR layer sumcheck, gkr/linear.py): K1 ------------
 //
 // Three folded tables T0, T1, T2 and, in phase 2, one scalar s per proof
 // (w_u = W~(u), a 0-block table: never folded, broadcast to every x):
@@ -177,85 +195,131 @@ __global__ void __launch_bounds__(THREADS)
 // Each term's products go into the same lazy accumulator; a single-factor
 // term enters as a product with the field's one (Goldilocks 1, mont32
 // R mod p, so the raw product is R^2 x like every other).
+//
+// The grid (ops/cuda_round.libra_blocks): at most one wave of blocks, one
+// block for tables of up to 2^10 entries; block x of proof b owns the pair
+// indices [x * chunk, min((x + 1) * chunk, half)), the plain version's
+// split. Its threads walk the range in 16-byte groups (four mont32 or two
+// Goldilocks words per table and quarter: 12 loads and, folding, 6 stores
+// of 16 bytes per group, all loads issued before the first store),
+// neighbouring threads on neighbouring groups; the entries before the
+// range's first whole group and after its last go one at a time, and so
+// does the whole range where the wrapper clears `vec` (a half below one
+// group, tables not 16-byte aligned). Each thread reduces its lazy
+// accumulators once per t: for mont32 four REDCs (m32::acc_reduce), no
+// 64-bit division. Every block writes its partial sums; with `sums` given,
+// the last block (a ticket counter, 0 between launches) adds every block's
+// partials and writes s(0..2) per proof, s(1) = claim - s(0) where a claim
+// is given, so that a round is one launch. The TAIL form (Goldilocks, one
+// proof) runs the GKR round tail on those sums instead.
 template <class F, int PHASE>
 __device__ __forceinline__ void add_libra(const F& f, typename F::Acc& acc,
-                                          const typename F::word (&v)[3], typename F::word s,
-                                          typename F::word one) {
+                                          const typename F::word (&v)[3], typename F::word s) {
   if (PHASE == 1) {
     f.acc_add(acc, v[0], v[1]);
-    f.acc_add(acc, v[2], one);
+    f.acc_add(acc, v[2], f.one());
   } else {
     f.acc_add(acc, v[0], f.add(s, v[2]));  // T0 s + T0 T2
     f.acc_add(acc, f.mul(v[1], s), v[2]);  // T1 s T2
   }
 }
 
-// The GKR round tail as the epilogue of a libra_round_kernel launch (TAIL,
-// Goldilocks, batch 1): each block has written its partials (and
-// block_sums, the same three words, to shared memory); thread 0 makes the
-// block's writes visible device-wide (one fence, after the barrier) and
-// takes a ticket. The last block resets the counter, sums every block's
-// partials (read from L2) with all its threads, and one warp runs
-// gkr_tail::round_tail on the round sums; the chain's inputs were copied
-// into `in` when the block started. A grid of one block (the rounds over
-// tables of up to 2^10 entries) skips the ticket and takes its own sums.
-// The fence and the ticket hold each block a little longer, so the
-// wrapper launches one wave of blocks (ts_libra_round_tail_blocks) and
-// pays them once.
-__device__ __forceinline__ void tail_epilogue(const uint64_t* partials, const uint64_t* block_sums,
-                                              const gkr_tail::RoundArgs& t, const gkr_tail::ChainIn& in) {
-  __shared__ int last;
-  __shared__ uint64_t sums[THREADS / 32][3];
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint64_t s[3];
-  if (gridDim.x == 1) {
-    if (warp != 0) return;
+// One pair index: the three tables' (folded) values lo and hi into s(0),
+// s(1) (left out with SKIP1) and s(2).
+template <class F, int PHASE, bool SKIP1>
+__device__ __forceinline__ void add_point(const F& f, typename F::Acc (&acc)[3], const typename F::word (&lo)[3],
+                                          const typename F::word (&hi)[3], typename F::word s) {
+  add_libra<F, PHASE>(f, acc[0], lo, s);
+  if (!SKIP1) add_libra<F, PHASE>(f, acc[1], hi, s);
+  typename F::word v2[3];
 #pragma unroll
-    for (int e = 0; e < 3; ++e) s[e] = block_sums[e];
-    gkr_tail::round_tail(s, in, t);
-    return;
-  }
+  for (int g = 0; g < 3; ++g) v2[g] = f.add(hi[g], f.sub(hi[g], lo[g]));
+  add_libra<F, PHASE>(f, acc[2], v2, s);
+}
+
+// 16 bytes of words: one vector load or store
+template <class W>
+struct alignas(16) Pack {
+  static constexpr int N = 16 / sizeof(W);
+  W w[N];
+};
+
+__device__ __forceinline__ uint32_t ldcg(const uint32_t* p) { return __ldcg(p); }
+__device__ __forceinline__ uint64_t ldcg(const uint64_t* p) {
+  return __ldcg(reinterpret_cast<const unsigned long long*>(p));
+}
+
+// Thread 0 makes the block's writes visible device-wide (one fence) and
+// takes a ticket; true in every thread of the grid's last block.
+__device__ __forceinline__ bool last_block(int* counter, unsigned blocks) {
+  __shared__ int last;
   if (threadIdx.x == 0) {
     __threadfence();
-    last = atomicAdd(t.counter, 1) == (int)gridDim.x - 1;
+    last = atomicAdd(counter, 1) == (int)blocks - 1;
   }
   __syncthreads();
-  if (!last) return;
+  return last;
+}
+
+// Proof b's sums over its `blocks` partials (read from L2), in every thread
+template <class F>
+__device__ __forceinline__ void grid_sums(const F& f, const typename F::word* partials, long long b, int blocks,
+                                          typename F::word (&s)[3]) {
 #pragma unroll
   for (int e = 0; e < 3; ++e) s[e] = 0;
-  for (int x = threadIdx.x; x < (int)gridDim.x; x += THREADS) {
+  for (int x = threadIdx.x; x < blocks; x += THREADS) {
 #pragma unroll
-    for (int e = 0; e < 3; ++e)
-      s[e] = gl::add(s[e], __ldcg(reinterpret_cast<const unsigned long long*>(partials) + 3 * x + e));
+    for (int e = 0; e < 3; ++e) s[e] = f.add(s[e], ldcg(partials + (b * blocks + x) * 3 + e));
   }
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s[e] = gl::add(s[e], __shfl_xor_sync(0xffffffffu, s[e], o));
-    if (lane == 0) sums[warp][e] = s[e];
-  }
+  block_sum<F, 3>(f, s);
+}
+
+// Where a launch's sums go: partials[b][block][3] always; with `sums`,
+// s(0..2) per proof ([b][3]) from the last block, counter its ticket and
+// claim null or [batch] words.
+template <class W>
+struct LibraOut {
+  W* partials;
+  W* sums;
+  const W* claim;
+  int* counter;
+};
+
+template <class F>
+__device__ __forceinline__ void write_sums(const F& f, const LibraOut<typename F::word>& o, long long b,
+                                           const typename F::word (&s)[3]) {
+  typename F::word* out = o.sums + 3 * b;
+  out[0] = s[0];
+  out[1] = o.claim ? f.sub(o.claim[b], s[0]) : s[1];
+  out[2] = s[2];
+}
+
+// The GKR round tail as the epilogue of a TAIL launch (Goldilocks, one
+// proof): the last block (or a grid's only block) has the round sums, and
+// one warp runs gkr_tail::round_tail on them; the chain's inputs were
+// copied into `in` when the block started. The fence and the ticket hold
+// each block a little longer, which a grid of one wave pays once.
+template <class F>
+__device__ __forceinline__ void tail_epilogue(const F& f, const uint64_t* partials, uint64_t (&s)[3],
+                                              const gkr_tail::RoundArgs& t, const gkr_tail::ChainIn& in) {
+  __pipeline_wait_prior(0);
   __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    s[e] = sums[0][e];
-#pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) s[e] = gl::add(s[e], sums[w][e]);
+  if (gridDim.x > 1) {
+    if (!last_block(t.counter, gridDim.x)) return;
+    grid_sums(f, partials, 0, gridDim.x, s);
+    if (threadIdx.x == 0) *t.counter = 0;
   }
-  if (lane == 0) *t.counter = 0;
-  gkr_tail::round_tail(s, in, t);
+  if (threadIdx.x < 32) gkr_tail::round_tail(s, in, t);
 }
 
 template <class F, int PHASE, bool FOLD, bool SKIP1, bool TAIL>
 __global__ void __launch_bounds__(THREADS)
     libra_round_kernel(F f, Tables<typename F::word, 3> t, const typename F::word* __restrict__ r,
-                       const typename F::word* __restrict__ scalar, typename F::word one,
-                       typename F::word* __restrict__ partials, long long n, long long chunk,
-                       gkr_tail::RoundArgs tail) {
+                       const typename F::word* __restrict__ scalar, LibraOut<typename F::word> o, long long n,
+                       long long chunk, int vec, gkr_tail::RoundArgs tail) {
   using W = typename F::word;
-  constexpr int K = 3, D = 2;
+  using P = Pack<W>;
+  constexpr int V = P::N;
   __shared__ gkr_tail::ChainIn chain_in;
   if constexpr (TAIL) gkr_tail::load_chain_async(chain_in, tail);
   const long long b = blockIdx.y;
@@ -264,101 +328,154 @@ __global__ void __launch_bounds__(THREADS)
   const long long end = begin + chunk < half ? begin + chunk : half;
   const W rb = FOLD ? r[b] : 0;
   const W s = PHASE == 2 ? scalar[b] : 0;
-
-  typename F::Acc acc[D + 1];
+  const W* src[3];
+  W* dst[3];
 #pragma unroll
-  for (int j = 0; j <= D; ++j) acc[j] = typename F::Acc{};
+  for (int g = 0; g < 3; ++g) {
+    src[g] = t.in[g] + b * n;
+    dst[g] = FOLD ? t.out[g] + b * (n / 2) : nullptr;
+  }
 
-  for (long long i = begin + threadIdx.x; i < end; i += THREADS) {
-    W lo[K], hi[K];
+  typename F::Acc acc[3];
 #pragma unroll
-    for (int g = 0; g < K; ++g) {
-      const W* src = t.in[g] + b * n;
+  for (int j = 0; j < 3; ++j) acc[j] = typename F::Acc{};
+
+  const auto one_point = [&](long long i) {
+    W lo[3], hi[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
       if (FOLD) {
-        lo[g] = f.fold(src[i], src[i + 2 * half], rb);
-        hi[g] = f.fold(src[i + half], src[i + 3 * half], rb);
-        W* dst = t.out[g] + b * (n / 2);
-        dst[i] = lo[g];
-        dst[i + half] = hi[g];
+        // quarters q0..q3 of T: f_lo = fold(q0, q2), f_hi = fold(q1, q3)
+        lo[g] = f.fold(src[g][i], src[g][i + 2 * half], rb);
+        hi[g] = f.fold(src[g][i + half], src[g][i + 3 * half], rb);
+        dst[g][i] = lo[g];
+        dst[g][i + half] = hi[g];
       } else {
-        lo[g] = src[i];
-        hi[g] = src[i + half];
+        lo[g] = src[g][i];
+        hi[g] = src[g][i + half];
       }
     }
-    add_libra<F, PHASE>(f, acc[0], lo, s, one);
-    if (!SKIP1) add_libra<F, PHASE>(f, acc[1], hi, s, one);
-    W v2[K];
+    add_point<F, PHASE, SKIP1>(f, acc, lo, hi, s);
+  };
+
+  // the range's whole groups [vb, ve), and the entries around them
+  long long vb = end, ve = end;
+  if (vec) {
+    vb = (begin + V - 1) / V * V;
+    vb = vb < end ? vb : end;
+    ve = end / V * V;
+    ve = ve > vb ? ve : vb;
+  }
+  for (long long i = begin + threadIdx.x; i < vb; i += THREADS) one_point(i);
+  for (long long i = ve + threadIdx.x; i < end; i += THREADS) one_point(i);
+  const long long hq = half / V;  // a quarter in groups
+  for (long long q = vb / V + threadIdx.x; q < ve / V; q += THREADS) {
+    P lo[3], hi[3];
+    if (FOLD) {
+      P x[3][4];
 #pragma unroll
-    for (int g = 0; g < K; ++g) v2[g] = f.add(hi[g], f.sub(hi[g], lo[g]));
-    add_libra<F, PHASE>(f, acc[2], v2, s, one);
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) x[g][h] = reinterpret_cast<const P*>(src[g])[q + h * hq];
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          lo[g].w[j] = f.fold(x[g][0].w[j], x[g][2].w[j], rb);
+          hi[g].w[j] = f.fold(x[g][1].w[j], x[g][3].w[j], rb);
+        }
+        reinterpret_cast<P*>(dst[g])[q] = lo[g];
+        reinterpret_cast<P*>(dst[g])[q + hq] = hi[g];
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        lo[g] = reinterpret_cast<const P*>(src[g])[q];
+        hi[g] = reinterpret_cast<const P*>(src[g])[q + hq];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const W l[3] = {lo[0].w[j], lo[1].w[j], lo[2].w[j]};
+      const W h[3] = {hi[0].w[j], hi[1].w[j], hi[2].w[j]};
+      add_point<F, PHASE, SKIP1>(f, acc, l, h, s);
+    }
   }
 
-  __shared__ W warp_sums[THREADS / 32][D + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  W sums[3];
 #pragma unroll
-  for (int j = 0; j <= D; ++j) {
-    W x = f.acc_reduce(acc[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x = f.add(x, shfl_down(x, off));
-    if (lane == 0) warp_sums[warp][j] = x;
+  for (int j = 0; j < 3; ++j) sums[j] = f.acc_reduce(acc[j]);
+  block_sum<F, 3>(f, sums);
+  if (threadIdx.x == 0) {
+    W* part = o.partials + (b * gridDim.x + blockIdx.x) * 3;
+    part[0] = sums[0];
+    part[1] = sums[1];
+    part[2] = sums[2];
   }
-  __syncthreads();
-  __shared__ W block_sums[D + 1];
-  if (threadIdx.x <= D) {
-    W total = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) total = f.add(total, warp_sums[w][threadIdx.x]);
-    partials[(b * gridDim.x + blockIdx.x) * (D + 1) + threadIdx.x] = total;
-    if constexpr (TAIL) block_sums[threadIdx.x] = total;
+  if constexpr (TAIL) {
+    tail_epilogue(f, o.partials, sums, tail, chain_in);
+  } else if (o.sums) {
+    if (gridDim.x == 1) {
+      if (threadIdx.x == 0) write_sums(f, o, b, sums);
+      return;
+    }
+    if (!last_block(o.counter, gridDim.x * gridDim.y)) return;
+    for (long long pb = 0; pb < gridDim.y; ++pb) {
+      grid_sums(f, o.partials, pb, gridDim.x, sums);
+      if (threadIdx.x == 0) write_sums(f, o, pb, sums);
+    }
+    if (threadIdx.x == 0) *o.counter = 0;
   }
-  if constexpr (TAIL) tail_epilogue(partials, block_sums, tail, chain_in);
 }
 
-template <class F, int PHASE, bool FOLD, bool SKIP1, bool TAIL>
-void launch_libra(const F& f, const void* const* in, void* const* out, const void* r, const void* scalar,
-                  typename F::word one, void* partials, long long batch, long long n, int blocks,
-                  long long chunk, const gkr_tail::RoundArgs& tail, cudaStream_t stream) {
+template <class F>
+using LibraKernel = void (*)(F, Tables<typename F::word, 3>, const typename F::word*, const typename F::word*,
+                             LibraOut<typename F::word>, long long, long long, int, gkr_tail::RoundArgs);
+
+// The instantiation for (phase, fold, skip_t1), or null for a phase other
+// than 1 and 2.
+template <class F, bool TAIL>
+LibraKernel<F> libra_kernel(int phase, int fold, int skip_t1) {
+  if (phase == 1) {
+    if (fold) return skip_t1 ? libra_round_kernel<F, 1, true, true, TAIL> : libra_round_kernel<F, 1, true, false, TAIL>;
+    return skip_t1 ? libra_round_kernel<F, 1, false, true, TAIL> : libra_round_kernel<F, 1, false, false, TAIL>;
+  }
+  if (phase == 2) {
+    if (fold) return skip_t1 ? libra_round_kernel<F, 2, true, true, TAIL> : libra_round_kernel<F, 2, true, false, TAIL>;
+    return skip_t1 ? libra_round_kernel<F, 2, false, true, TAIL> : libra_round_kernel<F, 2, false, false, TAIL>;
+  }
+  return nullptr;
+}
+
+template <class F, bool TAIL>
+int launch_libra(const F& f, int phase, int fold, int skip_t1, const void* const* in, void* const* out,
+                 const void* r, const void* scalar, const LibraOut<typename F::word>& o, long long batch, long long n,
+                 int blocks, long long chunk, int vec, const gkr_tail::RoundArgs& tail, cudaStream_t stream) {
   using W = typename F::word;
+  const LibraKernel<F> kernel = libra_kernel<F, TAIL>(phase, fold, skip_t1);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   Tables<W, 3> t;
   for (int g = 0; g < 3; ++g) {
     t.in[g] = static_cast<const W*>(in[g]);
     t.out[g] = static_cast<W*>(out[g]);
   }
-  dim3 grid(blocks, (unsigned)batch);
-  libra_round_kernel<F, PHASE, FOLD, SKIP1, TAIL><<<grid, THREADS, 0, stream>>>(
-      f, t, static_cast<const W*>(r), static_cast<const W*>(scalar), one, static_cast<W*>(partials), n,
-      chunk, tail);
-}
-
-template <class F, int PHASE, bool TAIL>
-void launch_libra_modes(const F& f, int fold, int skip_t1, const void* const* in, void* const* out,
-                        const void* r, const void* scalar, typename F::word one, void* partials,
-                        long long batch, long long n, int blocks, long long chunk,
-                        const gkr_tail::RoundArgs& tail, cudaStream_t s) {
-  if (fold && skip_t1)
-    launch_libra<F, PHASE, true, true, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
-  else if (fold)
-    launch_libra<F, PHASE, true, false, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
-  else if (skip_t1)
-    launch_libra<F, PHASE, false, true, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
-  else
-    launch_libra<F, PHASE, false, false, TAIL>(f, in, out, r, scalar, one, partials, batch, n, blocks, chunk, tail, s);
-}
-
-template <class F, bool TAIL>
-int launch_libra_field(const F& f, int phase, int fold, int skip_t1, const void* const* in, void* const* out,
-                       const void* r, const void* scalar, typename F::word one, void* partials,
-                       long long batch, long long n, int blocks, long long chunk,
-                       const gkr_tail::RoundArgs& tail, cudaStream_t s) {
-  if (phase == 1)
-    launch_libra_modes<F, 1, TAIL>(f, fold, skip_t1, in, out, r, scalar, one, partials, batch, n, blocks, chunk,
-                                   tail, s);
-  else if (phase == 2)
-    launch_libra_modes<F, 2, TAIL>(f, fold, skip_t1, in, out, r, scalar, one, partials, batch, n, blocks, chunk,
-                                   tail, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(blocks, (unsigned)batch), THREADS, 0, stream>>>(f, t, static_cast<const W*>(r),
+                                                                 static_cast<const W*>(scalar), o, n, chunk, vec,
+                                                                 tail);
   return 0;
+}
+
+// Blocks of one wave of an instantiation on the current device: its SMs
+// times the blocks of that kernel resident on one SM; -1 on an error.
+template <class F, bool TAIL>
+int libra_wave(int phase, int fold, int skip_t1) {
+  const LibraKernel<F> kernel = libra_kernel<F, TAIL>(phase, fold, skip_t1);
+  int device = 0, sms = 0, per_sm = 0;
+  if (!kernel || cudaGetDevice(&device) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0))
+    return -1;
+  return sms * per_sm;
 }
 
 template <class F, int K, bool FOLD, bool SKIP1>
@@ -418,55 +535,43 @@ extern "C" int ts_round_launch(int mont32, unsigned p, unsigned pinv, int k, int
 
 // The LibraW shapes (phase = 1 or 2, see libra_round_kernel): three input
 // tables, three outputs when folding, scalar = the [batch] phase-2 scalars
-// (null in phase 1); partials are [batch][blocks][3]. Returns as above.
+// (null in phase 1); partials are [batch][blocks][3], and with sums (else
+// null) [batch][3] the round's s(0..2), claim null or [batch] words,
+// counter one int that is 0 (and is 0 again after the kernel). vec = 1:
+// every table 16-byte aligned and half a multiple of 16 bytes' words.
+// Returns as above.
 extern "C" int ts_libra_round_launch(int mont32, unsigned p, unsigned pinv, int phase, int fold,
                                      int skip_t1, const void* in0, const void* in1, const void* in2,
                                      void* out0, void* out1, void* out2, const void* r,
-                                     const void* scalar, void* partials, long long batch,
-                                     long long n, int blocks, long long chunk, void* stream) {
+                                     const void* scalar, void* partials, void* sums, const void* claim,
+                                     void* counter, long long batch, long long n, int blocks, long long chunk,
+                                     int vec, void* stream) {
   const void* in[3] = {in0, in1, in2};
   void* out[3] = {out0, out1, out2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const gkr_tail::RoundArgs none{};
+  int* ticket = static_cast<int*>(counter);
   int rc;
   if (mont32) {
-    const uint32_t one = (uint32_t)((1ull << 32) % p);  // the Montgomery word of 1
-    rc = launch_libra_field<M32Ops, false>(M32Ops{{p, pinv}}, phase, fold, skip_t1, in, out, r, scalar, one,
-                                          partials, batch, n, blocks, chunk, none, s);
+    const LibraOut<uint32_t> o{static_cast<uint32_t*>(partials), static_cast<uint32_t*>(sums),
+                               static_cast<const uint32_t*>(claim), ticket};
+    rc = launch_libra<M32Ops, false>(M32Ops{{p, pinv}}, phase, fold, skip_t1, in, out, r, scalar, o, batch, n,
+                                     blocks, chunk, vec, none, s);
   } else {
-    rc = launch_libra_field<GlOps, false>(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, (uint64_t)1,
-                                         partials, batch, n, blocks, chunk, none, s);
+    const LibraOut<uint64_t> o{static_cast<uint64_t*>(partials), static_cast<uint64_t*>(sums),
+                               static_cast<const uint64_t*>(claim), ticket};
+    rc = launch_libra<GlOps, false>(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, o, batch, n, blocks, chunk,
+                                    vec, none, s);
   }
   return rc ? rc : (int)cudaGetLastError();
 }
 
-namespace {
-
-template <int PHASE, bool FOLD, bool SKIP1>
-int wave_blocks() {
-  int device = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&device) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, libra_round_kernel<GlOps, PHASE, FOLD, SKIP1, true>,
-                                                    THREADS, 0))
-    return -1;
-  return sms * per_sm;
-}
-
-}  // namespace
-
-// Blocks of one wave of the TAIL instantiation (phase, fold, skip_t1) on
-// the current device: its SMs times the blocks of that kernel resident on
-// one SM. Returns -1 on a CUDA error.
-extern "C" int ts_libra_round_tail_blocks(int phase, int fold, int skip_t1) {
-  if (phase == 1) {
-    if (fold) return skip_t1 ? wave_blocks<1, true, true>() : wave_blocks<1, true, false>();
-    return skip_t1 ? wave_blocks<1, false, true>() : wave_blocks<1, false, false>();
-  }
-  if (phase == 2) {
-    if (fold) return skip_t1 ? wave_blocks<2, true, true>() : wave_blocks<2, true, false>();
-    return skip_t1 ? wave_blocks<2, false, true>() : wave_blocks<2, false, false>();
-  }
-  return -1;
+// Blocks of one wave of the instantiation (mont32, phase, fold, skip_t1,
+// tail) on the current device; tail = 1 only with mont32 = 0. Returns -1
+// on a CUDA error or a phase other than 1 and 2.
+extern "C" int ts_libra_wave_blocks(int mont32, int phase, int fold, int skip_t1, int tail) {
+  if (tail) return mont32 ? -1 : libra_wave<GlOps, true>(phase, fold, skip_t1);
+  return mont32 ? libra_wave<M32Ops, false>(phase, fold, skip_t1) : libra_wave<GlOps, false>(phase, fold, skip_t1);
 }
 
 // The LibraW shapes over Goldilocks for one proof (batch 1) with the GKR
@@ -476,7 +581,7 @@ extern "C" int ts_libra_round_tail_blocks(int phase, int fold, int skip_t1) {
 extern "C" int ts_libra_round_tail_launch(int phase, int fold, int skip_t1, const void* in0, const void* in1,
                                           const void* in2, void* out0, void* out1, void* out2, const void* r,
                                           const void* scalar, void* partials, long long n, int blocks,
-                                          long long chunk, void* counter, void* state, void* buf,
+                                          long long chunk, int vec, void* counter, void* state, void* buf,
                                           long long nbytes, void* msg, void* zero, void* claim, void* chal,
                                           int chal_idx, int draws, int start, long long layer, int k,
                                           void* stream) {
@@ -487,8 +592,8 @@ extern "C" int ts_libra_round_tail_launch(int phase, int fold, int skip_t1, cons
                                  static_cast<uint8_t*>(buf), nbytes, static_cast<uint8_t*>(msg),
                                  static_cast<int*>(zero), static_cast<uint64_t*>(claim),
                                  static_cast<uint64_t*>(chal), chal_idx, draws, start, k, layer};
-  const int rc = launch_libra_field<GlOps, true>(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, (uint64_t)1,
-                                                 partials, 1, n, blocks, chunk, tail,
-                                                 static_cast<cudaStream_t>(stream));
+  const LibraOut<uint64_t> o{static_cast<uint64_t*>(partials), nullptr, nullptr, static_cast<int*>(counter)};
+  const int rc = launch_libra<GlOps, true>(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, o, 1, n, blocks,
+                                           chunk, vec, tail, static_cast<cudaStream_t>(stream));
   return rc ? rc : (int)cudaGetLastError();
 }

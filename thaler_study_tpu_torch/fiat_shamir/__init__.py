@@ -14,6 +14,8 @@ from .transcript import (
     SumcheckInteractiveProver,
     SumcheckInteractiveVerifier,
     generate_transcript,
+    generate_transcript_device,
+    resume_transcript,
     verify_transcript,
 )
 
@@ -30,6 +32,8 @@ __all__ = [
     "SumcheckInteractiveProver",
     "SumcheckInteractiveVerifier",
     "generate_transcript",
+    "generate_transcript_device",
+    "resume_transcript",
     "verify_transcript",
     "SerializationError",
 ]

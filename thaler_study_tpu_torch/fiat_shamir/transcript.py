@@ -55,6 +55,12 @@ class SumcheckInteractiveProver:
     def round(self, j: int, r_j: Felt) -> bytes:
         return serialize_unipoly(self.prover.round(r_j, j))
 
+    def advance(self, r_j: Felt) -> None:
+        """Fold a past challenge without computing its round message: the
+        cheap path when resuming from a checkpointed transcript
+        (``Prover.advance``)."""
+        self.prover.advance(r_j)
+
     def num_rounds(self) -> int:
         return self.prover.num_vars()
 
@@ -130,6 +136,82 @@ def generate_transcript(
     chain.absorb(g_1)
     g = [g_1]
     for j in range(1, prover.num_rounds()):
+        r_j = chain.draw(1)[0]
+        g_j = prover.round(j, r_j)
+        chain.absorb(g_j)
+        g.append(g_j)
+    return FiatShamirTranscript(g)
+
+
+def generate_transcript_device(
+    poly,
+    field: FieldConfig,
+    dst: bytes = b"",
+    mesh=None,
+    n_shard=None,
+) -> FiatShamirTranscript:
+    """Non-interactive prover run with the whole proof on the device
+    (``ops/fs_kernel.fs_prove_device``: fold, round sums, serialization and
+    the SHA-256 challenge chain), byte-identical to
+    :func:`generate_transcript`.
+
+    ``poly`` is the SumCheckPolynomial (a ``ProductPoly`` for the device
+    path). Where the device path declines (a (spec, field, dst) it does not
+    cover, or a zero coefficient that makes message lengths
+    value-dependent) the proof runs the per-round loop, as the JAX package
+    does: the same bytes. ``mesh`` (a sharded run, with ``n_shard``) is not
+    ported (ROADMAP A7); without it ``n_shard`` is ignored, as there.
+    """
+    from ..ops.fs_kernel import fs_prove_device
+
+    if mesh is not None:
+        raise NotImplementedError("generate_transcript_device(mesh=) is not ported yet (ROADMAP A7)")
+    spec = getattr(poly, "spec", None)
+    tables = getattr(poly, "tables", None)
+    if spec is not None and tables is not None:
+        msgs = fs_prove_device(spec, tables, dst)
+        if msgs is not None:
+            return FiatShamirTranscript(msgs)
+    return generate_transcript(SumcheckInteractiveProver(Prover(poly)), field, dst)
+
+
+def resume_transcript(
+    prover,
+    field: FieldConfig,
+    partial: FiatShamirTranscript,
+    dst: bytes = b"",
+    verify_prefix: bool = False,
+) -> FiatShamirTranscript:
+    """Resume a non-interactive proof from a partial transcript checkpoint.
+
+    The transcript is the checkpoint format: the challenge stream is
+    re-derivable from the recorded messages, so a fresh prover is
+    fast-forwarded by folding those challenges (``advance``; no round sums)
+    and then produces the remaining rounds, byte-identical to an
+    uninterrupted run.
+
+    ``verify_prefix=True`` also recomputes each checkpointed round message
+    and checks it against the recorded bytes (it detects a checkpoint that
+    does not belong to this prover's inputs, at the cost of re-proving the
+    prefix): a mismatch raises :class:`SerializationError`.
+    """
+    chain = XmdChain(field, dst)
+    t = len(partial.g)
+    if t == 0:
+        return generate_transcript(prover, field, dst)
+    if verify_prefix and prover.g_1() != partial.g[0]:
+        raise SerializationError("checkpoint prefix mismatch at round 0")
+    g = list(partial.g)
+    for j in range(t):
+        if j >= 1:
+            r_j = chain.draw(1)[0]
+            if not verify_prefix:
+                prover.advance(r_j)
+            elif prover.round(j, r_j) != partial.g[j]:
+                raise SerializationError(f"checkpoint prefix mismatch at round {j}")
+        # round 0 needs no replay: emitting g_1 folds nothing
+        chain.absorb(partial.g[j])
+    for j in range(t, prover.num_rounds()):
         r_j = chain.draw(1)[0]
         g_j = prover.round(j, r_j)
         chain.absorb(g_j)

@@ -18,11 +18,14 @@ tables, then the per-proof scalars):
 :func:`round_partials` is the wrapper. CPU tensors go to
 :func:`round_partials_plain`, which takes any terms; CUDA tensors go to the
 kernel or raise. Both return the same per-block partial sums, so the two
-can be compared bit for bit; callers sum the partials mod p
-(``round_kernel.round_step`` or the FS tail kernel). The other
-single-block shapes (k = 1, k >= 4, other scalar terms) go to the
-multi-block kernel (``ops/multiblock.py``): :func:`takes` tells them
-apart.
+can be compared bit for bit; callers sum the partials mod p (the FS tail
+kernel, ``round_kernel.round_step`` for the products, the GKR tails).
+:func:`libra_round_sums` runs a LibraW round to its end in one launch
+(K1's last block sums every block's partials and writes s(0..2), s(1) from
+the claim where one is given); :func:`libra_round_sums_plain` is its plain
+version. The other single-block shapes (k = 1, k >= 4, other scalar
+terms) go to the multi-block kernel (``ops/multiblock.py``): :func:`takes`
+tells them apart.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..fields import GOLDILOCKS, FArray, FieldConfig
 from ..fields.farray import word_dtype
 
 THREADS = 256  # csrc/round_kernel.cu THREADS
+VEC_BYTES = 16  # K1's loads and stores: csrc/round_kernel.cu Pack
 _TARGET_BLOCKS = 2048  # blocks in flight over the whole batch: ~16 per SM
 
 # the LibraW shapes: table ids 0-2 are folded tables, 3 the phase-2 scalar
@@ -49,25 +53,63 @@ launches = {"goldilocks": 0, "mont32": 0}
 libra_launches = {"goldilocks": 0, "mont32": 0}
 
 _fns = {}
+_wave = {}  # (device index, backend, phase, fold, skip_t1, tail) -> blocks of one wave
+_counters = {}  # device index -> K1's ticket counter
 
 
 def _kernel(name: str = "ts_round_launch"):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.load("round_kernel"), name)
-        scalar = [ctypes.c_void_p] if name == "ts_libra_round_launch" else []
-        fn.argtypes = (
-            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint]
-            + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 7
-            + scalar
-            + [ctypes.c_void_p]
-            + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        head = [i, ctypes.c_uint, ctypes.c_uint, i, i, i] + [vp] * 7
+        if name == "ts_libra_round_launch":  # scalar, partials, sums, claim, counter; then vec
+            fn.argtypes = head + [vp] * 5 + [ll, ll, i, ll, i, vp]
+        elif name == "ts_libra_wave_blocks":
+            fn.argtypes = [i] * 5
+        else:
+            fn.argtypes = head + [vp, ll, ll, i, ll, vp]
+        fn.restype = i
         _fns[name] = fn
     return fn
+
+
+def wave_blocks(dev: torch.device, backend: str, phase: int, fold: bool, skip_t1: bool, tail: bool = False) -> int:
+    """Blocks of one wave of K1's instantiation on ``dev``: its SMs times
+    the blocks of that kernel resident on one SM (``tail``: the Goldilocks
+    form with the GKR round tail)."""
+    key = (dev.index, backend, phase, fold, skip_t1, tail)
+    n = _wave.get(key)
+    if n is None:
+        with torch.cuda.device(dev):
+            n = _kernel("ts_libra_wave_blocks")(int(backend == "mont32"), phase, int(fold), int(skip_t1), int(tail))
+        if n < 1:
+            raise RuntimeError("could not read the round kernel's occupancy on the card")
+        _wave[key] = n
+    return n
+
+
+def libra_blocks(half: int, vec_words: int, wave: int) -> int:
+    """K1's blocks per proof: one per THREADS groups of ``vec_words`` pair
+    indices (the words of one 16-byte access, or 1), at most ``wave``; so a
+    table of up to 2^10 entries is one block."""
+    return max(1, min(wave, -(-half // (THREADS * vec_words))))
+
+
+def vec_words(half: int, word_bytes: int, tensors) -> int:
+    """The words K1 moves per access: 16 bytes' worth where ``half`` is a
+    multiple of that and every tensor is 16-byte aligned, else 1."""
+    v = VEC_BYTES // word_bytes
+    return v if half % v == 0 and all(t.data_ptr() % VEC_BYTES == 0 for t in tensors) else 1
+
+
+def _counter(dev: torch.device) -> torch.Tensor:
+    """The device's ticket counter for K1 (int32, 0 between launches)."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    c = _counters.get(key)
+    if c is None:
+        c = _counters[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return c
 
 
 def takes(terms: Optional[Sequence[Sequence[int]]], k: int, n_scalars: int) -> Optional[Tuple[int, int]]:
@@ -185,23 +227,51 @@ def round_partials(
         raise ValueError("the CUDA round kernel takes at most 65535 proofs")
     if fold and out is None:
         out = [torch.empty((batch, n // 2), dtype=dtype, device=dev) for _ in tables]
+    if phase:
+        partials = _libra_launch(tables, r, skip_t1, out, field, phase, scalars, None, batch, n)
+        return (list(out) if fold else None), partials
     partials = torch.empty((batch, blocks, d + 1), dtype=dtype, device=dev)
     ins = [t.data_ptr() for t in tables] + [None] * (3 - k)
     outs = ([o.data_ptr() for o in out] if fold else []) + [None] * (3 - (k if fold else 0))
-    chunk = -(-half // blocks)
-    mont32 = field.backend == "mont32"
-    head = (int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0)
-    tail = (partials.data_ptr(), batch, n, blocks, chunk, torch.cuda.current_stream(dev).cuda_stream)
-    rp = r.data_ptr() if fold else None
-    if phase == 0:
-        rc = _kernel()(*head, k, int(fold), int(skip_t1), *ins, *outs, rp, *tail)
-    else:
-        sp = scalars[0].data_ptr() if scalars else None
-        rc = _kernel("ts_libra_round_launch")(*head, phase, int(fold), int(skip_t1), *ins, *outs, rp, sp, *tail)
+    rc = _kernel()(*_head(field), k, int(fold), int(skip_t1), *ins, *outs, r.data_ptr() if fold else None,
+                   partials.data_ptr(), batch, n, blocks, -(-half // blocks),
+                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
-    (launches if phase == 0 else libra_launches)[field.backend] += 1
+    launches[field.backend] += 1
     return (list(out) if fold else None), partials
+
+
+def _head(field: FieldConfig) -> tuple:
+    mont32 = field.backend == "mont32"
+    return int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0
+
+
+def _libra_launch(tables, r, skip_t1, out, field, phase, scalars, sums, batch, n) -> torch.Tensor:
+    """K1 on the card (checked arguments; ``out`` allocated where it
+    folds): writes the per-block partials, and with ``sums`` (a (tensor
+    [B, 3], claim or None) pair) the round's s(0..2). Returns the partials
+    [B, blocks, 3]."""
+    fold = r is not None
+    dev = tables[0].device
+    half = n // 4 if fold else n // 2
+    wb = tables[0].element_size()
+    vec = vec_words(half, wb, list(tables) + (list(out) if fold else []))
+    blocks = libra_blocks(half, vec, wave_blocks(dev, field.backend, phase, fold, skip_t1))
+    partials = torch.empty((batch, blocks, 3), dtype=tables[0].dtype, device=dev)
+    s_out, claim = sums if sums is not None else (None, None)
+    rc = _kernel("ts_libra_round_launch")(
+        *_head(field), phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables),
+        *([o.data_ptr() for o in out] if fold else [None] * 3), r.data_ptr() if fold else None,
+        scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
+        s_out.data_ptr() if s_out is not None else None, claim.data_ptr() if claim is not None else None,
+        _counter(dev).data_ptr(), batch, n, blocks, -(-half // blocks), int(vec > 1),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
+    libra_launches[field.backend] += 1
+    return partials
 
 
 def round_partials_plain(
@@ -259,3 +329,70 @@ def round_partials_plain(
         padded = torch.nn.functional.pad(total.data, (0, pad))
         cols.append(FArray(padded.reshape(batch, blocks, chunk), field).sum(axis=2).data)
     return folded, torch.stack(cols, dim=2)
+
+
+def libra_round_sums(
+    tables: Sequence[torch.Tensor],
+    r: Optional[torch.Tensor],
+    skip_t1: bool,
+    out: Optional[Sequence[torch.Tensor]],
+    field: FieldConfig,
+    terms: Sequence[Sequence[int]],
+    scalars: Sequence[torch.Tensor] = (),
+    claim: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
+    """One round of a LibraW shape (:data:`LIBRA_PHASE1` over three tables,
+    :data:`LIBRA_PHASE2` over three tables and one scalar) over B proofs, to
+    its end: (folded tables or None, s [B, 3]). ``tables``, ``r``,
+    ``skip_t1``, ``out`` and ``scalars`` as :func:`round_partials` takes
+    them; ``claim`` ([B] words, with ``skip_t1``) makes s(1) = claim - s(0);
+    with ``skip_t1`` and no claim s(1) is 0. CPU tensors go to
+    :func:`libra_round_sums_plain`; CUDA tensors to one launch of K1, whose
+    last block sums every block's partials, or raise."""
+    fold = r is not None
+    dtype = word_dtype(field)
+    batch, n, dev = _check(tables, r, out, fold, dtype)
+    terms = tuple(tuple(term) for term in terms)
+    _check_terms(terms, scalars, len(tables), batch, dtype, dev)
+    shape = takes(terms, len(tables), len(scalars))
+    if shape is None or shape[0] == 0:
+        raise ValueError(f"libra_round_sums takes the two LibraW shapes, not terms {terms}")
+    if claim is not None:
+        if not skip_t1:
+            raise ValueError("the claim shortcut needs skip_t1")
+        if claim.dtype != dtype or claim.shape != (batch,) or claim.device != dev or not claim.is_contiguous():
+            raise ValueError(f"claim must be a contiguous {dtype} [{batch}] tensor on {dev}")
+    if dev.type == "cpu":
+        folded, s = libra_round_sums_plain(tables, r, skip_t1, field, terms, scalars, claim)
+        if out is not None and folded is not None:
+            for o, f in zip(out, folded):
+                o.copy_(f)
+            folded = list(out)
+        return folded, s
+    if dev.type != "cuda":
+        raise ValueError(f"libra_round_sums runs on cpu or cuda, not {dev}")
+    if batch > 65535:
+        raise ValueError("the CUDA round kernel takes at most 65535 proofs")
+    if fold and out is None:
+        out = [torch.empty((batch, n // 2), dtype=dtype, device=dev) for _ in tables]
+    s = torch.empty((batch, 3), dtype=dtype, device=dev)
+    _libra_launch(tables, r, skip_t1, out, field, shape[0], scalars, (s, claim), batch, n)
+    return (list(out) if fold else None), s
+
+
+def libra_round_sums_plain(
+    tables: Sequence[torch.Tensor],
+    r: Optional[torch.Tensor],
+    skip_t1: bool,
+    field: FieldConfig,
+    terms: Sequence[Sequence[int]],
+    scalars: Sequence[torch.Tensor] = (),
+    claim: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
+    """:func:`libra_round_sums` in plain torch ops (any device): the folded
+    tables and s [B, 3], s(1) = claim - s(0) where ``claim`` is given."""
+    folded, partials = round_partials_plain(tables, r, skip_t1, 1, field, terms, scalars)
+    s = partials[:, 0]
+    if claim is not None:
+        s[:, 1] = (FArray(claim, field) - FArray(s[:, 0], field)).data
+    return folded, s

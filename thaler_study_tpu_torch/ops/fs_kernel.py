@@ -66,7 +66,7 @@ def _library():
     if _lib is None:
         lib = _build.load("fs_tail")
         lib.ts_fs_tail_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+            [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p] * 6
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
@@ -202,7 +202,6 @@ def fs_tail(
             int(mont32),
             field.p if mont32 else 0,
             field.mont_pinv_neg if mont32 else 0,
-            field.mont_r2 if mont32 else 0,
             field.byte_size,
             len_in_bytes(field),
             d1 - 1,

@@ -62,7 +62,6 @@ final_launches = {"goldilocks": 0, "mont32": 0}
 
 _lib = None
 _round_tail_fn = None
-_wave = {}  # (device index, phase, fold, skip_t1) -> blocks of one wave
 
 
 def _library():
@@ -81,27 +80,10 @@ def _round_tail_kernel():
     if _round_tail_fn is None:
         fn = _build.load("round_kernel").ts_libra_round_tail_launch
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [i, i, i] + [vp] * 9 + [ll, i, ll] + [vp] * 3 + [ll] + [vp] * 4 + [i, i, i, ll, i, vp]
+        fn.argtypes = [i, i, i] + [vp] * 9 + [ll, i, ll, i] + [vp] * 3 + [ll] + [vp] * 4 + [i, i, i, ll, i, vp]
         fn.restype = i
         _round_tail_fn = fn
     return _round_tail_fn
-
-
-def _wave_blocks(dev, phase: int, fold: bool, skip_t1: bool) -> int:
-    """Blocks of one wave of K1 with TAIL on ``dev``: every block then
-    fences and takes its ticket at once (csrc/round_kernel.cu)."""
-    key = (dev.index, phase, fold, skip_t1)
-    n = _wave.get(key)
-    if n is None:
-        lib = _build.load("round_kernel")
-        lib.ts_libra_round_tail_blocks.argtypes = [ctypes.c_int] * 3
-        lib.ts_libra_round_tail_blocks.restype = ctypes.c_int
-        with torch.cuda.device(dev):
-            n = lib.ts_libra_round_tail_blocks(phase, int(fold), int(skip_t1))
-        if n < 1:
-            raise RuntimeError("could not read the round kernel's occupancy on the card")
-        _wave[key] = n
-    return n
 
 
 def final_len(k: int) -> int:
@@ -230,8 +212,7 @@ def libra_round_tail(
     partials, in place on ``tail.layer``; advances the chain. Returns K1's
     (folded tables or None, partials). CPU tensors run K1's plain version,
     then :func:`round_tail_plain`; CUDA tensors launch K1 with the tail as
-    its epilogue (one launch, at most one wave of blocks: the partials may
-    be split over fewer blocks than ``round_partials`` uses) or raise."""
+    its epilogue (one launch of at most one wave of blocks) or raise."""
     lt, m = tail.layer, tail.length
     if not 0 <= tail.off <= lt.msgs.shape[0] - m:
         raise ValueError(f"msgs must have room for {m} bytes at offset {tail.off}")
@@ -259,9 +240,11 @@ def libra_round_tail(
         if sc.dtype != torch.int64 or sc.shape != (1,) or sc.device != dev or not sc.is_contiguous():
             raise ValueError(f"scalars must be contiguous int64 [1] tensors on {dev}")
     half = n // 4 if fold else n // 2
-    blocks = min(cuda_round.blocks_for(1, half), _wave_blocks(dev, phase, fold, skip_t1))
     if fold and out is None:
         out = [torch.empty((1, n // 2), dtype=torch.int64, device=dev) for _ in tables]
+    vec = cuda_round.vec_words(half, 8, list(tables) + (list(out) if fold else []))
+    wave = cuda_round.wave_blocks(dev, "goldilocks", phase, fold, skip_t1, tail=True)
+    blocks = cuda_round.libra_blocks(half, vec, wave)
     partials = torch.empty((1, blocks, 3), dtype=torch.int64, device=dev)
     outs = [o.data_ptr() for o in out] if fold else [None] * 3
     layer, k = tail.start if tail.start is not None else (0, 0)
@@ -269,7 +252,7 @@ def libra_round_tail(
     rc = _round_tail_kernel()(
         phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables), *outs,
         r.data_ptr() if fold else None, scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
-        n, blocks, -(-half // blocks), lt.counter.data_ptr(), chain.state.data_ptr(), chain.buf.data_ptr(),
+        n, blocks, -(-half // blocks), int(vec > 1), lt.counter.data_ptr(), chain.state.data_ptr(), chain.buf.data_ptr(),
         chain.nbytes, lt.msgs.data_ptr() + tail.off, lt.zero.data_ptr(), lt.claim.data_ptr(), lt.chal.data_ptr(),
         tail.chal_idx, tail.draws, int(tail.start is not None), layer, k, torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -11,9 +11,12 @@ Tables are flat, MSB-first: the round variable (block 0's first) splits
 each table over block 0 in halves. :func:`round_step` runs a round on one
 of three kernels, each with a plain version for CPU tensors:
 
-- ``cuda_round.round_partials`` (``csrc/round_kernel.cu``, the Pallas
-  kernel's port) for the single-block shapes it takes: the product of 2 or
-  3 tables and the two LibraW shapes;
+- ``csrc/round_kernel.cu`` (the Pallas kernel's port) for the
+  single-block shapes it takes: the two LibraW shapes through
+  ``cuda_round.libra_round_sums`` (the fold and s(0..2), the claim
+  shortcut's s(1) included, in one launch) and the product of 2 or 3
+  tables through ``cuda_round.round_partials`` (per-block partials, summed
+  here);
 - ``multiblock.round_sums`` (``csrc/multiblock_round.cu``) for every
   other spec: the fold and the round sums s(0..D), the claim shortcut's
   s(1) included, in one launch;
@@ -241,14 +244,20 @@ def round_step(
     split = _round_kernel_split(spec)
     if split is not None:
         fold_ids, scalar_ids, terms = split
-        folded, partials = cuda_round.round_partials(
-            [tables[k].data.reshape(1, -1) for k in fold_ids], None if r is None else r.reshape(1),
-            skip_t1=skip_t1, field=field, terms=terms, scalars=[tables[k].data.reshape(1) for k in scalar_ids],
-        )
+        fold_tabs = [tables[k].data.reshape(1, -1) for k in fold_ids]
+        scalars = [tables[k].data.reshape(1) for k in scalar_ids]
+        if cuda_round.takes(terms, len(fold_ids), len(scalar_ids))[0]:  # a LibraW shape
+            filled = claim is not None
+            folded, s = cuda_round.libra_round_sums(fold_tabs, r, skip_t1, None, field, terms, scalars,
+                                                    claim.data.reshape(1) if filled else None)
+            sums = FArray(s[0], field)
+        else:
+            folded, partials = cuda_round.round_partials(fold_tabs, r, skip_t1=skip_t1, field=field, terms=terms,
+                                                         scalars=scalars)
+            sums = FArray(partials[0], field).sum(axis=0)
         data = [t.data for t in tables]
         for k, f in zip(fold_ids, folded or ()):
             data[k] = f.reshape(-1)
-        sums = FArray(partials[0], field).sum(axis=0)
     else:
         contracted = [(term, _contraction(sums_spec, term, True)) for term in sums_spec.terms]
         rest = [term for term, ks in contracted if ks is None]
