@@ -42,7 +42,21 @@ The paths, each driven through the entry points a user calls:
   tables), 1024 nodes over Goldilocks and BabyBear, 256 nodes against
   ``device="cpu"``; and the dense-W GKR prover (``gkr.Prover(...,
   use_linear=False)``) on the book circuit, the 5-layer mixed-width circuit
-  and an 8 x 2^11 circuit (2^22-entry wiring tables).
+  and an 8 x 2^11 circuit (2^22-entry wiring tables);
+- the batched prover beyond the fused 2-factor product
+  (``generate_transcripts_batch``): a non-empty 16-byte DST (the per-round
+  path: ``BatchedProductPoly.c_1`` / ``round_batch``, one round kernel
+  launch and one host read per round) at n = 22, B = 64 over Goldilocks;
+  the fused path at k = 1 (B = 64) and k = 4 (B = 16), n = 22, over
+  Goldilocks and BabyBear; ``fiat_shamir.generate_transcript_device`` over
+  multi-block specs (the triangle spec at 4096 nodes over Goldilocks and
+  1024 over BabyBear, a mixed-degree 2-block spec, dense W's spec on the 8 x
+  2^11 circuit's first layer): ``round_step`` and one FS tail launch per
+  round, one host read;
+- the PCS (``pcs.Prover`` / ``Verifier``): F389, m = 2 (151,321 points,
+  2^18 leaves), its SHA-256 tree on the Merkle kernel; the Merkle build
+  alone at 2^22 Goldilocks leaves; the Pedersen family (host integers) on
+  its golden tree and over F5.
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -78,7 +92,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    without a view and at t = 0..3, M, N, K off the tiles, K up to 4096; the
    tensor-core kernel also at M = 1, a ragged N and K at its flush length
    K_c and K_c + 1, and its digit pre-pass against the plain digit planes)
-   over the five fields, random words and words at p - 1 and p - 2;
+   over the five fields, random words and words at p - 1 and p - 2; the
+   batch round kernel at k = 1..8 (Goldilocks, BabyBear, F5; fold and
+   skip-1 on and off; N = 2^2 to 2^16, B = 1, 3, 64; random words and
+   words at p - 1), the FS tail at degrees 1 and 4..8 over the five fields
+   at every fill, and the Merkle kernel at 1 to 2^16 leaves of 1, 2, 3 and
+   8 bytes against ``hashlib``, every level;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -98,7 +117,17 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    kernel per proof (c_1 and the X phase on the tensor-core matmul, none
    on the CUDA-core matmul); the dense W
    byte-identical to the LibraW run on the card and on the CPU, accepted,
-   tampered copy rejected;
+   tampered copy rejected; slice 12: the DST batch's instances 0 and
+   B - 1 byte-identical to single proofs with the DST, accepted with it and
+   rejected tampered or without it, a cut byte-identical to
+   ``device="cpu"``; the fused k = 1 and k = 4 batches byte-identical to
+   the host loop on the card, n launches of each kernel; the device
+   transcripts byte-identical to ``api.prove_triangle_count``'s and to the
+   host loop, one FS tail launch per round, no device-to-host read inside
+   the round loop (a trace); the PCS accepted, a changed leaf, a wrong
+   degree and a changed leaf in a 16-point multi-opening rejected, its
+   root equal to ``device="cpu"``'s; the Pedersen tree equal to
+   ``tests/data/pedersen_golden.json``;
 4. timing with CUDA events, a dependent host read and a profiler trace,
    and the FS tail's latency floor (one thread's chain of dependent SHA-256
    compressions, times the compressions on a round's chain); for GKR, the
@@ -119,7 +148,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    matmul against an operations bound from its SASS (``cuobjdump -sass``),
    the tensor-core matmul against the int8 rate (its SASS shown to hold
    warpgroup MMA instructions; at K = 128 to show what its epilogue costs),
-   ``torch._int_mm`` over the same digit planes as a yardstick;
+   ``torch._int_mm`` over the same digit planes as a yardstick; slice 12:
+   the DST dispatch against the fused one on the same tables (and its idle
+   share), the fused k = 1 and k = 4 dispatches, the batch round kernel at
+   k = 1 and 4 and the FS tail at degree 1 and 4 from CUDA graphs (the
+   tail beside its latency floor and held against its plain version at
+   that shape), the
+   triangle proof through ``generate_transcript_device`` in turns with
+   ``prove_triangle_count``, the PCS commit split (``evaluate_many``, leaf
+   bytes, the tree's kernels, the whole ``MerkleTree``) and the Merkle build at 2^22
+   Goldilocks and 2^18 F389 leaves against the larger of its operations
+   bound (SASS instructions per thread from ``cuobjdump -sass``) and its
+   bytes bound;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -575,10 +615,10 @@ def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
     return out
 
 
-def gmma_count(lib: str, kernel: str) -> int:
-    """Warpgroup MMA instructions (``*GMMA*``) in the SASS of ``kernel``'s
-    instantiations in ``lib`` (``cuobjdump -sass``); raises where the SASS
-    cannot be read."""
+def sass_functions(lib: str, kernel: str):
+    """The SASS of each function in ``lib`` whose name holds ``kernel``
+    (``cuobjdump -sass``), each from its name line on; raises where the SASS
+    cannot be read or holds no such function."""
     import re
     import shutil
 
@@ -587,22 +627,24 @@ def gmma_count(lib: str, kernel: str) -> int:
     funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:] if kernel in f.split("\n", 1)[0]]
     if not funcs:
         raise AssertionError(f"no {kernel} in the SASS of {lib}")
-    return sum(len(re.findall(r"\b[A-Z]*GMMA\b", f)) for f in funcs)
+    return funcs
+
+
+def gmma_count(lib: str, kernel: str) -> int:
+    """Warpgroup MMA instructions (``*GMMA*``) in the SASS of ``kernel``'s
+    instantiations in ``lib``."""
+    import re
+
+    return sum(len(re.findall(r"\b[A-Z]*GMMA\b", f)) for f in sass_functions(lib, kernel))
 
 
 def sass_per_product(lib: str, kernel: str, backend_tag: str, products: int):
     """Instructions in the largest loop of ``kernel``'s SASS in ``lib``
-    (``cuobjdump -sass``), per product of that loop body: (all
-    instructions, IMAD-family instructions). Raises where the SASS cannot
-    be read."""
+    (the instantiation whose name holds ``backend_tag``), per product of
+    that loop body: (all instructions, IMAD-family instructions)."""
     import re
-    import shutil
-    import subprocess
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", lib], check=True, capture_output=True, text=True).stdout
-    funcs = re.split(r"\n\s*Function : ", text)
-    body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0] and backend_tag in f.split("\n", 1)[0]), None)
+    body = next((f for f in sass_functions(lib, kernel) if backend_tag in f.split("\n", 1)[0]), None)
     if body is None:
         raise AssertionError(f"no {kernel} ({backend_tag}) in the SASS of {lib}")
     ins = []
@@ -1242,6 +1284,608 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
     return rows
 
 
+# ---- slice 12: batched proving at any k and DST, the fused FS prover over
+# every spec, the PCS and its Merkle build ----------------------------------
+#
+# Module-level like the multi-block slice: every kernel call, entry point and
+# timer goes through ``dev``, ``sync`` and the timers passed in.
+
+# the slice's sizes: the batch cells' n and B (k = 2 with the DST, k = 1 at
+# B = 64, k = 4 at B = 16), the Merkle build's leaves, the PCS's field and m
+BATCH_N, BATCH_B, BATCH_B4 = 22, 64, 16
+MERKLE_LOG, MERKLE_CHECK_LOG = 22, 20
+PCS_M = 2
+DST16 = b"chip-smoke-dst16"  # a 16-byte domain-separation tag
+# H100 SXM: 4 warp schedulers x 32 lanes issue 128 lane-instructions per
+# clock per SM, 132 SMs
+LANE_INSTRUCTIONS_PER_CLOCK = 128 * 132
+
+
+def sass_instructions(lib: str, kernel: str) -> int:
+    """The SASS instructions (NOPs left out) of ``kernel`` in ``lib``: for a
+    kernel with no loop, what one thread issues."""
+    import re
+
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass_functions(lib, kernel)[0])
+    return sum(not op.startswith("NOP") for op in ops)
+
+
+def compressions(nbytes, m, draw):
+    """SHA-256 compressions on one proof's chain in a round: the absorb's
+    full blocks, then b_0's closing blocks and b_1."""
+    end = nbytes % 64 + m
+    return end // 64 + ((1 if end % 64 + 5 <= 56 else 2) + 1 if draw else 0)
+
+
+def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_counts, compress_ms, reps=5, n=BATCH_N,
+                    batch=BATCH_B, batch4=BATCH_B4, tri_nodes=TRI_NODES, tri_nodes_small=TRI_NODES_SMALL,
+                    wide_log=WIDE_LOG, merkle_log=MERKLE_LOG, merkle_check_log=MERKLE_CHECK_LOG):
+    """Phases 2-4 of slice 12; returns its rows of the ``kernels`` line.
+    ``reset_counts`` / ``read_counts`` set to 0 and read every launch
+    counter of the port; the sizes default to the slice's own (a CPU
+    rehearsal passes smaller ones)."""
+    import json
+    import os
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from thaler_study_tpu_torch import _build, api, gkr, pcs
+    from thaler_study_tpu_torch import fields as tf
+    from thaler_study_tpu_torch.fiat_shamir import (
+        FiatShamirTranscript,
+        SerializationError,
+        SumcheckInteractiveProver,
+        SumcheckInteractiveVerifier,
+        generate_transcript,
+        generate_transcript_device,
+        verify_transcript,
+    )
+    from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, GOLDILOCKS, FArray
+    from thaler_study_tpu_torch.fields.farray import word_dtype
+    from thaler_study_tpu_torch.mle.dense import DenseMLE
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, merkle_kernel
+    from thaler_study_tpu_torch.ops.round_kernel import PolySpec, single_block_spec
+    from thaler_study_tpu_torch.ops.sha_chain import DevChain
+    from thaler_study_tpu_torch.pcs import pedersen
+    from thaler_study_tpu_torch.protocols import BatchedProductPoly, ProductPoly, TriangleG, generate_transcripts_batch
+    from thaler_study_tpu_torch.sumcheck import Prover, SeededRng, SumCheckError, Verifier
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    activities = [torch.profiler.ProfilerActivity.CPU] + ([torch.profiler.ProfilerActivity.CUDA]
+                                                          if dev.type == "cuda" else [])
+    fields = [getattr(tf, name) for name in FIELDS5]
+    err = {}
+
+    def note_err(key, e, what):
+        if e:
+            raise AssertionError(f"{key[0]} kernel != plain ({key[1]}): {what}")
+        err[key] = max(err.get(key, 0), e)
+
+    def wb_of(field):
+        return 8 if field.backend == "goldilocks" else 4
+
+    def median_ms(fn, count=reps):
+        out = []
+        for _ in range(count):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out), out
+
+    # ---- phase 2: the batch round kernel at k = 1..8 ------------------------
+    # both fields' instantiations (Goldilocks; BabyBear and F5 for mont32),
+    # every mode, N = 2^2 to 2^16, B = 1, 3, 64, random words with the
+    # boundary words and every word at p - 1
+    cases = ((4, 1, "random"), (4, 64, "max"), (1 << 10, 3, "random"), (1 << 10, 64, "max"),
+             (1 << 16, 1, "max"), (1 << 16, 3, "random"))
+    for field in (GOLDILOCKS, BABYBEAR, F5):
+        key = ("round_kernel_k", field.backend)
+        checks = 0
+        for k in range(1, cuda_round.MAX_K + 1):
+            for size, b, fill in cases:
+                tables = [slice_words(gen, field, (b, size), dev, fill) for _ in range(k)]
+                r = slice_words(gen, field, (b,), dev, fill)
+                for fold in (False, True):
+                    for skip in (False, True):
+                        rr = r if fold else None
+                        folded, parts = cuda_round.round_partials(tables, rr, skip_t1=skip, field=field)
+                        ref_folded, ref = cuda_round.round_partials_plain(tables, rr, skip, parts.shape[1], field)
+                        sync()
+                        note_err(key, max(word_err(parts, ref), outputs_err(folded, ref_folded)),
+                                 f"{field.name} k={k} N={size} B={b} {fill} fold={fold} skip={skip}")
+                        checks += 1
+        log(f"batch round kernel == plain (exact) over {field.name} in {checks} cases: k = 1..{cuda_round.MAX_K}, "
+            f"(N, B, words) in {[(s, b, f) for s, b, f in cases]}, fold and skip-1 on and off")
+
+    # ---- phase 2: the FS tail at round degrees 1 and 4..8 -------------------
+    # (2 and 3 in main's phase 2); five fields (F5 to degree 4: the points
+    # 0..D must be distinct mod p), every fill 0..63, rounds 0 / middle /
+    # last with the round turning with the fill, transcript bytes included
+    tb = 8
+    tail_rounds = (0, n // 2, n - 1)
+    for field in fields:
+        key = ("fs_tail_d", field.backend)
+        checks = 0
+        degrees = [d for d in (1, 4, 5, 6, 7, 8) if d < field.p]
+        for degree in degrees:
+            vinv = fs_kernel.interp_tensor(field, degree, dev)
+            for fill in range(64):
+                round_idx = tail_rounds[fill % 3]
+                nbytes = 64 * (16 + fill % 5) + fill
+                m = fs_kernel._msg_len(round_idx, degree, field.byte_size)
+                parts = slice_words(gen, field, (tb, 3, degree + 1), dev)
+                parts[3] = 0  # proof 3: all sums zero -> zero coefficients -> flagged
+                claim = slice_words(gen, field, (tb,), dev)
+                claim[3] = 0
+
+                def state():
+                    chain = DevChain.fresh(tb, dev)
+                    chain.state.copy_(torch.arange(tb * 8, device=dev, dtype=torch.int32).reshape(tb, 8) * 40503 + fill)
+                    chain.buf[:, :fill] = (torch.arange(fill, device=dev) * 7 % 256).to(torch.uint8)
+                    chain.nbytes = nbytes
+                    w = word_dtype(field)
+                    return [chain, claim.clone(), torch.zeros(tb, dtype=w, device=dev), torch.zeros(tb, dtype=w, device=dev),
+                            torch.zeros((tb, n * (degree + 1)), dtype=w, device=dev),
+                            torch.zeros((tb, nbytes + m), dtype=torch.uint8, device=dev),
+                            torch.zeros(tb, dtype=torch.int32, device=dev), vinv]
+
+                kst, pst = state(), state()
+                off = (degree + 1) * round_idx
+                fs_kernel.fs_tail(parts, *kst, round_idx, off, round_idx < n - 1, field)
+                fs_kernel.fs_tail_plain(parts, *pst, round_idx, off, round_idx < n - 1, field)
+                sync()
+                outs = [(kst[0].state, pst[0].state), (kst[0].buf, pst[0].buf)] + list(zip(kst[1:7], pst[1:7]))
+                note_err(key, max(word_err(a.to(torch.int64), b.to(torch.int64)) for a, b in outs),
+                         f"{field.name} degree={degree} fill={fill} round={round_idx}")
+                if int(kst[6][3]) != 1:
+                    raise AssertionError(f"FS tail kernel did not flag proof 3's zero coefficients ({field.name})")
+                checks += 1
+        log(f"FS tail kernel == plain (exact) over {field.name} in {checks} cases: B = {tb}, degrees {degrees}, "
+            "every fill 0..63, round 0 / middle / last, transcript bytes, one proof with zero coefficients")
+
+    # ---- phase 2: the Merkle build ------------------------------------------
+    # n = 1, 2, 64, 2^10, 2^16 leaves of 1 (F5), 2 (F389), 3 (F1572869) and
+    # 8 (Goldilocks) bytes: every level equal to the hashlib build
+    nrng = np.random.default_rng(seed + 12)
+    checks = 0
+    for byte_size in (1, 2, 3, 8):
+        for size in (1, 2, 64, 1 << 10, 1 << 16):
+            vals = nrng.integers(0, 256, size=(size, byte_size), dtype=np.uint8)
+            vals[0] = 255
+            got = merkle_kernel.build_tree_device(vals, dev)
+            want = merkle_kernel.build_tree_plain(vals)
+            if len(got) != len(want) or any(not np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"Merkle kernel != hashlib: {size} leaves of {byte_size} bytes")
+            checks += 1
+    err[("merkle", "goldilocks")] = err[("merkle", "mont32")] = 0
+    log(f"Merkle kernel == hashlib (every level, exact) in {checks} cases: 1, 2, 64, 2^10, 2^16 leaves of 1, 2, 3 "
+        "and 8 bytes")
+
+    # ---- phase 3: the batched prover with a non-empty DST -------------------
+    field = GOLDILOCKS
+    spec2 = single_block_spec(2, n)
+    tables = [FArray(slice_words(gen, field, (batch, 1 << n), dev), field) for _ in range(2)]
+    poly = BatchedProductPoly(tables)
+    sync()
+    reset_counts()
+    ts = generate_transcripts_batch(poly, field, DST16)
+    counts = read_counts()
+    want = {"round_kernel": n, "fs_tail": 0}
+    got = {name: counts[name][field.backend] for name in want}
+    if got != want:
+        raise AssertionError(f"DST batch: launches {got}, expected {want} (one per round, c_1 from round 0's)")
+
+    def rejects(t, inst, dst):
+        v = SumcheckInteractiveVerifier(Verifier(n, ProductPoly(spec2, inst)), field)
+        try:
+            return not verify_transcript(t, v, field, dst)
+        except (SumCheckError, SerializationError):
+            return True
+
+    for i in (0, batch - 1):
+        inst = [FArray(t.data[i], field) for t in tables]
+        single = generate_transcript(SumcheckInteractiveProver(Prover(ProductPoly(spec2, inst))), field, DST16)
+        if single.to_bytes() != ts[i].to_bytes():
+            raise AssertionError(f"DST batch instance {i} != its single proof with the DST")
+        bad = [bytearray(m) for m in ts[i].g]
+        bad[1][16] ^= 1
+        if rejects(ts[i], inst, DST16) or not rejects(FiatShamirTranscript([bytes(m) for m in bad]), inst, DST16):
+            raise AssertionError(f"DST batch instance {i}: honest rejected or tampered accepted")
+        if not rejects(ts[i], inst, b""):
+            raise AssertionError(f"DST batch instance {i}: accepted without its DST")
+    cut = [FArray(t.data[:4, : 1 << 10].contiguous(), field) for t in tables]
+    t_card = generate_transcripts_batch(BatchedProductPoly(cut), field, DST16)
+    t_cpu = generate_transcripts_batch(BatchedProductPoly([FArray(t.data.cpu(), field) for t in cut]), field, DST16)
+    if [t.to_bytes() for t in t_card] != [t.to_bytes() for t in t_cpu]:
+        raise AssertionError("DST batch n = 10, B = 4: the card's transcripts != device='cpu'")
+    dst_ms, dst_all = median_ms(lambda: generate_transcripts_batch(poly, field, DST16))
+    fused_ms, fused_all = median_ms(lambda: generate_transcripts_batch(poly, field))
+    log(f"batched prover, non-empty DST ({len(DST16)} bytes), {field.name} n = {n}, B = {batch}, k = 2: the "
+        f"per-round path, launches {got} per dispatch; instances 0 and {batch - 1} byte-identical to single "
+        f"proofs with the DST on the card, accepted with it, rejected tampered and without it; a cut at n = 10, "
+        f"B = 4 byte-identical to device='cpu'; dispatch_ms {dst_ms:.3f} median of {reps} (all "
+        f"{[round(x, 3) for x in dst_all]}) against the empty-DST fused dispatch on the same tables "
+        f"{fused_ms:.3f} ms ({[round(x, 3) for x in fused_all]}) {tag}")
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        generate_transcripts_batch(poly, field, DST16)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    spans, busy_us = device_spans(prof)
+    if spans:
+        log(f"DST dispatch traced: device busy {busy_us / 1e3:.3f} ms of {traced_ms:.3f} ms -> device idle share "
+            f"{1 - busy_us / 1e3 / traced_ms:.1%} ({len(spans)} device records) {tag}")
+    elif dev.type == "cuda":
+        raise AssertionError("DST dispatch traced: the trace holds no device records")
+    else:
+        log("DST dispatch traced: no device records, device idle share not measured")
+    del ts, poly, tables, cut
+    sync()
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+
+    # ---- phase 3: the fused batch at k = 1 and k = 4 ------------------------
+    timing = {}
+    dispatch = {}
+    for field in (GOLDILOCKS, BABYBEAR):
+        for k, b in ((1, batch), (4, batch4)):
+            spec = single_block_spec(k, n)
+            tables = [FArray(slice_words(gen, field, (b, 1 << n), dev), field) for _ in range(k)]
+            poly = BatchedProductPoly(tables)
+            sync()
+            reset_counts()
+            fused = fs_kernel.fs_prove_device_batch(spec, tables)
+            counts = read_counts()
+            got = {name: counts[name][field.backend] for name in ("round_kernel", "fs_tail", "multiblock_round")}
+            if got != {"round_kernel": n, "fs_tail": n, "multiblock_round": 0}:
+                raise AssertionError(f"fused batch k = {k} {field.name}: launches {got}, expected {n} and {n}")
+            if any(m is None for m in fused):
+                raise AssertionError(f"fused batch k = {k} {field.name}: an instance fell back")
+            ts = generate_transcripts_batch(poly, field)
+            for i in (0, b - 1):
+                inst = [FArray(t.data[i], field) for t in tables]
+                host = generate_transcript(SumcheckInteractiveProver(Prover(ProductPoly(spec, inst))), field)
+                if host.g != fused[i] or ts[i].g != fused[i]:
+                    raise AssertionError(f"fused batch k = {k} {field.name} instance {i} != the host loop on the card")
+                v = SumcheckInteractiveVerifier(Verifier(n, ProductPoly(spec, inst)), field)
+                if not verify_transcript(ts[i], v, field):
+                    raise AssertionError(f"fused batch k = {k} {field.name} instance {i} rejected")
+            ms, all_ms = median_ms(lambda: generate_transcripts_batch(poly, field))
+            dispatch[(k, field.backend)] = (got, ms)
+            log(f"fused batch, k = {k}, {field.name}, n = {n}, B = {b} ({sum(t.data.numel() for t in tables) * wb_of(field) / 1e9:.2f} "
+                f"GB of tables): launches {got} per dispatch, every instance fused; instances 0 and {b - 1} "
+                f"byte-identical to the host loop on the card (round_step: MB), accepted; dispatch_ms {ms:.3f} "
+                f"median of {reps} ({[round(x, 3) for x in all_ms]}) {tag}")
+
+            # the round kernel at the round-1 shape and the FS tail of this degree
+            wb = wb_of(field)
+            data = [t.data for t in tables]
+            r1 = slice_words(gen, field, (b,), dev)
+            outs = [torch.empty((b, 1 << (n - 1)), dtype=word_dtype(field), device=dev) for _ in data]
+            blocks = cuda_round.blocks_for(b, 1 << (n - 2))
+            got_k = cuda_round.round_partials(data, r1, True, outs, field)
+            ref = [None]
+
+            def plain_round():
+                ref[0] = cuda_round.round_partials_plain(data, r1, True, blocks, field)
+
+            plain_ms = time_ms(plain_round, 2)
+            note_err((f"round_kernel_k{k}", field.backend), outputs_err(got_k, ref[0]), "at the path's round-1 shape")
+            ms_k = graph_ms(lambda: cuda_round.round_partials(data, r1, True, outs, field))
+            nbytes = b * (k * (1 << n) * wb + k * (1 << (n - 1)) * wb + wb) + b * blocks * (k + 1) * wb
+            timing[(f"round_kernel_k{k}", field.backend)] = (ms_k, plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3)
+            log(f"{field.name} batch round kernel k = {k}, round-1 shape (B = {b}, N = 2^{n}, fold + claim): "
+                f"{ms_k:.4f} ms from a CUDA graph, bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms "
+                f"({nbytes / 1e9:.3f} GB), {nbytes / PEAK_BYTES_PER_S * 1e3 / ms_k:.1%} of the bound; plain torch "
+                f"{plain_ms:.3f} ms {tag}")
+            del outs, got_k, ref
+            parts = slice_words(gen, field, (b, blocks, k + 1), dev)
+            vinv = fs_kernel.interp_tensor(field, k, dev)
+            m = fs_kernel._msg_len(5, k, field.byte_size)
+            w = word_dtype(field)
+            claim0 = slice_words(gen, field, (b,), dev)
+
+            def tail_state():
+                return [DevChain.fresh(b, dev), claim0.clone(), torch.zeros(b, dtype=w, device=dev),
+                        torch.zeros(b, dtype=w, device=dev), torch.zeros((b, n * (k + 1)), dtype=w, device=dev),
+                        torch.zeros((b, 1000 + m), dtype=torch.uint8, device=dev),
+                        torch.zeros(b, dtype=torch.int32, device=dev), vinv]
+
+            def tail(fn, st):
+                st[0].nbytes = 1000  # the same fill (40) for every launch
+                fn(parts, *st, 5, 5 * (k + 1), True, field)
+
+            # the kernel and its plain version at the timed shape, each on its own state
+            kst, pst = tail_state(), tail_state()
+            tail(fs_kernel.fs_tail, kst)
+            tail(fs_kernel.fs_tail_plain, pst)
+            sync()
+            outs = [(kst[0].state, pst[0].state), (kst[0].buf, pst[0].buf)] + list(zip(kst[1:7], pst[1:7]))
+            note_err((f"fs_tail_d{k}", field.backend), max(word_err(x.to(torch.int64), y.to(torch.int64)) for x, y in outs),
+                     f"B = {b}, {blocks} partials per proof, round 5, fill 40")
+            ms_t = graph_ms(lambda: tail(fs_kernel.fs_tail, kst))
+            plain_t = time_ms(lambda: tail(fs_kernel.fs_tail_plain, pst), 2)
+            tbytes = parts.numel() * wb + b * (2 * 32 + 2 * 64 + 2 * wb + wb + (k + 1) * wb + 2 * 4 + m) + (k + 1) ** 2 * wb
+            comp = compressions(1000, m, True)
+            floor_ms = comp * compress_ms
+            timing[(f"fs_tail_d{k}", field.backend)] = (ms_t, plain_t, tbytes / PEAK_BYTES_PER_S * 1e3, floor_ms)
+            log(f"{field.name} FS tail, degree {k} (B = {b}, {blocks} partials per proof, {m}-byte message at fill "
+                f"40): == plain (exact) at this shape; {ms_t * 1e3:.2f} us per launch from a CUDA graph, bound "
+                f"{tbytes / PEAK_BYTES_PER_S * 1e3:.6f} ms ({tbytes} B), latency floor {floor_ms * 1e3:.2f} us ({comp} "
+                f"compressions); plain (Python ints) {plain_t:.3f} ms {tag}")
+            del tables, poly, ts, data, parts, kst, pst
+            sync()
+            torch.cuda.empty_cache() if dev.type == "cuda" else None
+
+    # ---- phase 3: the device transcript over multi-block specs --------------
+    def fs_tail_starts(prof):
+        spans, _ = device_spans(prof)
+        tails = [s0 for s0, s1, name in spans if "fs_tail_kernel" in name]
+        reads = [s0 for s0, s1, name in spans if "DtoH" in name]
+        return tails, reads
+
+    tri = {}
+    for n_nodes, field, s in ((tri_nodes, GOLDILOCKS, seed), (tri_nodes_small, BABYBEAR, seed + 1)):
+        k = (n_nodes - 1).bit_length()
+        adj = triangle_graph(n_nodes, s)
+        claim, t_api = api.prove_triangle_count(adj, n_nodes, field, device=dev)
+
+        def device_proof():
+            g = TriangleG.new_adj_matrix(2 * k, adj, field, device=dev)
+            return generate_transcript_device(g, field)
+
+        g = TriangleG.new_adj_matrix(2 * k, adj, field, device=dev)
+        sync()
+        reset_counts()
+        t_dev = generate_transcript_device(g, field)
+        counts = read_counts()
+        if t_dev.to_bytes() != t_api.to_bytes():
+            raise AssertionError(f"triangle {n_nodes} {field.name}: the device transcript != prove_triangle_count's")
+        if counts["fs_tail"][field.backend] != 3 * k:
+            raise AssertionError(f"triangle {n_nodes} {field.name}: {counts['fs_tail']} FS tail launches, expected "
+                                 f"one per round ({3 * k}; a fallback to the host loop launches none)")
+        if not api.verify_triangle_count(adj, n_nodes, t_dev, field, device=dev):
+            raise AssertionError(f"triangle {n_nodes} {field.name}: the device transcript was rejected")
+        launches = {name: v[field.backend] for name, v in counts.items() if field.backend in v and v[field.backend]}
+        g = TriangleG.new_adj_matrix(2 * k, adj, field, device=dev)
+        sync()
+        with torch.profiler.profile(activities=activities) as prof:
+            generate_transcript_device(g, field)
+            sync()
+        tails, reads = fs_tail_starts(prof)
+        if tails:
+            inside = [x for x in reads if tails[0] <= x <= tails[-1]]
+            if inside:
+                raise AssertionError(f"triangle {n_nodes} {field.name}: {len(inside)} device-to-host reads inside the "
+                                     "round loop")
+            reads_note = (f"{len(tails)} FS tail records, device-to-host reads inside the round loop: 0, after it: "
+                          f"{sum(x > tails[-1] for x in reads)}")
+        elif dev.type == "cuda":
+            raise AssertionError(f"triangle {n_nodes} {field.name}: the trace of one proof holds no FS tail records")
+        else:
+            reads_note = "device-to-host reads: not measured (no device records in the trace)"
+        # the two entry points in turns: prove_triangle_count (the host loop)
+        # and TriangleG + generate_transcript_device, input building included
+        host_all, dev_all = [], []
+        for _ in range(reps):
+            host_all.append(median_ms(lambda: api.prove_triangle_count(adj, n_nodes, field, device=dev), 1)[0])
+            dev_all.append(median_ms(device_proof, 1)[0])
+        tri[(n_nodes, field.backend)] = (statistics.median(dev_all), statistics.median(host_all))
+        log(f"triangle IP {n_nodes} nodes over {field.name} through generate_transcript_device: byte-identical to "
+            f"api.prove_triangle_count's transcript, accepted; one FS tail launch per round ({3 * k}); launches "
+            f"{launches}; {reads_note}; proof (input building included) median of {reps} "
+            f"{statistics.median(dev_all):.2f} ms ({[round(x, 2) for x in dev_all]}) against prove_triangle_count "
+            f"{statistics.median(host_all):.2f} ms ({[round(x, 2) for x in host_all]}), in turns {tag}")
+
+    # the mixed-degree 2-block spec (JAX tests/test_fs_kernel.py:237) and
+    # dense W's spec on the first layer of the 8 x 2^wide_log circuit
+    field = GOLDILOCKS
+    mixed = PolySpec(block_sizes=(2, 3), table_blocks=((0,), (0, 1)), terms=((0, 1),))
+    tabs = [FArray(slice_words(gen, field, (1 << s,), dev), field) for s in (2, 5)]
+    t_dev = generate_transcript_device(ProductPoly(mixed, tabs), field)
+    t_host = generate_transcript(SumcheckInteractiveProver(Prover(ProductPoly(mixed, tabs))), field)
+    fused = fs_kernel.fs_prove_device(mixed, tabs)
+    if t_dev.to_bytes() != t_host.to_bytes() or fused != t_dev.g:
+        raise AssertionError("mixed-degree spec: the device transcript != the host loop, or it fell back")
+    srng = np.random.default_rng(seed + 2)
+    widths = [1 << wide_log] * 9
+    circuit = gate_circuit(gkr, widths, srng)
+    inputs = field.felts([field.p - 1] + srng.integers(0, 1 << 62, widths[-1] - 1).tolist())
+    prover = gkr.Prover(circuit, inputs, field, use_linear=False, device=dev)
+    prover.start_protocol()
+    prover.start_round(0, [field.felt(int(x)) for x in srng.integers(0, 1 << 62, circuit.num_vars_at(0))])
+    w_poly = prover.prover.g
+    sync()
+    reset_counts()
+    t_dev = generate_transcript_device(w_poly, field)
+    counts = read_counts()
+    t_host = generate_transcript(SumcheckInteractiveProver(Prover(w_poly)), field)
+    if t_dev.to_bytes() != t_host.to_bytes():
+        raise AssertionError("dense W spec: the device transcript != the host loop")
+    fused_w = counts["fs_tail"][field.backend] == w_poly.num_vars()
+    log(f"generate_transcript_device, mixed-degree 2-block spec (degrees {mixed.round_degrees()}) and dense W's spec "
+        f"on the first layer of the 8 x 2^{wide_log} circuit (blocks {w_poly.spec.block_sizes}): byte-identical to "
+        f"the host loop; dense W {'fused, one FS tail launch per round' if fused_w else 'fell back to the host loop (a zero coefficient)'} "
+        f"(launches {({k_: v[field.backend] for k_, v in counts.items() if field.backend in v and v[field.backend]})}) {tag}")
+    del prover, w_poly, circuit
+
+    # ---- phase 3: the PCS -----------------------------------------------------
+    field = F389
+    m = PCS_M
+    evals = [field.felt(int(x)) for x in nrng.integers(0, field.p, 1 << m)]
+    poly = DenseMLE.from_evals_lsb(evals, m, field, device=dev)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    prover = pcs.Prover(poly)
+    commit_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["merkle"] != {"leaf": 1, "node": merkle_kernel.node_launches(len(prover.values))}:
+        raise AssertionError(f"PCS commit: Merkle launches {counts['merkle']}")
+    cpu_tree = pcs.MerkleTree(prover.values, device="cpu")
+    if cpu_tree.root() != prover.merkle_root() or cpu_tree.digests != prover.tree.digests:
+        raise AssertionError("PCS commit: the card's tree != device='cpu'")
+
+    def pcs_round(rng_seed, cheat=None, many=0):
+        v = pcs.Verifier(m, 1, prover.merkle_root())
+        rng = SeededRng(rng_seed)
+        b_, c_ = v.random_line(rng, field)
+        q = prover.poly_restriction_to_line(b_, c_)
+        if cheat == "degree":
+            q = q + pcs.relaxed.UniPoly([(m + 1, field.one())], field)
+        try:
+            v.commited_univariate(q)
+            if many:
+                points = v.challenge_prover_many(rng, field, many)
+                multi, leaves = prover.challenge_many(points)
+                if cheat == "leaf":
+                    leaves = [leaves[0] + field.one()] + leaves[1:]
+                v.verify_prover_reply_many(multi, leaves)
+            else:
+                point = v.challenge_prover(rng, field)
+                path, leaf = prover.challenge(point)
+                if cheat == "leaf":
+                    leaf = leaf + field.one()
+                v.verify_prover_reply(path, leaf)
+        except pcs.PCSError as e:
+            return type(e).__name__
+        return None
+
+    rng_seed = next(s for s in range(64) if prover.poly_restriction_to_line(
+        *pcs.Verifier(m, 1, prover.merkle_root()).random_line(SeededRng(s), field)).degree() == m)
+    outcome = {c: pcs_round(rng_seed, c) for c in (None, "leaf", "degree")}
+    outcome.update({f"{c} x16": pcs_round(rng_seed, c, 16) for c in (None, "leaf")})
+    if outcome != {None: None, "leaf": "PCSError", "degree": "DegreeMismatch", "None x16": None, "leaf x16": "PCSError"}:
+        raise AssertionError(f"relaxed PCS: decisions {outcome}")
+    # the commit split: evaluate_many, leaf bytes, the tree's kernels, the
+    # whole MerkleTree (leaf bytes, the copy in, the kernels, the one read,
+    # the digest string)
+    points = pcs.all_multidimensional_values(field, m)
+    t_eval, _ = median_ms(lambda: poly.evaluate_many([list(pt) for pt in points]), 1)
+    values = prover.values
+    t_bytes, _ = median_ms(lambda: pcs.merkle.leaf_bytes(values), reps)
+    vals_t = torch.from_numpy(pcs.merkle.leaf_bytes(values)).to(dev)
+    t_tree, _ = median_ms(lambda: merkle_kernel.build_tree(vals_t), reps)
+    t_all, _ = median_ms(lambda: pcs.MerkleTree(values, device=dev), reps)
+    log(f"relaxed PCS over {field.name}, m = {m}: {field.p ** m} points padded to {len(values)} leaves; commit "
+        f"(pcs.Prover) {commit_s:.3f} s, Merkle launches {counts['merkle']}; every digest == device='cpu'; "
+        f"decisions {outcome} (line seed {rng_seed}); split: evaluate_many {t_eval:.1f} ms, leaf bytes {t_bytes:.1f} "
+        f"ms, the tree's kernels {t_tree:.3f} ms, the whole MerkleTree (leaf bytes, copy in, kernels, one read, "
+        f"the digest string) {t_all:.1f} ms {tag}")
+    del prover, cpu_tree, vals_t
+
+    # the Pedersen family (host integers): the golden tree and the PCS over F5
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "pedersen_golden.json")
+    golden = json.load(open(golden_path))
+    t0 = time.perf_counter()
+    ptree = pedersen.PedersenMerkleTree([F5.felt(v) for v in (3, 1, 4, 1)])
+    if (ptree.root().hex() != golden["tree_f5_3141_root"]
+            or [pedersen.te_serialize_compressed(p).hex() for p in ptree.levels[1]] != golden["tree_f5_3141_level1"]):
+        raise AssertionError("Pedersen tree != tests/data/pedersen_golden.json")
+    golden_s = time.perf_counter() - t0
+    # evaluations (3, 1, 4, 1): an x1 x2 term, so the restriction to a line
+    # with both slopes nonzero has the full degree 2
+    f5_poly = DenseMLE.from_evals_lsb(F5.felts([3, 1, 4, 1]), 2, F5, device=dev)
+    t0 = time.perf_counter()
+    pprover = pcs.Prover(f5_poly, hash_family="pedersen")
+    ped_s = time.perf_counter() - t0
+    s_ = next(s for s in range(64) if pprover.poly_restriction_to_line(
+        *pcs.Verifier(2, 1, pprover.merkle_root()).random_line(SeededRng(s), F5)).degree() == 2)
+    v = pcs.Verifier(2, 1, pprover.merkle_root())
+    rng = SeededRng(s_)
+    v.commited_univariate(pprover.poly_restriction_to_line(*v.random_line(rng, F5)))
+    path, leaf = pprover.challenge(v.challenge_prover(rng, F5))
+    v.verify_prover_reply(path, leaf)
+    log(f"Pedersen family (host integers): the F5 (3, 1, 4, 1) tree == the golden root and level 1 ({golden_s:.2f} s, "
+        f"parameters included); relaxed PCS over F5, m = 2 ({len(pprover.values)} leaves): commit {ped_s:.2f} s, accepted")
+
+    # ---- phase 4: the Merkle build at 2^merkle_log leaves ---------------------
+    rows = []
+    lib = str(_build._library_path("merkle")) if dev.type == "cuda" else None
+    try:
+        sass = {name: sass_instructions(lib, name) for name in ("leaf_kernel", "node_kernel")} if lib else None
+        clock_mhz = max_sm_clock_mhz()
+    except (OSError, subprocess.CalledProcessError, AssertionError) as e:
+        raise AssertionError(f"cannot count the Merkle kernels' SASS or read the clock: {e}")
+    for field, log_n in ((GOLDILOCKS, merkle_log), (F389, 18)):
+        bs = field.byte_size
+        size = 1 << log_n
+        vals = torch.randint(0, 256, (size, bs), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
+        vals_np = vals.cpu().numpy()
+        reset_counts()
+        tree = merkle_kernel.build_tree(vals)
+        sync()
+        counts = read_counts()
+        if counts["merkle"] != {"leaf": 1, "node": merkle_kernel.node_launches(size)}:
+            raise AssertionError(f"Merkle build: launches {counts['merkle']}")
+        count = 1 + merkle_kernel.node_launches(size)
+        check_log = min(log_n, merkle_check_log)
+        small = merkle_kernel.build_tree(vals[: 1 << check_log].contiguous())
+        got = merkle_kernel.split_levels(small.cpu().numpy())
+        want = merkle_kernel.build_tree_plain(vals_np[: 1 << check_log])
+        if any(not np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"Merkle build at 2^{check_log} leaves: a level != hashlib")
+        t0 = time.perf_counter()
+        plain = merkle_kernel.build_tree_plain(vals_np)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(merkle_kernel.split_levels(tree.cpu().numpy())[-1], plain[-1]):
+            raise AssertionError(f"Merkle build at 2^{log_n} leaves: the root != hashlib")
+        ms = graph_ms(lambda: merkle_kernel.build_tree(vals), 5)
+        n_comp = size + 2 * (size - 1)
+        nbytes = size * bs + (2 * size - 1) * 32 + (2 * size - 2) * 32
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        if sass:
+            ins = size * sass["leaf_kernel"] + (size - 1) * sass["node_kernel"]
+            ops_ms = ins / (LANE_INSTRUCTIONS_PER_CLOCK * clock_mhz * 1e6) * 1e3
+        else:
+            ins, ops_ms = 0, 0.0
+        bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        name = "merkle_goldilocks" if field is GOLDILOCKS else "merkle_mont32"
+        timing[("merkle", field.backend)] = (ms, plain_ms, bound, by, count)
+        log(f"Merkle build, 2^{log_n} leaves of {bs} bytes ({field.name}; {n_comp} compressions): {ms:.4f} ms "
+            f"from a CUDA graph ({count} launches), operations bound {ops_ms:.4f} ms ({ins} lane-instructions: "
+            f"SASS per thread {sass} at {LANE_INSTRUCTIONS_PER_CLOCK} per clock, {clock_mhz:.0f} MHz), bytes bound "
+            f"{bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB); {bound / ms:.1%} of the {by} bound; every level == hashlib "
+            f"at 2^{check_log}, the root at 2^{log_n}; plain (hashlib) {plain_ms:.1f} ms {tag}")
+        del vals, tree, small, plain
+    sync()
+
+    # the kernels line's rows
+    launches = {
+        ("round_kernel_k1", "goldilocks"): dispatch[(1, "goldilocks")][0]["round_kernel"],
+        ("round_kernel_k1", "mont32"): dispatch[(1, "mont32")][0]["round_kernel"],
+        ("round_kernel_k4", "goldilocks"): dispatch[(4, "goldilocks")][0]["round_kernel"],
+        ("round_kernel_k4", "mont32"): dispatch[(4, "mont32")][0]["round_kernel"],
+        ("fs_tail_d1", "goldilocks"): dispatch[(1, "goldilocks")][0]["fs_tail"],
+        ("fs_tail_d1", "mont32"): dispatch[(1, "mont32")][0]["fs_tail"],
+        ("fs_tail_d4", "goldilocks"): dispatch[(4, "goldilocks")][0]["fs_tail"],
+        ("fs_tail_d4", "mont32"): dispatch[(4, "mont32")][0]["fs_tail"],
+    }
+    sources = {"round_kernel": ("thaler_study_tpu_torch/csrc/round_kernel.cu", "thaler_study_tpu/ops/pallas_round.py:341"),
+               "fs_tail": ("thaler_study_tpu_torch/csrc/fs_tail.cu", "thaler_study_tpu/ops/fs_kernel.py:220")}
+    for (name, backend), count in launches.items():
+        ms, plain_ms, bound_ms, *floor = timing[(name, backend)]
+        base = "round_kernel" if name.startswith("round") else "fs_tail"
+        e = max(err.get((name, backend), 0), err.get((base + ("_k" if base == "round_kernel" else "_d"), backend), 0))
+        row = {"name": f"{name}_{backend}", "route": "cuda", "source": sources[base][0],
+               "replaces": sources[base][1], "launches": count, "max_abs_err": e, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+        if floor:
+            row["latency_floor_ms"] = floor[0]
+        rows.append(row)
+    for backend in ("goldilocks", "mont32"):
+        ms, plain_ms, bound_ms, by, count = timing[("merkle", backend)]
+        rows.append({"name": f"merkle_{backend}", "route": "cuda", "source": "thaler_study_tpu_torch/csrc/merkle.cu",
+                     "replaces": "thaler_study_tpu/ops/merkle_kernel.py:107", "launches": count,
+                     "max_abs_err": err[("merkle", backend)], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": None})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42, help="numpy seed of the tables")
@@ -1281,7 +1925,7 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.gkr.circuit import layer_wiring
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, modmatmul, multiblock, sha_chain
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock, sha_chain
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.protocols import (
@@ -1743,7 +2387,7 @@ def main(argv=None) -> int:
                 "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches,
                 "multiblock_round": multiblock.launches, "multiblock_fold": multiblock.fold_launches,
                 "modmatmul": modmatmul.launches, "modmatmul_tc": modmatmul.tc_launches,
-                "modmatmul_digits": modmatmul.digit_launches}
+                "modmatmul_digits": modmatmul.digit_launches, "merkle": merkle_kernel.launches}
 
     def reset_counts():
         for counts in counters.values():
@@ -1780,7 +2424,7 @@ def main(argv=None) -> int:
         reset_counts()
         ts = generate_transcripts_batch(poly, field)
         counts = read_counts()
-        launches = {k: v[field.backend] for k, v in counts.items()}
+        launches = {k: v.get(field.backend, sum(v.values())) for k, v in counts.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = dict.fromkeys(counters, 0)
         want.update(round_kernel=n, fs_tail=n)
@@ -1844,12 +2488,6 @@ def main(argv=None) -> int:
         return tables, poly, ts, launches
 
     # ---- phase 4: timing ---------------------------------------------
-    def compressions(nbytes, m, draw):
-        """SHA-256 compressions on one proof's chain in a round: the absorb's
-        full blocks, then b_0's closing blocks and b_1."""
-        end = nbytes % 64 + m
-        return end // 64 + ((1 if end % 64 + 5 <= 56 else 2) + 1 if draw else 0)
-
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -2116,7 +2754,7 @@ def main(argv=None) -> int:
             return False
 
     def gkr_counts_ok(counts, field, circuit, fused_path=False) -> bool:
-        want = {name: {b: 0 for b in ("goldilocks", "mont32")} for name in counters}
+        want = {name: dict.fromkeys(counts_of, 0) for name, counts_of in counters.items()}
         for name, v in gkr_launch_counts(circuit, fused_path).items():
             want[name][field.backend] = v
         return counts == want
@@ -2678,6 +3316,13 @@ def main(argv=None) -> int:
     # ---- the multi-block slice: phases 2-4 ----------------------------
     slice_rows = multiblock_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, time_launches,
                                   reset_counts, read_counts)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- slice 12: batched proving, the fused prover over every spec, the
+    # PCS and its Merkle build: phases 2-4 ---------------------------------
+    slice_rows += batch_pcs_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, time_launches, reset_counts,
+                                  read_counts, compress_ms, reps=args.reps, n=n, batch=B, batch4=max(1, B // 4))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -11,9 +11,10 @@
 - the public surface on input outside the port's slices, as the JAX
   package answers it: ``api.run_gkr`` takes ``mesh=`` and ``n_shard=`` and
   raises ``NotImplementedError`` for either; ``fs_prove_device`` and
-  ``fs_prove_device_batch`` return ``None`` for a non-empty DST (as JAX's
-  do) and a multi-block spec; ``generate_transcripts_batch`` raises for a
-  non-empty DST instead of taking another path.
+  ``fs_prove_device_batch`` return ``None`` for a non-empty DST and a spec
+  with a degree-0 round and fuse a multi-block spec (as JAX's do);
+  ``generate_transcripts_batch`` with a non-empty DST takes the per-round
+  path, byte-identical to the JAX package's.
 
 The port runs on CPU tensors (the plain version of the round kernel); the
 JAX side runs eagerly under ``jax.disable_jit()``. Inputs come from numpy
@@ -178,10 +179,24 @@ def test_unsupported_input_follows_jax(entry):
         assert jfs.fs_prove_device_batch(jspec, [t.reshape(1, -1) for t in jtables], b"tag") is None
         assert fs_kernel.fs_prove_device(spec, [t[0] for t in batch], b"tag") is None
         assert fs_kernel.fs_prove_device_batch(spec, batch, b"tag") is None
+        # a multi-block spec is fused in both packages; a degree-0 round in neither
         multi = rk.PolySpec(block_sizes=(2, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
-        assert fs_kernel.fs_prove_device(multi, [t[0] for t in batch]) is None
+        flat = rk.PolySpec(block_sizes=(2, 2), table_blocks=((0,), (0,)), terms=((0, 1),))
+        for s, want in ((multi, True), (flat, False)):
+            js = jrk.PolySpec(s.block_sizes, s.table_blocks, s.terms)
+            assert fs_kernel.supports_fused_fs(s, GOLDILOCKS, b"") == jfs.supports_fused_fs(js, jfields.GOLDILOCKS,
+                                                                                          b"") == want
+        assert fs_kernel.fs_prove_device(multi, [batch[0][0, :4], batch[1][0]]) is not None
+        assert fs_kernel.fs_prove_device(flat, [batch[0][0, :4], batch[1][0, :4]]) is None
         assert fs_kernel.fs_prove_device(spec, [t[0] for t in batch]) is not None
         return
-    with pytest.raises(NotImplementedError, match="A5"):
-        generate_transcripts_batch(BatchedProductPoly(batch), GOLDILOCKS, b"tag")
+    # a non-empty DST: the per-round path, the JAX package's bytes
+    from thaler_study_tpu.protocols import BatchedProductPoly as JBatched
+    from thaler_study_tpu.protocols import generate_transcripts_batch as jgenerate_batch
+
+    with jax.disable_jit():
+        jt = jgenerate_batch(JBatched([jfields.FArray.from_ints(v, jfields.GOLDILOCKS).reshape(1, -1) for v in vals]),
+                             jfields.GOLDILOCKS, b"tag")
+    assert [t.to_bytes() for t in generate_transcripts_batch(BatchedProductPoly(batch), GOLDILOCKS, b"tag")] == [
+        t.to_bytes() for t in jt]
     assert len(generate_transcripts_batch(BatchedProductPoly(batch), GOLDILOCKS)) == 1

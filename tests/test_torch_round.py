@@ -144,19 +144,20 @@ def test_product_poly_sumcheck_accepts(rng):
 def test_outside_the_slice_raises():
     """What the port does not cover raises NotImplementedError: specs of
     more than three blocks (ROADMAP A7); the fused FS prover returns None
-    for a multi-block spec or a non-empty DST, as the JAX package's does for
-    what it does not cover (multi-block specs go through ProductPoly).
-    Every field of the port is in the fused path."""
+    where the JAX package's does: a non-empty DST or a round of degree 0.
+    Every field of the port and every spec of round degrees >= 1, a
+    multi-block one too, are in the fused path."""
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
+    flat = rk.PolySpec(block_sizes=(1, 1), table_blocks=((0,), (0,)), terms=((0, 1),))  # round 1: degree 0
     wide = rk.PolySpec(block_sizes=(1, 1, 1, 1), table_blocks=((0, 1, 2, 3),), terms=((0,),))
     with pytest.raises(NotImplementedError, match="A7"):
         rk.round_step(wide, [FArray.from_ints([1] * 16, GOLDILOCKS, device="cpu")], None)
     spec = rk.single_block_spec(2, 2)
     batch = [FArray.from_ints([[1, 2, 3, 4]], GOLDILOCKS, device="cpu") for _ in range(2)]
-    for s, field, dst in ((multi, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"tag")):
+    for s, field, dst in ((flat, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"tag")):
         assert not fs_kernel.supports_fused_fs(s, field, dst)
-    assert fs_kernel.supports_fused_fs(spec, F389, b"")
-    assert fs_kernel.fs_prove_device_batch(multi, batch) is None
+    assert fs_kernel.supports_fused_fs(spec, F389, b"") and fs_kernel.supports_fused_fs(multi, GOLDILOCKS, b"")
+    assert fs_kernel.fs_prove_device_batch(flat, [batch[0][:, :2]] * 2) is None
     assert fs_kernel.fs_prove_device_batch(spec, batch, b"tag") is None
     # the triangle entry points and the dense-W prover are ported: an empty
     # graph proves 0 triangles, the book circuit's dense W runs

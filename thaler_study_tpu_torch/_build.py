@@ -35,6 +35,7 @@ SOURCES = {
     "multiblock_round": "multiblock_round.cu",
     "modmatmul": "modmatmul.cu",
     "modmatmul_tc": "modmatmul_tc.cu",
+    "merkle": "merkle.cu",
 }
 # per-library flags after the sources: modmatmul_tc.cu finds libcuda's
 # cuTensorMapEncodeTiled with dlsym

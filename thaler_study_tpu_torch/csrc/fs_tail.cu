@@ -24,10 +24,17 @@
 // are Montgomery words, as in the JAX package; only what is serialized and
 // stored for the host is canonical.
 //
+// Round degrees 1 to 8 (MAX_D; the JAX package's fused prover takes any
+// spec whose rounds all have degree >= 1, and the port's round kernels
+// take up to 8 factors or a degree of 8). A degree-D message is
+// [byte_size] + 8 + (8 + byte_size)(D + 1) bytes: at most 160 (D = 8,
+// Goldilocks, round 0), so with the carried fill the absorb compresses up
+// to 3 blocks and b_0 closes in 1 or 2 more.
+//
 // What bounds it: latency. It moves a few hundred bytes per proof, and its
 // critical path is serial: one L2 round trip for the partials, then the
-// round's SHA-256 compressions (at most 2 for the absorb, as a message is
-// at most 80 bytes; 1 or 2 for b_0; 1 for b_1), 64 dependent steps each.
+// round's SHA-256 compressions (up to 3 for the absorb; 1 or 2 for b_0; 1
+// for b_1), 64 dependent steps each.
 // The design keeps that path short and out of local memory:
 // - one warp per proof, one block each, so B proofs run on B SMs;
 // - every load from device memory is issued first, so that their
@@ -54,10 +61,14 @@
 namespace {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int MAX_D = 8;
+
+// The longest degree-D message: c_1, the length, D + 1 terms of 8 + 8 bytes
+__host__ __device__ constexpr int max_msg(int d) { return 8 + 8 + 16 * (d + 1); }
 
 // Shared bytes per proof: the carried partial block and the message
-// (< 64 + 80), then b_0's suffix and padding: at most three blocks.
-constexpr int STAGE = 192;
+// (< 64 + max_msg), then b_0's suffix and padding in at most two blocks.
+__host__ __device__ constexpr int stage_bytes(int d) { return 64 * ((63 + max_msg(d)) / 64 + 2); }
 
 using sha256::compress;
 using sha256::H0;
@@ -115,6 +126,7 @@ __global__ void __launch_bounds__(32)
                    int* __restrict__ any_zero, const typename F::word* __restrict__ vinv,
                    int round, long long nbytes, int draw_next) {
   using W = typename F::word;
+  constexpr int STAGE = stage_bytes(D);
   __shared__ __align__(16) uint8_t stage[STAGE];
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
@@ -180,7 +192,7 @@ __global__ void __launch_bounds__(32)
   if (lane + 32 < fill) stage[lane + 32] = carried1;
   uint8_t* out = msgs + b * msg_stride + nbytes;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {  // m <= 80 < 96
+  for (int k = 0; k < (max_msg(D) + 31) / 32; ++k) {  // m <= max_msg(D)
     const int q = lane + 32 * k;
     const int u = q - pre - 8;  // offset into the terms
     const int t = u < 0 ? 0 : min(u / term, D);
@@ -259,23 +271,26 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-template <class F>
+template <class F, int D = 1>
 int launch(const F& f, int byte_size, int len, int degree, const void* partials, int blocks,
            void* state, void* buf, void* claim, void* r, void* c1, void* coeffs, int ncoef,
            int coeff_off, void* msgs, long long msg_stride, void* any_zero, const void* vinv,
            int batch, int round, long long nbytes, int draw_next, cudaStream_t s) {
   using W = typename F::word;
-#define TS_FS_TAIL_ARGS                                                                       \
-  f, byte_size, len, static_cast<const W*>(partials), blocks, static_cast<uint32_t*>(state), \
-      static_cast<uint8_t*>(buf), static_cast<W*>(claim), static_cast<W*>(r),                 \
-      static_cast<W*>(c1), static_cast<W*>(coeffs), ncoef, coeff_off,                        \
-      static_cast<uint8_t*>(msgs), msg_stride, static_cast<int*>(any_zero),                  \
-      static_cast<const W*>(vinv), round, nbytes, draw_next
-  if (degree == 2) fs_tail_kernel<F, 2><<<batch, 32, 0, s>>>(TS_FS_TAIL_ARGS);
-  else if (degree == 3) fs_tail_kernel<F, 3><<<batch, 32, 0, s>>>(TS_FS_TAIL_ARGS);
-  else return (int)cudaErrorInvalidValue;
-#undef TS_FS_TAIL_ARGS
-  return 0;
+  if (degree == D) {
+    fs_tail_kernel<F, D><<<batch, 32, 0, s>>>(
+        f, byte_size, len, static_cast<const W*>(partials), blocks, static_cast<uint32_t*>(state),
+        static_cast<uint8_t*>(buf), static_cast<W*>(claim), static_cast<W*>(r), static_cast<W*>(c1),
+        static_cast<W*>(coeffs), ncoef, coeff_off, static_cast<uint8_t*>(msgs), msg_stride,
+        static_cast<int*>(any_zero), static_cast<const W*>(vinv), round, nbytes, draw_next);
+    return 0;
+  }
+  if constexpr (D < MAX_D) {
+    return launch<F, D + 1>(f, byte_size, len, degree, partials, blocks, state, buf, claim, r, c1, coeffs,
+                            ncoef, coeff_off, msgs, msg_stride, any_zero, vinv, batch, round, nbytes,
+                            draw_next, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // n dependent compressions on one thread, each reading its message from
@@ -303,8 +318,8 @@ __global__ void sha_chain_kernel(int n, uint32_t* out) {
 // takes Goldilocks int64 words; mont32 = 1 takes Montgomery words of the
 // field with modulus p < 2^31 and pinv = -p^-1 mod 2^32.
 // byte_size is the serialized width of one element, len the uniform bytes
-// of one draw (17..20 for mont32, 24 for Goldilocks). degree must be 2 or
-// 3. msgs is a [batch, msg_stride] byte buffer whose row b receives the
+// of one draw (17..20 for mont32, 24 for Goldilocks). degree must be 1 to
+// 8 (MAX_D). msgs is a [batch, msg_stride] byte buffer whose row b receives the
 // round's message at offset nbytes (the wrapper checks every argument
 // first).
 extern "C" int ts_fs_tail_launch(int mont32, unsigned p, unsigned pinv,

@@ -4,8 +4,9 @@
 // Replaces: thaler_study_tpu/ops/pallas_round.py, _make_kernel (the
 // pl.pallas_call at :341), which computes one round of one proof for a
 // k-factor product in either field (_field_ops :71-109); this kernel
-// computes it for B proofs at once, k = 2 or 3. Its plain version is
-// ops/cuda_round.round_partials_plain. libra_round_kernel (below) is the
+// computes it for B proofs at once, k = 1 to 8 (MAX_K, the multi-block
+// kernel's MAX_TABLES too), each proof with its own challenge. Its plain
+// version is ops/cuda_round.round_partials_plain. libra_round_kernel (below) is the
 // same pass for the two multi-term shapes of the GKR layer sumcheck
 // (gkr/linear.py's LibraW phases), which the Pallas kernel does not take
 // (pallas_round.py:403-404: the JAX package runs them in XLA).
@@ -16,7 +17,8 @@
 //          (never in place: the caller's tables stay unchanged); the sums
 //          then run over f's halves. Without FOLD they run over T's halves.
 //   sums:  s(t) = sum_x prod_f (lo_f[x] + t * (hi_f[x] - lo_f[x])),
-//          t = 0..D with D = K. SKIP1 leaves s(1) out (written as 0): the
+//          t = 0..D with D = K (a single factor: s(t) = sum_x of the
+//          factor at t). SKIP1 leaves s(1) out (written as 0): the
 //          caller knows the round claim c and sets s(1) = c - s(0).
 // Each block writes one partial per t to partials[b][block][t]; the
 // per-block partials are summed mod p by the caller (the FS tail kernel,
@@ -105,19 +107,28 @@ __device__ __forceinline__ void block_sum(const F& f, typename F::word (&x)[N]) 
   __syncthreads();  // warp_sums free for the next call
 }
 
+constexpr int MAX_K = 8;
+
 template <class W, int K>
 struct Tables {
   const W* in[K];
   W* out[K];
 };
 
+// the product of v[0..K-1] into the lazy accumulator: K - 2 reduced
+// products and one raw one; a single factor enters as a product with the
+// field's one (so that every raw product has the same Montgomery scale)
 template <class F, int K>
 __device__ __forceinline__ void add_product(const F& f, typename F::Acc& acc,
                                             const typename F::word (&v)[K]) {
-  typename F::word a = v[0];
+  if constexpr (K == 1) {
+    f.acc_add(acc, v[0], f.one());
+  } else {
+    typename F::word a = v[0];
 #pragma unroll
-  for (int i = 1; i < K - 1; ++i) a = f.mul(a, v[i]);
-  f.acc_add(acc, a, v[K - 1]);
+    for (int i = 1; i < K - 1; ++i) a = f.mul(a, v[i]);
+    f.acc_add(acc, a, v[K - 1]);
+  }
 }
 
 // grid = (blocks, B). Block x of proof b covers pair indices
@@ -485,7 +496,7 @@ void launch(const F& f, const void* const* in, void* const* out, const void* r, 
   Tables<W, K> t;
   for (int g = 0; g < K; ++g) {
     t.in[g] = static_cast<const W*>(in[g]);
-    t.out[g] = static_cast<W*>(out[g]);
+    t.out[g] = FOLD ? static_cast<W*>(out[g]) : nullptr;
   }
   dim3 grid(blocks, (unsigned)batch);
   round_kernel<F, K, FOLD, SKIP1><<<grid, THREADS, 0, stream>>>(
@@ -502,29 +513,31 @@ void launch_k(const F& f, int fold, int skip_t1, const void* const* in, void* co
   else launch<F, K, false, false>(f, in, out, r, partials, batch, n, blocks, chunk, s);
 }
 
-template <class F>
+// the instantiation for k among K, K + 1, ..., MAX_K
+template <class F, int K = 1>
 int launch_field(const F& f, int k, int fold, int skip_t1, const void* const* in,
                  void* const* out, const void* r, void* partials, long long batch, long long n,
                  int blocks, long long chunk, cudaStream_t s) {
-  if (k == 2) launch_k<F, 2>(f, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, s);
-  else if (k == 3) launch_k<F, 3>(f, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, s);
-  else return (int)cudaErrorInvalidValue;
-  return 0;
+  if (k == K) {
+    launch_k<F, K>(f, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, s);
+    return 0;
+  }
+  if constexpr (K < MAX_K) {
+    return launch_field<F, K + 1>(f, k, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). mont32 = 0
 // takes Goldilocks int64 words; mont32 = 1 takes Montgomery words of the
-// field with modulus p < 2^31 and pinv = -p^-1 mod 2^32. k must be 2 or 3
-// (the wrapper checks every argument first). Unused pointers are null.
+// field with modulus p < 2^31 and pinv = -p^-1 mod 2^32. in: k table
+// pointers, 1 <= k <= 8; out: k output pointers when folding (else
+// ignored). The wrapper checks every argument first.
 extern "C" int ts_round_launch(int mont32, unsigned p, unsigned pinv, int k, int fold, int skip_t1,
-                               const void* in0, const void* in1, const void* in2, void* out0,
-                               void* out1, void* out2, const void* r, void* partials,
-                               long long batch, long long n, int blocks, long long chunk,
-                               void* stream) {
-  const void* in[3] = {in0, in1, in2};
-  void* out[3] = {out0, out1, out2};
+                               const void* const* in, void* const* out, const void* r, void* partials,
+                               long long batch, long long n, int blocks, long long chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = mont32 ? launch_field(M32Ops{{p, pinv}}, k, fold, skip_t1, in, out, r, partials,
                                        batch, n, blocks, chunk, s)

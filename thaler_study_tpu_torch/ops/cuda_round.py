@@ -9,8 +9,8 @@ note says what bounds it and how.
 The kernel takes three shapes of polynomial (``terms`` over the folded
 tables, then the per-proof scalars):
 
-- the product of all k = 2 or 3 tables (``terms=None``): the batched FS
-  prover and the matmul IP;
+- the product of all k tables, 1 <= k <= :data:`MAX_K` (``terms=None``):
+  the batched FS prover (every k) and the matmul IP (k = 2, 3);
 - :data:`LIBRA_PHASE1`, W A1 + A2, and :data:`LIBRA_PHASE2`,
   B1 w_u + B1 Wc + B2 w_u Wc with the scalar w_u: the two phases of the GKR
   layer sumcheck (``gkr/linear.py``).
@@ -23,9 +23,12 @@ kernel, ``round_kernel.round_step`` for the products, the GKR tails).
 :func:`libra_round_sums` runs a LibraW round to its end in one launch
 (K1's last block sums every block's partials and writes s(0..2), s(1) from
 the claim where one is given); :func:`libra_round_sums_plain` is its plain
-version. The other single-block shapes (k = 1, k >= 4, other scalar
-terms) go to the multi-block kernel (``ops/multiblock.py``): :func:`takes`
-tells them apart.
+version. ``round_kernel.round_step`` sends a single proof of a product
+of 2 or 3 tables here and every other single-block shape of one proof
+(k = 1, k >= 4, other scalar terms) to the multi-block kernel
+(``ops/multiblock.py``), which finishes s(0..D) in its launch; a batch of
+B proofs, each with its own challenge, comes here at any k up to
+:data:`MAX_K`. :func:`takes` says which shapes the kernel takes.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..fields import GOLDILOCKS, FArray, FieldConfig
 from ..fields.farray import word_dtype
 
 THREADS = 256  # csrc/round_kernel.cu THREADS
+MAX_K = 8  # csrc/round_kernel.cu MAX_K: the most factors of a product
 VEC_BYTES = 16  # K1's loads and stores: csrc/round_kernel.cu Pack
 _TARGET_BLOCKS = 2048  # blocks in flight over the whole batch: ~16 per SM
 
@@ -62,13 +66,13 @@ def _kernel(name: str = "ts_round_launch"):
     if fn is None:
         fn = getattr(_build.load("round_kernel"), name)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        head = [i, ctypes.c_uint, ctypes.c_uint, i, i, i] + [vp] * 7
-        if name == "ts_libra_round_launch":  # scalar, partials, sums, claim, counter; then vec
-            fn.argtypes = head + [vp] * 5 + [ll, ll, i, ll, i, vp]
+        head = [i, ctypes.c_uint, ctypes.c_uint, i, i, i]
+        if name == "ts_libra_round_launch":  # 3 in, 3 out, r, scalar, partials, sums, claim, counter; then vec
+            fn.argtypes = head + [vp] * 12 + [ll, ll, i, ll, i, vp]
         elif name == "ts_libra_wave_blocks":
             fn.argtypes = [i] * 5
-        else:
-            fn.argtypes = head + [vp, ll, ll, i, ll, vp]
+        else:  # in[k], out[k], r, partials
+            fn.argtypes = head + [vp] * 4 + [ll, ll, i, ll, vp]
         fn.restype = i
         _fns[name] = fn
     return fn
@@ -115,11 +119,12 @@ def _counter(dev: torch.device) -> torch.Tensor:
 def takes(terms: Optional[Sequence[Sequence[int]]], k: int, n_scalars: int) -> Optional[Tuple[int, int]]:
     """(phase, round degree) where the CUDA kernel takes this polynomial
     (``terms`` None: the product of all k tables), else None: the product of
-    2 or 3 tables (phase 0, degree k) or a LibraW shape (phase 1 or 2,
-    degree 2). ``ops/multiblock.py`` runs every other single-block shape."""
+    1 to :data:`MAX_K` tables (phase 0, degree k) or a LibraW shape (phase 1
+    or 2, degree 2). ``ops/multiblock.py`` runs every other single-block
+    shape."""
     terms = None if terms is None else tuple(map(tuple, terms))
     if terms is None or terms == (tuple(range(k)),) and not n_scalars:
-        return (0, k) if k in (2, 3) else None
+        return (0, k) if 1 <= k <= MAX_K else None
     if terms in _LIBRA and k == 3 and n_scalars == _LIBRA[terms][1]:
         return _LIBRA[terms][0], 2
     return None
@@ -218,9 +223,11 @@ def round_partials(
     shape = takes(terms, k, len(scalars))
     if shape is None:
         raise NotImplementedError(
-            f"the CUDA round kernel takes the product of 2 or 3 tables and the two LibraW shapes, "
-            f"not terms {terms} over {k} tables and {len(scalars)} scalars: the multi-block kernel "
-            f"(ops/multiblock.py, through round_kernel.round_step) runs the others, one proof at a time"
+            f"the CUDA round kernel takes the product of 1 to {MAX_K} tables and the two LibraW shapes, "
+            f"not terms {terms} over {k} tables and {len(scalars)} scalars: a product of more tables has "
+            f"more factors than the kernel's registers and the multi-block kernel's MAX_TABLES hold; the "
+            f"multi-block kernel (ops/multiblock.py, through round_kernel.round_step) runs the other "
+            f"shapes, one proof at a time"
         )
     phase, d = shape
     if batch > 65535:
@@ -231,9 +238,10 @@ def round_partials(
         partials = _libra_launch(tables, r, skip_t1, out, field, phase, scalars, None, batch, n)
         return (list(out) if fold else None), partials
     partials = torch.empty((batch, blocks, d + 1), dtype=dtype, device=dev)
-    ins = [t.data_ptr() for t in tables] + [None] * (3 - k)
-    outs = ([o.data_ptr() for o in out] if fold else []) + [None] * (3 - (k if fold else 0))
-    rc = _kernel()(*_head(field), k, int(fold), int(skip_t1), *ins, *outs, r.data_ptr() if fold else None,
+    ptrs = ctypes.c_void_p * k
+    ins = ptrs(*(t.data_ptr() for t in tables))
+    outs = ptrs(*(o.data_ptr() for o in out)) if fold else ptrs()
+    rc = _kernel()(*_head(field), k, int(fold), int(skip_t1), ins, outs, r.data_ptr() if fold else None,
                    partials.data_ptr(), batch, n, blocks, -(-half // blocks),
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -4,16 +4,24 @@ Counterpart of ``thaler_study_tpu/ops/fs_kernel.py``. The JAX package
 compiles a whole proof (fold, round sums, coefficient interpolation,
 arkworks serialization, the RFC 9380 ``expand_message_xmd`` / SHA-256
 challenge chain) into one XLA program vmapped over B proofs. Here the round
-loop runs on the host, and each round is two launches over all B proofs:
+loop runs on the host, and each round is two steps over all B proofs:
 
-1. the round kernel (``cuda_round.round_partials``, ``csrc/round_kernel.cu``):
-   fold the previous challenge into ping-pong buffers and compute per-block
-   partial round sums;
-2. the FS tail kernel (:func:`fs_tail`, ``csrc/fs_tail.cu``): reduce the
-   partials, fill s(1) = claim - s(0), interpolate, flag zero coefficients,
-   write the serialized message into each proof's transcript bytes and
-   absorb it into the carried SHA-256 chain, draw the next challenge and
-   evaluate the next claim.
+1. the round sums on the card. A single-block product of all the spec's
+   tables (the batched prover's shape) is one launch of the round kernel
+   for the whole batch (``cuda_round.round_partials``,
+   ``csrc/round_kernel.cu``: 1 to 8 factors): it folds the previous
+   challenge into ping-pong buffers and writes per-block partial sums.
+   Every other spec (multi-block, multi-term: the triangle IP, dense GKR W,
+   mixed round degrees) runs ``round_kernel.round_step`` once per proof,
+   which dispatches to the multi-block kernel, the round kernel or the
+   modular matmul and returns s(0..D) on the card; the B sums go into one
+   [B, 1, D + 1] buffer;
+2. the FS tail kernel (:func:`fs_tail`, ``csrc/fs_tail.cu``, round degree
+   1 to 8): reduce the partials, fill s(1) = claim - s(0), interpolate
+   (one inverse-Vandermonde matrix per distinct round degree), flag zero
+   coefficients, write the serialized message into each proof's transcript
+   bytes and absorb it into the carried SHA-256 chain, draw the next
+   challenge and evaluate the next claim.
 
 Challenges, claims and chain state stay on the device between rounds; the
 host reads nothing inside the loop, and afterwards reads only the
@@ -26,14 +34,17 @@ message lengths value-dependent. The device path assumes every coefficient
 is nonzero, detects violations per proof, and returns ``None`` for such a
 proof; the caller re-proves it on the exact host loop.
 
-Scope: Goldilocks and the mont32 fields (F5, F389, F1572869, BabyBear;
-their sums, challenges and claims stay Montgomery words on the device, and
-only canonical coefficients reach the host), single-block products of 2 or
-3 factors (the CUDA kernels' instantiations; the plain versions take any
-k), and the empty DST (:func:`supports_fused_fs`). For anything else
-:func:`fs_prove_device` and :func:`fs_prove_device_batch` return ``None``,
-as the JAX package's do; ``protocols.batched`` then raises
-``NotImplementedError`` naming the later slice.
+Scope (:func:`supports_fused_fs`, the JAX package's decision): the empty
+DST, Goldilocks or a mont32 field (F5, F389, F1572869, BabyBear; their
+sums, challenges and claims stay Montgomery words on the device, and only
+canonical coefficients reach the host), at least one variable, and every
+round of degree >= 1. For anything else :func:`fs_prove_device` and
+:func:`fs_prove_device_batch` return ``None``, as the JAX package's do, and
+the callers run the per-round path. A covered spec that the port's kernels
+cannot take (more than three blocks, more than 8 tables or terms, a round
+degree above 8) raises ``NotImplementedError`` from
+``round_kernel.check_spec`` or ``multiblock.round_plan``; it never falls
+back silently.
 """
 
 from __future__ import annotations
@@ -50,13 +61,15 @@ from .. import _build
 from ..fields import GOLDILOCKS, FArray, FieldConfig
 from ..fields.farray import tensor_u64, u64_tensor, word_dtype
 from .cuda_round import round_partials
-from .round_kernel import PolySpec, check_single_product
+from .round_kernel import PolySpec, check_spec, round_step
 from .sha256 import H0, py_compress
 from .sha_chain import DevChain, absorb_py, draw_py, len_in_bytes
 
 # launches of the CUDA FS tail kernel (not of the plain version), per
 # instantiation
 launches = {"goldilocks": 0, "mont32": 0}
+
+MAX_DEGREE = 8  # csrc/fs_tail.cu MAX_D
 
 _lib = None
 
@@ -117,18 +130,30 @@ def interp_tensor(field: FieldConfig, degree: int, device) -> torch.Tensor:
 
 
 def supports_fused_fs(spec: PolySpec, field: FieldConfig, dst: bytes) -> bool:
-    """Does this slice's fused path cover (spec, field, dst)? Any field of
-    the port, the empty DST and a single-block product of all the spec's
-    tables (the JAX package's ``supports_fused_fs`` takes any spec of
-    round degree >= 1; multi-term and multi-block specs and a non-empty DST
-    are later slices)."""
+    """Does the fused path cover (spec, field, dst)? The JAX package's
+    decision: the empty DST, a Goldilocks or mont32 field, at least one
+    variable, and every round degree >= 1 (a degree-0 round would serialize
+    a constant whose single coefficient is routinely zero, and arkworks
+    drops zero terms, so its length would depend on the values)."""
     if dst != b"":
         return False
-    try:
-        check_single_product(spec, len(spec.table_blocks))
-    except NotImplementedError:
+    if field.backend not in ("goldilocks", "mont32"):
         return False
-    return True
+    if spec.num_vars() < 1:
+        return False
+    return all(d >= 1 for d in spec.round_degrees())
+
+
+def _single_product(spec: PolySpec) -> bool:
+    """Is ``spec`` a single-block product of all its tables (the batched
+    prover's shape, whose rounds run as one launch for the whole batch)?"""
+    k = len(spec.table_blocks)
+    return (
+        len(spec.block_sizes) == 1
+        and len(spec.terms) == 1
+        and sorted(spec.terms[0]) == list(range(k))
+        and all(tb == (0,) for tb in spec.table_blocks)
+    )
 
 
 def _check_tail(field, partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off):
@@ -195,8 +220,8 @@ def fs_tail(
     if dev.type == "cpu":
         fs_tail_plain(partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off, draw, field)
     elif dev.type == "cuda":
-        if d1 - 1 not in (2, 3):
-            raise NotImplementedError(f"the CUDA FS tail takes degree 2 or 3, not {d1 - 1}")
+        if not 1 <= d1 - 1 <= MAX_DEGREE:
+            raise NotImplementedError(f"the CUDA FS tail takes round degrees 1 to {MAX_DEGREE}, not {d1 - 1}")
         mont32 = field.backend == "mont32"
         rc = _library().ts_fs_tail_launch(
             int(mont32),
@@ -323,29 +348,31 @@ def fs_tail_plain(
 def fs_prove_device_batch(
     spec: PolySpec, tables: Sequence[FArray], dst: bytes = b""
 ) -> Optional[List[Optional[list]]]:
-    """B independent whole proofs, two launches per round.
+    """B independent whole proofs, the round sums and one FS tail launch per
+    round.
 
-    ``tables``: per-factor FArrays of shape [B, 2^n] on one device (the
-    inputs are never written). Returns a list of B entries — each a message
-    list, or ``None`` for an instance whose serialized coefficients hit a
-    zero (the caller re-proves only that instance on the host loop). Returns
-    ``None`` outright when :func:`supports_fused_fs` does not cover (spec,
-    field, dst), as the JAX package's does."""
+    ``tables``: per-table FArrays of shape [B, size_k] on one device, size_k
+    the entries of table k under ``spec`` (2^n for the batched prover's
+    single-block product); the inputs are never written. Returns a list of
+    B entries — each a message list, or ``None`` for an instance whose
+    serialized coefficients hit a zero (the caller re-proves only that
+    instance on the host loop). Returns ``None`` outright when
+    :func:`supports_fused_fs` does not cover (spec, field, dst), as the JAX
+    package's does."""
     field = tables[0].field
     if not supports_fused_fs(spec, field, dst):
         return None
     if len(tables) != len(spec.table_blocks):
         raise ValueError(f"{len(tables)} tables for a spec of {len(spec.table_blocks)}")
     data = [t.data for t in tables]
-    if data[0].dim() != 2:
-        raise ValueError("fs_prove_device_batch takes [B, 2^n] tables")
-    batch, size = data[0].shape
+    if any(d.dim() != 2 for d in data):
+        raise ValueError("fs_prove_device_batch takes [B, size] tables")
+    batch = data[0].shape[0]
     n = spec.num_vars()
-    if size != 1 << n:
-        raise ValueError(f"tables of {size} entries for a {n}-variable spec")
     dev = data[0].device
     degrees = spec.round_degrees()
-    vinv = interp_tensor(field, degrees[0], dev)
+    # one interpolation matrix per distinct round degree
+    vinv = {d: interp_tensor(field, d, dev) for d in sorted(set(degrees))}
     w = word_dtype(field)
 
     def zeros(*shape, dtype=w):
@@ -357,6 +384,25 @@ def fs_prove_device_batch(
     lens = [_msg_len(j, d, field.byte_size) for j, d in enumerate(degrees)]
     msgs = zeros(batch, sum(lens), dtype=torch.uint8)
     any_zero = zeros(batch, dtype=torch.int32)
+    rounds = _product_rounds if _single_product(spec) else _spec_rounds
+    off = 0
+    for j, partials in enumerate(rounds(spec, data, field, r, claim)):
+        fs_tail(partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv[degrees[j]], j, off, j < n - 1, field)
+        off += degrees[j] + 1
+    # the one host read: the transcript bytes and the zero flags
+    host = torch.cat([msgs, any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
+    return split_transcripts(host, lens)
+
+
+def _product_rounds(spec: PolySpec, data, field: FieldConfig, r: torch.Tensor, claim: torch.Tensor):
+    """Round j's partials [B, blocks, k + 1] of a single-block product of k
+    tables ([B, 2^n] each): one round kernel launch for the batch, folding
+    at the challenges ``r`` the previous round's tail drew."""
+    batch, size = data[0].shape
+    n = spec.num_vars()
+    if size != 1 << n or any(d.shape != data[0].shape for d in data):
+        raise ValueError(f"tables of {size} entries for a {n}-variable spec")
+    w, dev = data[0].dtype, data[0].device
     # ping-pong fold buffers: round j >= 1 writes [B, size >> j] into
     # buffer (j - 1) % 2, reading the previous round's buffer
     bufs = [
@@ -365,7 +411,6 @@ def fs_prove_device_batch(
         for _ in data
     ]
     cur = data
-    off = 0
     for j in range(n):
         if j == 0:
             _, partials = round_partials(cur, field=field)
@@ -373,11 +418,30 @@ def fs_prove_device_batch(
             m = size >> j
             out = [pp[(j - 1) % 2][: batch * m].view(batch, m) for pp in bufs]
             cur, partials = round_partials(cur, r, skip_t1=True, out=out, field=field)
-        fs_tail(partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, j, off, j < n - 1, field)
-        off += degrees[j] + 1
-    # the one host read: the transcript bytes and the zero flags
-    host = torch.cat([msgs, any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
-    return split_transcripts(host, lens)
+        yield partials
+
+
+def _spec_rounds(spec: PolySpec, data, field: FieldConfig, r: torch.Tensor, claim: torch.Tensor):
+    """Round j's sums [B, 1, D_j + 1] of any other spec: ``round_step`` once
+    per proof (its kernels return s(0..D) on the card, the claim's s(1)
+    included), each folding at its proof's challenge ``r[b]`` with the claim
+    ``claim[b]``, both written by the previous round's tail."""
+    batch = data[0].shape[0]
+    cur = [tuple(FArray(d[b], field) for d in data) for b in range(batch)]
+    for b in range(batch):
+        check_spec(spec, cur[b])
+    cur_spec = spec
+    for j, degree in enumerate(spec.round_degrees()):
+        sums = torch.empty((batch, 1, degree + 1), dtype=data[0].dtype, device=data[0].device)
+        for b in range(batch):
+            if j == 0:
+                s, cur[b] = round_step(spec, cur[b], None)
+            else:
+                s, cur[b] = round_step(cur_spec, cur[b], FArray(r[b], field), FArray(claim[b], field))
+            sums[b, 0] = s.data
+        if j > 0:
+            cur_spec = cur_spec.after_fold()
+        yield sums
 
 
 def split_transcripts(host: np.ndarray, lens: Sequence[int]) -> List[Optional[list]]:

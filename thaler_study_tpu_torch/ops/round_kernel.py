@@ -102,23 +102,6 @@ def single_block_spec(k: int, n: int) -> PolySpec:
     )
 
 
-def check_single_product(spec: PolySpec, num_tables: int) -> None:
-    """Raise unless ``spec`` is a single-block product of all its tables
-    (the batched FS prover's shape)."""
-    if (
-        len(spec.block_sizes) != 1
-        or len(spec.terms) != 1
-        or sorted(spec.terms[0]) != list(range(num_tables))
-        or len(spec.table_blocks) != num_tables
-        or any(tb != (0,) for tb in spec.table_blocks)
-    ):
-        raise NotImplementedError(
-            "the fused batch prover takes a single-block product of all its "
-            "tables; multi-term and multi-block specs (triangle IP, dense GKR W) "
-            "go through ProductPoly"
-        )
-
-
 def _table_size(spec: PolySpec, k: int) -> int:
     return 1 << sum(spec.block_sizes[b] for b in spec.table_blocks[k])
 
@@ -166,14 +149,16 @@ def _split(spec: PolySpec):
 
 
 def _round_kernel_split(spec: PolySpec):
-    """``_split(spec)`` for a single-block spec of a shape ``cuda_round``
-    takes (the product of 2 or 3 tables, the LibraW shapes), else None: the
-    multi-block kernel runs the rest."""
+    """``_split(spec)`` for a single-block spec that one proof's round
+    runs on ``cuda_round`` (the product of 2 or 3 tables, the LibraW
+    shapes), else None: the multi-block kernel runs the rest, k = 1 and
+    k >= 4 products included, since it finishes s(0..D) in its launch."""
     if len(spec.block_sizes) > 1 or any(tb not in ((0,), ()) for tb in spec.table_blocks):
         return None
     split = _split(spec)
     fold_ids, scalar_ids, terms = split
-    return split if cuda_round.takes(terms, len(fold_ids), len(scalar_ids)) is not None else None
+    shape = cuda_round.takes(terms, len(fold_ids), len(scalar_ids))
+    return split if shape is not None and (shape[0] or len(fold_ids) in (2, 3)) else None
 
 
 # a triangle term whose (halved) grid exceeds this goes through the modular
