@@ -56,7 +56,16 @@ The paths, each driven through the entry points a user calls:
 - the PCS (``pcs.Prover`` / ``Verifier``): F389, m = 2 (151,321 points,
   2^18 leaves), its SHA-256 tree on the Merkle kernel; the Merkle build
   alone at 2^22 Goldilocks leaves; the Pedersen family (host integers) on
-  its golden tree and over F5.
+  its golden tree and over F5;
+- slice 13, the sharded prover on a mesh of 8 shards on the card
+  (``parallel.make_mesh([cuda] * 8)``, n_shard 3): the fused FS prover
+  (``fs_prove_device_sharded``) over a 2-factor product at n = 28
+  (Goldilocks and BabyBear, the batch cell's bytes); the 4096-node
+  Goldilocks and 1024-node BabyBear triangles sharded on Z, per round over
+  ``ShardedBlockPoly`` and through ``generate_transcript_device(mesh=)``;
+  the per-layer GKR prover with ``mesh=`` on the flagship circuit (both
+  fields) and ``api.run_gkr(mesh=, n_shard=)``; a one-rank NCCL process
+  group (a ``FileStore``) behind ``make_mesh_2d(dcn_size=1)``.
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -160,6 +169,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    Goldilocks and 2^18 F389 leaves against the larger of its operations
    bound (SASS instructions per thread from ``cuobjdump -sass``) and its
    bytes bound;
+   slice 13 (phases 2-5 in ``sharded_slice``, the GKR part in
+   ``sharded_gkr`` on the flagship): the batched tensor-core matmul (grid y
+   = the shard) at the 4096-node sharded triangle's per-shard shapes (X
+   round 0: 8 x M = 2048, N = 4096, K = 512; the middle of the X phase), its
+   batched digit pre-pass and C = A B^T at ragged shapes, both fields; the
+   no-claim round sums (s(1) left 0 for the reduction) of the batch round
+   kernel over the n = 28 proof's 8 shard rows, of K1 over the flagship's
+   8 shards of 2^17, of MB over one shard row of the triangle's Y phase
+   with the replicated table folded before it, and the FS tail over the 8
+   x blocks partial rows, each against its plain version and timed from a
+   CUDA graph; every sharded path byte-identical to its unsharded run,
+   timed in turns with it, with its launches and collectives;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1886,6 +1907,477 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
     return rows
 
 
+# ---- slice 13: the sharded prover on a mesh of 8 shards on one card -------
+#
+# Module-level like the slices above (a rehearsal passes dev = cpu and small
+# sizes). The mesh is parallel.make_mesh([dev] * SHARD_COUNT): 8 shards on
+# one device, the port's counterpart of the JAX tests' virtual 8-device mesh,
+# so every device's shards run in one launch of a kernel's batch form.
+
+SHARD_COUNT, SHARD_VARS = 8, 3
+
+
+def _shard_mesh(dev):
+    from thaler_study_tpu_torch.parallel import make_mesh
+
+    return make_mesh([dev] * SHARD_COUNT)
+
+
+def _collectives(reset=False) -> dict:
+    from thaler_study_tpu_torch.parallel import sharded
+
+    out = dict(sharded.collectives)
+    if reset:
+        for key in sharded.collectives:
+            sharded.collectives[key] = 0
+    return out
+
+
+def in_turns(runs: dict, reps: int, sync) -> dict:
+    """Host-clock ms of each named run, ``reps`` times each, in turns (the
+    order reversed every other pass): name -> (median, all)."""
+    out = {name: [] for name in runs}
+    names = list(runs)
+    for i in range(reps):
+        for name in names if i % 2 == 0 else names[::-1]:
+            sync()
+            t0 = time.perf_counter()
+            runs[name]()
+            sync()
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (statistics.median(v), v) for name, v in out.items()}
+
+
+def sharded_gkr(cases, dev, sync, reset_counts, tag, reps=2) -> dict:
+    """Slice 13's per-layer GKR prover with ``mesh=`` (8 shards on one card,
+    n_shard 3) on the flagship circuit: for each (field, circuit, inputs,
+    unsharded transcript) of ``cases`` the sharded transcript byte-identical
+    to the unsharded one, K1's launches and the collectives of one proof;
+    both proofs timed in turns; ``api.run_gkr(mesh=, n_shard=)`` accepts
+    (first case). Returns per field backend (K1 launches, collectives)."""
+    from thaler_study_tpu_torch import api, gkr
+    from thaler_study_tpu_torch.ops import cuda_round
+
+    mesh = _shard_mesh(dev)
+    out = {}
+    for i, (field, circuit, inputs, transcript) in enumerate(cases):
+        sync()
+        reset_counts()
+        _collectives(reset=True)
+        t0 = time.perf_counter()
+        t = gkr.generate_gkr_transcript(gkr.Prover(circuit, inputs, field, mesh=mesh, n_shard=SHARD_VARS), field)
+        first_s = time.perf_counter() - t0
+        launches, coll = cuda_round.libra_launches[field.backend], _collectives()
+        if t.to_bytes() != transcript.to_bytes():
+            raise AssertionError(f"sharded per-layer GKR ({field.name}) != the unsharded transcript")
+        depth = len(circuit.layers)
+        rounds = sum(2 * circuit.num_vars_at(j + 1) for j in range(depth))
+        times = in_turns({
+            "unsharded": lambda: gkr.generate_gkr_transcript(gkr.Prover(circuit, inputs, field), field),
+            "sharded": lambda: gkr.generate_gkr_transcript(
+                gkr.Prover(circuit, inputs, field, mesh=mesh, n_shard=SHARD_VARS), field),
+        }, reps, sync)
+        log(f"sharded per-layer GKR {field.name} ({depth} layers, mesh of {SHARD_COUNT} shards on {dev}, n_shard "
+            f"{SHARD_VARS}): byte-identical to the unsharded transcript ({len(t.g)} messages); prove "
+            f"{times['sharded'][0] / 1e3:.3f} s (runs {[round(x / 1e3, 3) for x in times['sharded'][1]]}; first "
+            f"{first_s:.3f} s) beside the unsharded {times['unsharded'][0] / 1e3:.3f} s (runs "
+            f"{[round(x / 1e3, 3) for x in times['unsharded'][1]]}), in turns; K1 launches {launches} ({rounds} "
+            f"rounds); collectives {coll} {tag}")
+        if i == 0:
+            outs, ok = api.run_gkr(circuit, inputs, field, seed=13, mesh=mesh, n_shard=SHARD_VARS)
+            want = gkr.deserialize_gkr_message(transcript.g[0], field).circuit_outputs
+            if not ok or [f.v for f in outs] != [int(v) for v in want.ints]:
+                raise AssertionError(f"api.run_gkr(mesh=, n_shard=) on the flagship ({field.name}): accepted {ok}")
+            log(f"api.run_gkr(mesh=, n_shard={SHARD_VARS}) on the flagship ({field.name}): accepted, the same "
+                f"outputs {tag}")
+        out[field.backend] = (launches, coll)
+    return out
+
+
+def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr_info, reps=5, n=28, gkr_log=20,
+                  tri_nodes=TRI_NODES, tri_nodes_small=TRI_NODES_SMALL):
+    """Phases 2, 3 and 5 of slice 13; returns its rows of the ``kernels``
+    line. ``gkr_info``: :func:`sharded_gkr`'s result; ``n``: the sharded FS
+    proofs' variables (main passes the batch cell's bytes: 2 x 2^28 words);
+    ``gkr_log``: the flagship's width, whose shards K1 is checked at."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from thaler_study_tpu_torch.fields import BABYBEAR, GOLDILOCKS, FArray
+    from thaler_study_tpu_torch.fields.farray import word_dtype
+    from thaler_study_tpu_torch.fiat_shamir import (
+        SumcheckInteractiveProver,
+        generate_transcript,
+        generate_transcript_device,
+    )
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, modmatmul, multiblock
+    from thaler_study_tpu_torch.ops.round_kernel import PolySpec, single_block_spec
+    from thaler_study_tpu_torch.ops.sha_chain import DevChain
+    from thaler_study_tpu_torch.parallel import ShardedBlockPoly, init_distributed, make_mesh_2d
+    from thaler_study_tpu_torch.protocols import TriangleG
+    from thaler_study_tpu_torch.sumcheck import Prover
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    mesh = _shard_mesh(dev)
+    S = SHARD_COUNT
+    err, timing = {}, {}
+
+    def wb_of(field):
+        return 8 if field.backend == "goldilocks" else 4
+
+    def note_err(key, e, what):
+        if e:
+            raise AssertionError(f"{key[0]} kernel != plain ({key[1]}): {what}")
+        err[key] = max(err.get(key, 0), e)
+
+    def plain_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    # ---- phase 2: the batched tensor-core matmul at the sharded triangle's
+    # per-shard shapes: X round 0 (M = 2^(k-1) of A_t, N = 2^k rows of f2_s,
+    # K = 2^(k - 3) of Z per shard) and the middle of the X phase; f1 (D)
+    # shared by the shards; its digit pre-pass; C = A B^T at ragged shapes
+    k_tri = (tri_nodes - 1).bit_length()
+    zl = k_tri - SHARD_VARS
+    for field in (GOLDILOCKS, BABYBEAR):
+        wb, nd = wb_of(field), modmatmul.DIGITS[field.backend]
+        for label, m in (("X round 0", 1 << (k_tri - 1)), ("middle of the X phase", 1 << (k_tri // 2 - 1))):
+            a = slice_words(gen, field, (S, 2 * m, 1 << zl), dev)
+            b = slice_words(gen, field, (S, 1 << k_tri, 1 << zl), dev)
+            d = slice_words(gen, field, (2 * m, 1 << k_tri), dev)
+            ts = [0, 2]
+            got = modmatmul.contract_partials_many(a, b, d, field, ts)
+            t0 = time.perf_counter()
+            want = [torch.stack([modmatmul.contract_partials_plain(a[s], b[s], d, field, t, modmatmul.tile(field, True),
+                                                                   digits=True) for s in range(S)]) for t in ts]
+            sync()
+            t_plain = (time.perf_counter() - t0) * 1e3 / len(ts)
+            note_err(("modmatmul_tc_batched", field.backend), max(word_err(x, y) for x, y in zip(got, want)),
+                     f"{label}, {S} shards")
+            planes = modmatmul.digit_planes(a, field, 2)
+            want_planes = torch.cat([modmatmul.digit_planes_plain(a[s], field, 2) for s in range(S)], dim=1)
+            note_err(("modmatmul_digits_batched", field.backend), word_err(planes, want_planes), f"{label} A_t")
+            b_planes = modmatmul.digit_planes(b, field)
+            partials = torch.empty((S, modmatmul.tile_count(field, True, m, 1 << k_tri)), dtype=word_dtype(field),
+                                   device=dev)
+            tw = modmatmul._t_word(field, 2)
+            kp = modmatmul.padded_k(1 << zl)
+            ms = graph_ms(lambda: modmatmul._launch_tc(field, 2, planes, b_planes, None, d, tw, partials, S, m,
+                                                       1 << k_tri, 1 << zl))
+            products = S * m * (1 << k_tri) * (1 << zl)
+            ops_ms = products * TC_PAIRS[field.backend] / TC_MACS_PER_S * 1e3
+            bytes_ms = (nd * kp * S * (m + (1 << k_tri)) + 2 * m * (1 << k_tri) * wb) / PEAK_BYTES_PER_S * 1e3
+            d_ms = graph_ms(lambda: modmatmul.digit_planes(a, field, 2))
+            d_plain = plain_ms(lambda: [modmatmul.digit_planes_plain(a[s], field, 2) for s in range(S)])
+            d_bytes = (2 * S * m * (1 << zl) * wb + nd * S * m * kp) / PEAK_BYTES_PER_S * 1e3
+            log(f"{field.name} batched tensor-core matmul, {tri_nodes}-node sharded triangle {label} ({S} shards x M = "
+                f"{m}, N = {1 << k_tri}, K = {1 << zl}; f1 shared), mode 2 at t = 0, 2 == plain (exact): "
+                f"{ms:.4f} ms per launch from a CUDA graph, operations bound {ops_ms:.4f} ms ({products} products x "
+                f"{TC_PAIRS[field.backend]} digit pairs at {TC_MACS_PER_S / 1e12} T multiply-adds/s; bytes "
+                f"{bytes_ms:.4f} ms): {100 * max(ops_ms, bytes_ms) / ms:.1f} %; plain {t_plain:.1f} ms per t; its "
+                f"batched digit pre-pass (A_t of {S} shards) {d_ms:.4f} ms, bytes bound {d_bytes:.4f} ms {tag}")
+            if label == "X round 0":
+                timing[("modmatmul_tc_batched", field.backend)] = (ms, t_plain, max(ops_ms, bytes_ms),
+                                                                   "operations" if ops_ms >= bytes_ms else "bytes")
+                timing[("modmatmul_digits_batched", field.backend)] = (d_ms, d_plain, d_bytes, "bytes")
+            del a, b, d, got, want, planes, want_planes, b_planes
+        for (bs, m_, n_, k_) in ((3, 33, 65, 100), (2, 64, 64, 16), (1, 1, 7, 3)):
+            a = FArray(slice_words(gen, field, (bs, m_, k_), dev), field)
+            b = FArray(slice_words(gen, field, (bs, n_, k_), dev), field)
+            got = modmatmul.modmatmul_batched(a, b)
+            want = torch.stack([modmatmul.modmatmul_plain(a[s], b[s]).data for s in range(bs)])
+            note_err(("modmatmul_tc_batched", field.backend), word_err(got.data, want), f"C = A B^T {bs}x{m_}x{n_}x{k_}")
+        log(f"{field.name} batched C = A B^T (mode 0) == the plain product at S x M x N x K = 3x33x65x100, "
+            f"2x64x64x16, 1x1x7x3 {tag}")
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- phase 2: the no-claim round sums at the sharded paths' shapes: the
+    # batch round kernel over the S shard rows of the n-variable proof
+    # (round 1: fold and skip-1, s(1) left 0), K1 over the flagship's S
+    # shards of 2^17 (both LibraW phases), MB over one shard row of the
+    # sharded triangle's Y phase with the replicated f1 folded before it;
+    # then the FS tail over the S x blocks partial rows
+    local = n - SHARD_VARS
+    for field in (GOLDILOCKS, BABYBEAR):
+        wb = wb_of(field)
+        tabs = [slice_words(gen, field, (S, 1 << local), dev) for _ in range(2)]
+        r = slice_words(gen, field, (1,), dev).expand(S).contiguous()
+        outs = [torch.empty((S, 1 << (local - 1)), dtype=word_dtype(field), device=dev) for _ in range(2)]
+        folded, partials = cuda_round.round_partials(tabs, r, True, out=outs, field=field)
+        blocks = cuda_round.blocks_for(S, 1 << (local - 2))
+        t0 = time.perf_counter()
+        pf, pp = cuda_round.round_partials_plain(tabs, r, True, blocks, field)
+        sync()
+        t_plain = (time.perf_counter() - t0) * 1e3
+        note_err(("round_kernel_sharded", field.backend),
+                 max([word_err(partials, pp)] + [word_err(x, y) for x, y in zip(folded, pf)]),
+                 f"{S} shard rows of 2^{local}, fold, skip-1")
+        if int(partials[:, :, 1].abs().sum()):
+            raise AssertionError("the round kernel spliced s(1) into a shard's partials")
+        ms = graph_ms(lambda: cuda_round.round_partials(tabs, r, True, out=outs, field=field))
+        bound = (2 * S * (1 << local) + 2 * S * (1 << (local - 1))) * wb / PEAK_BYTES_PER_S * 1e3
+        timing[("round_kernel_sharded", field.backend)] = (ms, t_plain, bound, "bytes")
+        log(f"{field.name} batch round kernel over {S} shard rows of 2^{local} (the n = {n} proof's round 1: fold, "
+            f"s(1) left 0) == plain (exact): {ms:.4f} ms from a CUDA graph, bytes bound {bound:.4f} ms: "
+            f"{100 * bound / ms:.1f} %; plain {t_plain:.1f} ms {tag}")
+        # the FS tail over these S x blocks rows (degree 2, round 1)
+        rows = partials.reshape(1, -1, 3).contiguous()
+        vinv = fs_kernel.interp_tensor(field, 2, dev)
+        nbytes = 64 * 7 + 40
+        m_len = fs_kernel._msg_len(1, 2, field.byte_size)
+        claim = slice_words(gen, field, (1,), dev)
+
+        def state():
+            chain = DevChain.fresh(1, dev)
+            chain.state.copy_(torch.arange(8, device=dev, dtype=torch.int32).reshape(1, 8) * 40503 + 7)
+            chain.buf[:, :40] = (torch.arange(40, device=dev) * 7 % 256).to(torch.uint8)
+            chain.nbytes = nbytes
+            w = word_dtype(field)
+            return [chain, claim.clone(), torch.zeros(1, dtype=w, device=dev),
+                    torch.zeros(1, dtype=w, device=dev), torch.zeros((1, 3 * n), dtype=w, device=dev),
+                    torch.zeros((1, nbytes + m_len), dtype=torch.uint8, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev), vinv]
+
+        kst, pst = state(), state()
+        fs_kernel.fs_tail(rows, *kst, 1, 3, True, field)
+        t0 = time.perf_counter()
+        fs_kernel.fs_tail_plain(rows, *pst, 1, 3, True, field)
+        t_plain = (time.perf_counter() - t0) * 1e3
+        sync()
+        pairs = [(kst[0].state, pst[0].state), (kst[0].buf, pst[0].buf)] + list(zip(kst[1:7], pst[1:7]))
+        note_err(("fs_tail_sharded", field.backend), max(word_err(x.to(torch.int64), y.to(torch.int64))
+                                                         for x, y in pairs), f"{rows.shape[1]} shard partial rows")
+        tst = state()
+
+        def tail():
+            tst[0].nbytes = nbytes
+            fs_kernel.fs_tail(rows, *tst, 1, 3, True, field)
+
+        ms = graph_ms(tail)
+        t_bytes = rows.numel() * wb + 2 * (32 + 64 + 4) + m_len + 4 * wb
+        floor = compressions(nbytes, m_len, True) * compress_ms
+        timing[("fs_tail_sharded", field.backend)] = (ms, t_plain, t_bytes / PEAK_BYTES_PER_S * 1e3, "bytes", floor)
+        log(f"{field.name} FS tail over {rows.shape[1]} shard partial rows (degree 2, round 1, fill 40) == plain "
+            f"(exact): {ms * 1e3:.2f} us per launch from a CUDA graph, latency floor {floor * 1e3:.2f} us "
+            f"({compressions(nbytes, m_len, True)} compressions); plain {t_plain:.2f} ms {tag}")
+        del tabs, outs, folded, partials, pf, pp
+        # K1 over the flagship's shards: 2^20 entries, n_shard 3
+        kl = gkr_log - SHARD_VARS
+        k1_tabs = [slice_words(gen, field, (S, 1 << kl), dev) for _ in range(3)]
+        k1_out = [torch.empty((S, 1 << (kl - 1)), dtype=word_dtype(field), device=dev) for _ in range(3)]
+        scalar = [slice_words(gen, field, (1,), dev).expand(S).contiguous()]
+        for phase, terms, n_sc in ((1, cuda_round.LIBRA_PHASE1, 0), (2, cuda_round.LIBRA_PHASE2, 1)):
+            f, s = cuda_round.libra_round_sums(k1_tabs, r, True, k1_out, field, terms, scalar[:n_sc])
+            pf, ps = cuda_round.libra_round_sums_plain(k1_tabs, r, True, field, terms, scalar[:n_sc])
+            note_err(("libra_round_sharded", field.backend),
+                     max([word_err(s, ps)] + [word_err(x, y) for x, y in zip(f, pf)]), f"phase {phase}, {S} shards")
+            if int(s[:, 1].abs().sum()):
+                raise AssertionError("K1 spliced s(1) into a shard's sums")
+        ms = graph_ms(lambda: cuda_round.libra_round_sums(k1_tabs, r, True, k1_out, field, cuda_round.LIBRA_PHASE1))
+        t_plain = plain_ms(lambda: cuda_round.libra_round_sums_plain(k1_tabs, r, True, field, cuda_round.LIBRA_PHASE1))
+        bound = (3 * S * (1 << kl) + 3 * S * (1 << (kl - 1))) * wb / PEAK_BYTES_PER_S * 1e3
+        timing[("libra_round_sharded", field.backend)] = (ms, t_plain, bound, "bytes")
+        log(f"{field.name} K1 (LibraW phases 1 and 2) over {S} shard rows of 2^{kl} (the flagship's layers at "
+            f"n_shard {SHARD_VARS}: fold, s(1) left 0) == plain (exact): phase 1 {ms:.4f} ms from a CUDA graph, "
+            f"bytes bound {bound:.4f} ms: {100 * bound / ms:.1f} %; plain {t_plain:.1f} ms {tag}")
+        del k1_tabs, k1_out
+        # MB over one shard row of the sharded triangle's Y phase: the X -> Y
+        # round (f1(X,Y) replicated, folded before; f3(X,Z_s) folded in the
+        # launch) and the middle of the Y phase (f1(Y) folded before, f2
+        # folded in the launch)
+        spec_x = PolySpec((1, k_tri, zl), TRI_BLOCKS, ((0, 1, 2),))
+        spec_y = PolySpec((k_tri // 2, zl), ((0,), (0, 1), (1,)), ((0, 1, 2),))
+        for label, spec in (("X -> Y round", spec_x), ("middle of the Y phase", spec_y)):
+            post = spec.after_fold()
+            plan = multiblock.round_plan(spec, True, spec.terms, post.degree())
+            plan = dataclasses.replace(plan, folded=tuple(f and k != 0 for k, f in enumerate(plan.folded)))
+            mb_tabs = [slice_words(gen, field, ((plan.sizes[k] * (2 if plan.folded[k] else 1)),), dev)
+                       for k in range(3)]
+            got_f, got_s = multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None)
+            want_f, want_s = multiblock.round_sums_plain(plan, mb_tabs, r[:1], field, True, None)
+            note_err(("multiblock_round_sharded", field.backend),
+                     max([word_err(got_s, want_s)] + [word_err(x, y) for x, y in zip(got_f, want_f) if x is not None]),
+                     label)
+            if int(got_s[1]):
+                raise AssertionError("MB spliced s(1) into a shard's sums")
+            if label == "X -> Y round":
+                mb_ms = graph_ms(lambda: [multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None)
+                                          for _ in range(S)]) / S
+                t_plain = plain_ms(lambda: multiblock.round_sums_plain(plan, mb_tabs, r[:1], field, True, None))
+                moved = sum(t.numel() for t in mb_tabs) + sum(x.numel() for x in got_f if x is not None)
+                bound = moved * wb / PEAK_BYTES_PER_S * 1e3
+                timing[("multiblock_round_sharded", field.backend)] = (mb_ms, t_plain, bound, "bytes")
+                log(f"{field.name} MB over one shard row of the {tri_nodes}-node sharded triangle, {label} (f1 folded "
+                    f"before, s(1) left 0) == plain (exact): {mb_ms:.4f} ms per shard from a CUDA graph of {S}, "
+                    f"bytes bound {bound:.4f} ms: {100 * bound / mb_ms:.1f} %; plain {t_plain:.1f} ms {tag}")
+        log(f"{field.name} MB over one shard row == plain (exact) at the middle of the Y phase too {tag}")
+    sync()
+
+    # ---- phase 3: the sharded fused FS prover, a 2-factor product at n
+    # variables, n_shard 3, over Goldilocks and BabyBear: the bytes equal
+    # fs_prove_device's on the same tables; both timed in turns
+    fs_rows = {}
+    keep = None
+    for field in (GOLDILOCKS, BABYBEAR):
+        spec = single_block_spec(2, n)
+        tables = [FArray(slice_words(gen, field, (1 << n,), dev), field) for _ in range(2)]
+        ref = fs_kernel.fs_prove_device(spec, tables)
+        sync()
+        reset_counts()
+        _collectives(reset=True)
+        got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh, n_shard=SHARD_VARS)
+        sync()
+        launches = {"round_kernel": cuda_round.launches[field.backend], "fs_tail": fs_kernel.launches[field.backend],
+                    "multiblock_fold": multiblock.fold_launches[field.backend]}
+        coll = _collectives()
+        if ref is None or got is None or [m.hex() for m in got] != [m.hex() for m in ref]:
+            raise AssertionError(f"sharded FS proof ({field.name}, n = {n}) != fs_prove_device")
+        # every shard is on the one card: a reduction sends no words off it
+        want_coll = {"reduce": n - SHARD_VARS, "reduce_words": 0, "gather": 2, "gather_words": 2 * (1 << SHARD_VARS)}
+        if coll != want_coll or launches["fs_tail"] != n or launches["round_kernel"] != n:
+            raise AssertionError(f"sharded FS proof ({field.name}): collectives {coll} (want {want_coll}), launches "
+                                 f"{launches}")
+        times = in_turns({"fs_prove_device": lambda: fs_kernel.fs_prove_device(spec, tables),
+                          "fs_prove_device_sharded": lambda: fs_kernel.fs_prove_device_sharded(
+                              spec, tables, mesh, n_shard=SHARD_VARS),
+                          "layout": lambda: ShardedBlockPoly.from_internal_tables(spec, tables, mesh,
+                                                                                  n_shard=SHARD_VARS)}, reps, sync)
+        fs_rows[field.backend] = launches
+        log(f"sharded fused FS prover {field.name}, 2 x 2^{n} words ({2 * (1 << n) * wb_of(field) / 1e9:.2f} GB), "
+            f"mesh of {S} shards on {dev}, n_shard {SHARD_VARS}: byte-identical to fs_prove_device ({len(got)} "
+            f"messages); median of {reps} in turns {times['fs_prove_device_sharded'][0]:.3f} ms (runs "
+            f"{[round(x, 3) for x in times['fs_prove_device_sharded'][1]]}) beside the unsharded "
+            f"{times['fs_prove_device'][0]:.3f} ms ({[round(x, 3) for x in times['fs_prove_device'][1]]}); of the "
+            f"sharded proof, the layout (ShardedBlockPoly.from_internal_tables: the [L, S] -> [S, L] copy) alone "
+            f"{times['layout'][0]:.3f} ms ({[round(x, 3) for x in times['layout'][1]]}); "
+            f"collectives {coll}: one reduction per sharded round (no word leaves the card), {coll['gather']} "
+            f"gathers of 2^{SHARD_VARS} at the transition; launches {launches} {tag}")
+        if field is GOLDILOCKS:
+            keep = (spec, tables, got)
+        else:
+            del tables
+    sync()
+
+    # ---- phase 3: the triangle IP sharded over Z (n_shard 3): the
+    # per-round loop over ShardedBlockPoly and generate_transcript_device(
+    # mesh=) byte-identical to the unsharded generate_transcript_device;
+    # 4096 nodes over Goldilocks (timed in turns), 1024 over BabyBear
+    tri_rows = {}
+    for field, nodes in ((GOLDILOCKS, tri_nodes), (BABYBEAR, tri_nodes_small)):
+        k = (nodes - 1).bit_length()
+        adj = triangle_graph(nodes, seed)
+        g = TriangleG.new_adj_matrix(2 * k, adj, field, device=dev)
+        ref = generate_transcript_device(g, field)
+
+        def per_round():
+            poly = ShardedBlockPoly.from_internal_tables(g.spec, g.tables, mesh, n_shard=SHARD_VARS)
+            return generate_transcript(SumcheckInteractiveProver(Prover(poly)), field)
+
+        t_round = per_round()
+        sync()
+        reset_counts()
+        _collectives(reset=True)
+        t_dev = generate_transcript_device(g, field, mesh=mesh, n_shard=SHARD_VARS)
+        sync()
+        launches = {"tc_batched": modmatmul.tc_launches[field.backend],
+                    "digits_batched": modmatmul.digit_launches[field.backend],
+                    "multiblock_round": multiblock.launches[field.backend],
+                    "multiblock_fold": multiblock.fold_launches[field.backend],
+                    "fs_tail": fs_kernel.launches[field.backend]}
+        coll = _collectives()
+        if t_round.to_bytes() != ref.to_bytes() or t_dev.to_bytes() != ref.to_bytes():
+            raise AssertionError(f"sharded triangle ({nodes} nodes, {field.name}) != the unsharded device transcript")
+        if not launches["tc_batched"] or not launches["multiblock_round"]:
+            raise AssertionError(f"sharded triangle ({nodes} nodes): launches {launches}")
+        tri_rows[field.backend] = launches
+        line = (f"sharded triangle IP {nodes} nodes {field.name} ({3 * k} variables, Z sharded over {S} shards, "
+                f"n_shard {SHARD_VARS}): the per-round loop over ShardedBlockPoly and generate_transcript_device("
+                f"mesh=) byte-identical to the unsharded generate_transcript_device; launches of the device proof "
+                f"{launches}; collectives {coll}")
+        if nodes == tri_nodes:
+            times = in_turns({"unsharded device": lambda: generate_transcript_device(g, field),
+                              "sharded per-round": per_round,
+                              "sharded device": lambda: generate_transcript_device(g, field, mesh=mesh,
+                                                                                   n_shard=SHARD_VARS)}, reps, sync)
+            line += "; median of {} in turns: {}".format(reps, ", ".join(
+                f"{name} {v[0]:.1f} ms ({[round(x, 1) for x in v[1]]})" for name, v in times.items()))
+        log(line + f" {tag}")
+        del g
+    sync()
+
+    # ---- phase 5: a one-rank process group (NCCL on the card, gloo on the
+    # CPU) behind make_mesh_2d(dcn_size=1): the DCN all-reduce of every
+    # sharded round runs through torch.distributed; the bytes of phase 3
+    import torch.distributed as dist
+
+    spec, tables, want = keep
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0)
+        try:
+            mesh2 = make_mesh_2d([dev] * S, dcn_size=1)
+            if mesh2.group is None:
+                raise AssertionError("make_mesh_2d(dcn_size=1) in a process group made no DCN group")
+            _collectives(reset=True)
+            t0 = time.perf_counter()
+            got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh2, n_shard=SHARD_VARS)
+            sync()
+            dcn_ms = (time.perf_counter() - t0) * 1e3
+            coll = _collectives()
+            if got is None or [m.hex() for m in got] != [m.hex() for m in want]:
+                raise AssertionError("the sharded FS proof over a one-rank process group != phase 3's bytes")
+            if coll["reduce"] != n - SHARD_VARS or coll["reduce_words"] != 3 * coll["reduce"]:
+                raise AssertionError(f"one-rank process group: collectives {coll} (one all_reduce of 3 words per "
+                                     "sharded round)")
+            log(f"one-rank {dist.get_backend()} process group (a FileStore) behind make_mesh_2d(dcn_size=1), mesh "
+                f"{mesh2}: the sharded FS proof over Goldilocks (n = {n}) byte-identical to phase 3's; "
+                f"{coll['reduce']} all_reduce calls through torch.distributed (one per sharded round, 32-bit lanes); "
+                f"{dcn_ms:.1f} ms (first run) {tag}")
+        finally:
+            dist.destroy_process_group()
+    del keep, tables
+
+    # the kernels line's rows
+    src = "thaler_study_tpu_torch/csrc/"
+    forms = {
+        "modmatmul_tc_batched": (src + "modmatmul_tc.cu", "thaler_study_tpu/ops/modmatmul.py:267",
+                                 {b: tri_rows[b]["tc_batched"] for b in tri_rows}),
+        "modmatmul_digits_batched": (src + "modmatmul_tc.cu", "thaler_study_tpu/ops/modmatmul.py:106",
+                                     {b: tri_rows[b]["digits_batched"] for b in tri_rows}),
+        "round_kernel_sharded": (src + "round_kernel.cu", "thaler_study_tpu/parallel/sharded.py:101",
+                                 {b: fs_rows[b]["round_kernel"] for b in fs_rows}),
+        "fs_tail_sharded": (src + "fs_tail.cu", "thaler_study_tpu/ops/fs_kernel.py:418",
+                            {b: fs_rows[b]["fs_tail"] for b in fs_rows}),
+        "libra_round_sharded": (src + "round_kernel.cu", "thaler_study_tpu/parallel/sharded.py:101",
+                                {b: gkr_info[b][0] for b in gkr_info}),
+        "multiblock_round_sharded": (src + "multiblock_round.cu", "thaler_study_tpu/parallel/sharded.py:493",
+                                     {b: tri_rows[b]["multiblock_round"] for b in tri_rows}),
+    }
+    rows = []
+    for name, (source, replaces, launches) in forms.items():
+        for backend in ("goldilocks", "mont32"):
+            ms, plain, bound_ms, by, *floor = timing[(name, backend)]
+            row = {"name": f"{name}_{backend}", "route": "cuda", "source": source, "replaces": replaces,
+                   "launches": launches.get(backend, 0), "max_abs_err": err[(name, backend)], "ms": ms,
+                   "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                   "library_ms_reason": "no PyTorch call computes this function mod p"}
+            if floor:
+                row["latency_floor_ms"] = floor[0]
+            if not row["launches"]:
+                raise AssertionError(f"{name} ({backend}) was not launched on its sharded path")
+            rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42, help="numpy seed of the tables")
@@ -2983,6 +3475,9 @@ def main(argv=None) -> int:
         "plain_per_round": bb_trace["plain_per_round"], "goldilocks_plain_per_round": gl_trace["plain_per_round"],
         "card": card,
     }))
+    # slice 13: the per-layer prover with mesh= on the flagship, both fields
+    sharded_gkr_info = sharded_gkr([(F, circuit, inputs, transcript), (BB, circuit, bb_inputs, bb_t)], dev,
+                                   torch.cuda.synchronize, reset_counts, tag)
     del bb_t, bad, cut, cut_card, cut_cpu
 
     # the fused path on the flagship: the same bytes as the per-layer run,
@@ -3323,6 +3818,13 @@ def main(argv=None) -> int:
     # PCS and its Merkle build: phases 2-4 ---------------------------------
     slice_rows += batch_pcs_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, time_launches, reset_counts,
                                   read_counts, compress_ms, reps=args.reps, n=n, batch=B, batch4=max(1, B // 4))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- slice 13: the sharded prover on a mesh of 8 shards on the card:
+    # phases 2, 3 and 5 (phase 4's GKR part ran on the flagship above) ----
+    slice_rows += sharded_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, reset_counts, compress_ms,
+                                sharded_gkr_info, reps=args.reps, n=n + (B - 1).bit_length(), gkr_log=args.gkr_log)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -38,6 +38,7 @@ from thaler_study_tpu import gkr as jgkr  # noqa: E402
 from thaler_study_tpu_torch import api, gkr  # noqa: E402
 from thaler_study_tpu_torch.fiat_shamir import SerializationError  # noqa: E402
 from thaler_study_tpu_torch.fields import BABYBEAR, F389, F1572869, GOLDILOCKS, FeltVector  # noqa: E402
+from thaler_study_tpu_torch.parallel import make_mesh  # noqa: E402
 from thaler_study_tpu_torch.sumcheck import SumCheckError  # noqa: E402
 
 _JF = {"Goldilocks": "GOLDILOCKS", "F389": "F389", "BabyBear": "BABYBEAR", "F1572869": "F1572869"}
@@ -178,7 +179,8 @@ def test_resume_every_cut_of_the_book_circuit():
 def test_run_gkr_matches_jax():
     """The interactive protocol (api.run_gkr, SeededRng challenges) on the
     book circuit and the BabyBear 5-layer circuit: the same outputs and
-    decision as the JAX run_gkr; a sharded prover (a later slice) raises."""
+    decision as the JAX run_gkr; a sharded prover (mesh=) on a one-position
+    CPU mesh gives the JAX package's bytes."""
     for name, seed in (("book", 0), ("five-babybear", 3)):
         field, layers, n_in, inputs = _case(name)
         outs, ok = api.run_gkr(_circuit(gkr, layers, n_in), inputs, field, seed=seed, device="cpu")
@@ -188,8 +190,8 @@ def test_run_gkr_matches_jax():
         assert [f.v for f in outs] == [f.v for f in jouts], name
 
     field, circuit, inputs = _port("book")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        gkr.Prover(circuit, inputs, field, mesh=object(), device="cpu")
+    sharded = gkr.Prover(circuit, inputs, field, mesh=make_mesh(["cpu"]), device="cpu")
+    assert gkr.generate_gkr_transcript(sharded, field).to_bytes() == _jax_transcript("book")
     # the dense W and the triangle IP, the multi-block slice, are ported
     dense = gkr.Prover(circuit, inputs, field, use_linear=False, device="cpu")
     dense = gkr.generate_gkr_transcript(dense, field)

@@ -163,7 +163,7 @@ def test_routing_matches_jax():
     circuit = _circuit(gkr, layers, n_in)
     assert gkr.supports_fused_gkr(circuit, F, b"")
     assert jfused.supports_fused_gkr(_circuit(jgkr, layers, n_in), JF, b"")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="A7b"):
         gkr.generate_gkr_transcript_fused(_prover(circuit, inputs), F, mesh=object())
 
 

@@ -63,6 +63,7 @@ from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, F1572869, GOLDILOC
 from thaler_study_tpu_torch.ops import cuda_round  # noqa: E402
 from thaler_study_tpu_torch.ops import fs_kernel  # noqa: E402
 from thaler_study_tpu_torch.ops import round_kernel as rk  # noqa: E402
+from thaler_study_tpu_torch.parallel import make_mesh  # noqa: E402
 from thaler_study_tpu_torch.protocols import MatMulG, ProductPoly  # noqa: E402
 from thaler_study_tpu_torch.sumcheck import Prover  # noqa: E402
 
@@ -385,7 +386,7 @@ def test_resume_transcript_byte_identical():
 def test_generate_transcript_device_matches_jax():
     """The device path (CPU tensors: the plain versions), the zero
     coefficient's fallback and the non-empty DST's fallback give the JAX
-    host loop's bytes; mesh= raises naming ROADMAP A7."""
+    host loop's bytes, and so does each over two CPU shards (mesh=)."""
     rng = np.random.default_rng(51)
     field, n = GOLDILOCKS, 3
     spec = rk.single_block_spec(2, n)
@@ -402,8 +403,8 @@ def test_generate_transcript_device_matches_jax():
         with jax.disable_jit():
             jt = jgenerate(JInteractiveProver(JProver(JProductPoly(jspec, [y for _, y in pairs]))), _jf(field), dst)
         assert t.to_bytes() == jt.to_bytes(), case
-    with pytest.raises(NotImplementedError, match="A7"):
-        generate_transcript_device(poly, field, mesh=object())
+        sharded = generate_transcript_device(poly, field, dst, mesh=make_mesh(["cpu"] * 2))
+        assert sharded.to_bytes() == jt.to_bytes(), case
 
 
 # ---- C6: the ops package's surface --------------------------------------------

@@ -9,8 +9,8 @@
   rejects a flipped byte; the 2 x 2 book example
   (``tests/test_matmul.py``).
 - the public surface on input outside the port's slices, as the JAX
-  package answers it: ``api.run_gkr`` takes ``mesh=`` and ``n_shard=`` and
-  raises ``NotImplementedError`` for either; ``fs_prove_device`` and
+  package answers it: ``api.run_gkr`` takes ``mesh=`` (a sharded prover)
+  and ignores ``n_shard=`` without a mesh, as JAX's does; ``fs_prove_device`` and
   ``fs_prove_device_batch`` return ``None`` for a non-empty DST and a spec
   with a degree-0 round and fuse a multi-block spec (as JAX's do);
   ``generate_transcripts_batch`` with a non-empty DST takes the per-round
@@ -50,6 +50,7 @@ from thaler_study_tpu_torch.fields import F5, F389, GOLDILOCKS, FArray  # noqa: 
 from thaler_study_tpu_torch.mle import DenseMLE, bitrev_perm  # noqa: E402
 from thaler_study_tpu_torch.ops import fs_kernel  # noqa: E402
 from thaler_study_tpu_torch.ops import round_kernel as rk  # noqa: E402
+from thaler_study_tpu_torch.parallel import make_mesh  # noqa: E402
 from thaler_study_tpu_torch.protocols import BatchedProductPoly, MatMulG, generate_transcripts_batch  # noqa: E402
 from thaler_study_tpu_torch.sumcheck import SumCheckError  # noqa: E402
 
@@ -162,9 +163,9 @@ def test_unsupported_input_follows_jax(entry):
     if entry == "run_gkr":
         params = list(inspect.signature(api.run_gkr).parameters)
         assert params[:6] == list(inspect.signature(japi.run_gkr).parameters)
-        for kw in ({"mesh": object()}, {"n_shard": 2}):
-            with pytest.raises(NotImplementedError, match="multi-device"):
-                api.run_gkr(gkr.circuit_from_book(), [3, 2, 3, 1], F389, device="cpu", **kw)
+        for kw in ({"mesh": make_mesh(["cpu"])}, {"n_shard": 2}):  # n_shard without a mesh: ignored, as in JAX
+            outs, ok = api.run_gkr(gkr.circuit_from_book(), [3, 2, 3, 1], F389, seed=1, device="cpu", **kw)
+            assert ok and [f.v for f in outs] == [36, 6]
         outs, ok = api.run_gkr(gkr.circuit_from_book(), [3, 2, 3, 1], F389, seed=1, mesh=None, n_shard=None,
                                device="cpu")
         assert ok and [f.v for f in outs] == [36, 6]

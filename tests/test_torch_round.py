@@ -143,14 +143,14 @@ def test_product_poly_sumcheck_accepts(rng):
 
 def test_outside_the_slice_raises():
     """What the port does not cover raises NotImplementedError: specs of
-    more than three blocks (ROADMAP A7); the fused FS prover returns None
+    more than three blocks (ROADMAP C7); the fused FS prover returns None
     where the JAX package's does: a non-empty DST or a round of degree 0.
     Every field of the port and every spec of round degrees >= 1, a
     multi-block one too, are in the fused path."""
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
     flat = rk.PolySpec(block_sizes=(1, 1), table_blocks=((0,), (0,)), terms=((0, 1),))  # round 1: degree 0
     wide = rk.PolySpec(block_sizes=(1, 1, 1, 1), table_blocks=((0, 1, 2, 3),), terms=((0,),))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="C7"):
         rk.round_step(wide, [FArray.from_ints([1] * 16, GOLDILOCKS, device="cpu")], None)
     spec = rk.single_block_spec(2, 2)
     batch = [FArray.from_ints([[1, 2, 3, 4]], GOLDILOCKS, device="cpu") for _ in range(2)]

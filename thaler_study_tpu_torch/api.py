@@ -109,11 +109,10 @@ def run_gkr(
 
     Returns (claimed_outputs, accepted). The interactive loop mirrors the
     reference's protocol test loop (gkr-protocol/src/lib.rs:551-624); the
-    verifier draws from ``SeededRng(seed)``. ``mesh`` and ``n_shard`` (a
-    sharded prover) are the multi-device slice of the port and raise.
+    verifier draws from ``SeededRng(seed)``. ``mesh`` and ``n_shard`` shard
+    each layer's sumcheck tables over a ``parallel`` mesh (built on
+    ``device`` first).
     """
-    if mesh is not None or n_shard is not None:
-        raise NotImplementedError("a sharded GKR run (mesh=, n_shard=) is the multi-device slice of the port (ROADMAP A7)")
     from .gkr import Prover as GKRProver
     from .gkr import R
     from .gkr import Verifier as GKRVerifier
@@ -121,7 +120,7 @@ def run_gkr(
 
     felt_inputs = [x if isinstance(x, Felt) else field.felt(int(x)) for x in inputs]
     rng = SeededRng(seed)
-    prover = GKRProver(circuit, felt_inputs, field, device=device)
+    prover = GKRProver(circuit, felt_inputs, field, mesh=mesh, n_shard=n_shard, device=device)
     begin = prover.start_protocol()
     verifier = GKRVerifier(circuit, field)
     r_i = verifier.receive_prover_msg(begin, rng).r

@@ -74,6 +74,7 @@ constexpr int LINE_SMEM_BYTES = 96 * 1024;
 constexpr int LINE_REG = 4;
 // line restriction: threads per block (more warps to hide the steps' latency)
 constexpr int LINE_THREADS = 512;
+constexpr int MAX_DEVICES = 64;  // devices a process may launch on (per-device opt-ins)
 constexpr int LINE_MAX_T = 32;  // line restriction: the most variables of one tile
 
 struct GlOps {
@@ -423,12 +424,16 @@ template <class F, int R>
 int line_tile_launch(F f, const void* in, int d, int t, const void* u, const void* v, int v_is_c, void* out,
                      unsigned blocks, int smem_bytes, int tail_t, void* tail_out, void* counter, cudaStream_t s) {
   using W = typename F::word;
-  static bool attr = false;  // opt in above 48 KB once per instantiation
-  if (!attr) {
+  static bool attr[MAX_DEVICES] = {};  // opt in above 48 KB once per instantiation and device
+  int dev = 0;
+  const cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return (int)de;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!attr[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(line_tile_kernel<F, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                LINE_SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    attr = true;
+    attr[dev] = true;
   }
   line_tile_kernel<F, R><<<blocks, LINE_THREADS, smem_bytes, s>>>(
       f, static_cast<const W*>(in), d, t, static_cast<const W*>(u), static_cast<const W*>(v), v_is_c,

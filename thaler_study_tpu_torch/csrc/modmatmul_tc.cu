@@ -56,6 +56,14 @@
 // in registers and write one partial per block: C never reaches device
 // memory. The partials are row-major over tiles of TILE_A x 64 outputs.
 //
+// Batches. Every entry point takes `batch` independent products of one
+// shape (the sharded triangle IP's per-shard contractions, f3_s f2_s^T with
+// the replicated f1 as D): the digit planes of batch b are rows b R ..
+// b R + R - 1 of [D][batch R][Kp], grid y is the batch, and batch b writes
+// C at b M N and its partials at b (tiles of one product). D is shared by
+// every batch. A ragged tile reads the next batch's first rows (TMA
+// zero-fills past the last), whose outputs it discards.
+//
 // What bounds it on the H100: tensor-core operations, D^2 digit products
 // of 8 bits per field product at 989.5 T multiply-adds per second (int8,
 // dense). The blocks run in groups of GROUP B tiles down every A tile, so
@@ -74,6 +82,7 @@ constexpr int ROWS_B = 64;    // rows of B per block: wgmma's M
 constexpr int WGS = 2;        // consumer warpgroups per block, one B tile between them
 constexpr int THREADS = 128 * WGS;
 constexpr int GROUP = 8;      // B tiles per group of the launch order
+constexpr int MAX_DEVICES = 64;  // devices a process may launch on (per-device opt-ins)
 
 template <int D>
 struct Geometry {
@@ -229,17 +238,22 @@ __device__ __forceinline__ uint64_t shfl_down(uint64_t x, int off) {
 
 // ---- the digit planes --------------------------------------------------------
 
-// out [D][R][kp]: thread e writes bytes 4 (e % (kp / 4)) .. + 3 of row
-// e / (kp / 4) in every plane (words at k >= K give 0)
+// out [D][batch R][kp]: thread e writes bytes 4 (e % (kp / 4)) .. + 3 of
+// row g = e / (kp / 4) in every plane (words at k >= K give 0); row g is
+// row g % R of batch g / R, whose words start at (g / R) R K (VIEW: 2 R K)
 template <class F, bool VIEW>
 __global__ void digits_kernel(F f, const typename F::word* __restrict__ x, typename F::word t,
-                              uint8_t* __restrict__ out, int R, int K, int kp) {
+                              uint8_t* __restrict__ out, int R, int K, int kp, int batch) {
   using W = typename F::word;
   constexpr int D = F::D;
   const int quads = kp / 4;
+  const long long rows = (long long)R * batch;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)R * quads) return;
-  const int row = (int)(e / quads), k0 = (int)(e % quads) * 4;
+  if (e >= rows * quads) return;
+  const long long g = e / quads;
+  const int k0 = (int)(e % quads) * 4;
+  const long long b = g / R, row = g % R;
+  const long long first = (b * (VIEW ? 2 : 1) * R + row) * K;
   const long long hi = (long long)R * K;  // VIEW: the upper half starts R rows on
   uint32_t packed[D];
 #pragma unroll
@@ -248,7 +262,7 @@ __global__ void digits_kernel(F f, const typename F::word* __restrict__ x, typen
   for (int i = 0; i < 4; ++i) {
     const int k = k0 + i;
     if (k < K) {
-      const long long at = (long long)row * K + k;
+      const long long at = first + k;
       const W w = VIEW ? f.fold(x[at], x[at + hi], t) : x[at];
 #pragma unroll
       for (int s = 0; s < D; ++s) packed[s] |= (uint32_t)((w >> (8 * s)) & 0xFF) << (8 * i);
@@ -256,13 +270,14 @@ __global__ void digits_kernel(F f, const typename F::word* __restrict__ x, typen
   }
 #pragma unroll
   for (int s = 0; s < D; ++s)
-    *reinterpret_cast<uint32_t*>(out + ((long long)s * R + row) * kp + k0) = packed[s];
+    *reinterpret_cast<uint32_t*>(out + ((long long)s * rows + g) * kp + k0) = packed[s];
 }
 
 // ---- the product ---------------------------------------------------------------
 
-// grid = na * nb blocks (na A tiles of TILE_A rows, nb B tiles of 64 rows),
-// THREADS threads, Geometry<D>::SMEM bytes of dynamic shared memory.
+// grid = (na * nb, batch) blocks (na A tiles of TILE_A rows, nb B tiles of
+// 64 rows, per batch), THREADS threads, Geometry<D>::SMEM bytes of dynamic
+// shared memory.
 template <class F, bool VIEW, bool DOT>
 __global__ void __launch_bounds__(THREADS, 1)
     tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b, F f,
@@ -283,6 +298,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int gsize = min(nb - first, GROUP);
   const int b_tile = first + in_group % gsize, a_tile = in_group / gsize;
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int batch = blockIdx.y;
   const int row_b0 = b_tile * ROWS_B, row_a0 = a_tile * G::TILE_A + wg * G::ROWS_A;
   const int stages_k = (K + BK - 1) / BK;
 
@@ -295,8 +311,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto load_stage = [&](int s, int kt) {
     const uint32_t bar = bars + 8 * s;
     mbar_expect_tx(bar, G::A_BYTES + G::B_BYTES);
-    tma_load(b_ring + s * G::B_BYTES, &map_b, bar, kt * BK, row_b0);
-    tma_load(a_ring + s * G::A_BYTES, &map_a, bar, kt * BK, a_tile * G::TILE_A);
+    tma_load(b_ring + s * G::B_BYTES, &map_b, bar, kt * BK, batch * N + row_b0);
+    tma_load(a_ring + s * G::A_BYTES, &map_a, bar, kt * BK, batch * M + a_tile * G::TILE_A);
   };
   if (tid == 0)
     for (int s = 0; s < G::STAGES && s < stages_k; ++s) load_stage(s, s);
@@ -365,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (a_row < M && b_row < N) {
       const long long idx = (long long)a_row * N + b_row;
       if (!DOT) {
-        c[idx] = run[q];
+        c[(long long)batch * M * N + idx] = run[q];
       } else {
         const W dv = VIEW ? f.fold(dt[idx], dt[idx + (long long)M * N], t) : dt[idx];
         f.acc_add(dot, dv, run[q]);
@@ -383,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     W total = 0;
 #pragma unroll
     for (int w = 0; w < THREADS / 32; ++w) total = f.add(total, warp_sums[w]);
-    partials[(long long)a_tile * nb + b_tile] = total;
+    partials[((long long)batch * na + a_tile) * nb + b_tile] = total;
   }
 }
 
@@ -422,22 +438,26 @@ int plane_map(CUtensorMap* map, const void* planes, int D, int rows, int kp, int
 
 template <class F, bool VIEW, bool DOT>
 int launch_tc(const F& f, const void* a_planes, const void* b_planes, int kp, void* c, const void* d, uint64_t t,
-              void* partials, int M, int N, int K, cudaStream_t s) {
+              void* partials, int M, int N, int K, int batch, cudaStream_t s) {
   using G = Geometry<F::D>;
   using W = typename F::word;
   CUtensorMap map_a, map_b;
-  int rc = plane_map(&map_a, a_planes, F::D, M, kp, G::TILE_A);
-  if (!rc) rc = plane_map(&map_b, b_planes, F::D, N, kp, ROWS_B);
+  int rc = plane_map(&map_a, a_planes, F::D, batch * M, kp, G::TILE_A);
+  if (!rc) rc = plane_map(&map_b, b_planes, F::D, batch * N, kp, ROWS_B);
   if (rc) return rc;
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[MAX_DEVICES] = {};  // the opt-in above 48 KB is per device
+  int dev = 0;
+  const cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return (int)de;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     const cudaError_t e =
         cudaFuncSetAttribute(tc_kernel<F, VIEW, DOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured[dev] = true;
   }
   const int na = (M + G::TILE_A - 1) / G::TILE_A, nb = (N + ROWS_B - 1) / ROWS_B;
-  tc_kernel<F, VIEW, DOT><<<na * nb, THREADS, G::SMEM, s>>>(
+  tc_kernel<F, VIEW, DOT><<<dim3(na * nb, batch), THREADS, G::SMEM, s>>>(
       map_a, map_b, f, static_cast<W*>(c), static_cast<const W*>(d), (W)t, static_cast<W*>(partials), M, N, K,
       na, nb);
   return 0;
@@ -445,26 +465,29 @@ int launch_tc(const F& f, const void* a_planes, const void* b_planes, int kp, vo
 
 template <class F>
 int launch_mode(const F& f, int mode, const void* a_planes, const void* b_planes, int kp, void* c, const void* d,
-                uint64_t t, void* partials, int M, int N, int K, cudaStream_t s) {
-  if (M < 1 || N < 1 || K < 1 || kp < K || kp % 16) return (int)cudaErrorInvalidValue;
-  if (mode == 0) return launch_tc<F, false, false>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, s);
-  if (mode == 1) return launch_tc<F, false, true>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, s);
-  if (mode == 2) return launch_tc<F, true, true>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, s);
+                uint64_t t, void* partials, int M, int N, int K, int batch, cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 1 || kp < K || kp % 16 || batch < 1 || batch > 65535 ||
+      (long long)batch * M >= (1LL << 31) || (long long)batch * N >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (mode == 0) return launch_tc<F, false, false>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
+  if (mode == 1) return launch_tc<F, false, true>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
+  if (mode == 2) return launch_tc<F, true, true>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <class F>
-int launch_digits(const F& f, const void* x, uint64_t t, int view, void* out, int R, int K, int kp, cudaStream_t s) {
+int launch_digits(const F& f, const void* x, uint64_t t, int view, void* out, int R, int K, int kp, int batch,
+                  cudaStream_t s) {
   using W = typename F::word;
-  if (R < 1 || K < 1 || kp < K || kp % 16) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)R * (kp / 4);
+  if (R < 1 || K < 1 || kp < K || kp % 16 || batch < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)R * batch * (kp / 4);
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   const W* xp = static_cast<const W*>(x);
   uint8_t* op = static_cast<uint8_t*>(out);
-  if (view) digits_kernel<F, true><<<(unsigned)blocks, threads, 0, s>>>(f, xp, (W)t, op, R, K, kp);
-  else digits_kernel<F, false><<<(unsigned)blocks, threads, 0, s>>>(f, xp, (W)t, op, R, K, kp);
+  if (view) digits_kernel<F, true><<<(unsigned)blocks, threads, 0, s>>>(f, xp, (W)t, op, R, K, kp, batch);
+  else digits_kernel<F, false><<<(unsigned)blocks, threads, 0, s>>>(f, xp, (W)t, op, R, K, kp, batch);
   return 0;
 }
 
@@ -480,31 +503,35 @@ M32Tc m32_ops(unsigned p, unsigned pinv) {
 
 }  // namespace
 
-// The digit planes [D][R][kp] (u8; D = 8 Goldilocks, 4 mont32; kp >= K, a
-// multiple of 16) of the words x [R, K], or with view = 1 of the view x_lo
-// + t (x_hi - x_lo) of x [2R, K] (t a word of the field: Montgomery for
-// mont32). Returns cudaGetLastError() after the launch (0 = launched).
+// The digit planes [D][batch R][kp] (u8; D = 8 Goldilocks, 4 mont32; kp >=
+// K, a multiple of 16) of the words x [batch, R, K], or with view = 1 of the
+// views x_lo + t (x_hi - x_lo) of x [batch, 2R, K] (t a word of the field:
+// Montgomery for mont32). Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int ts_mm_tc_digits(int mont32, unsigned p, unsigned pinv, const void* x, unsigned long long t, int view,
-                               void* out, int R, int K, int kp, void* stream) {
+                               void* out, int R, int K, int kp, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = mont32 ? launch_digits(m32_ops(p, pinv), x, t, view, out, R, K, kp, s)
-                        : launch_digits(GlTc{}, x, t, view, out, R, K, kp, s);
+  const int rc = mont32 ? launch_digits(m32_ops(p, pinv), x, t, view, out, R, K, kp, batch, s)
+                        : launch_digits(GlTc{}, x, t, view, out, R, K, kp, batch, s);
   return rc ? rc : (int)cudaGetLastError();
 }
 
-// C = A B^T from the digit planes of A [M, K] and B [N, K] (each [D][rows][kp]).
-// mode 0: c [M, N] written; mode 1: DOT (d [M, N]; partials: one word per
-// tile of TILE_A x 64 outputs, row-major over the (ceil(M / TILE_A),
-// ceil(N / 64)) tiles, TILE_A = 32 Goldilocks, 64 mont32); mode 2: DOT with
-// the view D_t of d [2M, N] (A's planes already of A_t). Unused pointers are
-// null. Returns 10001 where libcuda's cuTensorMapEncodeTiled cannot be
-// found, 10002 where it refuses a map, else cudaGetLastError() after the
-// launch (0 = launched); the wrapper checks every argument first.
+// C_b = A_b B_b^T for b < batch from the digit planes of A [batch, M, K] and
+// B [batch, N, K] (each [D][batch rows][kp]). mode 0: c [batch, M, N]
+// written; mode 1: DOT (d [M, N], shared by the batches; partials [batch,
+// tiles]: one word per tile of TILE_A x 64 outputs, row-major over the
+// (ceil(M / TILE_A), ceil(N / 64)) tiles, TILE_A = 32 Goldilocks, 64
+// mont32); mode 2: DOT with the view D_t of d [2M, N] (A's planes already
+// of A_t). Unused pointers are null. Returns 10001 where libcuda's
+// cuTensorMapEncodeTiled cannot be found, 10002 where it refuses a map,
+// else cudaGetLastError() after the launch (0 = launched); the wrapper
+// checks every argument first.
 extern "C" int ts_mm_tc_launch(int mont32, unsigned p, unsigned pinv, int mode, const void* a_planes,
                                const void* b_planes, int kp, void* c, const void* d, unsigned long long t,
-                               void* partials, int M, int N, int K, void* stream) {
+                               void* partials, int M, int N, int K, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = mont32 ? launch_mode(m32_ops(p, pinv), mode, a_planes, b_planes, kp, c, d, t, partials, M, N, K, s)
-                        : launch_mode(GlTc{}, mode, a_planes, b_planes, kp, c, d, t, partials, M, N, K, s);
+  const int rc = mont32 ? launch_mode(m32_ops(p, pinv), mode, a_planes, b_planes, kp, c, d, t, partials, M, N, K,
+                                      batch, s)
+                        : launch_mode(GlTc{}, mode, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
   return rc ? rc : (int)cudaGetLastError();
 }

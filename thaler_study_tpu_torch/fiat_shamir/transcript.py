@@ -156,22 +156,32 @@ def generate_transcript_device(
     :func:`generate_transcript`.
 
     ``poly`` is the SumCheckPolynomial (a ``ProductPoly`` for the device
-    path). Where the device path declines (a (spec, field, dst) it does not
-    cover, or a zero coefficient that makes message lengths
-    value-dependent) the proof runs the per-round loop, as the JAX package
-    does: the same bytes. ``mesh`` (a sharded run, with ``n_shard``) is not
-    ported (ROADMAP A7); without it ``n_shard`` is ignored, as there.
+    path). With ``mesh`` (a ``parallel.Mesh``) the same proof runs sharded
+    across the mesh (``ops/fs_kernel.fs_prove_device_sharded``: the
+    trailing ``n_shard`` variables of the last block on the mesh, one
+    reduction of the round sums per round). Where the device path declines
+    (a (spec, field, dst) it does not cover, or a zero coefficient that
+    makes message lengths value-dependent) the proof runs the per-round
+    loop, as the JAX package does, over a ``parallel.ShardedBlockPoly``
+    when a mesh is given: the same bytes. Without ``mesh``, ``n_shard`` is
+    ignored, as there.
     """
-    from ..ops.fs_kernel import fs_prove_device
+    from ..ops.fs_kernel import fs_prove_device, fs_prove_device_sharded
 
-    if mesh is not None:
-        raise NotImplementedError("generate_transcript_device(mesh=) is not ported yet (ROADMAP A7)")
     spec = getattr(poly, "spec", None)
     tables = getattr(poly, "tables", None)
     if spec is not None and tables is not None:
-        msgs = fs_prove_device(spec, tables, dst)
+        if mesh is not None:
+            msgs = fs_prove_device_sharded(spec, tables, mesh, n_shard=n_shard, dst=dst)
+        else:
+            msgs = fs_prove_device(spec, tables, dst)
         if msgs is not None:
             return FiatShamirTranscript(msgs)
+        if mesh is not None:
+            # the exact fallback keeps the distributed layout
+            from ..parallel import ShardedBlockPoly
+
+            poly = ShardedBlockPoly.from_internal_tables(spec, tables, mesh, n_shard=n_shard)
     return generate_transcript(SumcheckInteractiveProver(Prover(poly)), field, dst)
 
 

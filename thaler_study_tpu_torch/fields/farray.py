@@ -212,8 +212,12 @@ class FArray:
             return cls(gl.fold(lo.data, hi.data, rd), lo.field)
         return cls(b32.fold(lo.field.p, lo.data, hi.data, rd), lo.field)
 
-    def sum(self, axis: int = 0) -> "FArray":
-        """Exact modular reduction along one axis."""
+    def sum(self, axis: int = 0, force_lanes: bool = False) -> "FArray":
+        """Exact modular reduction along one axis. ``force_lanes`` is
+        taken as the JAX package's call sites pass it (there it makes XLA
+        lower a sharded axis' sum to one all-reduce); here it changes
+        nothing: the value is the same, and the port's sharded sums are
+        ``parallel/sharded.collective``'s."""
         if self.field.backend == "goldilocks":
             return FArray(gl.sum_mod(self.data, axis), self.field)
         return FArray(b32.sum_mod(self.field.p, self.data, axis), self.field)

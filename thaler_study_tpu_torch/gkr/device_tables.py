@@ -132,9 +132,10 @@ def eq_table_dev(r: FArray, n: int) -> FArray:
         return eq_table_plain(r, n)
     _check_cuda("eq_table_dev", dev)
     out = torch.empty(1 << n, dtype=word_dtype(r.field), device=dev)
-    rc = _tables_lib().ts_eq_table_launch(
-        *_field_args(r.field), r.data.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
-    )
+    with torch.cuda.device(dev):
+        rc = _tables_lib().ts_eq_table_launch(
+            *_field_args(r.field), r.data.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
+        )
     if rc != 0:
         raise RuntimeError(f"eq-table kernel launch failed: CUDA error {rc}")
     eq_launches[r.field.backend] += 1
@@ -161,10 +162,11 @@ def eq_table_dot(u: FArray, w_lsb: FArray, n: int) -> Tuple[FArray, FArray]:
     out = torch.empty(1 << n, dtype=dtype, device=dev)
     w_u = torch.empty(1, dtype=dtype, device=dev)
     partials = torch.empty(1 << max(n - EQ_LOW, 0), dtype=dtype, device=dev)
-    rc = _tables_lib().ts_eq_dot_launch(
-        *_field_args(u.field), u.data.data_ptr(), n, out.data_ptr(), w_lsb.data.data_ptr(), partials.data_ptr(),
-        _counter(dev).data_ptr(), w_u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _tables_lib().ts_eq_dot_launch(
+            *_field_args(u.field), u.data.data_ptr(), n, out.data_ptr(), w_lsb.data.data_ptr(), partials.data_ptr(),
+            _counter(dev).data_ptr(), w_u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"eq-with-dot kernel launch failed: CUDA error {rc}")
     eq_dot_launches[u.field.backend] += 1
@@ -268,10 +270,11 @@ def _line_tiles(w_lsb: FArray, k: int, u: torch.Tensor, v: torch.Tensor, v_is_c:
         out = torch.empty(blocks * (d + t + 1), dtype=cur.dtype, device=dev)
         final = torch.empty(d + t + tail + 1, dtype=cur.dtype, device=dev) if tail else None
         words = max(_tile_words(d, t), _tile_words(d + t, tail) if tail else 0)
-        rc = lib.ts_line_tile_launch(
-            *args, cur.data_ptr(), d, t, u.data_ptr(), v.data_ptr(), int(v_is_c), out.data_ptr(), blocks,
-            words * word_bytes, tail, final.data_ptr() if tail else None, _counter(dev).data_ptr(), stream,
-        )
+        with torch.cuda.device(dev):
+            rc = lib.ts_line_tile_launch(
+                *args, cur.data_ptr(), d, t, u.data_ptr(), v.data_ptr(), int(v_is_c), out.data_ptr(), blocks,
+                words * word_bytes, tail, final.data_ptr() if tail else None, _counter(dev).data_ptr(), stream,
+            )
         if rc != 0:
             raise RuntimeError(f"line-restriction kernel launch failed: CUDA error {rc}")
         line_launches[field.backend] += 1
@@ -453,11 +456,12 @@ def phase_tables(phase: int, wiring, eq_r: FArray, table: FArray, k: int) -> Tup
     size = 1 << k
     out1 = torch.empty(size, dtype=word_dtype(field), device=dev)
     out2 = torch.empty_like(out1)
-    rc = _kernel()(
-        *_field_args(field), phase, plan.order.data_ptr(), plan.starts.data_ptr(), plan.packed.data_ptr(),
-        eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _kernel()(
+            *_field_args(field), phase, plan.order.data_ptr(), plan.starts.data_ptr(), plan.packed.data_ptr(),
+            eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"phase-table kernel launch failed: CUDA error {rc}")
     launches[field.backend] += 1

@@ -29,7 +29,7 @@ the card and the proof is redone on the per-layer path.
 
 Scope (``supports_fused_gkr``): Goldilocks, the empty DST, every layer with
 k >= 2 variables, one device. Every other input takes the per-layer path,
-on the same device; ``mesh=`` (the multi-device slice, ROADMAP A7) raises.
+on the same device; ``mesh=`` (the sharded fused proof, ROADMAP A7b) raises.
 Not ported: the JAX package's one-program layer scan (``_scan_proof_jit``;
 the layer loop here already has no sync), the ``interp`` line restriction
 and the ``plan`` / ``segment`` scatter modes (A/B switches), and
@@ -214,7 +214,10 @@ def generate_gkr_transcript_fused(
     see :func:`_prove_fused`."""
     global fallbacks
     if mesh is not None:
-        raise NotImplementedError("a sharded fused GKR proof (mesh=) is the multi-device slice of the port (ROADMAP A7)")
+        raise NotImplementedError(
+            "a sharded fused GKR proof (mesh=) is not ported yet (ROADMAP A7b: sharded K2, eq, K1 with its tail "
+            "and the line restriction); the per-layer path takes mesh= (gkr.Prover(..., mesh=))"
+        )
     msgs = _prove_fused(prover, field, timings) if supports_fused_gkr(prover.circuit, field, dst) else None
     if msgs is None:
         fallbacks += 1

@@ -15,8 +15,10 @@ is proven in two phases of k rounds each (the Libra algorithm, Xie et al.
 
 Each round is one launch of the round kernel's LibraW shapes
 (``ops/cuda_round.LIBRA_PHASE1`` / ``LIBRA_PHASE2``). The transcript is
-the same as the dense-W formulation's; the multi-block dense ``W`` and
-``mesh=`` are later slices of the port and raise.
+the same as the dense-W formulation's. With ``mesh=`` each phase's tables
+are sharded over it (``parallel.ShardedProductPoly``: every device's shards
+in one launch of the same shapes, one reduction of the round sums per
+round); the tables are built on ``w_next``'s device first.
 """
 
 from __future__ import annotations
@@ -50,13 +52,11 @@ class LibraW:
         mesh=None,
         n_shard=None,
     ):
-        if mesh is not None or n_shard is not None:
-            raise NotImplementedError(
-                "a sharded GKR layer (mesh=) is the multi-device slice of the port (ROADMAP A7)"
-            )
         if not isinstance(w_next, FArray):
             raise TypeError("w_next must be the layer's values as an FArray (label order)")
         self.field = field
+        self.mesh = mesh
+        self.n_shard = n_shard
         k = circuit.num_vars_at(layer_i + 1)
         k_cur = circuit.num_vars_at(layer_i)
         self.k = k
@@ -67,8 +67,17 @@ class LibraW:
         r_arr = FArray.from_ints([f.v for f in r_i], field, device=w_next.device)
         a1, a2, self._eq_r = phase1_tables(r_arr, w_next, self._wiring, k_cur, k)
         self._w_msb = lsb_to_msb(w_next, k)
-        spec = PolySpec(block_sizes=(k,), table_blocks=((0,), (0,), (0,)), terms=((0, 1), (2,)))
-        self._inner = ProductPoly(spec, (self._w_msb, a1, a2))
+        self._inner = self._poly((self._w_msb, a1, a2), ((0,), (0,), (0,)), ((0, 1), (2,)))
+
+    def _poly(self, tables, table_blocks, terms):
+        """A phase's polynomial over one block of k variables: a
+        ``ProductPoly``, or sharded over the mesh (the 0-block scalar w_u
+        replicated)."""
+        if self.mesh is not None:
+            from ..parallel import ShardedProductPoly
+
+            return ShardedProductPoly.from_internal_tables(tables, self.mesh, n_shard=self.n_shard, terms=terms)
+        return ProductPoly(PolySpec(block_sizes=(self.k,), table_blocks=table_blocks, terms=terms), tables)
 
     def num_vars(self) -> int:
         return 2 * self.k
@@ -80,12 +89,7 @@ class LibraW:
         self.u.append(r_last)
         u_arr = FArray.from_ints([f.v for f in self.u], self.field, device=self._w_lsb.device)
         b1, b2, w_u = phase2_tables(u_arr, self._w_lsb, self._eq_r, self._wiring, self.k)
-        spec = PolySpec(
-            block_sizes=(self.k,),
-            table_blocks=((0,), (0,), (0,), ()),
-            terms=((0, 3), (0, 2), (1, 3, 2)),
-        )
-        self._inner = ProductPoly(spec, (b1, b2, self._w_msb, w_u))
+        self._inner = self._poly((b1, b2, self._w_msb, w_u), ((0,), (0,), (0,), ()), ((0, 3), (0, 2), (1, 3, 2)))
 
     def round_univariate(self, r_prev: Optional[Felt]) -> Tuple[UniPoly, "LibraW"]:
         j = self.j

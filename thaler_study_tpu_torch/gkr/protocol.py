@@ -11,7 +11,7 @@ claim reduction uses the line trick (ref :139-174) with ``line`` and
 
 The dense-W formulation (``use_linear=False``: :class:`round_polynomial.W`,
 a two-block spec on the multi-block round kernel) gives the same
-transcripts; ``mesh=`` (a sharded prover) raises.
+transcripts; ``mesh=`` shards each LibraW layer's tables over a mesh.
 """
 
 from __future__ import annotations
@@ -156,7 +156,10 @@ class Prover:
     and each layer's sumcheck runs over the linear-time LibraW polynomial
     (or, with ``use_linear=False``, the reference's dense W over two blocks
     of 2k variables), whose tables stay there. ``device="cpu"`` runs the
-    plain versions of the kernels. Both give the same transcripts.
+    plain versions of the kernels. Both give the same transcripts. With
+    ``mesh`` (a ``parallel`` mesh) each LibraW layer's tables are sharded
+    over it, ``n_shard`` variables (default log2 of the mesh size), as in
+    the JAX package; the dense W is not sharded, as there.
     """
 
     def __init__(
@@ -169,9 +172,9 @@ class Prover:
         n_shard=None,
         device="cuda",
     ):
-        if mesh is not None or n_shard is not None:
-            raise NotImplementedError("a sharded GKR prover (mesh=) is the multi-device slice of the port (ROADMAP A7)")
         self.circuit = circuit
+        self.mesh = mesh
+        self.n_shard = n_shard
         self.field = field
         self.use_linear = use_linear
         self.device = resolve_device(device)
@@ -205,7 +208,8 @@ class Prover:
         """Spin up the layer-i sumcheck over W (ref :373-436)."""
         num_vars_next = self.circuit.num_vars_at(i + 1)
         if self.use_linear:
-            w = LibraW(self.circuit, i, list(r_i), self.layers_dev[i + 1], self.field)
+            w = LibraW(self.circuit, i, list(r_i), self.layers_dev[i + 1], self.field, mesh=self.mesh,
+                       n_shard=self.n_shard)
             self.w = DenseMLE.from_evals_msb(w._w_msb, num_vars_next)
         else:
             self.w = DenseMLE.from_evals_lsb_farray(self.layers_dev[i + 1], num_vars_next)

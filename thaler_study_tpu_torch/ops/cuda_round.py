@@ -241,9 +241,10 @@ def round_partials(
     ptrs = ctypes.c_void_p * k
     ins = ptrs(*(t.data_ptr() for t in tables))
     outs = ptrs(*(o.data_ptr() for o in out)) if fold else ptrs()
-    rc = _kernel()(*_head(field), k, int(fold), int(skip_t1), ins, outs, r.data_ptr() if fold else None,
-                   partials.data_ptr(), batch, n, blocks, -(-half // blocks),
-                   torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _kernel()(*_head(field), k, int(fold), int(skip_t1), ins, outs, r.data_ptr() if fold else None,
+                       partials.data_ptr(), batch, n, blocks, -(-half // blocks),
+                       torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
     launches[field.backend] += 1
@@ -268,14 +269,15 @@ def _libra_launch(tables, r, skip_t1, out, field, phase, scalars, sums, batch, n
     blocks = libra_blocks(half, vec, wave_blocks(dev, field.backend, phase, fold, skip_t1))
     partials = torch.empty((batch, blocks, 3), dtype=tables[0].dtype, device=dev)
     s_out, claim = sums if sums is not None else (None, None)
-    rc = _kernel("ts_libra_round_launch")(
-        *_head(field), phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables),
-        *([o.data_ptr() for o in out] if fold else [None] * 3), r.data_ptr() if fold else None,
-        scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
-        s_out.data_ptr() if s_out is not None else None, claim.data_ptr() if claim is not None else None,
-        _counter(dev).data_ptr(), batch, n, blocks, -(-half // blocks), int(vec > 1),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _kernel("ts_libra_round_launch")(
+            *_head(field), phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables),
+            *([o.data_ptr() for o in out] if fold else [None] * 3), r.data_ptr() if fold else None,
+            scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
+            s_out.data_ptr() if s_out is not None else None, claim.data_ptr() if claim is not None else None,
+            _counter(dev).data_ptr(), batch, n, blocks, -(-half // blocks), int(vec > 1),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
     libra_launches[field.backend] += 1

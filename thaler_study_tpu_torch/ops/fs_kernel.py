@@ -223,33 +223,34 @@ def fs_tail(
         if not 1 <= d1 - 1 <= MAX_DEGREE:
             raise NotImplementedError(f"the CUDA FS tail takes round degrees 1 to {MAX_DEGREE}, not {d1 - 1}")
         mont32 = field.backend == "mont32"
-        rc = _library().ts_fs_tail_launch(
-            int(mont32),
-            field.p if mont32 else 0,
-            field.mont_pinv_neg if mont32 else 0,
-            field.byte_size,
-            len_in_bytes(field),
-            d1 - 1,
-            partials.data_ptr(),
-            blocks,
-            chain.state.data_ptr(),
-            chain.buf.data_ptr(),
-            claim.data_ptr(),
-            r.data_ptr(),
-            c1.data_ptr(),
-            coeffs.data_ptr(),
-            coeffs.shape[1],
-            coeff_off,
-            msgs.data_ptr(),
-            msgs.shape[1],
-            any_zero.data_ptr(),
-            vinv.data_ptr(),
-            batch,
-            round_idx,
-            chain.nbytes,
-            int(draw),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with torch.cuda.device(dev):
+            rc = _library().ts_fs_tail_launch(
+                int(mont32),
+                field.p if mont32 else 0,
+                field.mont_pinv_neg if mont32 else 0,
+                field.byte_size,
+                len_in_bytes(field),
+                d1 - 1,
+                partials.data_ptr(),
+                blocks,
+                chain.state.data_ptr(),
+                chain.buf.data_ptr(),
+                claim.data_ptr(),
+                r.data_ptr(),
+                c1.data_ptr(),
+                coeffs.data_ptr(),
+                coeffs.shape[1],
+                coeff_off,
+                msgs.data_ptr(),
+                msgs.shape[1],
+                any_zero.data_ptr(),
+                vinv.data_ptr(),
+                batch,
+                round_idx,
+                chain.nbytes,
+                int(draw),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
         if rc != 0:
             raise RuntimeError(f"FS tail kernel launch failed: CUDA error {rc}")
         launches[field.backend] += 1
@@ -266,7 +267,8 @@ def sha_chain(n: int, out: torch.Tensor) -> None:
     into ``out``, a CUDA int32 [8]."""
     if out.device.type != "cuda" or out.dtype != torch.int32 or out.shape != (8,):
         raise ValueError("out must be a CUDA int32 [8] tensor")
-    rc = _library().ts_sha_chain_launch(n, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+    with torch.cuda.device(out.device):
+        rc = _library().ts_sha_chain_launch(n, out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SHA-256 chain kernel launch failed: CUDA error {rc}")
 
@@ -469,3 +471,53 @@ def fs_prove_device(
     host loop or when (spec, field, dst) is not covered."""
     out = fs_prove_device_batch(spec, [t.reshape(1, -1) for t in tables], dst)
     return None if out is None else out[0]
+
+
+def fs_prove_device_sharded(
+    spec: PolySpec,
+    tables: Sequence[FArray],
+    mesh,
+    n_shard: Optional[int] = None,
+    dst: bytes = b"",
+    axis=None,
+) -> Optional[list]:
+    """One whole proof across a mesh (JAX :510): the tables (1-D, internal
+    order, on any device) laid out as ``parallel.ShardedBlockPoly`` lays
+    them (the trailing ``n_shard`` variables of the last block, default
+    log2 of the mesh size, on the mesh), then per round the sharded round
+    sums (``parallel.sharded.device_rounds``: each device's shards in one
+    launch of the round kernel's batch form for a single-block product,
+    else the multi-block kernel per shard and the batched tensor-core
+    contraction; s(1) left out), their reduction
+    (``parallel.sharded.collective``) and one FS tail launch on the first
+    device, which sums the rows, fills s(1) = claim - s(0) and draws the
+    next challenge. When the local variables are exhausted the residual
+    [2^n_shard] tables are gathered and the last rounds run replicated. Every
+    process runs the same rounds and tails, so each derives the same
+    challenges. Returns the serialized round messages, byte-identical to
+    the host loop and :func:`fs_prove_device`, or ``None`` where the JAX
+    package's does: (spec, field, dst) not covered, or a zero serialized
+    coefficient."""
+    from ..parallel.sharded import ShardedBlockPoly, device_rounds
+
+    field = tables[0].field
+    if not supports_fused_fs(spec, field, dst):
+        return None
+    poly = ShardedBlockPoly.from_internal_tables(spec, tables, mesh, n_shard=n_shard, axis=axis)
+    dev = mesh.primary
+    n = spec.num_vars()
+    degrees = spec.round_degrees()
+    vinv = {d: interp_tensor(field, d, dev) for d in sorted(set(degrees))}
+    w = word_dtype(field)
+    chain = DevChain.fresh(1, dev)
+    r, claim, c1 = (torch.zeros(1, dtype=w, device=dev) for _ in range(3))
+    coeffs = torch.zeros((1, sum(d + 1 for d in degrees)), dtype=w, device=dev)
+    lens = [_msg_len(j, d, field.byte_size) for j, d in enumerate(degrees)]
+    msgs = torch.zeros((1, sum(lens)), dtype=torch.uint8, device=dev)
+    any_zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    off = 0
+    for j, rows in enumerate(device_rounds(poly, r, claim)):
+        fs_tail(rows, chain, claim, r, c1, coeffs, msgs, any_zero, vinv[degrees[j]], j, off, j < n - 1, field)
+        off += degrees[j] + 1
+    host = torch.cat([msgs, any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
+    return split_transcripts(host, lens)[0]

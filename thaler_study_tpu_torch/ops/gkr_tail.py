@@ -249,13 +249,14 @@ def libra_round_tail(
     outs = [o.data_ptr() for o in out] if fold else [None] * 3
     layer, k = tail.start if tail.start is not None else (0, 0)
     chain = lt.chain
-    rc = _round_tail_kernel()(
-        phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables), *outs,
-        r.data_ptr() if fold else None, scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
-        n, blocks, -(-half // blocks), int(vec > 1), lt.counter.data_ptr(), chain.state.data_ptr(), chain.buf.data_ptr(),
-        chain.nbytes, lt.msgs.data_ptr() + tail.off, lt.zero.data_ptr(), lt.claim.data_ptr(), lt.chal.data_ptr(),
-        tail.chal_idx, tail.draws, int(tail.start is not None), layer, k, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _round_tail_kernel()(
+            phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables), *outs,
+            r.data_ptr() if fold else None, scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
+            n, blocks, -(-half // blocks), int(vec > 1), lt.counter.data_ptr(), chain.state.data_ptr(), chain.buf.data_ptr(),
+            chain.nbytes, lt.msgs.data_ptr() + tail.off, lt.zero.data_ptr(), lt.claim.data_ptr(), lt.chal.data_ptr(),
+            tail.chal_idx, tail.draws, int(tail.start is not None), layer, k, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _launched(rc, "round kernel with the round tail", tail_launches)
     cuda_round.libra_launches["goldilocks"] += 1
     chain.nbytes += m
@@ -294,11 +295,12 @@ def final_tail(
     if dev.type == "cpu":
         final_tail_plain(partials, claim, q, chal, k, chain, msgs, off, zero, r_next)
     elif dev.type == "cuda":
-        rc = _library().ts_gkr_final_tail_launch(
-            partials.data_ptr(), partials.shape[1], claim.data_ptr(), q.data_ptr(), k, chal.data_ptr(),
-            chain.state.data_ptr(), chain.buf.data_ptr(), chain.nbytes, msgs.data_ptr() + off,
-            zero.data_ptr(), r_next.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with torch.cuda.device(dev):
+            rc = _library().ts_gkr_final_tail_launch(
+                partials.data_ptr(), partials.shape[1], claim.data_ptr(), q.data_ptr(), k, chal.data_ptr(),
+                chain.state.data_ptr(), chain.buf.data_ptr(), chain.nbytes, msgs.data_ptr() + off,
+                zero.data_ptr(), r_next.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            )
         _launched(rc, "final tail", final_launches)
     else:
         raise ValueError(f"final_tail runs on cpu or cuda, not {dev}")

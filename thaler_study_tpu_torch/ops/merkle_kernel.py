@@ -104,16 +104,18 @@ def build_tree(vals: torch.Tensor) -> torch.Tensor:
     lib = _library()
     tree = torch.empty((2 * n - 1, 8), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ts_merkle_leaf_launch(vals.data_ptr(), vals.shape[1], n, tree.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        rc = lib.ts_merkle_leaf_launch(vals.data_ptr(), vals.shape[1], n, tree.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"Merkle leaf kernel launch failed: CUDA error {rc}")
     launches["leaf"] += 1
     off = 0
     for m in level_sizes(n)[1:]:
-        if m <= TOP:  # this level and every one above it in one block
-            rc = lib.ts_merkle_top_launch(tree[off].data_ptr(), m, stream)
-        else:
-            rc = lib.ts_merkle_node_launch(tree[off].data_ptr(), m, tree[off + 2 * m].data_ptr(), stream)
+        with torch.cuda.device(dev):
+            if m <= TOP:  # this level and every one above it in one block
+                rc = lib.ts_merkle_top_launch(tree[off].data_ptr(), m, stream)
+            else:
+                rc = lib.ts_merkle_node_launch(tree[off].data_ptr(), m, tree[off + 2 * m].data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"Merkle node kernel launch failed: CUDA error {rc}")
         launches["node"] += 1

@@ -23,8 +23,12 @@ reach it.
 Each source's note says what bounds it and how. CPU tensors take the plain
 versions; CUDA tensors launch the kernel or raise. The two kernels write
 their partials at their own tiles (:func:`tile`), which callers only sum.
-The batched variants (JAX :235, :267) serve only the sharded triangle IP
-(ROADMAP A7).
+The tensor-core entries also take a batch of S products of one shape
+(JAX ``modmatmul_batched_impl`` :235 and ``_mxu_modmatmul_batched_impl``
+:267, C[s] = A[s] @ B[s]^T; :func:`modmatmul_batched`): the sharded
+triangle IP's X phase (``parallel/sharded.py``) contracts every shard on
+a device in one launch (:func:`contract_partials_many` over [S, M, K]
+operands, grid y = the shard), with f1 shared by the shards.
 """
 
 from __future__ import annotations
@@ -75,9 +79,10 @@ def _tc_kernels():
         lib = _build.load("modmatmul_tc")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         digits, mm = lib.ts_mm_tc_digits, lib.ts_mm_tc_launch
-        digits.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, ptr, ctypes.c_ulonglong, i32, ptr, i32, i32, i32, ptr]
+        digits.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, ptr, ctypes.c_ulonglong, i32, ptr, i32, i32, i32, i32,
+                           ptr]
         mm.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, i32, ptr, ptr, i32, ptr, ptr, ctypes.c_ulonglong, ptr,
-                       i32, i32, i32, ptr]
+                       i32, i32, i32, i32, ptr]
         digits.restype = mm.restype = i32
         _fns["tc"] = (digits, mm)
     return _fns["tc"]
@@ -168,13 +173,17 @@ def contract_partials_many(
     a: torch.Tensor, b: torch.Tensor, d: torch.Tensor, field: FieldConfig, ts: Sequence[Optional[int]]
 ) -> list:
     """:func:`contract_partials` at every t of ``ts`` (all None or all
-    ints): a round's launches, with B's digit planes made once."""
+    ints): a round's launches, with B's digit planes made once. A [S, M or
+    2M, K] and B [S, N, K] are a batch of S contractions with D shared
+    (the sharded triangle IP's shards): partials [S, tiles] per t, one
+    launch for every shard."""
     halves = ts[0] is not None
     if any((t is not None) != halves for t in ts):
         raise ValueError("ts must be all None or all ints")
-    _check(a, b, d, field, halves)
+    _check_tc(a, b, d, field, halves)
     if not _on_card(a, "contract_partials"):
-        return [contract_partials_plain(a, b, d, field, t, tile(field, True)) for t in ts]
+        return [_per_batch(lambda x, y: contract_partials_plain(x, y, d, field, t, tile(field, True)), a, b)
+                for t in ts]
     b_planes = digit_planes(b, field)
     return [contract_partials_tc(a, b, d, field, t, b_planes) for t in ts]
 
@@ -183,11 +192,12 @@ def contract_partials_many(
 
 
 def _launch_cc(field, mode, a, b, c, d, t, partials, m, n, k):
-    rc = _kernel()(
-        *_field_args(field), mode,
-        a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(), None if d is None else d.data_ptr(),
-        t, None if partials is None else partials.data_ptr(), m, n, k, _stream(a),
-    )
+    with torch.cuda.device(a.device):
+        rc = _kernel()(
+            *_field_args(field), mode,
+            a.data_ptr(), b.data_ptr(), None if c is None else c.data_ptr(), None if d is None else d.data_ptr(),
+            t, None if partials is None else partials.data_ptr(), m, n, k, _stream(a),
+        )
     if rc != 0:
         raise RuntimeError(f"modmatmul kernel launch failed: CUDA error {rc}")
     launches[field.backend] += 1
@@ -228,53 +238,92 @@ def padded_k(k: int) -> int:
     return -(-k // 16) * 16
 
 
+def _check_tc(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], field: FieldConfig, halves: bool):
+    """(S, M, N, K) of the tensor-core entries' operands: A [M, K] and B
+    [N, K] (S = 1), or a batch of S products of one shape, A [S, M, K] and
+    B [S, N, K] (A [S, 2M, K] with ``halves``); D [M, N] ([2M, N]) is
+    shared by the batches."""
+    if a.dim() != b.dim() or a.dim() not in (2, 3) or (a.dim() == 3 and a.shape[0] != b.shape[0]):
+        raise ValueError(f"a and b must be [M, K] and [N, K] or [S, M, K] and [S, N, K], got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    batch = a.shape[0] if a.dim() == 3 else 1
+    if a.dim() == 3 and (not a.is_contiguous() or not b.is_contiguous() or not 1 <= batch <= 65535):
+        raise ValueError(f"a batch of 1 to 65535 contiguous products, got {batch}")
+    m, n, k = _check(a[0] if a.dim() == 3 else a, b[0] if b.dim() == 3 else b, d, field, halves)
+    if batch * max(m, n) >= 1 << 31:
+        raise ValueError("S M and S N must lie below 2^31")
+    return batch, m, n, k
+
+
+def _per_batch(fn, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fn(A, B) for 2-D operands; fn(A[s], B[s]) stacked for a batch."""
+    if a.dim() == 2:
+        return fn(a, b)
+    return torch.stack([fn(a[s], b[s]) for s in range(a.shape[0])])
+
+
 def digit_planes(x: torch.Tensor, field: FieldConfig, t: Optional[int] = None) -> torch.Tensor:
-    """The u8 digit planes [D, R, Kp] of the words x [R, K] (D bytes per
-    word, little end first, the pad zero), or with ``t`` of the view
-    x_lo + t (x_hi - x_lo) of x [2R, K]: the tensor-core kernel's operands,
-    from its pre-pass (CPU tensors: :func:`digit_planes_plain`)."""
+    """The u8 digit planes [D, S R, Kp] of the words x [R, K] (S = 1) or x
+    [S, R, K] (batch s in rows s R .. s R + R - 1; D bytes per word, little
+    end first, the pad zero), or with ``t`` of the views x_lo + t (x_hi -
+    x_lo) of x [2R, K] ([S, 2R, K]): the tensor-core kernel's operands, from
+    one launch of its pre-pass (CPU tensors: :func:`digit_planes_plain`)."""
     dtype = word_dtype(field)
-    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous() or (t is not None and x.shape[0] % 2):
-        raise ValueError(f"x must be a contiguous 2-D {dtype} tensor (two halves of rows with t)")
+    if x.dtype != dtype or x.dim() not in (2, 3) or not x.is_contiguous() or (t is not None and x.shape[-2] % 2):
+        raise ValueError(f"x must be a contiguous 2-D or 3-D {dtype} tensor (two halves of rows with t)")
+    xs = x.reshape(-1, x.shape[-2], x.shape[-1])
     if not _on_card(x, "digit_planes"):
-        return digit_planes_plain(x, field, t)
-    rows = x.shape[0] // 2 if t is not None else x.shape[0]
-    k = x.shape[1]
-    if min(rows, k) < 1 or max(rows, k) >= 1 << 31:
-        raise ValueError("R and K must lie in [1, 2^31)")
+        return torch.cat([digit_planes_plain(xb, field, t) for xb in xs], dim=1)
+    batch, k = xs.shape[0], xs.shape[2]
+    rows = xs.shape[1] // 2 if t is not None else xs.shape[1]
+    if min(rows, k, batch) < 1 or max(batch * rows, k) >= 1 << 31:
+        raise ValueError("S R and K must lie in [1, 2^31)")
     kp = padded_k(k)
-    out = torch.empty((DIGITS[field.backend], rows, kp), dtype=torch.uint8, device=x.device)
+    out = torch.empty((DIGITS[field.backend], batch * rows, kp), dtype=torch.uint8, device=x.device)
     digits, _ = _tc_kernels()
-    rc = digits(*_field_args(field), x.data_ptr(), 0 if t is None else _t_word(field, t), int(t is not None),
-                out.data_ptr(), rows, k, kp, _stream(x))
+    with torch.cuda.device(x.device):
+        rc = digits(*_field_args(field), x.data_ptr(), 0 if t is None else _t_word(field, t), int(t is not None),
+                    out.data_ptr(), rows, k, kp, batch, _stream(x))
     if rc != 0:
         raise RuntimeError(f"digit-plane kernel launch failed: CUDA error {rc}")
     digit_launches[field.backend] += 1
     return out
 
 
-def _launch_tc(field, mode, a_planes, b_planes, c, d, t, partials, m, n, k):
-    if a_planes.shape[1:] != (m, padded_k(k)) or b_planes.shape[1:] != (n, padded_k(k)):
+def _launch_tc(field, mode, a_planes, b_planes, c, d, t, partials, batch, m, n, k):
+    if a_planes.shape[1:] != (batch * m, padded_k(k)) or b_planes.shape[1:] != (batch * n, padded_k(k)):
         raise ValueError("digit planes of the wrong shape")
     _, mm = _tc_kernels()
-    rc = mm(*_field_args(field), mode, a_planes.data_ptr(), b_planes.data_ptr(), padded_k(k),
-            None if c is None else c.data_ptr(), None if d is None else d.data_ptr(), t,
-            None if partials is None else partials.data_ptr(), m, n, k, _stream(a_planes))
+    with torch.cuda.device(a_planes.device):
+        rc = mm(*_field_args(field), mode, a_planes.data_ptr(), b_planes.data_ptr(), padded_k(k),
+                None if c is None else c.data_ptr(), None if d is None else d.data_ptr(), t,
+                None if partials is None else partials.data_ptr(), m, n, k, batch, _stream(a_planes))
     if rc != 0:
         raise RuntimeError(f"tensor-core modmatmul kernel launch failed: error {rc}")
     tc_launches[field.backend] += 1
 
 
 def modmatmul_tc(a: FArray, b: FArray) -> FArray:
-    """:func:`modmatmul` on the tensor-core kernel at any shape (CPU
-    tensors: :func:`modmatmul_digits_plain`)."""
+    """:func:`modmatmul` on the tensor-core kernel at any shape, also for a
+    batch, C[s] = A[s] @ B[s]^T of A [S, M, K] and B [S, N, K] in one launch
+    (grid y = s) (CPU tensors: :func:`modmatmul_digits_plain`)."""
     field = a.field
-    m, n, k = _check(a.data, b.data, None, field, False)
+    batch, m, n, k = _check_tc(a.data, b.data, None, field, False)
     if not _on_card(a.data, "modmatmul_tc"):
-        return modmatmul_digits_plain(a, b)
-    c = torch.empty((m, n), dtype=word_dtype(field), device=a.device)
-    _launch_tc(field, 0, digit_planes(a.data, field), digit_planes(b.data, field), c, None, 0, None, m, n, k)
+        return FArray(_per_batch(lambda x, y: modmatmul_digits_plain(FArray(x, field), FArray(y, field)).data,
+                                 a.data, b.data), field)
+    c = torch.empty(tuple(a.shape[:-1]) + (n,), dtype=word_dtype(field), device=a.device)
+    _launch_tc(field, 0, digit_planes(a.data, field), digit_planes(b.data, field), c, None, 0, None, batch, m, n, k)
     return FArray(c, field)
+
+
+def modmatmul_batched(a: FArray, b: FArray) -> FArray:
+    """C[s] = A[s] @ B[s]^T mod p for A [S, M, K], B [S, N, K]: the JAX
+    package's ``modmatmul_batched_impl`` and ``_mxu_modmatmul_batched_impl``,
+    on the tensor cores (:func:`modmatmul_tc`)."""
+    if b.field != a.field or a.data.dim() != 3:
+        raise ValueError("a [S, M, K] and b [S, N, K] over one field")
+    return modmatmul_tc(a, b)
 
 
 def contract_partials_tc(
@@ -282,17 +331,21 @@ def contract_partials_tc(
     b_planes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """:func:`contract_partials` on the tensor-core kernel at any shape,
-    one partial per :data:`TC_TILE` tile; ``b_planes`` are B's digit planes
-    where the caller has them (CPU tensors: the plain digit form)."""
+    one partial per :data:`TC_TILE` tile; for a batch (A [S, M or 2M, K],
+    B [S, N, K], D shared) partials [S, tiles] from one launch.
+    ``b_planes`` are B's digit planes where the caller has them (CPU
+    tensors: the plain digit form)."""
     halves = t is not None
-    m, n, k = _check(a, b, d, field, halves)
+    batch, m, n, k = _check_tc(a, b, d, field, halves)
     if not _on_card(a, "contract_partials_tc"):
-        return contract_partials_plain(a, b, d, field, t, tile(field, True), digits=True)
+        return _per_batch(lambda x, y: contract_partials_plain(x, y, d, field, t, tile(field, True), digits=True),
+                          a, b)
     if b_planes is None:
         b_planes = digit_planes(b, field)
-    partials = torch.empty(tile_count(field, True, m, n), dtype=word_dtype(field), device=a.device)
+    partials = torch.empty(tuple(a.shape[:-2]) + (tile_count(field, True, m, n),), dtype=word_dtype(field),
+                           device=a.device)
     _launch_tc(field, 2 if halves else 1, digit_planes(a, field, t), b_planes, None, d,
-               _t_word(field, t) if halves else 0, partials, m, n, k)
+               _t_word(field, t) if halves else 0, partials, batch, m, n, k)
     return partials
 
 

@@ -158,8 +158,7 @@ def round_plan(spec, fold: bool, terms: Sequence[Sequence[int]], degree: int) ->
         raise ValueError("a round needs a variable of block 0 left after the fold")
     if len(post.block_sizes) > MAX_BLOCKS:
         raise NotImplementedError(
-            f"the multi-block round kernel takes up to {MAX_BLOCKS} blocks, not {len(post.block_sizes)} "
-            "(wider specs, like sharded inputs, are ROADMAP A7)"
+            f"the multi-block round kernel takes up to {MAX_BLOCKS} blocks, not {len(post.block_sizes)}"
         )
     k = len(spec.table_blocks)
     if k > MAX_TABLES or len(terms) > MAX_TERMS or not 0 <= degree <= MAX_DEGREE or not terms:
@@ -451,14 +450,18 @@ def round_sums(
     field: FieldConfig,
     skip_t1: bool = False,
     claim: Optional[torch.Tensor] = None,
+    out: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
     """One round of ``plan``: ``tables`` are 1-D tensors of ``field``'s
     words (MSB-first), before the fold where ``r`` (a [1] challenge) is
-    given. Returns (the folded tables, None where the round does not fold
-    one; s(0..degree), a [degree + 1] tensor). With ``skip_t1`` the t = 1
-    products are left out and s(1) is ``claim`` - s(0) (``claim`` a [1]
-    word), or 0 without a claim (the caller fills it). The input tables are
-    never written."""
+    given and the plan folds them (``plan.folded``; a table over block 0
+    that it does not fold is given as the round reads it). Returns (the
+    folded tables, None where the round does not fold one; s(0..degree), a
+    [degree + 1] tensor). With ``skip_t1`` the t = 1 products are left out
+    and s(1) is ``claim`` - s(0) (``claim`` a [1] word), or 0 without a
+    claim (the caller fills it: the sharded rounds sum the shards' s(0)
+    first). ``out``: the folded tables' buffers, None elsewhere (allocated
+    when None). The input tables are never written."""
     fold = r is not None
     dtype = word_dtype(field)
     if len(tables) != len(plan.sizes):
@@ -471,17 +474,20 @@ def round_sums(
         _check_r(r, dtype, dev)
     if claim is not None:
         _check_r(claim, dtype, dev, "claim")
+    out = _check_out(out, [(s,) if fold and f else None for s, f in zip(plan.sizes, plan.folded)], dtype, dev)
     sp = split(plan)
     if max(s[0] for s in shapes) >= _LIMIT or sp.rows >= _LIMIT or sp.inner >= _LIMIT:
         raise ValueError("the multi-block round kernel takes tables, rows and rows' lengths below 2^31 entries")
     if dev.type == "cpu":
-        return round_sums_plain(plan, tables, r, field, skip_t1, claim)
+        folded, sums = round_sums_plain(plan, tables, r, field, skip_t1, claim)
+        return _copy_out(folded, out), sums
     if dev.type != "cuda":
         raise ValueError(f"round_sums runs on cpu or cuda, not {dev}")
     wb = tables[0].element_size()
     lay = layout(plan, wb)
-    out = [torch.empty((s,), dtype=dtype, device=dev) if fold and f else None
-           for s, f in zip(plan.sizes, plan.folded)]
+    if out is None:
+        out = [torch.empty((s,), dtype=dtype, device=dev) if fold and f else None
+               for s, f in zip(plan.sizes, plan.folded)]
     sums = torch.empty((plan.degree + 1,), dtype=dtype, device=dev)
     partials = torch.empty((min(lay.tiles, MAX_GRID) * (plan.degree + 1),), dtype=dtype, device=dev)
     a = _Args.from_buffer_copy(_template(plan, wb))
@@ -493,12 +499,36 @@ def round_sums(
     a.sums, a.partials, a.counter = sums.data_ptr(), partials.data_ptr(), _counter(dev).data_ptr()
     a.skip1 = int(skip_t1)
     a.vec = int(lay.span % 2 == 0 and all(x % (2 * wb) == 0 for x in list(a.in_)[:sp.ni] + list(a.out)[:sp.ni]))
-    rc = _kernel("ts_mb_round_launch")(*_head(field), ctypes.byref(a), lay.words * wb,
-                                       torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _kernel("ts_mb_round_launch")(*_head(field), ctypes.byref(a), lay.words * wb,
+                                           torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multi-block round kernel launch failed: CUDA error {rc}")
     launches[field.backend] += 1
     return out, sums
+
+
+def _check_out(out, shapes, dtype, dev):
+    """``out`` (None, or a buffer where ``shapes`` has a shape and None
+    elsewhere) checked against the outputs' shapes."""
+    if out is None:
+        return None
+    if len(out) != len(shapes) or any((o is None) != (s is None) for o, s in zip(out, shapes)):
+        raise ValueError("out must hold a buffer for each folded table and None elsewhere")
+    for o, shape in zip(out, shapes):
+        if o is not None and (o.dtype != dtype or o.device != dev or tuple(o.shape) != shape or not o.is_contiguous()):
+            raise ValueError(f"out buffers must be contiguous {dtype} tensors of shapes {shapes} on {dev}")
+    return list(out)
+
+
+def _copy_out(folded, out):
+    """The plain versions' folded tables, written into ``out`` where given."""
+    if out is None:
+        return folded
+    for o, f in zip(out, folded):
+        if o is not None:
+            o.copy_(f)
+    return [o if o is not None else f for o, f in zip(out, folded)]
 
 
 def _grid_view(plan: Plan, k: int, table: FArray) -> Tuple[FArray, FArray]:
@@ -557,30 +587,35 @@ def round_sums_plain(
 
 
 def fold_tables(
-    tables: Sequence[torch.Tensor], halves: Sequence[int], r: torch.Tensor, field: FieldConfig
+    tables: Sequence[torch.Tensor], halves: Sequence[int], r: torch.Tensor, field: FieldConfig,
+    out: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> List[torch.Tensor]:
     """Fold table k at ``r`` over its own entries, T'[j] = T[j] + r (T[j +
     h] - T[j]) for j < h = halves[k] (its first variable, the MSB), where
-    halves[k] > 0; the others are returned as they are. The input tables
-    are never written."""
+    halves[k] > 0; the others are returned as they are. ``out``: buffers
+    [h] for the folded tables, None elsewhere (allocated when None). The
+    input tables are never written."""
     dtype = word_dtype(field)
     if len(tables) != len(halves) or len(tables) > MAX_TABLES:
         raise ValueError(f"fold_tables takes up to {MAX_TABLES} tables and one half per table")
     shapes = [(2 * h,) if h else tuple(t.shape) for t, h in zip(tables, halves)]
     dev = _check_tables(tables, shapes, dtype, "fold_tables")
     _check_r(r, dtype, dev)
+    out = _check_out(out, [(h,) if h else None for h in halves], dtype, dev)
     if dev.type == "cpu":
-        return fold_tables_plain(tables, halves, r, field)
+        return _copy_out(fold_tables_plain(tables, halves, r, field), out)
     if dev.type != "cuda":
         raise ValueError(f"fold_tables runs on cpu or cuda, not {dev}")
-    out = [torch.empty((h,), dtype=dtype, device=dev) if h else None for h in halves]
+    if out is None:
+        out = [torch.empty((h,), dtype=dtype, device=dev) if h else None for h in halves]
     if any(halves):
         blocks = max(1, min(-(-max(halves) // THREADS), _FOLD_BLOCKS))
-        rc = _kernel("ts_mb_fold_launch")(
-            *_head(field), len(tables), _ptrs(tables), _ptrs(out),
-            (ctypes.c_longlong * len(halves))(*halves), r.data_ptr(), blocks,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with torch.cuda.device(dev):
+            rc = _kernel("ts_mb_fold_launch")(
+                *_head(field), len(tables), _ptrs(tables), _ptrs(out),
+                (ctypes.c_longlong * len(halves))(*halves), r.data_ptr(), blocks,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
         if rc != 0:
             raise RuntimeError(f"multi-block fold kernel launch failed: CUDA error {rc}")
         fold_launches[field.backend] += 1

@@ -122,7 +122,7 @@ def check_spec(spec: PolySpec, tables: Sequence[FArray]) -> None:
     if len(spec.block_sizes) > multiblock.MAX_BLOCKS:
         raise NotImplementedError(
             f"specs of more than {multiblock.MAX_BLOCKS} variable blocks are not ported "
-            f"(got {len(spec.block_sizes)}; ROADMAP A7)"
+            f"(got {len(spec.block_sizes)}; ROADMAP C7)"
         )
     nb = len(spec.block_sizes)
     ok = (
@@ -167,11 +167,12 @@ def _round_kernel_split(spec: PolySpec):
 CONTRACT_THRESHOLD = 1 << 22
 
 
-def _contraction(spec: PolySpec, term, halved: bool):
+def _contraction(spec: PolySpec, term, halved: bool, shards: int = 1):
     """(k1, k2, k3), the term's factors over (X,Y), (Y,Z), (X,Z), when the
     term is the triangle pattern over three blocks and its grid (block 0
-    halved where ``halved``) exceeds CONTRACT_THRESHOLD; else None. With
-    at most three blocks, X is block 0."""
+    halved where ``halved``; times ``shards``, the Z shards of a sharded
+    round) exceeds CONTRACT_THRESHOLD; else None. With at most three
+    blocks, X is block 0."""
     tbs = [spec.table_blocks[k] for k in term]
     if len(term) != 3 or sorted(len(tb) for tb in tbs) != [2, 2, 2]:
         return None
@@ -185,7 +186,7 @@ def _contraction(spec: PolySpec, term, halved: bool):
         return None
     sx, sy, sz = (spec.block_sizes[b] for b in (x, y, z))
     grid = (1 << (sx - 1 if halved else sx)) << (sy + sz)
-    return ks if grid > CONTRACT_THRESHOLD else None
+    return ks if grid * shards > CONTRACT_THRESHOLD else None
 
 
 def _contract(spec: PolySpec, ks, data, field: FieldConfig, ts) -> FArray:

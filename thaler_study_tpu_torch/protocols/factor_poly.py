@@ -123,12 +123,24 @@ class ProductPoly(SumCheckPolynomial):
         return [Felt(int(v), self.field) for v in ints]
 
 
-def from_jax_state(spec, limbs: Sequence[Sequence], field: FieldConfig, cls=None, device="cuda") -> ProductPoly:
+def from_jax_state(spec, limbs: Sequence[Sequence], field: FieldConfig, cls=None, device="cuda", mesh=None,
+                   n_shard=None):
     """The port's polynomial holding a JAX ``ProductPoly``'s state: ``spec``
     (any object with ``block_sizes``, ``table_blocks`` and ``terms``, such
     as the JAX ``PolySpec``) and per table its numpy uint32 limbs (``(lo,
-    hi)`` for Goldilocks, ``(mont,)`` for a mont32 field). ``cls`` is the
-    class to build (``ProductPoly`` by default; ``TriangleG``, ``gkr.W``)."""
+    hi)`` for Goldilocks, ``(mont,)`` for a mont32 field), the JAX 1-D
+    internal-order tables. ``cls`` is the class to build (``ProductPoly``
+    by default; ``TriangleG``, ``gkr.W``). With ``mesh`` the tables (made
+    on ``device``) are sharded over it: ``cls`` a ``parallel``
+    ``ShardedBlockPoly`` (the default) or ``ShardedProductPoly``, with
+    ``n_shard`` as their ``from_internal_tables`` take it."""
     port_spec = PolySpec(tuple(spec.block_sizes), tuple(map(tuple, spec.table_blocks)), tuple(map(tuple, spec.terms)))
     tables = [FArray.from_jax_limbs(*t, field=field, device=device) for t in limbs]
+    if mesh is not None:
+        from ..parallel import ShardedBlockPoly, ShardedProductPoly
+
+        cls = cls or ShardedBlockPoly
+        if issubclass(cls, ShardedProductPoly):
+            return cls.from_internal_tables(tables, mesh, n_shard=n_shard, terms=port_spec.terms)
+        return cls.from_internal_tables(port_spec, tables, mesh, n_shard=n_shard)
     return (cls or ProductPoly)(port_spec, tables)

@@ -13,8 +13,9 @@ has no fields:
 - the PCS Merkle tree is built where its caller's ``device`` says
   (``pcs/merkle.py``: the kernel takes any leaf count), so the reference's
   ``merkle_device_min_leaves`` has nothing to choose;
-- the mesh layout (``mesh_axis``, ``shard_vars``: multi-device is not
-  ported), the A/B switches of kernel formulations (``use_pallas``,
+- the mesh layout (``mesh_axis``, ``shard_vars``): the port's sharded
+  entry points take ``n_shard`` as an argument (default log2 of the mesh
+  size) and shard over every mesh axis, the A/B switches of kernel formulations (``use_pallas``,
   ``pallas_min_vars``, ``gkr_device_tables``, ``gkr_scatter_mode``: the
   port has one kernel per step) and the JAX compile cache
   (``compile_cache_dir``, ``apply_jax_config``) stay in the reference.
