@@ -65,7 +65,12 @@ The paths, each driven through the entry points a user calls:
   ``ShardedBlockPoly`` and through ``generate_transcript_device(mesh=)``;
   the per-layer GKR prover with ``mesh=`` on the flagship circuit (both
   fields) and ``api.run_gkr(mesh=, n_shard=)``; a one-rank NCCL process
-  group (a ``FileStore``) behind ``make_mesh_2d(dcn_size=1)``.
+  group (a ``FileStore``) behind ``make_mesh_2d(dcn_size=1)``;
+- slice 14, the sharded fused GKR prover
+  (``gkr.generate_gkr_transcript_fused(..., mesh=)``) on the flagship
+  circuit, 8 shards of the card (n_shard 3): K2 over each device's shard
+  rows, K1 over the rows, one reduction and the round tail over the
+  reduced rows per sharded round, then the gathered residual rounds.
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -181,6 +186,15 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    x blocks partial rows, each against its plain version and timed from a
    CUDA graph; every sharded path byte-identical to its unsharded run,
    timed in turns with it, with its launches and collectives;
+   slice 14 (``sharded_fused_slice``, on the flagship): the sharded fused
+   proof byte-identical to the unsharded one, accepted, a tampered copy
+   rejected, its launches, reductions, gathers and challenge sends against
+   ``sharded_fused_counts``, its median in turns with the unsharded fused
+   proof, its ``timings`` breakdown, a trace (one device-to-host read after
+   the first eq table, the device idle share, time by kernel); K2 over the
+   8 shard rows on the flagship's layer 0 wiring and the round tail over 8
+   reduced rows (every fill x StartSumCheck / one / two draws) against
+   their plain versions, timed from CUDA graphs beside their bounds;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2378,6 +2392,282 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
     return rows
 
 
+# ---- slice 14: the sharded fused GKR prover (generate_gkr_transcript_fused
+# with mesh=) on the flagship, 8 shards of the card, n_shard 3; K2 over
+# shard rows and the round tail over a sharded round's reduced rows
+
+
+def sharded_fused_counts(circuit, n_shard: int, line_launches) -> dict:
+    """The launches and cross-device moves of one sharded fused proof on one
+    card (``line_launches(k)``: the line restriction's launches at k): per
+    sharded layer (k >= n_shard, L = k - n_shard) 2 K2 launches over shard
+    rows, 2L round tails over rows, 2 n_shard - 1 launches of K1 with the
+    tail (the replicated rounds but the final one), 2k of K1 in all, 2L
+    reductions, 6 gathers of 2 x 2^n_shard words (2^n_shard when L = 0),
+    2 + 2 max(L - 1, 0) sends; a replicated layer runs the unsharded
+    fused layer's launches."""
+    want = {"phase_tables_rows": 0, "gkr_round_tail": 0, "libra_round_tail": 0, "libra_round": 0,
+            "phase_tables": 0, "eq_table": 0, "eq_table_dot": 0, "line_restrict": 0, "gkr_final_tail": 0}
+    coll = {"reduce": 0, "reduce_words": 0, "gather": 0, "gather_words": 0}
+    sends = {"send": 0, "send_words": 0}
+    for i in range(len(circuit.layers)):
+        k = circuit.num_vars_at(i + 1)
+        want["libra_round"] += 2 * k
+        want["eq_table"] += 1
+        want["eq_table_dot"] += 1
+        want["line_restrict"] += line_launches(k)
+        want["gkr_final_tail"] += 1
+        if k >= n_shard:
+            local = k - n_shard
+            want["phase_tables_rows"] += 2
+            want["gkr_round_tail"] += 2 * local
+            want["libra_round_tail"] += 2 * (k - local) - 1
+            coll["reduce"] += 2 * local
+            coll["gather"] += 6
+            coll["gather_words"] += 6 * (2 if local else 1) << n_shard
+            sends["send"] += 2 + 2 * max(local - 1, 0)
+        else:
+            want["phase_tables"] += 2
+            want["libra_round_tail"] += 2 * k - 1
+    return {"launches": want, "collectives": coll, "sends": sends}
+
+
+def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_ms, reset_counts, read_counts,
+                        compress_ms, tag, reps=5) -> list:
+    """Slice 14 on the flagship (phases 2-4; its rows of the ``kernels``
+    line returned): ``gkr.generate_gkr_transcript_fused(mesh=)`` on 8
+    shards of ``dev`` byte-identical to ``want_bytes`` (the unsharded
+    proof), accepted, rejected when tampered, its launches and
+    cross-device moves against :func:`sharded_fused_counts`; the median of
+    ``reps`` proofs in turns with the unsharded fused proof; a traced proof
+    (no device-to-host read after the first eq table but the proof's one
+    read); K2 over the flagship's 8 shard rows (layer 0's wiring) and the
+    round tail over 8 reduced rows against their plain versions, timed from
+    CUDA graphs beside their bounds. ``time_ms(fn, reps)``: ms per call."""
+    import numpy as np
+    import torch
+
+    from thaler_study_tpu_torch import gkr
+    from thaler_study_tpu_torch.fiat_shamir import SerializationError
+    from thaler_study_tpu_torch.fields import GOLDILOCKS as F
+    from thaler_study_tpu_torch.fields import FArray
+    from thaler_study_tpu_torch.gkr import device_tables
+    from thaler_study_tpu_torch.gkr import fused as gkr_fused
+    from thaler_study_tpu_torch.sumcheck import SumCheckError
+    from thaler_study_tpu_torch.ops import gkr_tail
+    from thaler_study_tpu_torch.parallel import sharded
+
+    mesh = _shard_mesh(dev)
+    depth = len(circuit.layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+
+    def reset_moves():
+        _collectives(reset=True)
+        for key in sharded.sends:
+            sharded.sends[key] = 0
+
+    def fused_proof(m=None):
+        return gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F, mesh=m)
+
+    def line_launches(k):
+        return len(device_tables.line_launches_of(device_tables.line_plan(k, 8)))
+
+    # ---- phase 3: the path ----
+    sync()
+    reset_counts()
+    reset_moves()
+    f0 = gkr_fused.fallbacks
+    t0 = time.perf_counter()
+    t = fused_proof(mesh)
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = {name: sum(v.values()) for name, v in read_counts().items()}
+    moves = {"collectives": _collectives(), "sends": dict(sharded.sends)}
+    want = sharded_fused_counts(circuit, SHARD_VARS, line_launches)
+    got = {name: counts.get(name, 0) for name in want["launches"]}
+    if gkr_fused.fallbacks != f0 or t.to_bytes() != want_bytes:
+        raise AssertionError(f"sharded fused GKR: fallbacks {gkr_fused.fallbacks - f0}; bytes equal "
+                             f"{t.to_bytes() == want_bytes}")
+    if got != want["launches"] or sum(counts.values()) != sum(got.values()) or moves != {
+            "collectives": want["collectives"], "sends": want["sends"]}:
+        raise AssertionError(f"sharded fused GKR: launches {counts}, moves {moves}; predicted {want}")
+    t0 = time.perf_counter()
+    if not gkr.verify_gkr_transcript(t, gkr.Verifier(circuit, F), inputs, F):
+        raise AssertionError("sharded fused GKR: the verifier rejected the transcript")
+    verify_s = time.perf_counter() - t0
+    bad = list(t.g)
+    flip = len(bad) // 2
+    bad[flip] = bad[flip][:-1] + bytes([bad[flip][-1] ^ 1])
+    try:
+        accepted = gkr.verify_gkr_transcript(gkr.GKRTranscript(bad), gkr.Verifier(circuit, F), inputs, F)
+    except (gkr.GKRError, SumCheckError, SerializationError, ValueError):  # a rejection can raise
+        accepted = False
+    if accepted:
+        raise AssertionError("sharded fused GKR: a tampered transcript was accepted")
+    log(f"sharded fused GKR flagship ({depth} x 2^{circuit.num_vars_at(1)}, mesh of {SHARD_COUNT} shards on {dev}, "
+        f"n_shard {SHARD_VARS}): generate_gkr_transcript_fused(mesh=) byte-identical to the unsharded proof "
+        f"({len(t.g)} messages), no fallback; verify_gkr_transcript accepted in {verify_s:.3f} s, rejected with one "
+        f"byte flipped in message {flip}; launches per proof {got} (as predicted); collectives "
+        f"{moves['collectives']}, sends {moves['sends']} (as predicted: one reduction per sharded round); first "
+        f"run {first_s:.3f} s {tag}")
+
+    # ---- phase 4: the proof in turns with the unsharded fused proof ----
+    times = in_turns({"unsharded": fused_proof, "sharded": lambda: fused_proof(mesh)}, max(3, reps), sync)
+    log(f"sharded fused GKR flagship: median of {max(3, reps)} in turns {times['sharded'][0] / 1e3:.4f} s (runs "
+        f"{[round(x / 1e3, 4) for x in times['sharded'][1]]}) beside the unsharded fused "
+        f"{times['unsharded'][0] / 1e3:.4f} s ({[round(x / 1e3, 4) for x in times['unsharded'][1]]}); host clock "
+        f"around Prover (the forward pass) and the proof, ending in its host read {tag}")
+    timings = []
+    gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F, timings=timings, mesh=mesh)
+    parts = {name: sum(sec for n_, _, sec in timings if n_ == name)
+             for name in ("prelude", "phase1", "phase2", "pull", "assemble")}
+    log("sharded fused GKR flagship breakdown (a sync after every step, s): "
+        + ", ".join(f"{name} {sec:.4f}" for name, sec in parts.items()) + f" {tag}")
+
+    # a traced proof: device records by kernel, idle share, the copies
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        prover = gkr.Prover(circuit, inputs, F)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gkr.generate_gkr_transcript_fused(prover, F, mesh=mesh)
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        spans, busy_us = device_spans(prof)
+        by_kernel = {}
+        for s0, s1, name in spans:
+            label = next((k_ for k_ in FUSED_KERNELS + ("gkr_round_tail_kernel",) if k_ in name), "other")
+            if label == "libra_round_kernel" and template_flag(name, label):
+                label += " TAIL"
+            ms_, n_ = by_kernel.get(label, (0.0, 0))
+            by_kernel[label] = (ms_ + (s1 - s0) / 1e3, n_ + 1)
+        layer_start = min((s0 for s0, _, name in spans if "eq_table_kernel" in name), default=None)
+        reads = [name for s0, _, name in spans if "Memcpy DtoH" in name and layer_start is not None and s0 > layer_start]
+        if not spans or layer_start is None:
+            reads_note = "device-to-host copies: not measured (no device records)"
+        elif len(reads) != 1:
+            raise AssertionError(f"sharded fused GKR: {len(reads)} device-to-host reads after the first eq table")
+        else:
+            reads_note = "one device-to-host read after the first eq table (the proof's pull), none inside the layers"
+        idle = f"{1 - busy_us / 1e3 / traced_ms:.1%}" if spans else "not measured"
+        log(f"sharded fused GKR flagship, traced proof: {traced_ms:.3f} ms wall (profiler on), device busy "
+            f"{busy_us / 1e3:.3f} ms, idle share {idle}; {reads_note}; "
+            f"{split_line(by_kernel, aten_split(prof))} {tag}")
+    else:
+        log("sharded fused GKR flagship trace: not measured (no card)")
+
+    # ---- phase 2 / 4: the two kernels at the flagship's shapes ----
+    rows_out = []
+    k = circuit.num_vars_at(1)
+    g = len(circuit.layers[0])
+    wiring = circuit.device_wiring(0, dev)
+    N, S = 1 << k, SHARD_COUNT
+
+    def words(n):
+        lo = torch.randint(0, 1 << 32, (n,), generator=gen, device=dev, dtype=torch.int64)
+        hi = torch.randint(0, (1 << 32) - 1, (n,), generator=gen, device=dev, dtype=torch.int64)
+        return (hi << 32) | lo
+
+    eq_r, table = FArray(words(g), F), FArray(words(N), F)
+    err = 0
+    for phase, key_t, gidx in ((1, wiring.b, wiring.c), (2, wiring.c, wiring.b)):
+        for row0, rows in ((0, S), (3, 1), (6, 2)):
+            got_t = device_tables.phase_tables_rows(phase, wiring, eq_r, table, k, SHARD_VARS, row0, rows)
+            want_t = device_tables.phase_tables_rows_plain(phase, key_t, gidx, wiring.is_mul, eq_r, table, k,
+                                                           SHARD_VARS, row0, rows)
+            e = max(word_err(a.data, b.data) for a, b in zip(got_t, want_t))
+            if e:
+                raise AssertionError(f"K2 over shard rows != plain: phase {phase}, rows {row0}..{row0 + rows - 1}")
+            err = max(err, e)
+    k2_ms = graph_ms(lambda: device_tables.phase_tables_rows(1, wiring, eq_r, table, k, SHARD_VARS, 0, S))
+    k2_plain = time_ms(lambda: device_tables.phase_tables_rows_plain(1, wiring.b, wiring.c, wiring.is_mul, eq_r, table,
+                                                                     k, SHARD_VARS, 0, S), 3)
+    k2_whole = graph_ms(lambda: device_tables.phase_tables(1, wiring, eq_r, table, k))
+    # the plan (order, packed) and eq_r per gate, starts and the gathered
+    # table per cell read once; two tables written
+    k2_bytes = g * (4 + 4 + 8) + (N + 1) * 4 + N * 8 + 2 * N * 8
+    k2_bound = k2_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"K2 over shard rows == plain (exact) on the flagship's layer 0 wiring ({g} gates, 2^{k} cells, n_shard "
+        f"{SHARD_VARS}), both phases, rows 0-7, 3 and 6-7; all {S} rows in one launch {k2_ms:.4f} ms from a CUDA "
+        f"graph (the unsharded K2 at the same shape {k2_whole:.4f} ms), bytes bound {k2_bound:.4f} ms "
+        f"({k2_bytes / 1e6:.1f} MB at 3.35 TB/s): {k2_bound / k2_ms:.1%}; plain {k2_plain:.3f} ms {tag}")
+    rows_out.append({"name": "phase_tables_rows_goldilocks", "route": "cuda",
+                     "source": "thaler_study_tpu_torch/csrc/phase_tables.cu",
+                     "replaces": "thaler_study_tpu/gkr/device_tables.py:192", "launches": got["phase_tables_rows"],
+                     "max_abs_err": err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": "bytes",
+                     "library_ms": None})
+    del eq_r, table
+
+    # the round tail over the 8 reduced rows a one-card mesh leaves, every
+    # fill x (StartSumCheck, one draw, two draws)
+    trng = np.random.default_rng(14)
+    err = 0
+
+    def tail_state(prefix, claim, k_):
+        chain = gkr_tail.prefix_chain(prefix, dev)
+        return gkr_tail.LayerTail(chain, torch.zeros(128, dtype=torch.uint8, device=dev),
+                                  torch.zeros(1, dtype=torch.int32, device=dev), claim.clone(),
+                                  torch.zeros(2 * k_, dtype=torch.int64, device=dev),
+                                  torch.zeros(1, dtype=torch.int32, device=dev))
+
+    for fill in range(64):
+        for kind in ("start", "one", "two"):
+            k_ = 2 + fill % 19
+            prefix = trng.integers(0, 256, 64 * (2 + fill % 5) + fill, dtype=np.uint8).tobytes()
+            claim = words(1)
+            red = words(3 * S).reshape(1, S, 3)
+            if fill == 3 and kind == "one":
+                red.zero_()
+                claim.zero_()
+            draws = 2 if kind == "two" else 1
+            idx = 2 * k_ - 3 if draws == 2 else fill % k_
+            start = (fill, k_) if kind == "start" else None
+            a, b = tail_state(prefix, claim, k_), tail_state(prefix, claim, k_)
+            gkr_tail.round_tail(red, gkr_tail.RoundTail(a, 7, idx, draws, start))
+            gkr_tail.round_tail_plain(red, b.chain, b.msgs, 7, b.zero, b.claim, b.chal, idx, draws, start)
+            sync()
+            pairs = [(a.chain.state, b.chain.state), (a.chain.buf, b.chain.buf), (a.msgs, b.msgs), (a.zero, b.zero),
+                     (a.claim, b.claim), (a.chal, b.chal)]
+            e = max(word_err(x.to(torch.int64), y.to(torch.int64)) for x, y in pairs)
+            if e or (fill == 3 and kind == "one" and int(a.zero[0]) != 1):
+                raise AssertionError(f"round tail over rows != plain: fill {fill}, {kind}")
+            err = max(err, e)
+    nbytes = 64 * 131072 + 40
+    red = words(3 * S).reshape(1, S, 3)
+    lt = tail_state(bytes(64 * 131072 + 40), words(1), k)
+
+    def tail_launch(fn):
+        lt.chain.nbytes = nbytes
+        if fn is gkr_tail.round_tail:
+            fn(red, gkr_tail.RoundTail(lt, 7, 5, 1))
+        else:
+            fn(red, lt.chain, lt.msgs, 7, lt.zero, lt.claim, lt.chal, 5, 1)
+
+    tail_ms = graph_ms(lambda: tail_launch(gkr_tail.round_tail))
+    tail_plain = time_ms(lambda: tail_launch(gkr_tail.round_tail_plain), 3)
+    m_ = gkr_tail.ROUND_LEN
+    floor = compressions(nbytes, m_, True) * compress_ms
+    # the rows, the chain's state and block and the zero flag read and
+    # written, the message written, the claim read and written, r written
+    t_bytes = S * 3 * 8 + 2 * (32 + 64 + 4) + m_ + 3 * 8
+    log(f"round tail over {S} reduced rows == plain (exact) in 192 cases (every fill x StartSumCheck / one / two "
+        f"draws; one flagged zero): {tail_ms * 1e3:.2f} us per launch from a CUDA graph at fill 40, latency floor "
+        f"{floor * 1e3:.2f} us ({compressions(nbytes, m_, True)} compressions), bytes bound "
+        f"{t_bytes / PEAK_BYTES_PER_S * 1e3:.7f} ms; plain (Python ints) {tail_plain:.3f} ms {tag}")
+    rows_out.append({"name": "gkr_round_tail_goldilocks", "route": "cuda",
+                     "source": "thaler_study_tpu_torch/csrc/gkr_tail.cu",
+                     "replaces": "thaler_study_tpu/gkr/fused.py:161", "launches": got["gkr_round_tail"],
+                     "max_abs_err": err, "ms": tail_ms, "plain_ms": tail_plain,
+                     "bound_ms": t_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+                     "latency_floor_ms": floor})
+    for row in rows_out:
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} was not launched on the sharded fused path")
+    return rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42, help="numpy seed of the tables")
@@ -2877,6 +3167,7 @@ def main(argv=None) -> int:
                 "eq_table": device_tables.eq_launches, "eq_table_dot": device_tables.eq_dot_launches,
                 "line_restrict": device_tables.line_launches,
                 "libra_round_tail": gkr_tail.tail_launches, "gkr_final_tail": gkr_tail.final_launches,
+                "phase_tables_rows": device_tables.rows_launches, "gkr_round_tail": gkr_tail.round_launches,
                 "multiblock_round": multiblock.launches, "multiblock_fold": multiblock.fold_launches,
                 "modmatmul": modmatmul.launches, "modmatmul_tc": modmatmul.tc_launches,
                 "modmatmul_digits": modmatmul.digit_launches, "merkle": merkle_kernel.launches}
@@ -3594,6 +3885,7 @@ def main(argv=None) -> int:
         "device_idle_share": fused_idle, "traced_ms": traced_ms, "device_records": len(spans),
         "device_busy_ms": busy_us / 1e3, "launches": fused_launches, "card": card,
     }))
+    fused_bytes = fused_t.to_bytes()
     del transcript, timed_t, bad, fused_t, again
 
     # K1 and K2 at the flagship's shapes: a 2^20-entry phase round with a
@@ -3804,7 +4096,10 @@ def main(argv=None) -> int:
         f"launch from a CUDA graph, bound {t_bytes / PEAK_BYTES_PER_S * 1e3:.7f} ms ({t_bytes} B), latency floor "
         f"{floor_ms * 1e3:.2f} us ({compressions(64 * 131072 + 40, m, True)} compressions); plain (Python ints) "
         f"{t_plain:.3f} ms {tag}")
-    del wiring, circuit
+    # ---- slice 14: the sharded fused GKR prover on the flagship: phases 2-4
+    slice14_rows = sharded_fused_slice(circuit, inputs, fused_bytes, dev, torch.cuda.synchronize, graph_ms,
+                                       time_launches, reset_counts, read_counts, compress_ms, tag, reps=args.reps)
+    del wiring, circuit, fused_bytes
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3885,7 +4180,7 @@ def main(argv=None) -> int:
         if floor:
             row["latency_floor_ms"] = floor[0]
         kernels.append(row)
-    kernels += slice_rows
+    kernels += slice_rows + slice14_rows
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -22,7 +22,17 @@ Phases (each prints one line; any mismatch raises and the exit code is 1):
 4. ``--procs`` processes, one card each (``torch.cuda.set_device``, then
    ``init_distributed`` over a file store: NCCL for the card's tensors),
    each one DCN row of ``make_mesh_2d``: every process's FS proof bytes
-   equal phase 1's unsharded ones.
+   equal phase 1's unsharded ones, and every process's sharded fused GKR
+   proof (phase 5's circuit) equals the unsharded fused proof on card 0;
+5. the sharded fused GKR prover (``generate_gkr_transcript_fused(mesh=)``,
+   Goldilocks, ``--gkr-depth`` x 2^``--gkr-log``) on ``make_mesh()`` and
+   on the alternating mesh against the unsharded fused proof on card 0:
+   bytes, collectives and challenge sends, the medians of 3 in turns; then
+   one instrumented proof on ``make_mesh()`` that splits its sharded rounds
+   into K1 over each card's rows, the reduction (each other card's row
+   sum, then the copy to card 0), the round tail and the challenge sends,
+   each step timed alone between syncs of every card (so the split adds
+   up to more than a proof: the steps no longer overlap).
 
 ``--cpu K`` rehearses the same phases on K alternating CPU positions
 (``["cpu", "cpu:0"] * (K // 2)``) and processes of one CPU device each
@@ -67,6 +77,72 @@ def fields():
     return (GOLDILOCKS, BABYBEAR)
 
 
+def gkr_field():
+    from thaler_study_tpu_torch.fields import GOLDILOCKS
+
+    return GOLDILOCKS
+
+
+def gkr_case(args):
+    """Phase 3's circuit (``--gkr-depth`` x 2^``--gkr-log``, from the
+    seed) and its Goldilocks inputs."""
+    import numpy as np
+
+    from chip_smoke import gate_circuit
+    from thaler_study_tpu_torch import gkr
+
+    width = 1 << args.gkr_log
+    circuit = gate_circuit(gkr, [width] * (args.gkr_depth + 1), np.random.default_rng(args.seed))
+    inputs = [int(x) for x in np.random.default_rng(args.seed + 7).integers(0, 1 << 63, width, dtype=np.uint64)]
+    return circuit, inputs
+
+
+def split_rounds(gkr, circuit, inputs, mesh, sync) -> dict:
+    """One sharded fused proof with each step of its sharded rounds timed
+    alone (every card synced before and after it, host clock): ms summed
+    over the proof and calls, per step."""
+    from thaler_study_tpu_torch.fields import FArray
+    from thaler_study_tpu_torch.gkr import fused
+
+    spent = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            ms, n = spent.get(name, (0.0, 0))
+            spent[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+            return out
+        return run
+
+    saved = {name: getattr(fused, name) for name in ("libra_round_sums", "collective", "round_tail", "send")}
+    sum_method = FArray.sum
+    fused.libra_round_sums = timed("K1 over a card's rows", saved["libra_round_sums"])
+    fused.round_tail = timed("round tail", saved["round_tail"])
+    fused.send = timed("challenge sends", saved["send"])
+
+    def collective(mesh_, op, parts, field):
+        if op != "sum":
+            return saved["collective"](mesh_, op, parts, field)
+        FArray.sum = timed("reduction: row sum on another card", sum_method)
+        try:
+            return timed("reduction (sums and copies to card 0)", saved["collective"])(mesh_, op, parts, field)
+        finally:
+            FArray.sum = sum_method
+
+    fused.collective = collective
+    try:
+        gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, gkr_field(), device=mesh.primary),
+                                          gkr_field(), mesh=mesh)
+    finally:
+        for name, fn in saved.items():
+            setattr(fused, name, fn)
+        FArray.sum = sum_method
+    return spent
+
+
 def worker(args) -> int:
     """Phase 4's process ``args.rank`` of ``args.world``."""
     import torch
@@ -89,6 +165,19 @@ def worker(args) -> int:
             msgs = fs_kernel.fs_prove_device_sharded(single_block_spec(2, args.n), tables, mesh, n_shard=SHARD_VARS)
             out["proofs"][field.name] = None if msgs is None else digest(msgs)
         out["collectives"] = dict(sharded.collectives)
+        from thaler_study_tpu_torch import gkr
+
+        circuit, inputs = gkr_case(args)
+        prove = lambda: gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, gkr_field(), device=dev),
+                                                          gkr_field(), mesh=mesh)
+        out["gkr"] = digest(prove().g)
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            prove()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["gkr_ms"] = sorted(times)[1]
         with open(args.out, "w") as f:
             json.dump(out, f)
     finally:
@@ -225,11 +314,49 @@ def main(argv=None) -> int:
         print(f"phase 3: per-layer GKR {field.name} {args.gkr_depth} x 2^{args.gkr_log} on {cards}: == the "
               f"unsharded transcript; api.run_gkr(mesh=, n_shard={SHARD_VARS}) accepts", flush=True)
 
+    # phase 5: the sharded fused GKR prover across the cards (run before
+    # phase 4, whose processes check their bytes against it)
+    from thaler_study_tpu_torch.gkr import fused
+
+    circuit, inputs = gkr_case(args)
+    field = gkr_field()
+    dev_kw = {"device": "cpu"} if args.cpu else {}
+    fb = fused.fallbacks
+    ref = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, field, **dev_kw), field)
+    want_gkr = digest(ref.g)
+    for name, mesh in (("make_mesh()", cards), ("alternating", alternating)):
+        reset()
+        for key in sharded.sends:
+            sharded.sends[key] = 0
+        got = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, field, **dev_kw), field, mesh=mesh)
+        sync()
+        if fused.fallbacks != fb or digest(got.g) != want_gkr:
+            raise AssertionError(f"phase 5: sharded fused GKR on {name} {mesh} != the unsharded fused proof "
+                                 f"(fallbacks {fused.fallbacks - fb})")
+        coll, sends = dict(sharded.collectives), dict(sharded.sends)
+        gkr_times = in_turns({
+            "unsharded": lambda: gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, field, **dev_kw), field),
+            "sharded": lambda: gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, field, **dev_kw), field,
+                                                                 mesh=mesh)}, 3, sync)
+        print(f"phase 5: sharded fused GKR {field.name} {args.gkr_depth} x 2^{args.gkr_log} on {name} {mesh} == the "
+              f"unsharded fused proof on {first}; collectives {coll}, sends {sends}; median of 3 in turns sharded "
+              f"{gkr_times['sharded'][0]:.1f} ms, unsharded {gkr_times['unsharded'][0]:.1f} ms", flush=True)
+        report[f"gkr fused {name}"] = {"sharded_ms": gkr_times["sharded"][0],
+                                       "unsharded_ms": gkr_times["unsharded"][0], "collectives": coll, "sends": sends}
+    spent = split_rounds(gkr, circuit, inputs, cards, (lambda: [torch.cuda.synchronize(d) for d in cards.devices.flat])
+                         if not args.cpu else sync)
+    print(f"phase 5: one sharded fused proof on make_mesh() {cards}, each step of its sharded rounds timed alone "
+          f"(every card synced around it): " + "; ".join(f"{name} {ms:.2f} ms over {n} calls ({ms / n * 1e3:.1f} us "
+                                                         f"each)" for name, (ms, n) in spent.items()), flush=True)
+    report["gkr fused split"] = {name: {"ms": ms, "calls": n} for name, (ms, n) in spent.items()}
+    del ref, got
+
     # phase 4: processes, one device each, in one process group
     procs = args.procs
     with tempfile.TemporaryDirectory() as tmp:
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(procs)]
         cmd = [sys.executable, os.path.abspath(__file__), "--n", str(args.n), "--seed", str(args.seed),
+               "--gkr-depth", str(args.gkr_depth), "--gkr-log", str(args.gkr_log),
                "--world", str(procs), "--store", os.path.join(tmp, "store")] + (["--cpu", "1"] if args.cpu else [])
         ps = [subprocess.Popen(cmd + ["--rank", str(r), "--out", outs[r]], cwd=ROOT, stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT) for r in range(procs)]
@@ -246,12 +373,14 @@ def main(argv=None) -> int:
         for r, path in enumerate(outs):
             with open(path) as f:
                 got = json.load(f)
-            if got["proofs"] != want or got["shape"] != [procs, 1]:
-                raise AssertionError(f"phase 4: rank {r}: {got} (want {want})")
+            if got["proofs"] != want or got["shape"] != [procs, 1] or got["gkr"] != want_gkr:
+                raise AssertionError(f"phase 4: rank {r}: {got} (want {want}, GKR {want_gkr})")
         print(f"phase 4: {procs} processes, one {'CPU device' if args.cpu else 'card'} each, one DCN row each "
               f"(mesh {got['shape']}): every process's sharded FS proofs == phase 1's unsharded ones "
-              f"({want}); collectives of rank {procs - 1}: {got['collectives']}", flush=True)
-        report["processes"] = {"procs": procs, "collectives": got["collectives"]}
+              f"({want}); collectives of rank {procs - 1}: {got['collectives']}; every process's sharded fused "
+              f"GKR proof == the unsharded fused one ({want_gkr}), median of 3 {got['gkr_ms']:.1f} ms (rank "
+              f"{procs - 1}) against {gkr_times['unsharded'][0]:.1f} ms unsharded on one card", flush=True)
+        report["processes"] = {"procs": procs, "collectives": got["collectives"], "gkr_ms": got["gkr_ms"]}
     print(json.dumps({"ok": True, "multi_card": report}))
     return 0
 

@@ -10,8 +10,10 @@
   against JAX by ``tests/test_torch_gkr.py``) on a uniform circuit of width
   2^5;
 - routing as the JAX ``supports_fused_gkr`` (F389, k = 1 layers, a
-  non-empty DST), the per-layer transcript for each, ``mesh=`` raising, and
-  a forced zero flag giving the per-layer transcript, each counted in
+  non-empty DST), the per-layer transcript for each, with and without
+  ``mesh=``, a supported circuit proving under ``mesh=`` (the sharded path
+  itself is held against JAX by ``tests/test_torch_gkr_fused_sharded.py``),
+  and a forced zero flag giving the per-layer transcript, each counted in
   ``fallbacks``;
 - ``eq_table_plain``, ``eq_table_dot`` and ``line_restrict_coeffs_plain``
   (and the wrappers, which take them for CPU tensors, the line
@@ -63,6 +65,7 @@ from thaler_study_tpu_torch.fields import F389, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.gkr import device_tables as dt  # noqa: E402
 from thaler_study_tpu_torch.gkr import fused  # noqa: E402
 from thaler_study_tpu_torch.ops import gkr_tail  # noqa: E402
+from thaler_study_tpu_torch.parallel import make_mesh  # noqa: E402
 from thaler_study_tpu_torch.sumcheck import SumCheckError  # noqa: E402
 
 F = GOLDILOCKS
@@ -143,7 +146,9 @@ def test_fused_matches_per_layer_path_at_width_32():
 def test_routing_matches_jax():
     """F389, a circuit with k = 1 layers and a non-empty DST take the
     per-layer path (and count a fallback each), as the JAX
-    supports_fused_gkr routes them; mesh= raises."""
+    supports_fused_gkr routes them, with and without mesh=; a supported
+    circuit proves under mesh= (4 shards: layer 0 sharded with one sharded
+    round per phase, layer 1 with none), to the unsharded bytes."""
     cases = [
         ("book F389", [[(True, 0, 1), (True, 2, 3)], [(True, 0, 0), (True, 1, 1), (True, 1, 2), (True, 3, 3)]],
          4, [3, 2, 3, 1], F389, b""),
@@ -155,16 +160,20 @@ def test_routing_matches_jax():
         circuit = _circuit(gkr, layers, n_in)
         assert not gkr.supports_fused_gkr(circuit, field, dst), name
         assert not jfused.supports_fused_gkr(_circuit(jgkr, layers, n_in), jf[field.name], dst), name
-        before = fused.fallbacks
-        t = gkr.generate_gkr_transcript_fused(_prover(circuit, inputs, field), field, dst)
-        assert fused.fallbacks == before + 1, name
-        assert t.to_bytes() == gkr.generate_gkr_transcript(_prover(circuit, inputs, field), field, dst).to_bytes()
+        want = gkr.generate_gkr_transcript(_prover(circuit, inputs, field), field, dst).to_bytes()
+        for mesh in (None, make_mesh(["cpu"] * 4)):
+            before = fused.fallbacks
+            t = gkr.generate_gkr_transcript_fused(_prover(circuit, inputs, field), field, dst, mesh=mesh)
+            assert fused.fallbacks == before + 1, name
+            assert t.to_bytes() == want
     layers, n_in, inputs = _case([4, 8, 4], 30)
     circuit = _circuit(gkr, layers, n_in)
     assert gkr.supports_fused_gkr(circuit, F, b"")
     assert jfused.supports_fused_gkr(_circuit(jgkr, layers, n_in), JF, b"")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        gkr.generate_gkr_transcript_fused(_prover(circuit, inputs), F, mesh=object())
+    before = fused.fallbacks
+    t = gkr.generate_gkr_transcript_fused(_prover(circuit, inputs), F, mesh=make_mesh(["cpu"] * 4))
+    assert fused.fallbacks == before
+    assert t.to_bytes() == gkr.generate_gkr_transcript_fused(_prover(circuit, inputs), F).to_bytes()
 
 
 def test_zero_flag_falls_back_to_the_per_layer_path(monkeypatch):

@@ -20,7 +20,8 @@ against the JAX package, on the CPU.
   the transition, nothing table-sized moved;
 - two ``gloo`` processes on a 2 x 4 mesh (one DCN row each): the round
   sums' all-reduce across processes gives the JAX bytes computed in the
-  parent; the spawn, rendezvous and proofs have one 60 s deadline.
+  parent, and the sharded fused GKR prover the parent's unsharded bytes;
+  the spawn, rendezvous and proofs have one 60 s deadline.
 
 The JAX side runs its unsharded prover eagerly under ``jax.disable_jit()``
 (its own tests pin its sharded transcripts to the unsharded ones). Inputs
@@ -236,7 +237,7 @@ from thaler_study_tpu_torch.parallel import ShardedProductPoly, init_distributed
 from thaler_study_tpu_torch.sumcheck import Prover
 import torch.distributed as dist
 
-address, rank, data, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+address, rank, data, out, gkr_data = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
 init_distributed(address, 2, rank)
 mesh = make_mesh_2d(["cpu"] * 4)
 vals = np.load(data)
@@ -244,9 +245,23 @@ tables = [FArray.from_ints(vals[k], GOLDILOCKS, device="cpu") for k in range(2)]
 msgs = fs_kernel.fs_prove_device_sharded(single_block_spec(2, vals.shape[1].bit_length() - 1), tables, mesh, n_shard=3)
 poly = ShardedProductPoly.from_internal_tables(tables, mesh, n_shard=3)
 rounds = generate_transcript(SumcheckInteractiveProver(Prover(poly)), GOLDILOCKS)
+fs_collectives = dict(sharded.collectives)
+# the sharded fused GKR prover over the same mesh
+from thaler_study_tpu_torch import gkr
+from thaler_study_tpu_torch.gkr import fused
+spec = json.load(open(gkr_data))
+circuit = gkr.Circuit([gkr.CircuitLayer([gkr.Gate(gkr.GateType.MUL if m else gkr.GateType.ADD, (b, c))
+                                         for m, b, c in layer]) for layer in spec["layers"]], spec["n_in"])
+for counts in (sharded.collectives, sharded.sends):
+    for key in counts:
+        counts[key] = 0
+before = fused.fallbacks
+t = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, GOLDILOCKS.felts(spec["inputs"]), GOLDILOCKS, device="cpu"),
+                                      GOLDILOCKS, mesh=mesh)
 json.dump({"device": FiatShamirTranscript(msgs).to_bytes().hex(), "rounds": rounds.to_bytes().hex(),
            "shape": list(mesh.devices.shape), "rows": [list(g[1:]) for g in mesh.layout(8)],
-           "collectives": sharded.collectives}, open(out, "w"))
+           "collectives": fs_collectives, "gkr": t.to_bytes().hex(), "gkr_fallbacks": fused.fallbacks - before,
+           "gkr_collectives": sharded.collectives, "gkr_sends": sharded.sends}, open(out, "w"))
 dist.destroy_process_group()
 """
 
@@ -255,17 +270,33 @@ def test_two_gloo_processes(tmp_path):
     """Two processes, one DCN row of 4 each (2 x 4): each holds shard rows
     4 rank .. 4 rank + 3, reduces its rows, and one all_reduce of 32-bit
     lanes per sharded round sums the two; both processes write the JAX
-    package's bytes. The spawn, the rendezvous and both proofs fail the
-    test after 60 s in all rather than hang the suite."""
+    package's bytes. Then the sharded fused GKR prover over the same mesh
+    on a Goldilocks circuit of two 16-gate layers: both processes write the
+    bytes of the port's unsharded per-layer prover (held against the JAX
+    package by tests/test_torch_gkr.py), with one all_reduce per sharded
+    round and the residual tables all-gathered. The spawn, the rendezvous
+    and the proofs fail the test after 60 s in all rather than hang the
+    suite."""
     want = _jax_bytes()
     data = tmp_path / "tables.npy"
     np.save(data, np.stack(_values()))
+    rng = np.random.default_rng(43)
+    layers = [[(bool(rng.random() < 0.5), int(rng.integers(WIDTHS[i + 1])), int(rng.integers(WIDTHS[i + 1])))
+               for _ in range(WIDTHS[i])] for i in range(len(WIDTHS) - 1)]
+    gkr_inputs = [int(x) for x in rng.integers(0, 1 << 62, WIDTHS[-1])]
+    gkr_data = tmp_path / "gkr.json"
+    gkr_data.write_text(json.dumps({"layers": layers, "n_in": WIDTHS[-1], "inputs": gkr_inputs}))
+    circuit = gkr.Circuit([gkr.CircuitLayer([gkr.Gate(gkr.GateType.MUL if m else gkr.GateType.ADD, (b, c))
+                                             for m, b, c in layer]) for layer in layers], WIDTHS[-1])
+    want_gkr = gkr.generate_gkr_transcript(
+        gkr.Prover(circuit, GOLDILOCKS.felts(gkr_inputs), GOLDILOCKS, device="cpu"), GOLDILOCKS).to_bytes()
     with socket.socket() as s:  # a free port on this machine's loopback
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     outs = [tmp_path / f"rank{r}.json" for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, f"tcp://127.0.0.1:{port}", str(r), str(data), str(outs[r])],
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER, f"tcp://127.0.0.1:{port}", str(r), str(data), str(outs[r]),
+                               str(gkr_data)],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
     deadline = time.monotonic() + 60  # one deadline for the spawn, the rendezvous and both proofs
     try:
@@ -284,3 +315,9 @@ def test_two_gloo_processes(tmp_path):
         # process's one device are the all_reduce's D + 1 per reduction
         assert got["collectives"] == {"reduce": 2 * (N - 3) + 1, "reduce_words": 6 * (N - 3) + 2, "gather": 4,
                                       "gather_words": 2 * 16}, got
+        # two layers of k = 4 over n_shard 3: one sharded round per phase,
+        # each an all_reduce of 3 words; 6 gathers of 2 x 8 words per layer;
+        # r_i and u sent per layer to no other device of the process
+        assert bytes.fromhex(got["gkr"]) == want_gkr and got["gkr_fallbacks"] == 0, r
+        assert got["gkr_collectives"] == {"reduce": 4, "reduce_words": 12, "gather": 12, "gather_words": 192}, got
+        assert got["gkr_sends"] == {"send": 4, "send_words": 0}, got

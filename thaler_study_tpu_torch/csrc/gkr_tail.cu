@@ -1,10 +1,23 @@
-// The final tail of a GKR layer's sumcheck, on the card: one warp, batch
-// 1, Goldilocks. (The round tail of every inner round runs as the round
-// kernel's epilogue, round_kernel.cu; both share csrc/gkr_tail.cuh.)
+// The final tail of a GKR layer's sumcheck and the round tail over the
+// reduced rows of a sharded round, on the card: one warp, batch 1,
+// Goldilocks. (The round tail of every unsharded inner round runs as the
+// round kernel's epilogue, round_kernel.cu; all share csrc/gkr_tail.cuh.)
 //
 // Replaces: thaler_study_tpu/gkr/fused.py:318-347, the FinalRoundMessage
 // of _phase2_body (p from :303), r* and r_{i+1}, which XLA compiles for the
-// TPU. Its plain version is ops/gkr_tail.final_tail_plain.
+// TPU; and, for the sharded fused prover (fused.py:508-562, GSPMD), the
+// round part of _phase1_body / _phase2_body (:161-196, :283-300) after
+// the partitioned round sums' reduction. Its plain versions are
+// ops/gkr_tail.final_tail_plain and round_tail_plain.
+//
+// ROUND TAIL OVER ROWS, one launch per sharded inner round: the R x 3 rows
+// that parallel/sharded.collective("sum") leaves on the first device (each
+// a shard row's or a device's s(0), s(1) or 0, s(2)) are summed, then
+// gkr_tail.cuh's round tail runs on the global sums: s(1) = claim - s(0)
+// (or StartSumCheck with c_1 = s(0) + s(1) in phase 1's round 0), the
+// message, the absorb, the zero flag, one or two draws, the next claim.
+// What bounds it: the same chain of dependent SHA-256 compressions as the
+// epilogue; the rows (R <= a few hundred) are one coalesced read per lane.
 //
 // FINAL TAIL, one launch per layer: p from the last round's partials (s(1)
 // = claim - s(0)), q from the line restriction; write FinalRoundMessage
@@ -101,7 +114,34 @@ __global__ void __launch_bounds__(32)
   if (lane < k) r_next[lane] = gl::add(ui, gl::mul(gl::sub(ci, ui), r[0]));
 }
 
+__global__ void __launch_bounds__(32)
+    gkr_round_tail_kernel(const uint64_t* __restrict__ rows, int nrows, RoundArgs t) {
+  __shared__ ChainIn in;
+  load_chain_async(in, t);  // the chain and the claim, while the rows are summed
+  uint64_t s[3];
+  round_sums(rows, nrows, s);
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  round_tail(s, in, t);
+}
+
 }  // namespace
+
+// The round tail over a sharded round's reduced rows ([nrows, 3] words):
+// the arguments of RoundArgs without the ticket counter (state and buf
+// 16-byte aligned, claim 8-byte aligned); out: where the 57 bytes (82 with
+// start) go. Returns cudaGetLastError() after the launch.
+extern "C" int ts_gkr_round_tail_launch(const void* rows, int nrows, void* state, void* buf, long long nbytes,
+                                        void* out, void* zero, void* claim, void* chal, int chal_idx, int draws,
+                                        int start, long long layer, int k, void* stream) {
+  if (nrows < 1 || (draws != 1 && draws != 2)) return (int)cudaErrorInvalidValue;
+  const RoundArgs t{nullptr, static_cast<uint32_t*>(state), static_cast<uint8_t*>(buf), nbytes,
+                    static_cast<uint8_t*>(out), static_cast<int*>(zero), static_cast<uint64_t*>(claim),
+                    static_cast<uint64_t*>(chal), chal_idx, draws, start, k, layer};
+  gkr_round_tail_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const uint64_t*>(rows), nrows,
+                                                                         t);
+  return (int)cudaGetLastError();
+}
 
 // The final tail of a layer with k <= 31 variables per phase: q holds k + 1
 // words, chal the layer's 2k challenges (u, then c), r_next receives k

@@ -22,7 +22,10 @@ JAX package's ``lsb_to_msb``). The kernel reads the layer's static plan
 index and type packed in that order), so it writes each output position
 once, in order; its plain version, :func:`phase_tables_plain`, scatters
 by the key itself with ``index_add_`` over 32-bit halves and then bit
-reverses, so the two agree only if the plan is right.
+reverses, so the two agree only if the plan is right. The same launch
+writes a device's shard rows of the sharded layout straight
+(:func:`phase_tables_rows`, grid y = the rows; plain version
+:func:`phase_tables_rows_plain`), for the sharded fused GKR prover.
 
 Two more builders have kernels of their own, ``csrc/gkr_tables.cu``:
 
@@ -66,8 +69,10 @@ LINE_ONE = 10  # the line restriction takes one tile up to this k
 LINE_WAVE = 7  # log2 of the first tile's least block count (132 SMs)
 
 # launches of the CUDA kernels (not of the plain versions), per instantiation:
-# K2, the eq table, the eq table with the dot, the line restriction's tiles
+# K2, K2 over shard rows, the eq table, the eq table with the dot, the line
+# restriction's tiles
 launches = {"goldilocks": 0, "mont32": 0}
+rows_launches = {"goldilocks": 0, "mont32": 0}
 eq_launches = {"goldilocks": 0, "mont32": 0}
 eq_dot_launches = {"goldilocks": 0, "mont32": 0}
 line_launches = {"goldilocks": 0, "mont32": 0}
@@ -84,7 +89,8 @@ def _kernel():
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int]
             + [ctypes.c_void_p] * 7
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -452,20 +458,53 @@ def phase_tables(phase: int, wiring, eq_r: FArray, table: FArray, k: int) -> Tup
         key, gidx = (wiring.b, wiring.c) if phase == 1 else (wiring.c, wiring.b)
         return phase_tables_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k)
     _check_cuda("phase_tables", dev)
-    field = eq_r.field
-    size = 1 << k
-    out1 = torch.empty(size, dtype=word_dtype(field), device=dev)
+    out1, out2 = _launch(phase, plan, eq_r, table, k, 0, 0, 1)
+    launches[eq_r.field.backend] += 1
+    return FArray(out1.reshape(-1), eq_r.field), FArray(out2.reshape(-1), eq_r.field)
+
+
+def phase_tables_rows(phase: int, wiring, eq_r: FArray, table: FArray, k: int, n_shard: int, row0: int,
+                      rows: int) -> Tuple[FArray, FArray]:
+    """Shard rows ``row0 .. row0 + rows - 1`` of :func:`phase_tables`'
+    two tables in the sharded layout of ``parallel/sharded.py`` (row = the
+    last ``n_shard`` variables, the low bits of the MSB-first position):
+    [rows, 2^(k - n_shard)] each, entry [i, j] the cell at position
+    (j << n_shard) | (row0 + i). ``eq_r`` and ``table`` are whole (the gates
+    of a row may gather anywhere), on the device the rows go to. CPU tensors
+    take :func:`phase_tables_rows_plain`; CUDA tensors launch K2 once, grid
+    y over the rows, or raise."""
+    if not 0 <= n_shard <= k or rows < 1 or not 0 <= row0 <= (1 << n_shard) - rows:
+        raise ValueError(f"rows {row0}..{row0 + rows - 1} are not shard rows of 2^{n_shard} over {k} variables")
+    eq_r = eq_r[: wiring.b.shape[0]] if eq_r.shape[0] != wiring.b.shape[0] else eq_r
+    plan = _check(phase, wiring, eq_r, table, k)
+    dev = eq_r.device
+    if dev.type == "cpu":
+        key, gidx = (wiring.b, wiring.c) if phase == 1 else (wiring.c, wiring.b)
+        return phase_tables_rows_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k, n_shard, row0, rows)
+    _check_cuda("phase_tables_rows", dev)
+    out1, out2 = _launch(phase, plan, eq_r, table, k, n_shard, row0, rows)
+    rows_launches[eq_r.field.backend] += 1
+    return FArray(out1, eq_r.field), FArray(out2, eq_r.field)
+
+
+def _launch(phase, plan, eq_r: FArray, table: FArray, k: int, n_shard: int, row0: int, rows: int):
+    """K2 on the card over shard rows (checked arguments): two [rows,
+    2^(k - n_shard)] tensors."""
+    if rows > 65535:
+        raise ValueError("K2 takes at most 65535 shard rows per launch")
+    dev, field = eq_r.device, eq_r.field
+    size = 1 << (k - n_shard)
+    out1 = torch.empty((rows, size), dtype=word_dtype(field), device=dev)
     out2 = torch.empty_like(out1)
     with torch.cuda.device(dev):
         rc = _kernel()(
             *_field_args(field), phase, plan.order.data_ptr(), plan.starts.data_ptr(), plan.packed.data_ptr(),
-            eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size,
+            eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size, n_shard, row0, rows,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"phase-table kernel launch failed: CUDA error {rc}")
-    launches[field.backend] += 1
-    return FArray(out1, field), FArray(out2, field)
+    return out1, out2
 
 
 def phase_tables_plain(phase, key, gather_idx, is_mul, eq_r: FArray, table: FArray, k: int):
@@ -483,6 +522,17 @@ def phase_tables_plain(phase, key, gather_idx, is_mul, eq_r: FArray, table: FArr
     size = 1 << k
     field: FieldConfig = eq_r.field
     return tuple(lsb_to_msb(_scatter_add_mod(key, FArray(x, field), size), k) for x in (x1, x2))
+
+
+def phase_tables_rows_plain(phase, key, gather_idx, is_mul, eq_r: FArray, table: FArray, k: int, n_shard: int,
+                            row0: int, rows: int):
+    """:func:`phase_tables_rows` in plain torch ops (any device): the
+    whole tables of :func:`phase_tables_plain`, then the shard rows' strided
+    positions (``parallel.sharded.shard_factor``'s [L, S] -> [S, L])."""
+    field = eq_r.field
+    cols = 1 << (k - n_shard)
+    return tuple(FArray(t.data.reshape(cols, 1 << n_shard)[:, row0 : row0 + rows].T.contiguous(), field)
+                 for t in phase_tables_plain(phase, key, gather_idx, is_mul, eq_r, table, k))
 
 
 def phase1_tables(r_i: FArray, w_lsb: FArray, wiring, k_cur: int, k: int):

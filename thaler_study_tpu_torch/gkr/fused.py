@@ -23,17 +23,28 @@ device-to-host read: all layers' transcript bytes and the zero flag. The
 host only slices the messages out of it. Output is byte-identical to
 ``generate_gkr_transcript``.
 
+With ``mesh=`` (a ``parallel`` mesh; the JAX package runs the same layer
+programs under GSPMD, ``_mesh_put``) a layer whose 2^k values divide over
+the mesh (k >= n_shard = log2 of its size) has its phase tables in the
+sharded layout of ``parallel/sharded.py``, and smaller layers run as
+above on the mesh's first device, in the same proof (:class:`_ShardedLayer`
+says how a sharded layer runs). The tail state (chain, bytes, claim,
+challenges, zero flag) stays on the first device, replicated per process;
+every cross-device move is counted: the reductions and gathers in
+``parallel.sharded.collectives``, the challenges sent to the other
+devices in ``parallel.sharded.sends``.
+
 As in the JAX package, the fixed message lengths assume every serialized
 coefficient is nonzero (arkworks drops zero terms); a zero is flagged on
 the card and the proof is redone on the per-layer path.
 
 Scope (``supports_fused_gkr``): Goldilocks, the empty DST, every layer with
-k >= 2 variables, one device. Every other input takes the per-layer path,
-on the same device; ``mesh=`` (the sharded fused proof, ROADMAP A7b) raises.
-Not ported: the JAX package's one-program layer scan (``_scan_proof_jit``;
-the layer loop here already has no sync), the ``interp`` line restriction
-and the ``plan`` / ``segment`` scatter modes (A/B switches), and
-``_pack_outputs`` (the transcript bytes are written on the card).
+k >= 2 variables. Every other input takes the per-layer path, on the
+prover's device and mesh. Not ported: the JAX package's one-program layer
+scan (``_scan_proof_jit``; the layer loop here already has no sync), the
+``interp`` line restriction and the ``plan`` / ``segment`` scatter modes
+(A/B switches), and ``_pack_outputs`` (the transcript bytes are written on
+the card).
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ import numpy as np
 import torch
 
 from ..fields import FArray, FieldConfig
-from ..ops.cuda_round import LIBRA_PHASE2, round_partials
+from ..mle.dense import bitrev_perm
+from ..ops.cuda_round import LIBRA_PHASE1, LIBRA_PHASE2, libra_round_sums, round_partials
 from ..ops.gkr_tail import (
     ROUND_LEN,
     START_LEN,
@@ -56,9 +68,19 @@ from ..ops.gkr_tail import (
     final_tail,
     libra_round_tail,
     midstate,
+    round_tail,
 )
 from ..ops.sha_chain import draw_many_py
-from .device_tables import line_restrict_chal, lsb_to_msb, phase1_tables, phase2_tables
+from ..parallel.sharded import _check_shards, collective, send
+from .device_tables import (
+    eq_table_dev,
+    eq_table_dot,
+    line_restrict_chal,
+    lsb_to_msb,
+    phase1_tables,
+    phase2_tables,
+    phase_tables_rows,
+)
 from .transcript import GKRTranscript, generate_gkr_transcript, serialize_gkr_message
 
 # proofs routed to the per-layer path: unsupported inputs and zero flags
@@ -84,12 +106,14 @@ class _Layer:
     (``ops/gkr_tail.LayerTail``: the chain, the transcript bytes, the zero
     flag, the running claim, the challenge vector u then c, the round
     kernel's ticket counter), the write position in the transcript bytes,
-    and the proof's ping-pong buffers for the folded tables."""
+    and the proof's ping-pong buffers for the folded tables. ``w_lsb``:
+    the layer's input values on the tail's device (default: the prover's)."""
 
-    def __init__(self, prover, i: int, chain, msgs, zero, counter, bufs, off: int):
+    def __init__(self, prover, i: int, chain, msgs, zero, counter, bufs, off: int, w_lsb: Optional[FArray] = None):
         circuit = prover.circuit
         self.i, self.k, self.k_cur = i, circuit.num_vars_at(i + 1), circuit.num_vars_at(i)
-        self.w_lsb = prover.layers_dev[i + 1]
+        self.w_lsb = prover.layers_dev[i + 1] if w_lsb is None else w_lsb
+        self.field = self.w_lsb.field
         dev = self.w_lsb.device
         self.wiring = circuit.device_wiring(i, dev)
         self.tail = LayerTail(chain, msgs, zero, torch.empty(1, dtype=torch.int64, device=dev),
@@ -116,25 +140,32 @@ class _Layer:
     def phase1(self, r_i: FArray):
         """Eq table, phase-1 tables, k rounds: the challenges u go to
         chal[:k]; returns (W in MSB-first order, eq_r)."""
-        k = self.k
-        a1, a2, eq_r = phase1_tables(r_i, self.w_lsb, self.wiring, self.k_cur, k)
-        w_msb = lsb_to_msb(self.w_lsb, k)
-        tables = [t.data.reshape(1, -1) for t in (w_msb, a1, a2)]
-        for j in range(k):
-            r = None if j == 0 else self.chal[j - 1 : j]
-            start = (self.i, k) if j == 0 else None
-            tables = self.round(tables, j, r, j > 0, 1, [], j, 1, start)
+        a1, a2, eq_r = phase1_tables(r_i, self.w_lsb, self.wiring, self.k_cur, self.k)
+        w_msb = lsb_to_msb(self.w_lsb, self.k)
+        self._phase1_rounds([t.data.reshape(1, -1) for t in (w_msb, a1, a2)], 0)
         return w_msb, eq_r
+
+    def _phase1_rounds(self, tables, j0: int) -> None:
+        """Phase 1's rounds j0..k-1 on the tail's device, over ``tables`` as
+        they stand before round j0 (folded at r_{j0-1} by it)."""
+        for j in range(j0, self.k):
+            r = None if j == 0 else self.chal[j - 1 : j]
+            start = (self.i, self.k) if j == 0 else None
+            tables = self.round(tables, j, r, j > 0, 1, [], j, 1, start)
 
     def phase2(self, w_msb: FArray, eq_r: FArray) -> FArray:
         """Eq table of u, phase-2 tables and W~(u), k - 1 rounds, the final
         round, the line restriction and the final tail: the challenges c go
         to chal[k:]; returns r_{i+1}."""
-        k, field, chal = self.k, w_msb.field, self.chal
-        u = FArray(chal[:k], field)
-        b1, b2, w_u = phase2_tables(u, self.w_lsb, eq_r, self.wiring, k)
-        tables = [t.data.reshape(1, -1) for t in (b1, b2, w_msb)]
-        for j in range(k - 1):
+        u = FArray(self.chal[: self.k], self.field)
+        b1, b2, w_u = phase2_tables(u, self.w_lsb, eq_r, self.wiring, self.k)
+        return self._phase2_rounds([t.data.reshape(1, -1) for t in (b1, b2, w_msb)], 0, w_u)
+
+    def _phase2_rounds(self, tables, j0: int, w_u: FArray) -> FArray:
+        """Phase 2's rounds j0..k-2, the final round, the line restriction
+        and the final tail on the tail's device; returns r_{i+1}."""
+        k, field, chal = self.k, self.field, self.chal
+        for j in range(j0, k - 1):
             r = None if j == 0 else chal[k + j - 1 : k + j]
             # the second-to-last message draws r_{2k-2} and r_last
             tables = self.round(tables, j, r, True, 2, [w_u.data], k + j, 1 if j < k - 2 else 2)
@@ -148,20 +179,173 @@ class _Layer:
         return FArray(r_next, field)
 
 
-def _prove_fused(prover, field: FieldConfig, timings: Optional[list] = None) -> Optional[List[bytes]]:
+class _MeshState:
+    """A sharded fused proof's placement: n_shard = log2 of the mesh size,
+    this process's groups (device, first shard row, rows), its devices (the
+    mesh's first device first), and each layer's values on each device,
+    copied once per prover and mesh and cached on the prover (the JAX
+    package's ``_fused_dev_cache``). The gather index of W's sharded
+    MSB-first layout is cached per circuit, mesh and layer width."""
+
+    def __init__(self, prover, mesh):
+        self.n_shard = (mesh.devices.size - 1).bit_length()
+        _check_shards(self.n_shard, mesh)  # a mesh size that is not a power of two raises ValueError
+        self.mesh, self.primary, self.prover = mesh, mesh.primary, prover
+        self.groups = mesh.layout(1 << self.n_shard)
+        self.devices = list(dict.fromkeys(dev for dev, _, _ in self.groups))
+        self.others = self.devices[1:]
+        self._values = prover.__dict__.setdefault("_fused_dev_cache", {}).setdefault(mesh, {})
+        self._index = prover.circuit.__dict__.setdefault("_fused_layout_index", {}).setdefault(mesh, {})
+
+    def shards(self, k: int) -> bool:
+        """Whether a layer of 2^k values is sharded: ``_mesh_put``'s rule
+        (its leading dimension divides over the mesh and is at least the
+        mesh size); a mesh of one device shards nothing."""
+        return self.n_shard >= 1 and k >= self.n_shard
+
+    def values(self, layer: int, dev) -> FArray:
+        """The circuit's layer ``layer`` values (label order) on ``dev``."""
+        w = self._values.get((layer, dev))
+        if w is None:
+            src = self.prover.layers_dev[layer]
+            w = self._values[(layer, dev)] = FArray(src.data.to(dev), src.field)
+        return w
+
+    def w_msb_rows(self, layer: int, dev, row0: int, rows: int) -> torch.Tensor:
+        """W of layer ``layer`` in MSB-first order, shard rows row0..row0 +
+        rows - 1 of its sharded layout ([rows, 2^(k - n_shard)]): one gather
+        of the values on ``dev``."""
+        w = self.values(layer, dev)
+        k = w.shape[0].bit_length() - 1
+        key = (k, dev, row0, rows)
+        idx = self._index.get(key)
+        if idx is None:
+            labels = bitrev_perm(k).reshape(1 << (k - self.n_shard), 1 << self.n_shard)[:, row0 : row0 + rows].T
+            idx = self._index[key] = torch.from_numpy(np.ascontiguousarray(labels)).to(dev)
+        return torch.index_select(w.data, 0, idx.reshape(-1)).reshape(idx.shape)
+
+
+class _ShardedLayer(_Layer):
+    """A layer whose phase tables are sharded over a mesh: each group's
+    shard rows are one [rows, 2^(k - n_shard)] tensor per table on its
+    device (row = the last n_shard variables). Per phase:
+
+    - per device: the eq table of r_i (phase 1; r_i sent from the first
+      device), the eq table of u with W~(u) (phase 2; u sent once);
+    - per group: K2 over its shard rows (``phase_tables_rows``), W's rows
+      gathered from the cached index;
+    - L = k - n_shard sharded rounds: K1 over each group's rows with s(1)
+      left out (``libra_round_sums``, batch = the rows, no claim), one
+      reduction (``collective("sum")``) and the round tail over the reduced
+      rows on the first device (``gkr_tail.round_tail``); the round's
+      challenge is sent where the next sharded fold reads it;
+    - one gather per table of the residual [rows, 2] columns ([rows, 1]
+      when L = 0), reassembled in MSB-first order on the first device,
+      where the remaining rounds run as in :class:`_Layer` (the first of
+      them folding r_{L-1}), with the line restriction and the final tail
+      (W is whole there).
+
+    Per layer: 2L reductions, 6 gathers, and 2 + 2 max(L - 1, 0) sends
+    (r_i, u, and the L - 1 challenges of each phase that a sharded fold
+    reads); no host read."""
+
+    def __init__(self, prover, ms: _MeshState, i: int, chain, msgs, zero, counter, bufs, off: int):
+        super().__init__(prover, i, chain, msgs, zero, counter, bufs, off, ms.values(i + 1, ms.primary))
+        self.ms = ms
+        self.local = self.k - ms.n_shard
+        self.chals = {dev: torch.empty(2 * self.k, dtype=torch.int64, device=dev) for dev in ms.others}
+
+    def _chal(self, dev) -> torch.Tensor:
+        """The layer's challenge vector as ``dev`` holds it."""
+        return self.chals.get(dev, self.chal)
+
+    def _send_chal(self, lo: int, hi: int) -> None:
+        send(self.chal[lo:hi], [c[lo:hi] for c in self.chals.values()])
+
+    def _sharded_rounds(self, tables, phase: int, scalars, start=None) -> None:
+        """The L sharded rounds of a phase over each group's three tables
+        (replaced by their folds in place)."""
+        ms, k, c0 = self.ms, self.k, 0 if phase == 1 else self.k
+        terms = LIBRA_PHASE1 if phase == 1 else LIBRA_PHASE2
+        for j in range(self.local):
+            sums = []
+            for g, (dev, _, rows) in enumerate(ms.groups):
+                r = None if j == 0 else self._chal(dev)[c0 + j - 1 : c0 + j].expand(rows).contiguous()
+                folded, s = libra_round_sums(tables[g], r, phase == 2 or j > 0, None, self.field, terms, scalars[g])
+                tables[g] = folded or tables[g]
+                sums.append(s)
+            tail = RoundTail(self.tail, self.off, c0 + j, 2 if phase == 2 and j == k - 2 else 1,
+                             start if j == 0 else None)
+            round_tail(collective(ms.mesh, "sum", sums, self.field), tail)
+            self.off += tail.length
+            if j < self.local - 1:
+                self._send_chal(c0 + j, c0 + j + 1)
+
+    def _gather(self, tables) -> List[torch.Tensor]:
+        """Each table's residual columns from every shard row: [1, cols x
+        2^n_shard] in MSB-first order (index col x 2^n_shard + row) on the
+        first device."""
+        shards = 1 << self.ms.n_shard
+        out = []
+        for t in range(3):
+            flat = collective(self.ms.mesh, "gather", [parts[t].reshape(-1) for parts in tables], self.field)
+            cols = flat.shape[0] // shards
+            out.append((flat.reshape(shards, cols).T.contiguous() if cols > 1 else flat).reshape(1, -1))
+        return out
+
+    def phase1(self, r_i: FArray):
+        """Phase 1 sharded; returns (W's shard rows per group, (eq_r and W
+        per device)) for phase 2."""
+        ms, k = self.ms, self.k
+        points = {ms.primary: r_i.data}
+        points.update((dev, torch.empty_like(r_i.data, device=dev)) for dev in ms.others)
+        send(r_i.data, [points[dev] for dev in ms.others])
+        eq_r = {dev: eq_table_dev(FArray(points[dev], self.field), self.k_cur) for dev in ms.devices}
+        w = {dev: ms.values(self.i + 1, dev) for dev in ms.devices}
+        w_rows, tables = [], []
+        for dev, row0, rows in ms.groups:
+            wiring = ms.prover.circuit.device_wiring(self.i, dev)
+            a1, a2 = phase_tables_rows(1, wiring, eq_r[dev], w[dev], k, ms.n_shard, row0, rows)
+            w_rows.append(ms.w_msb_rows(self.i + 1, dev, row0, rows))
+            tables.append([w_rows[-1], a1.data, a2.data])
+        self._sharded_rounds(tables, 1, [[]] * len(tables), (self.i, k))
+        self._phase1_rounds(self._gather(tables), self.local)
+        return w_rows, (eq_r, w)
+
+    def phase2(self, w_rows, state) -> FArray:
+        """Phase 2 sharded; returns r_{i+1} on the first device."""
+        eq_r, w = state
+        ms, k = self.ms, self.k
+        self._send_chal(0, k)  # u, for the other devices' eq tables
+        eq_u, w_u = {}, {}
+        for dev in ms.devices:
+            eq_u[dev], w_u[dev] = eq_table_dot(FArray(self._chal(dev)[:k], self.field), w[dev], k)
+        tables, scalars = [], []
+        for (dev, row0, rows), w_part in zip(ms.groups, w_rows):
+            wiring = ms.prover.circuit.device_wiring(self.i, dev)
+            b1, b2 = phase_tables_rows(2, wiring, eq_r[dev], eq_u[dev], k, ms.n_shard, row0, rows)
+            tables.append([b1.data, b2.data, w_part])
+            scalars.append([w_u[dev].data.expand(rows).contiguous()])
+        self._sharded_rounds(tables, 2, scalars)
+        return self._phase2_rounds(self._gather(tables), self.local, w_u[ms.primary])
+
+
+def _prove_fused(prover, field: FieldConfig, timings: Optional[list] = None,
+                 ms: Optional[_MeshState] = None) -> Optional[List[bytes]]:
     """The fused proof's messages, or None when a serialized coefficient is
-    zero. ``timings``, when given, receives ("prelude" | "phase1" |
-    "phase2" | "pull" | "assemble", layer, seconds) with a device sync
-    after every step (which serializes the host with the card, so only
-    profiling runs pass it)."""
+    zero; sharded over ``ms`` where given. ``timings``, when given,
+    receives ("prelude" | "phase1" | "phase2" | "pull" | "assemble", layer,
+    seconds) with a device sync after every step (which serializes the host
+    with the card, so only profiling runs pass it)."""
     circuit = prover.circuit
-    dev = prover.device
+    dev = prover.device if ms is None else ms.primary
     clock = [time.perf_counter()]
 
     def mark(name: str, layer: int) -> None:
         if timings is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for d in [dev] if ms is None else ms.devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             now = time.perf_counter()
             timings.append((name, layer, now - clock[0]))
             clock[0] = now
@@ -185,7 +369,11 @@ def _prove_fused(prover, field: FieldConfig, timings: Optional[list] = None) -> 
 
     off = 0
     for i in range(len(circuit.layers)):
-        layer = _Layer(prover, i, chain, msgs, zero, counters[i : i + 1], bufs, off)
+        if ms is not None and ms.shards(circuit.num_vars_at(i + 1)):
+            layer = _ShardedLayer(prover, ms, i, chain, msgs, zero, counters[i : i + 1], bufs, off)
+        else:
+            w_lsb = None if ms is None else ms.values(i + 1, dev)
+            layer = _Layer(prover, i, chain, msgs, zero, counters[i : i + 1], bufs, off, w_lsb)
         w_msb, eq_r = layer.phase1(r_i)
         mark("phase1", i)
         r_i = layer.phase2(w_msb, eq_r)
@@ -207,18 +395,17 @@ def generate_gkr_transcript_fused(
     prover, field: FieldConfig, dst: bytes = b"", timings: Optional[list] = None, mesh=None
 ) -> GKRTranscript:
     """Drop-in for ``generate_gkr_transcript``: the fused proof on the
-    prover's device, or the per-layer path for inputs outside
+    prover's device, or sharded over ``mesh`` (a ``parallel`` mesh whose
+    size is a power of two, else ``ValueError``; its first device holds
+    the tail state and the layers too small to split), or the per-layer
+    path, on the prover's own device and mesh, for inputs outside
     :func:`supports_fused_gkr` and for a flagged zero coefficient (each
     counted in ``fallbacks``). ``prover`` is a fresh ``gkr.Prover``; the
     fused path reads only its circuit and forward-pass values. ``timings``:
     see :func:`_prove_fused`."""
     global fallbacks
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded fused GKR proof (mesh=) is not ported yet (ROADMAP A7b: sharded K2, eq, K1 with its tail "
-            "and the line restriction); the per-layer path takes mesh= (gkr.Prover(..., mesh=))"
-        )
-    msgs = _prove_fused(prover, field, timings) if supports_fused_gkr(prover.circuit, field, dst) else None
+    ms = None if mesh is None else _MeshState(prover, mesh)
+    msgs = _prove_fused(prover, field, timings, ms) if supports_fused_gkr(prover.circuit, field, dst) else None
     if msgs is None:
         fallbacks += 1
         return generate_gkr_transcript(prover, field, dst)

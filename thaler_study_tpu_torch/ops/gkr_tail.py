@@ -11,7 +11,7 @@ is ``csrc/gkr_tail.cuh`` (the round tail, run as K1's epilogue) and
 ``csrc/gkr_tail.cu`` (the final tail); the header's note says what bounds
 it.
 
-Two entry points, each with a plain version in Python ints (with the
+Three entry points, each with a plain version in Python ints (with the
 pure-Python SHA-256 compression) for CPU tensors; CUDA tensors launch the
 kernel or raise:
 
@@ -21,6 +21,10 @@ kernel or raise:
   SumCheckProverMessage, one draw (two at the layer's second-to-last
   message) and the next claim). Its plain version is
   ``cuda_round.round_partials_plain`` then :func:`round_tail_plain`;
+- :func:`round_tail`, the same tail as a launch of its own over the rows
+  of a sharded round's reduction (``parallel.sharded.collective``): the
+  sharded fused prover's inner rounds, where s(1) = claim - s(0) holds
+  only for the global sums. Its plain version is :func:`round_tail_plain`;
 - :func:`final_tail`, one launch per layer: the FinalRoundMessage (the last
   round polynomial p and the line restriction q), the r* draw and the next
   layer's point r_{i+1} = u + (c - u) r*.
@@ -56,9 +60,11 @@ ROUND_LEN = 57  # SumCheckProverMessage of a degree-2 polynomial
 
 # launches of the CUDA kernels (not of the plain versions), per instantiation
 # (Goldilocks only): K1 with the round tail as its epilogue (each also
-# counted in cuda_round.libra_launches, as a launch of K1), the final tail
+# counted in cuda_round.libra_launches, as a launch of K1), the final tail,
+# the round tail over a sharded round's reduced rows
 tail_launches = {"goldilocks": 0, "mont32": 0}
 final_launches = {"goldilocks": 0, "mont32": 0}
+round_launches = {"goldilocks": 0, "mont32": 0}
 
 _lib = None
 _round_tail_fn = None
@@ -71,6 +77,8 @@ def _library():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.ts_gkr_final_tail_launch.argtypes = [vp, i, vp, vp, i, vp, vp, vp, ll, vp, vp, vp, vp]
         lib.ts_gkr_final_tail_launch.restype = i
+        lib.ts_gkr_round_tail_launch.argtypes = [vp, i, vp, vp, ll, vp, vp, vp, vp, i, i, i, ll, i, vp]
+        lib.ts_gkr_round_tail_launch.restype = i
         _lib = lib
     return _lib
 
@@ -195,6 +203,14 @@ class RoundTail:
         """The bytes of the round's messages."""
         return ROUND_LEN + (START_LEN if self.start is not None else 0)
 
+    def check(self) -> None:
+        """Raise unless the message and the draws fit the layer's buffers."""
+        lt, m = self.layer, self.length
+        if not 0 <= self.off <= lt.msgs.shape[0] - m:
+            raise ValueError(f"msgs must have room for {m} bytes at offset {self.off}")
+        if self.draws not in (1, 2) or not 0 <= self.chal_idx <= lt.chal.shape[0] - self.draws:
+            raise ValueError(f"{self.draws} draws do not fit chal[{self.chal_idx}:] of {list(lt.chal.shape)}")
+
 
 def libra_round_tail(
     tables: List[torch.Tensor],
@@ -214,10 +230,7 @@ def libra_round_tail(
     then :func:`round_tail_plain`; CUDA tensors launch K1 with the tail as
     its epilogue (one launch of at most one wave of blocks) or raise."""
     lt, m = tail.layer, tail.length
-    if not 0 <= tail.off <= lt.msgs.shape[0] - m:
-        raise ValueError(f"msgs must have room for {m} bytes at offset {tail.off}")
-    if tail.draws not in (1, 2) or not 0 <= tail.chal_idx <= lt.chal.shape[0] - tail.draws:
-        raise ValueError(f"{tail.draws} draws do not fit chal[{tail.chal_idx}:] of {list(lt.chal.shape)}")
+    tail.check()
     if phase not in (1, 2) or len(scalars) != phase - 1:
         raise ValueError(f"LibraW phase {phase} with {len(scalars)} scalars")
     dev = tables[0].device
@@ -261,6 +274,40 @@ def libra_round_tail(
     cuda_round.libra_launches["goldilocks"] += 1
     chain.nbytes += m
     return (list(out) if fold else None), partials
+
+
+def round_tail(rows: torch.Tensor, tail: RoundTail) -> None:
+    """The round tail of one sharded inner round, in place on
+    ``tail.layer``: ``rows`` (int64 [1, R, 3], on the layer's device) are
+    the reduced round sums (each row a shard row's or a device's s(0),
+    s(1) or 0, s(2)); their column sums are the round's sums, s(1) from the
+    claim unless ``tail.start``. Advances the chain. CPU tensors run
+    :func:`round_tail_plain`; CUDA tensors launch the one-warp kernel
+    (``csrc/gkr_tail.cu``) or raise."""
+    lt, m = tail.layer, tail.length
+    dev = rows.device
+    if rows.dim() != 3 or rows.shape[0] != 1 or rows.shape[2] != 3 or rows.shape[1] < 1:
+        raise ValueError(f"rows must be [1, R, 3] round sums, not {list(rows.shape)}")
+    if rows.dtype != torch.int64 or not rows.is_contiguous() or dev != lt.claim.device:
+        raise ValueError(f"rows must be a contiguous int64 tensor on the layer's device {lt.claim.device}")
+    tail.check()
+    chain = lt.chain
+    if dev.type == "cpu":
+        round_tail_plain(rows, chain, lt.msgs, tail.off, lt.zero, lt.claim, lt.chal, tail.chal_idx, tail.draws,
+                         tail.start)
+    elif dev.type == "cuda":
+        layer, k = tail.start if tail.start is not None else (0, 0)
+        with torch.cuda.device(dev):
+            rc = _library().ts_gkr_round_tail_launch(
+                rows.data_ptr(), rows.shape[1], chain.state.data_ptr(), chain.buf.data_ptr(), chain.nbytes,
+                lt.msgs.data_ptr() + tail.off, lt.zero.data_ptr(), lt.claim.data_ptr(), lt.chal.data_ptr(),
+                tail.chal_idx, tail.draws, int(tail.start is not None), layer, k,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _launched(rc, "round tail", round_launches)
+    else:
+        raise ValueError(f"round_tail runs on cpu or cuda, not {dev}")
+    chain.nbytes += m
 
 
 def final_tail(

@@ -31,7 +31,9 @@ keeps the layout and makes the rest explicit:
   as JAX's ``sum_mod(force_lanes=True)`` makes its psum exact) and, when the local
   variables are exhausted, the gather of the residual [2^n_shard] tables
   after which the last rounds run replicated (a ``ProductPoly`` on the
-  first device). It counts what it issues in :data:`collectives`.
+  first device). It counts what it issues in :data:`collectives`;
+  :func:`send` (the sharded fused GKR prover's challenges, first device to
+  the others) counts in :data:`sends`.
 
 Transcripts are byte-identical to the unsharded prover's: modular sums are
 exact, so no order of reduction changes a value.
@@ -57,6 +59,8 @@ AXIS = "hypercube"
 
 # what collective() issued: calls, and the field words each moved
 collectives = {"reduce": 0, "reduce_words": 0, "gather": 0, "gather_words": 0}
+# what send() issued: calls, and the words it moved off the first device
+sends = {"send": 0, "send_words": 0}
 
 
 def resolve_devices(devices) -> List[torch.device]:
@@ -252,6 +256,19 @@ def collective(mesh: Mesh, op: str, parts: Sequence[torch.Tensor], field: FieldC
         collectives["gather_words"] += local.numel()
         return local
     raise ValueError(f"collective op {op!r}: 'sum' or 'gather'")
+
+
+def send(src: torch.Tensor, dsts: Sequence[torch.Tensor]) -> None:
+    """Copy ``src`` (words on the primary device) into each of ``dsts``
+    (one per other device of this process): the challenges the sharded
+    fused GKR prover's tails draw on the first device, which the other
+    devices' folds and eq tables read. Stream-ordered on both devices, no
+    host sync. Counts one call, and the words moved, in :data:`sends`; with
+    no other device it moves nothing and counts the call."""
+    sends["send"] += 1
+    for d in dsts:
+        d.copy_(src, non_blocking=True)
+        sends["send_words"] += src.numel()
 
 
 def _row_sums(rows: torch.Tensor, field: FieldConfig) -> List[Felt]:
