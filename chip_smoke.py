@@ -70,7 +70,15 @@ The paths, each driven through the entry points a user calls:
   (``gkr.generate_gkr_transcript_fused(..., mesh=)``) on the flagship
   circuit, 8 shards of the card (n_shard 3): K2 over each device's shard
   rows, K1 over the rows, one reduction and the round tail over the
-  reduced rows per sharded round, then the gathered residual rounds.
+  reduced rows per sharded round, then the gathered residual rounds;
+- slice 15 runs through the same sharded paths: each device's shard rows
+  of a LibraW round in one launch of K1's TOTAL form
+  (``cuda_round.libra_round_total``), of the triangle's contracted term in
+  one launch per t of the tensor-core matmul's dot form over shard rows
+  (``modmatmul.contract_total``, also the unsharded triangle's with one
+  row), every row of a round written by a kernel
+  (the multi-block kernel's sums into their rows, scaled in the launch),
+  the reduction's sums across processes by ``ops/row_sums.py``.
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -186,6 +194,16 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    x blocks partial rows, each against its plain version and timed from a
    CUDA graph; every sharded path byte-identical to its unsharded run,
    timed in turns with it, with its launches and collectives;
+   slice 15 (in the same functions): K1's TOTAL form over the flagship's
+   8 shard rows (both phases, fold on and off, random words and words at
+   p - 1) and the tensor-core matmul's dot form over shard rows at the
+   sharded triangle's X round 0 and middle shapes against their plain
+   versions (exact), timed from CUDA graphs, K1's beside its per-row form;
+   the row sums (rows, lanes out and back) and the multi-block kernel's
+   scaled sums into a row against their plain versions; a traced run of the sharded FS
+   proof, the sharded triangle proofs and the sharded fused flagship with
+   each sharded round in a synced range: 0 plain-torch kernels per round
+   is the pass (``ranged_trace``, ``check_ranged``);
    slice 14 (``sharded_fused_slice``, on the flagship): the sharded fused
    proof byte-identical to the unsharded one, accepted, a tampered copy
    rejected, its launches, reductions, gathers and challenge sends against
@@ -575,7 +593,8 @@ def triangle_launches(k: int, threshold: int):
 # trace is a plain-torch launch
 PORT_KERNELS = ("mb_round_kernel", "mb_fold_kernel", "tc_kernel", "digits_kernel", "modmatmul_kernel",
                 "round_kernel", "libra_round_kernel", "fs_tail_kernel", "sha_chain_kernel", "phase_tables_kernel",
-                "eq_table_kernel", "line_tile_kernel", "gkr_final_tail_kernel")
+                "eq_table_kernel", "line_tile_kernel", "gkr_final_tail_kernel", "libra_total_kernel",
+                "gkr_round_tail_kernel", "row_sums_kernel", "leaf_kernel", "node_kernel", "top_kernel")
 
 
 def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
@@ -648,6 +667,113 @@ def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
         f"X {out['per_round']['X']}; plain-torch kernels per Y round {out['plain_per_Y_round']}, per Z round "
         f"{out['plain_per_Z_round']} {card}")
     return out
+
+
+def port_launches() -> int:
+    """Every launch of the port's kernels so far, from the wrappers' counters
+    (K1 with the round tail is counted once, as a launch of K1)."""
+    from thaler_study_tpu_torch.gkr import device_tables
+    from thaler_study_tpu_torch.ops import (cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock,
+                                            row_sums)
+
+    counts = (cuda_round.launches, cuda_round.libra_launches, cuda_round.total_launches, fs_kernel.launches,
+              multiblock.launches, multiblock.fold_launches, modmatmul.launches, modmatmul.tc_launches,
+              modmatmul.digit_launches, modmatmul.total_launches, device_tables.launches, device_tables.eq_launches,
+              device_tables.eq_dot_launches, device_tables.line_launches, device_tables.rows_launches,
+              gkr_tail.final_launches, gkr_tail.round_launches, merkle_kernel.launches, row_sums.launches)
+    return sum(sum(c.values()) for c in counts)
+
+
+def ranged_trace(run, targets) -> dict:
+    """``run()`` under the profiler, each call of a method in ``targets``
+    ((class, name, kind) triples; ``kind(self, *args)`` gives the call's
+    (label, rounds)) inside a ``record_function`` range with a sync before
+    and after: per label the rounds, the kernel launches the host issued
+    in the ranges (the runtime's launch calls, on the host's clock like the
+    ranges), the port's launches among them (its wrappers' counters), so
+    the plain-torch launches as the difference, and the device records that
+    start in the ranges (the port's kernels, the others by name, copies;
+    the card's clock may place a short record outside its range, so these
+    are a report, and the count of plain-torch launches is the host's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved, seq, port = [], [0], []
+
+    def wrap(cls, name, kind):
+        orig = getattr(cls, name)
+
+        def ranged(self, *args, **kwargs):
+            label, rounds = kind(self, *args)
+            torch.cuda.synchronize()
+            with record_function(f"ranged {label} {rounds} {seq[0]}"):
+                seq[0] += 1
+                before = port_launches()
+                out = orig(self, *args, **kwargs)
+                torch.cuda.synchronize()
+                port.append(port_launches() - before)
+            return out
+
+        setattr(cls, name, ranged)
+        saved.append((cls, name, orig))
+
+    for target in targets:
+        wrap(*target)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+    events = list(prof.events())
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("ranged ")]
+    calls = [e.time_range.start for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunch", "cuLaunch"))]
+    started = [(e.time_range.start, e.name) for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("ranged ")]
+    out = {}
+    for a, b, rname in ranges:
+        _, label, rounds, i = rname.split(" ")
+        recs = [n for t, n in started if a <= t <= b]
+        copies = [n for n in recs if "Memcpy" in n or "Memset" in n]
+        ours = [n for n in recs if any(kn in n for kn in PORT_KERNELS)]
+        others = [n for n in recs if n not in copies and n not in ours]
+        o = out.setdefault(label, {"rounds": 0, "launched": 0, "port": 0, "records": 0, "others": 0, "copies": 0,
+                                   "names": {}})
+        o["rounds"] += int(rounds)
+        o["launched"] += sum(a <= t <= b for t in calls)
+        o["port"] += port[int(i)]
+        o["records"] += len(ours)
+        o["others"] += len(others)
+        o["copies"] += len(copies)
+        for n in others:
+            o["names"][n[:70]] = o["names"].get(n[:70], 0) + 1
+    return out
+
+
+def check_ranged(what: str, out: dict, labels, card: str) -> None:
+    """Log :func:`ranged_trace`'s counts per sharded round and raise unless
+    every label in ``labels`` was traced and launched the port's kernels
+    and no other kernel: the host's launch calls in its ranges equal the
+    port's launches, and no device record of another kernel starts in
+    them."""
+    parts = []
+    for label in labels:
+        o = out.get(label)
+        if o is None or not o["rounds"]:
+            raise AssertionError(f"{what}: no traced {label} round")
+        r, plain = o["rounds"], o["launched"] - o["port"]
+        parts.append(f"{label} {r} rounds: per round {o['port'] / r:.2f} launches of the port's kernels, "
+                     f"{plain / r:.2f} plain-torch launches ({o['launched']} launch calls in all), device records "
+                     f"{o['records'] / r:.2f} of the port, {o['others'] / r:.2f} others, {o['copies'] / r:.2f} copies")
+        if plain or o["others"] or not o["port"]:
+            raise AssertionError(f"{what}, {label} rounds: {o['launched']} launch calls for {o['port']} of the "
+                                 f"port's, other device records {o['names']}")
+    log(f"{what}, traced sharded rounds (each synced): {'; '.join(parts)} {card}")
 
 
 def sass_functions(lib: str, kernel: str):
@@ -1968,7 +2094,8 @@ def sharded_gkr(cases, dev, sync, reset_counts, tag, reps=2) -> dict:
     unsharded transcript) of ``cases`` the sharded transcript byte-identical
     to the unsharded one, K1's launches and the collectives of one proof;
     both proofs timed in turns; ``api.run_gkr(mesh=, n_shard=)`` accepts
-    (first case). Returns per field backend (K1 launches, collectives)."""
+    (first case). Returns per field backend (K1 TOTAL launches,
+    collectives)."""
     from thaler_study_tpu_torch import api, gkr
     from thaler_study_tpu_torch.ops import cuda_round
 
@@ -1981,7 +2108,7 @@ def sharded_gkr(cases, dev, sync, reset_counts, tag, reps=2) -> dict:
         t0 = time.perf_counter()
         t = gkr.generate_gkr_transcript(gkr.Prover(circuit, inputs, field, mesh=mesh, n_shard=SHARD_VARS), field)
         first_s = time.perf_counter() - t0
-        launches, coll = cuda_round.libra_launches[field.backend], _collectives()
+        launches, coll = cuda_round.total_launches[field.backend], _collectives()
         if t.to_bytes() != transcript.to_bytes():
             raise AssertionError(f"sharded per-layer GKR ({field.name}) != the unsharded transcript")
         depth = len(circuit.layers)
@@ -1995,7 +2122,7 @@ def sharded_gkr(cases, dev, sync, reset_counts, tag, reps=2) -> dict:
             f"{SHARD_VARS}): byte-identical to the unsharded transcript ({len(t.g)} messages); prove "
             f"{times['sharded'][0] / 1e3:.3f} s (runs {[round(x / 1e3, 3) for x in times['sharded'][1]]}; first "
             f"{first_s:.3f} s) beside the unsharded {times['unsharded'][0] / 1e3:.3f} s (runs "
-            f"{[round(x / 1e3, 3) for x in times['unsharded'][1]]}), in turns; K1 launches {launches} ({rounds} "
+            f"{[round(x / 1e3, 3) for x in times['unsharded'][1]]}), in turns; K1 TOTAL launches {launches} ({rounds} "
             f"rounds); collectives {coll} {tag}")
         if i == 0:
             outs, ok = api.run_gkr(circuit, inputs, field, seed=13, mesh=mesh, n_shard=SHARD_VARS)
@@ -2027,7 +2154,7 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         generate_transcript,
         generate_transcript_device,
     )
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, modmatmul, multiblock
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, modmatmul, multiblock, row_sums
     from thaler_study_tpu_torch.ops.round_kernel import PolySpec, single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.parallel import ShardedBlockPoly, init_distributed, make_mesh_2d
@@ -2055,10 +2182,11 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         sync()
         return (time.perf_counter() - t0) * 1e3
 
-    # ---- phase 2: the batched tensor-core matmul at the sharded triangle's
+    # ---- phase 2: the tensor-core matmul at the sharded triangle's
     # per-shard shapes: X round 0 (M = 2^(k-1) of A_t, N = 2^k rows of f2_s,
-    # K = 2^(k - 3) of Z per shard) and the middle of the X phase; f1 (D)
-    # shared by the shards; its digit pre-pass; C = A B^T at ragged shapes
+    # K = 2^(k - 3) of Z per shard) and the middle of the X phase, the shard
+    # rows as one contraction (the dot form), f1 (D) shared by the shards;
+    # its batched digit pre-pass; the batched C = A B^T at ragged shapes
     k_tri = (tri_nodes - 1).bit_length()
     zl = k_tri - SHARD_VARS
     for field in (GOLDILOCKS, BABYBEAR):
@@ -2067,42 +2195,52 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             a = slice_words(gen, field, (S, 2 * m, 1 << zl), dev)
             b = slice_words(gen, field, (S, 1 << k_tri, 1 << zl), dev)
             d = slice_words(gen, field, (2 * m, 1 << k_tri), dev)
-            ts = [0, 2]
-            got = modmatmul.contract_partials_many(a, b, d, field, ts)
-            t0 = time.perf_counter()
-            want = [torch.stack([modmatmul.contract_partials_plain(a[s], b[s], d, field, t, modmatmul.tile(field, True),
-                                                                   digits=True) for s in range(S)]) for t in ts]
-            sync()
-            t_plain = (time.perf_counter() - t0) * 1e3 / len(ts)
-            note_err(("modmatmul_tc_batched", field.backend), max(word_err(x, y) for x, y in zip(got, want)),
-                     f"{label}, {S} shards")
             planes = modmatmul.digit_planes(a, field, 2)
             want_planes = torch.cat([modmatmul.digit_planes_plain(a[s], field, 2) for s in range(S)], dim=1)
             note_err(("modmatmul_digits_batched", field.backend), word_err(planes, want_planes), f"{label} A_t")
             b_planes = modmatmul.digit_planes(b, field)
-            partials = torch.empty((S, modmatmul.tile_count(field, True, m, 1 << k_tri)), dtype=word_dtype(field),
-                                   device=dev)
             tw = modmatmul._t_word(field, 2)
             kp = modmatmul.padded_k(1 << zl)
-            ms = graph_ms(lambda: modmatmul._launch_tc(field, 2, planes, b_planes, None, d, tw, partials, S, m,
-                                                       1 << k_tri, 1 << zl))
             products = S * m * (1 << k_tri) * (1 << zl)
             ops_ms = products * TC_PAIRS[field.backend] / TC_MACS_PER_S * 1e3
             bytes_ms = (nd * kp * S * (m + (1 << k_tri)) + 2 * m * (1 << k_tri) * wb) / PEAK_BYTES_PER_S * 1e3
             d_ms = graph_ms(lambda: modmatmul.digit_planes(a, field, 2))
             d_plain = plain_ms(lambda: [modmatmul.digit_planes_plain(a[s], field, 2) for s in range(S)])
             d_bytes = (2 * S * m * (1 << zl) * wb + nd * S * m * kp) / PEAK_BYTES_PER_S * 1e3
-            log(f"{field.name} batched tensor-core matmul, {tri_nodes}-node sharded triangle {label} ({S} shards x M = "
-                f"{m}, N = {1 << k_tri}, K = {1 << zl}; f1 shared), mode 2 at t = 0, 2 == plain (exact): "
-                f"{ms:.4f} ms per launch from a CUDA graph, operations bound {ops_ms:.4f} ms ({products} products x "
-                f"{TC_PAIRS[field.backend]} digit pairs at {TC_MACS_PER_S / 1e12} T multiply-adds/s; bytes "
-                f"{bytes_ms:.4f} ms): {100 * max(ops_ms, bytes_ms) / ms:.1f} %; plain {t_plain:.1f} ms per t; its "
-                f"batched digit pre-pass (A_t of {S} shards) {d_ms:.4f} ms, bytes bound {d_bytes:.4f} ms {tag}")
+            log(f"{field.name} tensor-core digit pre-pass over the {S} shards' A_t, {tri_nodes}-node sharded "
+                f"triangle {label} ({S} shards x 2M = {2 * m}, K = {1 << zl}) == plain (exact): {d_ms:.4f} ms from a "
+                f"CUDA graph, bytes bound {d_bytes:.4f} ms {tag}")
+            # the dot form (the sharded path's): the S shard rows as one
+            # contraction over K_dev = S K, summed in the launch into the row
+            row = torch.full((3,), 7, dtype=word_dtype(field), device=dev)
+            modmatmul.contract_total(a, b, d, field, [0, 2], row)
+            t0 = time.perf_counter()
+            want_row = [modmatmul.contract_total_plain(a, b, d, field, t, digits=True) for t in (0, 2)]
+            sync()
+            r_plain = (time.perf_counter() - t0) * 1e3 / 2
+            note_err(("modmatmul_tc_total", field.backend),
+                     max(word_err(row[c].reshape(1), w.reshape(1)) for c, w in zip((0, 2), want_row))
+                     + (int(row[1]) != 0), f"{label}, {S} shard rows as one contraction")
+            splits = modmatmul.splits_for(dev, field, m, 1 << k_tri, 1 << zl, S) if dev.type == "cuda" else 1
+            r_partials = torch.empty(splits * modmatmul.tile_count(field, True, m, 1 << k_tri),
+                                     dtype=word_dtype(field), device=dev)
+
+            def dot_launch():
+                modmatmul._launch_dot(field, 2, planes, b_planes, d, tw, r_partials, row, -1, S, m, 1 << k_tri,
+                                      1 << zl, splits)
+
+            r_ms = graph_ms(dot_launch)
+            log(f"{field.name} tensor-core matmul dot form over shard rows (K_dev = {S} x {1 << zl}), {tri_nodes}-node "
+                f"sharded triangle {label} ({S} shards x M = {m}, N = {1 << k_tri}; f1 shared), mode 2 at t = 0, 2 == "
+                f"plain (exact): {r_ms:.4f} ms per launch from a CUDA graph ({splits} K ranges per tile); operations "
+                f"bound {ops_ms:.4f} ms ({products} products x {TC_PAIRS[field.backend]} digit pairs at "
+                f"{TC_MACS_PER_S / 1e12} T multiply-adds/s; bytes {bytes_ms:.4f} ms): "
+                f"{100 * max(ops_ms, bytes_ms) / r_ms:.1f} %; plain {r_plain:.1f} ms per t {tag}")
             if label == "X round 0":
-                timing[("modmatmul_tc_batched", field.backend)] = (ms, t_plain, max(ops_ms, bytes_ms),
-                                                                   "operations" if ops_ms >= bytes_ms else "bytes")
+                timing[("modmatmul_tc_total", field.backend)] = (r_ms, r_plain, max(ops_ms, bytes_ms),
+                                                                 "operations" if ops_ms >= bytes_ms else "bytes")
                 timing[("modmatmul_digits_batched", field.backend)] = (d_ms, d_plain, d_bytes, "bytes")
-            del a, b, d, got, want, planes, want_planes, b_planes
+            del a, b, d, planes, want_planes, b_planes
         for (bs, m_, n_, k_) in ((3, 33, 65, 100), (2, 64, 64, 16), (1, 1, 7, 3)):
             a = FArray(slice_words(gen, field, (bs, m_, k_), dev), field)
             b = FArray(slice_words(gen, field, (bs, n_, k_), dev), field)
@@ -2125,12 +2263,12 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
     for field in (GOLDILOCKS, BABYBEAR):
         wb = wb_of(field)
         tabs = [slice_words(gen, field, (S, 1 << local), dev) for _ in range(2)]
-        r = slice_words(gen, field, (1,), dev).expand(S).contiguous()
+        r = slice_words(gen, field, (1,), dev)  # every row folds at the proof's one challenge
         outs = [torch.empty((S, 1 << (local - 1)), dtype=word_dtype(field), device=dev) for _ in range(2)]
         folded, partials = cuda_round.round_partials(tabs, r, True, out=outs, field=field)
         blocks = cuda_round.blocks_for(S, 1 << (local - 2))
         t0 = time.perf_counter()
-        pf, pp = cuda_round.round_partials_plain(tabs, r, True, blocks, field)
+        pf, pp = cuda_round.round_partials_plain(tabs, r.expand(S).contiguous(), True, blocks, field)
         sync()
         t_plain = (time.perf_counter() - t0) * 1e3
         note_err(("round_kernel_sharded", field.backend),
@@ -2188,23 +2326,47 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         # K1 over the flagship's shards: 2^20 entries, n_shard 3
         kl = gkr_log - SHARD_VARS
         k1_tabs = [slice_words(gen, field, (S, 1 << kl), dev) for _ in range(3)]
+        k1_max = [slice_words(gen, field, (S, 1 << kl), dev, "max") for _ in range(3)]
         k1_out = [torch.empty((S, 1 << (kl - 1)), dtype=word_dtype(field), device=dev) for _ in range(3)]
-        scalar = [slice_words(gen, field, (1,), dev).expand(S).contiguous()]
+        scalar = [slice_words(gen, field, (1,), dev)]
+        rs, scs = r.expand(S).contiguous(), [scalar[0].expand(S).contiguous()]
+        total = torch.empty((3,), dtype=word_dtype(field), device=dev)
         for phase, terms, n_sc in ((1, cuda_round.LIBRA_PHASE1, 0), (2, cuda_round.LIBRA_PHASE2, 1)):
-            f, s = cuda_round.libra_round_sums(k1_tabs, r, True, k1_out, field, terms, scalar[:n_sc])
-            pf, ps = cuda_round.libra_round_sums_plain(k1_tabs, r, True, field, terms, scalar[:n_sc])
+            f, s = cuda_round.libra_round_sums(k1_tabs, rs, True, k1_out, field, terms, scs[:n_sc])
+            pf, ps = cuda_round.libra_round_sums_plain(k1_tabs, rs, True, field, terms, scs[:n_sc])
             note_err(("libra_round_sharded", field.backend),
                      max([word_err(s, ps)] + [word_err(x, y) for x, y in zip(f, pf)]), f"phase {phase}, {S} shards")
             if int(s[:, 1].abs().sum()):
                 raise AssertionError("K1 spliced s(1) into a shard's sums")
-        ms = graph_ms(lambda: cuda_round.libra_round_sums(k1_tabs, r, True, k1_out, field, cuda_round.LIBRA_PHASE1))
-        t_plain = plain_ms(lambda: cuda_round.libra_round_sums_plain(k1_tabs, r, True, field, cuda_round.LIBRA_PHASE1))
+            # the TOTAL form (the sharded path's): the rows summed in the launch
+            for tabs_, fold_ in ((k1_tabs, True), (k1_tabs, False), (k1_max, True)):
+                rr = r if fold_ else None
+                f, s = cuda_round.libra_round_total(tabs_, rr, True, field, terms, scalar[:n_sc])
+                pf, ps = cuda_round.libra_round_total_plain(tabs_, rr, True, field, terms, scalar[:n_sc])
+                note_err(("libra_round_total", field.backend),
+                         max([word_err(s, ps)] + [word_err(x, y) for x, y in zip(f or [], pf or [])]),
+                         f"TOTAL phase {phase}, {S} shard rows, fold {fold_}")
+                if int(s[1]):
+                    raise AssertionError("K1 TOTAL wrote an s(1) where the round leaves it out")
+        ms = graph_ms(lambda: cuda_round.libra_round_sums(k1_tabs, rs, True, k1_out, field, cuda_round.LIBRA_PHASE1))
+        t_ms = graph_ms(lambda: cuda_round.libra_round_total(k1_tabs, r, True, field, cuda_round.LIBRA_PHASE1,
+                                                             out=k1_out, total=total))
+        t2_ms = graph_ms(lambda: cuda_round.libra_round_total(k1_tabs, r, True, field, cuda_round.LIBRA_PHASE2,
+                                                              scalar, out=k1_out, total=total))
+        one = [t.reshape(1, -1) for t in k1_tabs]
+        one_out = [o.reshape(1, -1) for o in k1_out]
+        u_ms = graph_ms(lambda: cuda_round.libra_round_sums(one, r, True, one_out, field, cuda_round.LIBRA_PHASE1))
+        t_plain = plain_ms(lambda: cuda_round.libra_round_total_plain(k1_tabs, r, True, field,
+                                                                      cuda_round.LIBRA_PHASE1))
         bound = (3 * S * (1 << kl) + 3 * S * (1 << (kl - 1))) * wb / PEAK_BYTES_PER_S * 1e3
-        timing[("libra_round_sharded", field.backend)] = (ms, t_plain, bound, "bytes")
+        timing[("libra_round_total", field.backend)] = (t_ms, t_plain, bound, "bytes")
         log(f"{field.name} K1 (LibraW phases 1 and 2) over {S} shard rows of 2^{kl} (the flagship's layers at "
-            f"n_shard {SHARD_VARS}: fold, s(1) left 0) == plain (exact): phase 1 {ms:.4f} ms from a CUDA graph, "
-            f"bytes bound {bound:.4f} ms: {100 * bound / ms:.1f} %; plain {t_plain:.1f} ms {tag}")
-        del k1_tabs, k1_out
+            f"n_shard {SHARD_VARS}: fold, s(1) left 0), the per-row form and the TOTAL form (the rows summed in the "
+            f"launch; random words and words at p - 1) == plain (exact): phase 1 TOTAL {t_ms:.5f} ms from a CUDA "
+            f"graph (phase 2 {t2_ms:.5f} ms), the per-row form {ms:.5f} ms, the unsharded K1 over the same 2^{gkr_log} "
+            f"entries {u_ms:.5f} ms; bytes bound {bound:.5f} ms: TOTAL {100 * bound / t_ms:.1f} %, per-row "
+            f"{100 * bound / ms:.1f} %; plain {t_plain:.1f} ms {tag}")
+        del k1_tabs, k1_max, k1_out, one, one_out
         # MB over one shard row of the sharded triangle's Y phase: the X -> Y
         # round (f1(X,Y) replicated, folded before; f3(X,Z_s) folded in the
         # launch) and the middle of the Y phase (f1(Y) folded before, f2
@@ -2224,6 +2386,15 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
                      label)
             if int(got_s[1]):
                 raise AssertionError("MB spliced s(1) into a shard's sums")
+            # a shard row's sums written into its row of the round's buffer,
+            # and scaled by 2^n_shard in the launch (a replicated-only term)
+            buf = torch.zeros((3, plan.degree + 1), dtype=word_dtype(field), device=dev)
+            _, row_s = multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None, sums=buf[1],
+                                             scale=1 << SHARD_VARS)
+            _, want_sc = multiblock.round_sums_plain(plan, mb_tabs, r[:1], field, True, None, 1 << SHARD_VARS)
+            note_err(("multiblock_round_sharded", field.backend),
+                     word_err(row_s, want_sc) + int(row_s.data_ptr() != buf[1].data_ptr()) + int(bool(buf[0].any())),
+                     f"{label}, sums into a row, scaled")
             if label == "X -> Y round":
                 mb_ms = graph_ms(lambda: [multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None)
                                           for _ in range(S)]) / S
@@ -2235,6 +2406,31 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
                     f"before, s(1) left 0) == plain (exact): {mb_ms:.4f} ms per shard from a CUDA graph of {S}, "
                     f"bytes bound {bound:.4f} ms: {100 * bound / mb_ms:.1f} %; plain {t_plain:.1f} ms {tag}")
         log(f"{field.name} MB over one shard row == plain (exact) at the middle of the Y phase too {tag}")
+    sync()
+
+    # ---- phase 2: the reduction's row sums (ops/row_sums.py): a device's
+    # rows to one row (the n-variable proof's S x blocks partial rows, words
+    # at p - 1 too), to 32-bit lanes and, summed over 7 "processes", back
+    for field in (GOLDILOCKS, BABYBEAR):
+        wb = wb_of(field)
+        nrows = S * cuda_round.blocks_for(S, 1 << (n - SHARD_VARS - 2))
+        for rows_n, d1, fill in ((nrows, 3, "random"), (nrows, 3, "max"), (1, 9, "random"), (5, 5, "random")):
+            x = slice_words(gen, field, (rows_n, d1), dev, fill)
+            lanes = row_sums.row_sums(x, field, out_lanes=True)
+            want_l = row_sums.row_sums_plain(x, field, out_lanes=True)
+            e = max(word_err(row_sums.row_sums(x, field), row_sums.row_sums_plain(x, field)), word_err(lanes, want_l),
+                    word_err(row_sums.row_sums(lanes * 7, field, in_lanes=True),
+                             row_sums.row_sums_plain(want_l * 7, field, in_lanes=True)))
+            note_err(("row_sums", field.backend), e, f"{rows_n} rows of {d1}, {fill}")
+        x = slice_words(gen, field, (nrows, 3), dev)
+        ms = graph_ms(lambda: row_sums.row_sums(x, field))
+        t_plain = plain_ms(lambda: row_sums.row_sums_plain(x, field))
+        bound = (x.numel() + 3) * wb / PEAK_BYTES_PER_S * 1e3
+        timing[("row_sums", field.backend)] = (ms, t_plain, bound, "bytes")
+        log(f"{field.name} row sums (one block) == plain (exact): {nrows} rows of 3 to one row, its lanes, lanes "
+            f"back to words; {ms * 1e3:.2f} us per launch from a CUDA graph at {nrows} rows, bytes bound "
+            f"{bound * 1e3:.3f} us; plain {t_plain:.2f} ms {tag}")
+        del x
     sync()
 
     # ---- phase 3: the sharded fused FS prover, a 2-factor product at n
@@ -2278,6 +2474,10 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             f"gathers of 2^{SHARD_VARS} at the transition; launches {launches} {tag}")
         if field is GOLDILOCKS:
             keep = (spec, tables, got)
+            if dev.type == "cuda":
+                traced = ranged_trace(lambda: fs_kernel.fs_prove_device_sharded(spec, tables, mesh, n_shard=SHARD_VARS),
+                                      [(ShardedBlockPoly, "_round", lambda self, *a: ("FS", 1))])
+                check_ranged(f"sharded fused FS prover {field.name}, n = {n}", traced, ["FS"], tag)
         else:
             del tables
     sync()
@@ -2303,16 +2503,26 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         _collectives(reset=True)
         t_dev = generate_transcript_device(g, field, mesh=mesh, n_shard=SHARD_VARS)
         sync()
-        launches = {"tc_batched": modmatmul.tc_launches[field.backend],
+        launches = {"tc_total": modmatmul.total_launches[field.backend],
                     "digits_batched": modmatmul.digit_launches[field.backend],
                     "multiblock_round": multiblock.launches[field.backend],
                     "multiblock_fold": multiblock.fold_launches[field.backend],
-                    "fs_tail": fs_kernel.launches[field.backend]}
+                    "fs_tail": fs_kernel.launches[field.backend],
+                    "tc_batched": modmatmul.tc_launches[field.backend]}
         coll = _collectives()
         if t_round.to_bytes() != ref.to_bytes() or t_dev.to_bytes() != ref.to_bytes():
             raise AssertionError(f"sharded triangle ({nodes} nodes, {field.name}) != the unsharded device transcript")
-        if not launches["tc_batched"] or not launches["multiblock_round"]:
+        if not launches["tc_total"] or not launches["multiblock_round"] or launches["tc_batched"]:
             raise AssertionError(f"sharded triangle ({nodes} nodes): launches {launches}")
+        if dev.type == "cuda":
+            def phase_of(self, r, *_):
+                post = self.spec.after_fold() if r is not None else self.spec
+                return "XYZ"[3 - len(post.block_sizes)], 1
+
+            traced = ranged_trace(lambda: generate_transcript_device(g, field, mesh=mesh, n_shard=SHARD_VARS),
+                                  [(ShardedBlockPoly, "_round", phase_of)])
+            check_ranged(f"sharded triangle IP {nodes} nodes {field.name} (generate_transcript_device(mesh=))",
+                         traced, "XYZ", tag)
         tri_rows[field.backend] = launches
         line = (f"sharded triangle IP {nodes} nodes {field.name} ({3 * k} variables, Z sharded over {S} shards, "
                 f"n_shard {SHARD_VARS}): the per-round loop over ShardedBlockPoly and generate_transcript_device("
@@ -2342,20 +2552,25 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             if mesh2.group is None:
                 raise AssertionError("make_mesh_2d(dcn_size=1) in a process group made no DCN group")
             _collectives(reset=True)
+            reset_counts()
             t0 = time.perf_counter()
             got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh2, n_shard=SHARD_VARS)
             sync()
             dcn_ms = (time.perf_counter() - t0) * 1e3
             coll = _collectives()
+            dcn_row_sums = row_sums.launches["goldilocks"]
             if got is None or [m.hex() for m in got] != [m.hex() for m in want]:
                 raise AssertionError("the sharded FS proof over a one-rank process group != phase 3's bytes")
             if coll["reduce"] != n - SHARD_VARS or coll["reduce_words"] != 3 * coll["reduce"]:
                 raise AssertionError(f"one-rank process group: collectives {coll} (one all_reduce of 3 words per "
                                      "sharded round)")
+            if dev.type == "cuda" and dcn_row_sums != 2 * coll["reduce"]:
+                raise AssertionError(f"one-rank process group: {dcn_row_sums} row-sum launches, not two per "
+                                     "reduction (the lanes out, the lanes back)")
             log(f"one-rank {dist.get_backend()} process group (a FileStore) behind make_mesh_2d(dcn_size=1), mesh "
                 f"{mesh2}: the sharded FS proof over Goldilocks (n = {n}) byte-identical to phase 3's; "
-                f"{coll['reduce']} all_reduce calls through torch.distributed (one per sharded round, 32-bit lanes); "
-                f"{dcn_ms:.1f} ms (first run) {tag}")
+                f"{coll['reduce']} all_reduce calls through torch.distributed (one per sharded round, 32-bit lanes "
+                f"split and recombined by {dcn_row_sums} row-sum launches); {dcn_ms:.1f} ms (first run) {tag}")
         finally:
             dist.destroy_process_group()
     del keep, tables
@@ -2363,16 +2578,16 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
     # the kernels line's rows
     src = "thaler_study_tpu_torch/csrc/"
     forms = {
-        "modmatmul_tc_batched": (src + "modmatmul_tc.cu", "thaler_study_tpu/ops/modmatmul.py:267",
-                                 {b: tri_rows[b]["tc_batched"] for b in tri_rows}),
+        "modmatmul_tc_total": (src + "modmatmul_tc.cu", "thaler_study_tpu/ops/modmatmul.py:267",
+                               {b: tri_rows[b]["tc_total"] for b in tri_rows}),
         "modmatmul_digits_batched": (src + "modmatmul_tc.cu", "thaler_study_tpu/ops/modmatmul.py:106",
                                      {b: tri_rows[b]["digits_batched"] for b in tri_rows}),
         "round_kernel_sharded": (src + "round_kernel.cu", "thaler_study_tpu/parallel/sharded.py:101",
                                  {b: fs_rows[b]["round_kernel"] for b in fs_rows}),
         "fs_tail_sharded": (src + "fs_tail.cu", "thaler_study_tpu/ops/fs_kernel.py:418",
                             {b: fs_rows[b]["fs_tail"] for b in fs_rows}),
-        "libra_round_sharded": (src + "round_kernel.cu", "thaler_study_tpu/parallel/sharded.py:101",
-                                {b: gkr_info[b][0] for b in gkr_info}),
+        "libra_round_total": (src + "round_kernel.cu", "thaler_study_tpu/parallel/sharded.py:101",
+                              {b: gkr_info[b][0] for b in gkr_info}),
         "multiblock_round_sharded": (src + "multiblock_round.cu", "thaler_study_tpu/parallel/sharded.py:493",
                                      {b: tri_rows[b]["multiblock_round"] for b in tri_rows}),
     }
@@ -2389,6 +2604,16 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             if not row["launches"]:
                 raise AssertionError(f"{name} ({backend}) was not launched on its sharded path")
             rows.append(row)
+    # the reduction's row sums: launched on the path across processes (the
+    # one-rank group above: the lanes out and back, Goldilocks)
+    ms, plain, bound_ms, by = timing[("row_sums", "goldilocks")]
+    rows.append({"name": "row_sums_goldilocks", "route": "cuda", "source": src + "row_sums.cu",
+                 "replaces": "thaler_study_tpu/parallel/sharded.py:101", "launches": dcn_row_sums,
+                 "max_abs_err": err[("row_sums", "goldilocks")], "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": None,
+                 "library_ms_reason": "no PyTorch call computes this function mod p"})
+    if not rows[-1]["launches"]:
+        raise AssertionError("row_sums (goldilocks) was not launched on its sharded path")
     return rows
 
 
@@ -2401,18 +2626,20 @@ def sharded_fused_counts(circuit, n_shard: int, line_launches) -> dict:
     """The launches and cross-device moves of one sharded fused proof on one
     card (``line_launches(k)``: the line restriction's launches at k): per
     sharded layer (k >= n_shard, L = k - n_shard) 2 K2 launches over shard
-    rows, 2L round tails over rows, 2 n_shard - 1 launches of K1 with the
-    tail (the replicated rounds but the final one), 2k of K1 in all, 2L
-    reductions, 6 gathers of 2 x 2^n_shard words (2^n_shard when L = 0),
-    2 + 2 max(L - 1, 0) sends; a replicated layer runs the unsharded
-    fused layer's launches."""
+    rows, 2L round tails over rows and 2L launches of K1's TOTAL form (one
+    per sharded round: the card's rows are one group), 2 n_shard - 1
+    launches of K1 with the tail (the replicated rounds but the final one),
+    2 n_shard of K1 per proof in all, 2L reductions, 6 gathers of 2 x
+    2^n_shard words (2^n_shard when L = 0), 2 + 2 max(L - 1, 0) sends; a
+    replicated layer runs the unsharded fused layer's launches."""
     want = {"phase_tables_rows": 0, "gkr_round_tail": 0, "libra_round_tail": 0, "libra_round": 0,
-            "phase_tables": 0, "eq_table": 0, "eq_table_dot": 0, "line_restrict": 0, "gkr_final_tail": 0}
+            "libra_round_total": 0, "phase_tables": 0, "eq_table": 0, "eq_table_dot": 0, "line_restrict": 0,
+            "gkr_final_tail": 0}
     coll = {"reduce": 0, "reduce_words": 0, "gather": 0, "gather_words": 0}
     sends = {"send": 0, "send_words": 0}
     for i in range(len(circuit.layers)):
         k = circuit.num_vars_at(i + 1)
-        want["libra_round"] += 2 * k
+        want["libra_round"] += 2 * min(k, n_shard)
         want["eq_table"] += 1
         want["eq_table_dot"] += 1
         want["line_restrict"] += line_launches(k)
@@ -2421,6 +2648,7 @@ def sharded_fused_counts(circuit, n_shard: int, line_launches) -> dict:
             local = k - n_shard
             want["phase_tables_rows"] += 2
             want["gkr_round_tail"] += 2 * local
+            want["libra_round_total"] += 2 * local
             want["libra_round_tail"] += 2 * (k - local) - 1
             coll["reduce"] += 2 * local
             coll["gather"] += 6
@@ -2538,7 +2766,8 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
         spans, busy_us = device_spans(prof)
         by_kernel = {}
         for s0, s1, name in spans:
-            label = next((k_ for k_ in FUSED_KERNELS + ("gkr_round_tail_kernel",) if k_ in name), "other")
+            label = next((k_ for k_ in FUSED_KERNELS + ("gkr_round_tail_kernel", "libra_total_kernel") if k_ in name),
+                         "other")
             if label == "libra_round_kernel" and template_flag(name, label):
                 label += " TAIL"
             ms_, n_ = by_kernel.get(label, (0.0, 0))
@@ -2555,6 +2784,10 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
         log(f"sharded fused GKR flagship, traced proof: {traced_ms:.3f} ms wall (profiler on), device busy "
             f"{busy_us / 1e3:.3f} ms, idle share {idle}; {reads_note}; "
             f"{split_line(by_kernel, aten_split(prof))} {tag}")
+        # the sharded rounds alone, each phase's synced: no plain-torch kernel
+        traced = ranged_trace(lambda: fused_proof(mesh),
+                              [(gkr_fused._ShardedLayer, "_sharded_rounds", lambda self, *a: ("GKR", self.local))])
+        check_ranged("sharded fused GKR flagship", traced, ["GKR"], tag)
     else:
         log("sharded fused GKR flagship trace: not measured (no card)")
 
@@ -2600,8 +2833,10 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
                      "library_ms": None})
     del eq_r, table
 
-    # the round tail over the 8 reduced rows a one-card mesh leaves, every
-    # fill x (StartSumCheck, one draw, two draws)
+    # the round tail over the reduced rows: one on a one-card mesh (K1's
+    # TOTAL form sums the card's shard rows), 8 in the checks' odd fills
+    # (one per device of an 8-card mesh), every fill x (StartSumCheck, one
+    # draw, two draws)
     trng = np.random.default_rng(14)
     err = 0
 
@@ -2617,7 +2852,8 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
             k_ = 2 + fill % 19
             prefix = trng.integers(0, 256, 64 * (2 + fill % 5) + fill, dtype=np.uint8).tobytes()
             claim = words(1)
-            red = words(3 * S).reshape(1, S, 3)
+            nred = S if fill % 2 else 1
+            red = words(3 * nred).reshape(1, nred, 3)
             if fill == 3 and kind == "one":
                 red.zero_()
                 claim.zero_()
@@ -2635,7 +2871,7 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
                 raise AssertionError(f"round tail over rows != plain: fill {fill}, {kind}")
             err = max(err, e)
     nbytes = 64 * 131072 + 40
-    red = words(3 * S).reshape(1, S, 3)
+    red = words(3).reshape(1, 1, 3)
     lt = tail_state(bytes(64 * 131072 + 40), words(1), k)
 
     def tail_launch(fn):
@@ -2651,9 +2887,10 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
     floor = compressions(nbytes, m_, True) * compress_ms
     # the rows, the chain's state and block and the zero flag read and
     # written, the message written, the claim read and written, r written
-    t_bytes = S * 3 * 8 + 2 * (32 + 64 + 4) + m_ + 3 * 8
-    log(f"round tail over {S} reduced rows == plain (exact) in 192 cases (every fill x StartSumCheck / one / two "
-        f"draws; one flagged zero): {tail_ms * 1e3:.2f} us per launch from a CUDA graph at fill 40, latency floor "
+    t_bytes = 3 * 8 + 2 * (32 + 64 + 4) + m_ + 3 * 8
+    log(f"round tail over 1 and {S} reduced rows == plain (exact) in 192 cases (every fill x StartSumCheck / one / "
+        f"two draws; one flagged zero): one row {tail_ms * 1e3:.2f} us per launch from a CUDA graph at fill 40, "
+        f"latency floor "
         f"{floor * 1e3:.2f} us ({compressions(nbytes, m_, True)} compressions), bytes bound "
         f"{t_bytes / PEAK_BYTES_PER_S * 1e3:.7f} ms; plain (Python ints) {tail_plain:.3f} ms {tag}")
     rows_out.append({"name": "gkr_round_tail_goldilocks", "route": "cuda",
@@ -2707,7 +2944,8 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.gkr.circuit import layer_wiring
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock, sha_chain
+    from thaler_study_tpu_torch.ops import (cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock,
+                                            row_sums, sha_chain)
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.protocols import (
@@ -2930,10 +3168,10 @@ def main(argv=None) -> int:
                     e = max_abs_err(s, ref)
                     if fold:
                         e = max([e] + [max_abs_err(a, b) for a, b in zip(folded, ref_folded)])
-                    if e or int(cuda_round._counter(dev)) != 0:
+                    if e or int(_build.ticket_counter(dev)) != 0:
                         raise AssertionError(f"K1 round sums != plain: {field.name} phase={phase} B={batch} N={size} "
                                              f"{fill} fold={fold} skip={skip} claim={with_claim}; ticket counter "
-                                             f"{int(cuda_round._counter(dev))}")
+                                             f"{int(_build.ticket_counter(dev))}")
                     err[key] = max(err.get(key, 0), e)
                     checks += 1
                 del tables, scalars
@@ -3170,7 +3408,9 @@ def main(argv=None) -> int:
                 "phase_tables_rows": device_tables.rows_launches, "gkr_round_tail": gkr_tail.round_launches,
                 "multiblock_round": multiblock.launches, "multiblock_fold": multiblock.fold_launches,
                 "modmatmul": modmatmul.launches, "modmatmul_tc": modmatmul.tc_launches,
-                "modmatmul_digits": modmatmul.digit_launches, "merkle": merkle_kernel.launches}
+                "modmatmul_digits": modmatmul.digit_launches, "merkle": merkle_kernel.launches,
+                "libra_round_total": cuda_round.total_launches, "modmatmul_tc_total": modmatmul.total_launches,
+                "row_sums": row_sums.launches}
 
     def reset_counts():
         for counts in counters.values():

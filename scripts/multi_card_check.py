@@ -14,7 +14,7 @@ Phases (each prints one line; any mismatch raises and the exit code is 1):
    collectives (each reduction sends D + 1 words off every card but the
    first);
 2. the triangle IP sharded over Z across the cards (each card's shards on
-   one launch of the batched tensor-core matmul): the per-round loop over
+   one launch of the tensor-core matmul's dot form per t): the per-round loop over
    ``ShardedBlockPoly`` and ``generate_transcript_device(mesh=)`` against
    the unsharded ``generate_transcript_device``;
 3. the per-layer GKR prover with ``mesh=`` over the cards against the
@@ -29,8 +29,9 @@ Phases (each prints one line; any mismatch raises and the exit code is 1):
    on the alternating mesh against the unsharded fused proof on card 0:
    bytes, collectives and challenge sends, the medians of 3 in turns; then
    one instrumented proof on ``make_mesh()`` that splits its sharded rounds
-   into K1 over each card's rows, the reduction (each other card's row
-   sum, then the copy to card 0), the round tail and the challenge sends,
+   into K1's TOTAL form over each card's rows (one row per card), the
+   reduction (the copies to card 0; a row-sum kernel where a card has more
+   than one row), the round tail and the challenge sends,
    each step timed alone between syncs of every card (so the split adds
    up to more than a proof: the steps no longer overlap).
 
@@ -101,8 +102,8 @@ def split_rounds(gkr, circuit, inputs, mesh, sync) -> dict:
     """One sharded fused proof with each step of its sharded rounds timed
     alone (every card synced before and after it, host clock): ms summed
     over the proof and calls, per step."""
-    from thaler_study_tpu_torch.fields import FArray
     from thaler_study_tpu_torch.gkr import fused
+    from thaler_study_tpu_torch.ops import row_sums
 
     spent = {}
 
@@ -117,20 +118,20 @@ def split_rounds(gkr, circuit, inputs, mesh, sync) -> dict:
             return out
         return run
 
-    saved = {name: getattr(fused, name) for name in ("libra_round_sums", "collective", "round_tail", "send")}
-    sum_method = FArray.sum
-    fused.libra_round_sums = timed("K1 over a card's rows", saved["libra_round_sums"])
+    saved = {name: getattr(fused, name) for name in ("libra_round_total", "collective", "round_tail", "send")}
+    row_sum = row_sums.row_sums
+    fused.libra_round_total = timed("K1 TOTAL over a card's rows", saved["libra_round_total"])
     fused.round_tail = timed("round tail", saved["round_tail"])
     fused.send = timed("challenge sends", saved["send"])
 
     def collective(mesh_, op, parts, field):
         if op != "sum":
             return saved["collective"](mesh_, op, parts, field)
-        FArray.sum = timed("reduction: row sum on another card", sum_method)
+        row_sums.row_sums = timed("reduction: row-sum kernel", row_sum)
         try:
             return timed("reduction (sums and copies to card 0)", saved["collective"])(mesh_, op, parts, field)
         finally:
-            FArray.sum = sum_method
+            row_sums.row_sums = row_sum
 
     fused.collective = collective
     try:
@@ -139,7 +140,7 @@ def split_rounds(gkr, circuit, inputs, mesh, sync) -> dict:
     finally:
         for name, fn in saved.items():
             setattr(fused, name, fn)
-        FArray.sum = sum_method
+        row_sums.row_sums = row_sum
     return spent
 
 
@@ -282,16 +283,16 @@ def main(argv=None) -> int:
     poly = ShardedBlockPoly.from_internal_tables(g.spec, g.tables, cards, n_shard=SHARD_VARS)
     if generate_transcript(SumcheckInteractiveProver(Prover(poly)), field).to_bytes() != ref:
         raise AssertionError(f"phase 2: the per-round sharded triangle ({args.nodes} nodes) != the unsharded one")
-    tc = dict(modmatmul.tc_launches)
+    tc = dict(modmatmul.total_launches)
     got = generate_transcript_device(g, field, mesh=cards, n_shard=SHARD_VARS).to_bytes()
-    launches = modmatmul.tc_launches[field.backend] - tc[field.backend]
+    launches = modmatmul.total_launches[field.backend] - tc[field.backend]
     if got != ref:
         raise AssertionError(f"phase 2: generate_transcript_device(mesh=) ({args.nodes} nodes) != the unsharded one")
     if not args.cpu and not launches:
-        raise AssertionError(f"phase 2: the sharded triangle ({args.nodes} nodes) launched no batched matmul")
+        raise AssertionError(f"phase 2: the sharded triangle ({args.nodes} nodes) launched no tensor-core matmul")
     print(f"phase 2: triangle IP {args.nodes} nodes {field.name} sharded over Z on {cards}: the per-round loop and "
-          f"generate_transcript_device(mesh=) == the unsharded transcript; tensor-core matmul launches of the "
-          f"device proof {launches}", flush=True)
+          f"generate_transcript_device(mesh=) == the unsharded transcript; tensor-core matmul launches (the ROWS "
+          f"form: each card's shard rows as one contraction) of the device proof {launches}", flush=True)
     report["triangle"] = {"nodes": args.nodes, "tc_launches": launches}
     del g, poly
 

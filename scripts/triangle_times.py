@@ -12,8 +12,11 @@ turns on one card. Proves ``chip_smoke.py``'s main-path graph (its
 checkout's ``chip_smoke.py``) over Goldilocks once to warm up and 5 more
 times with ``api.prove_triangle_count`` (host clock; a proof ends in its
 host read), checks that every proof's claim and bytes are the first one's,
-and prints one JSON line with the seconds and their median. Exits 1
-without a card.
+and prints one JSON line with the seconds and their median. With
+``--device-proofs`` it also times, in turns, the same proof through
+``generate_transcript_device`` unsharded and sharded over Z on
+``chip_smoke.py``'s mesh (``SHARD_COUNT`` shards of the card, n_shard
+``SHARD_VARS``), each byte-identical to the first. Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ SEED, REPS = 42, 5
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout to import")
+    ap.add_argument("--device-proofs", action="store_true",
+                    help="also time generate_transcript_device, unsharded and sharded, in turns")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -59,9 +64,34 @@ def main(argv=None) -> int:
         seconds.append(time.perf_counter() - t0)
         if c != claim or t.to_bytes() != first.to_bytes():
             raise AssertionError("two proofs of one graph differ")
-    print(json.dumps({"root": str(Path(args.root).resolve()), "nodes": nodes, "claim": claim,
-                      "device": torch.cuda.get_device_name(0), "prove_s": seconds,
-                      "median_s": statistics.median(seconds)}))
+    out = {"root": str(Path(args.root).resolve()), "nodes": nodes, "claim": claim,
+           "device": torch.cuda.get_device_name(0), "prove_s": seconds, "median_s": statistics.median(seconds)}
+    if args.device_proofs:
+        from thaler_study_tpu_torch.fiat_shamir import generate_transcript_device
+        from thaler_study_tpu_torch.parallel import make_mesh
+        from thaler_study_tpu_torch.protocols import TriangleG
+
+        k = (nodes - 1).bit_length()
+        g = TriangleG.new_adj_matrix(2 * k, adj, GOLDILOCKS, device="cuda")
+        mesh = make_mesh(["cuda:0"] * smoke.SHARD_COUNT)
+        runs = {"device_s": lambda: generate_transcript_device(g, GOLDILOCKS),
+                "sharded_device_s": lambda: generate_transcript_device(g, GOLDILOCKS, mesh=mesh,
+                                                                       n_shard=smoke.SHARD_VARS)}
+        want = first.to_bytes()
+        for name in runs:
+            out[name] = []
+        for i in range(REPS + 1):
+            for name, run in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = run().to_bytes()
+                if i:
+                    out[name].append(time.perf_counter() - t0)
+                if got != want:
+                    raise AssertionError(f"{name}: the device proof's bytes differ from the first proof's")
+        for name in runs:
+            out[name.replace("_s", "_median_s")] = statistics.median(out[name])
+    print(json.dumps(out))
     return 0
 
 

@@ -11,9 +11,10 @@ the JAX package, on the CPU.
   BabyBear; ``None`` where the JAX
   package's decision gives ``None`` (a zero coefficient, a non-empty DST),
   the per-round fallback's bytes;
-- ``modmatmul_batched``, ``contract_partials_tc`` / ``_many`` and
-  ``digit_planes`` over a batch (the batched tensor-core matmul's plain
-  version) against the JAX ``modmatmul_batched_impl``;
+- ``modmatmul_batched``, ``contract_partials_tc`` per shard,
+  ``contract_total`` over the shards and ``digit_planes`` over a batch (the
+  tensor-core matmul's plain versions) against the JAX
+  ``modmatmul_batched_impl``;
 - meshes: ``make_mesh`` (no card: it raises unless given devices), the
   groups of repeated and alternating devices, ``shard_factor``'s layout
   against the JAX package's.
@@ -252,8 +253,9 @@ def test_batched_matmul_plain_matches_jax():
     """C[s] = A[s] B[s]^T (the plain digit form of the batched tensor-core
     kernel) against the JAX ``modmatmul_batched_impl``, Goldilocks and
     BabyBear; the contracted round sums per shard, sum f1_t (A_t[s]
-    B[s]^T), at t = 0, 2 and with no view, against the JAX product summed
-    the same way (the kernel's digit form and the routed entry); the
+    B[s]^T), at t = 0, 2 (the kernel's digit form) and their sum over the
+    shards at t = 0, 2 and with no view (``contract_total``, the sharded
+    round's entry), against the JAX product summed the same way; the
     batched digit planes."""
     for field in (GOLDILOCKS, BABYBEAR):
         _check_batched(field)
@@ -277,17 +279,19 @@ def _check_batched(field):
                       for x in (a[:, :m], a[:, m:]))
     got = modmatmul.modmatmul_batched(FArray.from_ints(np.ascontiguousarray(a[:, :m]), field, device="cpu"), pb)
     assert np.array_equal(got.to_u64(), c_lo.astype(np.uint64))
-    partials = [modmatmul.contract_partials_tc(pa.data, pb.data, pd.data, field, t) for t in (0, 2)]
-    partials += modmatmul.contract_partials_many(pa.data, pb.data, pd.data, field, [0, 2])  # the routed entry
-    for t, part in zip((0, 2, 0, 2), partials):
+    row = torch.empty(3, dtype=pa.data.dtype)
+    modmatmul.contract_total(pa.data, pb.data, pd.data, field, [0, 2], row)  # the shards as one contraction
+    for t in (0, 2):
         ct = (c_lo + t * (c_hi - c_lo)) % field.p
         dt = (d[:m].astype(object) + t * (d[m:].astype(object) - d[:m].astype(object))) % field.p
-        sums = FArray(part, field).sum(axis=1).to_ints()
-        assert [int(x) for x in sums] == [int((ct[i] * dt).sum() % field.p) for i in range(s)], t
-    whole = modmatmul.contract_partials_many(pa.data[:, :m].contiguous(),
-                                             pb.data, pd.data[:m].contiguous(), field, [None])[0]
-    assert [int(x) for x in FArray(whole, field).sum(axis=1).to_ints()] == [
-        int((c_lo[i] * d[:m].astype(object)).sum() % field.p) for i in range(s)]
+        want = [int((ct[i] * dt).sum() % field.p) for i in range(s)]
+        parts = [modmatmul.contract_partials_tc(pa.data[i], pb.data[i], pd.data, field, t) for i in range(s)]
+        assert [int(FArray(p, field).sum(axis=0).to_ints()) for p in parts] == want, t
+        assert int(FArray(row[t], field).to_ints()) == sum(want) % field.p, t
+    whole = torch.empty(1, dtype=pa.data.dtype)
+    modmatmul.contract_total(pa.data[:, :m].contiguous(), pb.data, pd.data[:m].contiguous(), field, [None], whole)
+    assert int(FArray(whole[0], field).to_ints()) == int(
+        sum((c_lo[i] * d[:m].astype(object)).sum() for i in range(s)) % field.p)
     planes = modmatmul.digit_planes(pa.data, field, 2)
     assert torch.equal(planes, torch.cat([modmatmul.digit_planes_plain(pa.data[i], field, 2) for i in range(s)], 1))
 

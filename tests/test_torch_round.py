@@ -142,16 +142,22 @@ def test_product_poly_sumcheck_accepts(rng):
 
 
 def test_outside_the_slice_raises():
-    """What the port does not cover raises NotImplementedError: specs of
-    more than three blocks (ROADMAP C7); the fused FS prover returns None
-    where the JAX package's does: a non-empty DST or a round of degree 0.
-    Every field of the port and every spec of round degrees >= 1, a
-    multi-block one too, are in the fused path."""
+    """The edges of the port: a spec of more than three blocks no longer
+    raises (it is merged down to three, so ``round_step`` and the sharded
+    prover take it); the fused FS prover returns None where the JAX
+    package's does: a non-empty DST or a round of degree 0. Every field of
+    the port and every spec of round degrees >= 1, a multi-block one too,
+    are in the fused path."""
+    from thaler_study_tpu_torch.parallel import ShardedBlockPoly, make_mesh
+
     multi = rk.PolySpec(block_sizes=(1, 2), table_blocks=((0,), (0, 1)), terms=((0, 1),))
     flat = rk.PolySpec(block_sizes=(1, 1), table_blocks=((0,), (0,)), terms=((0, 1),))  # round 1: degree 0
     wide = rk.PolySpec(block_sizes=(1, 1, 1, 1), table_blocks=((0, 1, 2, 3),), terms=((0,),))
-    with pytest.raises(NotImplementedError, match="C7"):
-        rk.round_step(wide, [FArray.from_ints([1] * 16, GOLDILOCKS, device="cpu")], None)
+    ones = [FArray.from_ints(list(range(1, 17)), GOLDILOCKS, device="cpu")]
+    sums, _ = rk.round_step(wide, ones, None)
+    assert [int(x) for x in sums.to_ints()] == [sum(range(1, 9)), sum(range(9, 17))]
+    sharded = ShardedBlockPoly.from_internal_tables(wide, ones, make_mesh(["cpu"] * 2))
+    assert sharded.sum_evaluations().v == sum(range(1, 17))
     spec = rk.single_block_spec(2, 2)
     batch = [FArray.from_ints([[1, 2, 3, 4]], GOLDILOCKS, device="cpu") for _ in range(2)]
     for s, field, dst in ((flat, GOLDILOCKS, b""), (spec, GOLDILOCKS, b"tag"), (spec, F389, b"tag")):

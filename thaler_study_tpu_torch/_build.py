@@ -36,6 +36,7 @@ SOURCES = {
     "modmatmul": "modmatmul.cu",
     "modmatmul_tc": "modmatmul_tc.cu",
     "merkle": "merkle.cu",
+    "row_sums": "row_sums.cu",
 }
 # per-library flags after the sources: modmatmul_tc.cu finds libcuda's
 # cuTensorMapEncodeTiled with dlsym
@@ -55,6 +56,7 @@ NVCC_FLAGS = [
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+_tickets: Dict[int, object] = {}  # device index -> the ticket counter
 
 
 def _nvcc() -> str:
@@ -111,6 +113,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def ticket_counter(dev):
+    """The ticket counter of the CUDA device ``dev`` (one int32 on it, 0
+    between launches): the kernels whose grid's last block finishes a sum
+    (K1, MB, the tensor-core dot form, the eq table and the line
+    restriction) count their blocks in it, and that block sets it back to
+    0, so every launch on the device's stream shares it."""
+    import torch
+
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    c = _tickets.get(key)
+    if c is None:
+        c = _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", key))
+    return c
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,8 +8,8 @@
 // (ops/round_kernel.py :204-205) and for modmatmul at m n k >= 2^18 (:75-76).
 // csrc/modmatmul.cu, the CUDA-core kernel, is the counterpart of
 // modmatmul_impl; ops/modmatmul.py routes between the two by those rules.
-// Modes as in csrc/modmatmul.cu: 0 writes C; 1 (DOT) writes one partial sum
-// of D * C per tile and not C; 2 (VIEW + DOT) takes the views A_t = A_lo +
+// Modes as in csrc/modmatmul.cu: 0 writes C; 1 (DOT) sums D * C and
+// writes the one word, not C; 2 (VIEW + DOT) takes the views A_t = A_lo +
 // t (A_hi - A_lo) and D_t likewise.
 //
 // Digits. digits_kernel splits every word into unsigned bytes, 8 for a
@@ -53,16 +53,34 @@
 // = diag_s 256^s R^-1 (diag_s < 2^31, so the product is < p 2^32): their sum
 // mod p is X R^-1, the Montgomery word of sum ab that _mxu_modmatmul_impl
 // gives (:202-217), with no wide integer. Modes 1 and 2 multiply by D (D_t)
-// in registers and write one partial per block: C never reaches device
-// memory. The partials are row-major over tiles of TILE_A x 64 outputs.
+// in registers: C never reaches device memory.
 //
-// Batches. Every entry point takes `batch` independent products of one
-// shape (the sharded triangle IP's per-shard contractions, f3_s f2_s^T with
-// the replicated f1 as D): the digit planes of batch b are rows b R ..
-// b R + R - 1 of [D][batch R][Kp], grid y is the batch, and batch b writes
-// C at b M N and its partials at b (tiles of one product). D is shared by
-// every batch. A ragged tile reads the next batch's first rows (TMA
-// zero-fills past the last), whose outputs it discards.
+// Batches (mode 0). C_b = A_b B_b^T for `batch` products of one shape: the
+// digit planes of batch b are rows b R .. b R + R - 1 of [D][batch R][Kp],
+// grid y is the batch, batch b writes C at b M N. A ragged tile reads the
+// next batch's first rows (TMA zero-fills past the last), whose outputs it
+// discards.
+//
+// Shard rows (modes 1 and 2). The dot forms take S >= 1 shard rows of one
+// shape with D shared: S = 1 is the unsharded triangle IP's contraction;
+// the sharded one is sharded on Z, the contraction axis, so a device's
+// shard rows s make one contraction, sum_s sum_{x,y} f1 (f3_s f2_s^T) =
+// sum_{x,y} f1 (F3 F2^T) with F3 = [f3_0 | f3_1 | ...] along K: K_dev =
+// S x K. The kernel runs that one product over the batch layout's digit
+// planes as they are (4-D tensor maps {K bytes, rows, shard, plane}; a
+// ragged tile's rows past M or N zero-filled): each tile's K loop walks
+// (shard, K stage) with the shard stride, so a tile sees S x K stages
+// under one prologue and one epilogue. Where the tiles are fewer than the
+// SMs, grid y splits that walk into `splits` equal ranges (the dot with D
+// is linear in C, so each range's partial adds). The int32 diagonal sums
+// keep one bound at every S: a thread flushes after every K_c of the K it
+// walks (KC / BK stages, across shards), so K_dev above K_c is split into
+// flushes exactly as a long K of one product is. Each block writes one
+// partial to [splits][tiles] (row-major over the (ceil(M / TILE_A),
+// ceil(N / 64)) tiles of TILE_A x 64 outputs); the grid's last block (a
+// ticket, one int per device, 0 between launches) sums every partial and
+// writes the launch's one word for this t into the round's row (and a 0
+// where the row leaves s(1) out).
 //
 // What bounds it on the H100: tensor-core operations, D^2 digit products
 // of 8 bits per field product at 989.5 T multiply-adds per second (int8,
@@ -179,6 +197,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one 4-D box of one shard's digit planes {K bytes, rows, 1 shard, planes}
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int k, int row,
+                                          int shard) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(bar), "r"(k), "r"(row), "r"(shard), "r"(0)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t ldcg(const uint32_t* p) { return __ldcg(p); }
+__device__ __forceinline__ uint64_t ldcg(const uint64_t* p) {
+  return __ldcg(reinterpret_cast<const unsigned long long*>(p));
+}
+
 // K-major operand, 128-byte rows, 128B swizzle: 8-row groups 1024 bytes apart
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
@@ -275,14 +308,25 @@ __global__ void digits_kernel(F f, const typename F::word* __restrict__ x, typen
 
 // ---- the product ---------------------------------------------------------------
 
+// Where a dot launch writes its word: total[0], and 0 at total[zero]
+// where zero >= 0; counter its ticket.
+template <class W>
+struct TotalOut {
+  W* total;
+  int zero;
+  int* counter;
+};
+
 // grid = (na * nb, batch) blocks (na A tiles of TILE_A rows, nb B tiles of
-// 64 rows, per batch), THREADS threads, Geometry<D>::SMEM bytes of dynamic
-// shared memory.
+// 64 rows, per batch), or with DOT (na * nb, splits), THREADS threads,
+// Geometry<D>::SMEM bytes of dynamic shared memory. DOT: `shards` shard
+// rows of M and N rows each, their K stages walked as one K.
 template <class F, bool VIEW, bool DOT>
 __global__ void __launch_bounds__(THREADS, 1)
     tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b, F f,
               typename F::word* __restrict__ c, const typename F::word* __restrict__ dt, typename F::word t,
-              typename F::word* __restrict__ partials, int M, int N, int K, int na, int nb) {
+              typename F::word* __restrict__ partials, int M, int N, int K, int na, int nb, int shards,
+              TotalOut<typename F::word> o) {
   using G = Geometry<F::D>;
   using W = typename F::word;
   extern __shared__ uint8_t smem_raw[];
@@ -301,6 +345,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int batch = blockIdx.y;
   const int row_b0 = b_tile * ROWS_B, row_a0 = a_tile * G::TILE_A + wg * G::ROWS_A;
   const int stages_k = (K + BK - 1) / BK;
+  // the block's K stages: [g0, g1) of the shards x stages_k (DOT: split
+  // blockIdx.y of gridDim.y), else the product's own
+  int g0 = 0, g1 = stages_k;
+  if (DOT) {
+    const long long all = (long long)shards * stages_k;
+    g0 = (int)(all * blockIdx.y / gridDim.y);
+    g1 = (int)(all * (blockIdx.y + 1) / gridDim.y);
+  }
+  const int count = g1 - g0;
 
   if (tid == 0) {
 #pragma unroll
@@ -308,14 +361,20 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  auto load_stage = [&](int s, int kt) {
+  auto load_stage = [&](int s, int i) {  // the block's stage i into slot s
     const uint32_t bar = bars + 8 * s;
     mbar_expect_tx(bar, G::A_BYTES + G::B_BYTES);
-    tma_load(b_ring + s * G::B_BYTES, &map_b, bar, kt * BK, batch * N + row_b0);
-    tma_load(a_ring + s * G::A_BYTES, &map_a, bar, kt * BK, batch * M + a_tile * G::TILE_A);
+    if (DOT) {
+      const int g = g0 + i, shard = g / stages_k, kt = g % stages_k;
+      tma_load4(b_ring + s * G::B_BYTES, &map_b, bar, kt * BK, row_b0, shard);
+      tma_load4(a_ring + s * G::A_BYTES, &map_a, bar, kt * BK, a_tile * G::TILE_A, shard);
+    } else {
+      tma_load(b_ring + s * G::B_BYTES, &map_b, bar, i * BK, batch * N + row_b0);
+      tma_load(a_ring + s * G::A_BYTES, &map_a, bar, i * BK, batch * M + a_tile * G::TILE_A);
+    }
   };
   if (tid == 0)
-    for (int s = 0; s < G::STAGES && s < stages_k; ++s) load_stage(s, s);
+    for (int s = 0; s < G::STAGES && s < count; ++s) load_stage(s, s);
 
   uint32_t acc[G::DIAG][G::Q];
   W run[G::Q];
@@ -325,7 +384,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int s = 0; s < G::DIAG; ++s) acc[s][q] = 0;
   }
-  for (int kt = 0; kt < stages_k; ++kt) {
+  for (int kt = 0; kt < count; ++kt) {
     const int s = kt % G::STAGES;
     mbar_wait(bars + 8 * s, (kt / G::STAGES) & 1);
     // this warpgroup's rows of A in every plane: wg * ROWS_A .. of TILE_A
@@ -360,8 +419,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_operands(acc);
     }
     __syncthreads();  // every warp's reads of stage s are done: refill it
-    if (tid == 0 && kt + G::STAGES < stages_k) load_stage(s, kt + G::STAGES);
-    if ((kt + 1) % (G::KC / BK) == 0 || kt + 1 == stages_k) {
+    if (tid == 0 && kt + G::STAGES < count) load_stage(s, kt + G::STAGES);
+    // flush after every K_c of the K this block walks (the int32 bound)
+    if ((kt + 1) % (G::KC / BK) == 0 || kt + 1 == count) {
 #pragma unroll
       for (int q = 0; q < G::Q; ++q) {
         run[q] = f.add(run[q], f.template recombine<G::DIAG, G::Q>(acc, q));
@@ -401,6 +461,29 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int w = 0; w < THREADS / 32; ++w) total = f.add(total, warp_sums[w]);
     partials[((long long)batch * na + a_tile) * nb + b_tile] = total;
   }
+  // the ticket: the grid's last block sums every block's partial
+  __shared__ int last;
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(o.counter, 1) == (int)(gridDim.x * gridDim.y) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  const int blocks = gridDim.x * gridDim.y;
+  W y = 0;
+  for (int j = tid; j < blocks; j += THREADS) y = f.add(y, ldcg(partials + j));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) y = f.add(y, shfl_down(y, off));
+  if (lane == 0) warp_sums[tid >> 5] = y;
+  __syncthreads();
+  if (tid == 0) {
+    W total = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) total = f.add(total, warp_sums[w]);
+    o.total[0] = total;
+    if (o.zero >= 0) o.total[o.zero] = 0;
+    *o.counter = 0;
+  }
 }
 
 // ---- host side -------------------------------------------------------------------
@@ -436,14 +519,33 @@ int plane_map(CUtensorMap* map, const void* planes, int D, int rows, int kp, int
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
+// planes [D][shards][rows][kp] as {kp, rows, shards, D}: a box of one shard
+int plane_map4(CUtensorMap* map, const void* planes, int D, int rows, int shards, int kp, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return ERR_NO_ENCODE;
+  const cuuint64_t dims[4] = {(cuuint64_t)kp, (cuuint64_t)rows, (cuuint64_t)shards, (cuuint64_t)D};
+  const cuuint64_t strides[3] = {(cuuint64_t)kp, (cuuint64_t)rows * kp, (cuuint64_t)shards * rows * kp};
+  const cuuint32_t box[4] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1, (cuuint32_t)D};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(planes), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// Dot launches (DOT) pass `batch` = the shards and `splits` (grid y) and
+// their TotalOut; mode 0 passes neither.
 template <class F, bool VIEW, bool DOT>
 int launch_tc(const F& f, const void* a_planes, const void* b_planes, int kp, void* c, const void* d, uint64_t t,
-              void* partials, int M, int N, int K, int batch, cudaStream_t s) {
+              void* partials, int M, int N, int K, int batch, cudaStream_t s, int splits = 1,
+              TotalOut<typename F::word> o = {}) {
   using G = Geometry<F::D>;
   using W = typename F::word;
   CUtensorMap map_a, map_b;
-  int rc = plane_map(&map_a, a_planes, F::D, batch * M, kp, G::TILE_A);
-  if (!rc) rc = plane_map(&map_b, b_planes, F::D, batch * N, kp, ROWS_B);
+  int rc = DOT ? plane_map4(&map_a, a_planes, F::D, M, batch, kp, G::TILE_A)
+               : plane_map(&map_a, a_planes, F::D, batch * M, kp, G::TILE_A);
+  if (!rc) rc = DOT ? plane_map4(&map_b, b_planes, F::D, N, batch, kp, ROWS_B)
+                    : plane_map(&map_b, b_planes, F::D, batch * N, kp, ROWS_B);
   if (rc) return rc;
   static bool configured[MAX_DEVICES] = {};  // the opt-in above 48 KB is per device
   int dev = 0;
@@ -457,22 +559,19 @@ int launch_tc(const F& f, const void* a_planes, const void* b_planes, int kp, vo
     configured[dev] = true;
   }
   const int na = (M + G::TILE_A - 1) / G::TILE_A, nb = (N + ROWS_B - 1) / ROWS_B;
-  tc_kernel<F, VIEW, DOT><<<dim3(na * nb, batch), THREADS, G::SMEM, s>>>(
+  tc_kernel<F, VIEW, DOT><<<dim3(na * nb, DOT ? splits : batch), THREADS, G::SMEM, s>>>(
       map_a, map_b, f, static_cast<W*>(c), static_cast<const W*>(d), (W)t, static_cast<W*>(partials), M, N, K,
-      na, nb);
+      na, nb, batch, o);
   return 0;
 }
 
 template <class F>
-int launch_mode(const F& f, int mode, const void* a_planes, const void* b_planes, int kp, void* c, const void* d,
-                uint64_t t, void* partials, int M, int N, int K, int batch, cudaStream_t s) {
+int launch_product(const F& f, const void* a_planes, const void* b_planes, int kp, void* c, int M, int N, int K,
+                   int batch, cudaStream_t s) {
   if (M < 1 || N < 1 || K < 1 || kp < K || kp % 16 || batch < 1 || batch > 65535 ||
       (long long)batch * M >= (1LL << 31) || (long long)batch * N >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  if (mode == 0) return launch_tc<F, false, false>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
-  if (mode == 1) return launch_tc<F, false, true>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
-  if (mode == 2) return launch_tc<F, true, true>(f, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_tc<F, false, false>(f, a_planes, b_planes, kp, c, nullptr, 0, nullptr, M, N, K, batch, s);
 }
 
 template <class F>
@@ -489,6 +588,26 @@ int launch_digits(const F& f, const void* x, uint64_t t, int view, void* out, in
   if (view) digits_kernel<F, true><<<(unsigned)blocks, threads, 0, s>>>(f, xp, (W)t, op, R, K, kp, batch);
   else digits_kernel<F, false><<<(unsigned)blocks, threads, 0, s>>>(f, xp, (W)t, op, R, K, kp, batch);
   return 0;
+}
+
+// The dot form (mode 1 DOT or 2 VIEW + DOT) over `shards` shard rows
+template <class F>
+int launch_dot(const F& f, int mode, const void* a_planes, const void* b_planes, int kp, const void* d, uint64_t t,
+               void* partials, void* total, int zero, void* counter, int M, int N, int K, int shards, int splits,
+               cudaStream_t s) {
+  using W = typename F::word;
+  const long long stages = (long long)shards * ((K + BK - 1) / BK);
+  if (M < 1 || N < 1 || K < 1 || kp < K || kp % 16 || shards < 1 || shards > 65535 || splits < 1 ||
+      splits > 65535 || splits > stages || !d || !partials || !total || !counter)
+    return (int)cudaErrorInvalidValue;
+  const TotalOut<W> o{static_cast<W*>(total), zero, static_cast<int*>(counter)};
+  if (mode == 1)
+    return launch_tc<F, false, true>(f, a_planes, b_planes, kp, nullptr, d, t, partials, M, N, K, shards, s, splits,
+                                     o);
+  if (mode == 2)
+    return launch_tc<F, true, true>(f, a_planes, b_planes, kp, nullptr, d, t, partials, M, N, K, shards, s, splits,
+                                    o);
+  return (int)cudaErrorInvalidValue;
 }
 
 M32Tc m32_ops(unsigned p, unsigned pinv) {
@@ -517,21 +636,35 @@ extern "C" int ts_mm_tc_digits(int mont32, unsigned p, unsigned pinv, const void
 }
 
 // C_b = A_b B_b^T for b < batch from the digit planes of A [batch, M, K] and
-// B [batch, N, K] (each [D][batch rows][kp]). mode 0: c [batch, M, N]
-// written; mode 1: DOT (d [M, N], shared by the batches; partials [batch,
-// tiles]: one word per tile of TILE_A x 64 outputs, row-major over the
-// (ceil(M / TILE_A), ceil(N / 64)) tiles, TILE_A = 32 Goldilocks, 64
-// mont32); mode 2: DOT with the view D_t of d [2M, N] (A's planes already
-// of A_t). Unused pointers are null. Returns 10001 where libcuda's
-// cuTensorMapEncodeTiled cannot be found, 10002 where it refuses a map,
-// else cudaGetLastError() after the launch (0 = launched); the wrapper
-// checks every argument first.
-extern "C" int ts_mm_tc_launch(int mont32, unsigned p, unsigned pinv, int mode, const void* a_planes,
-                               const void* b_planes, int kp, void* c, const void* d, unsigned long long t,
-                               void* partials, int M, int N, int K, int batch, void* stream) {
+// B [batch, N, K] (each [D][batch rows][kp]) into c [batch, M, N]. Returns
+// 10001 where libcuda's cuTensorMapEncodeTiled cannot be found, 10002 where
+// it refuses a map, else cudaGetLastError() after the launch (0 = launched);
+// the wrapper checks every argument first.
+extern "C" int ts_mm_tc_launch(int mont32, unsigned p, unsigned pinv, const void* a_planes, const void* b_planes,
+                               int kp, void* c, int M, int N, int K, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = mont32 ? launch_mode(m32_ops(p, pinv), mode, a_planes, b_planes, kp, c, d, t, partials, M, N, K,
-                                      batch, s)
-                        : launch_mode(GlTc{}, mode, a_planes, b_planes, kp, c, d, t, partials, M, N, K, batch, s);
+  const int rc = mont32 ? launch_product(m32_ops(p, pinv), a_planes, b_planes, kp, c, M, N, K, batch, s)
+                        : launch_product(GlTc{}, a_planes, b_planes, kp, c, M, N, K, batch, s);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// The dot form: sum over the shards b < shards of D_t * (A_b B_b^T)
+// (mode 1: D [M, N]; mode 2: the view D_t of d [2M, N], A's planes of
+// A_t), as one contraction over K_dev = shards x K, from the digit planes
+// [D][shards M][kp] and [D][shards N][kp]; grid y splits the K walk into
+// `splits` ranges (1 <= splits <= the shards' K stages). partials:
+// [splits][tiles] (with one split: one word per tile); the launch writes
+// its one word to total[0] and 0 to total[zero] where zero >= 0; counter:
+// one int that is 0 (and 0 again after the kernel). Returns as
+// ts_mm_tc_launch.
+extern "C" int ts_mm_tc_dot_launch(int mont32, unsigned p, unsigned pinv, int mode, const void* a_planes,
+                                   const void* b_planes, int kp, const void* d, unsigned long long t, void* partials,
+                                   void* total, int zero, void* counter, int M, int N, int K, int shards, int splits,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = mont32 ? launch_dot(m32_ops(p, pinv), mode, a_planes, b_planes, kp, d, t, partials, total, zero,
+                                     counter, M, N, K, shards, splits, s)
+                        : launch_dot(GlTc{}, mode, a_planes, b_planes, kp, d, t, partials, total, zero, counter, M,
+                                     N, K, shards, splits, s);
   return rc ? rc : (int)cudaGetLastError();
 }

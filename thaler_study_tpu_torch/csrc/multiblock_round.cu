@@ -60,7 +60,10 @@
 // (read from L2) and writes s(0..D) and s(1) (K1's TAIL epilogue pattern,
 // round_kernel.cu); it resets the ticket counter to 0, so a round is one
 // launch. The counter is one int per device: launches run one at a time on
-// the caller's stream.
+// the caller's stream. With `scaled` the sums are written times the word
+// `scale`: the sharded rounds' terms over replicated tables only, summed
+// once for all 2^n_shard shard rows (parallel/sharded.py; JAX _mb_sums
+// :548), and `sums` may point into a row of the round's rows buffer.
 //
 // What bounds it on the H100: device memory where a table is streamed (a
 // 2^24-entry triangle table read once in the first Y round), else the
@@ -170,6 +173,8 @@ struct Args {
   int nstaged, stage_a;                // staged tables; some of them cover row coordinate a
   int pslot[MAX_TABLES];               // inner tables read per point: first pipeline slot (-1: none)
   int pipe_k, pipe_stages, pipe_off;   // slots per stage, stages (2, or 0: loads), shared-memory word offset
+  int scaled;                          // the sums are written times `scale` (a word of the field)
+  unsigned long long scale;
 };
 
 __device__ __forceinline__ bool owner(int miss, int a, int b) {
@@ -660,8 +665,8 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
   }
   if (threadIdx.x == 0) {
     W* sums = reinterpret_cast<W*>(d.sums);
-    for (int t = 0; t <= degree; ++t) sums[t] = tot[t];
-    if (d.skip1) sums[1] = d.claim ? f.sub(reinterpret_cast<const W*>(d.claim)[0], tot[0]) : W(0);
+    for (int t = 0; t <= degree; ++t) sums[t] = d.scaled ? f.mul(tot[t], (W)d.scale) : tot[t];
+    if (d.skip1) sums[1] = d.claim ? f.sub(reinterpret_cast<const W*>(d.claim)[0], sums[0]) : W(0);
   }
 }
 

@@ -28,7 +28,8 @@
 // (K1) can finish its round in its last block instead: the sums s(0..2)
 // with the claim's s(1), or on the fused GKR path the GKR round tail
 // (TAIL, tail_epilogue below; csrc/gkr_tail.cuh), so that a round is one
-// launch.
+// launch; its TOTAL form (libra_total_kernel) runs a device's shard rows
+// of a sharded round as one wave and writes their summed s(0..2).
 //
 // What bounds it on the H100: device memory. A FOLD round reads 2 x 4 and
 // writes 2 x 2 words per table per quarter index, 8 or 4 bytes each; the
@@ -133,17 +134,19 @@ __device__ __forceinline__ void add_product(const F& f, typename F::Acc& acc,
 
 // grid = (blocks, B). Block x of proof b covers pair indices
 // [x * chunk, min((x + 1) * chunk, half)), its threads striding by THREADS.
+// Proof b folds at r[b * r_step]: r_step 0 folds every row at r[0] (a
+// device's shard rows of one sharded proof).
 template <class F, int K, bool FOLD, bool SKIP1>
 __global__ void __launch_bounds__(THREADS)
     round_kernel(F f, Tables<typename F::word, K> t, const typename F::word* __restrict__ r,
-                 typename F::word* __restrict__ partials, long long n, long long chunk) {
+                 typename F::word* __restrict__ partials, long long n, long long chunk, int r_step) {
   using W = typename F::word;
   constexpr int D = K;
   const long long b = blockIdx.y;
   const long long half = FOLD ? n / 4 : n / 2;
   const long long begin = (long long)blockIdx.x * chunk;
   const long long end = begin + chunk < half ? begin + chunk : half;
-  const W rb = FOLD ? r[b] : 0;
+  const W rb = FOLD ? r[b * r_step] : 0;
 
   typename F::Acc acc[D + 1];
 #pragma unroll
@@ -323,14 +326,87 @@ __device__ __forceinline__ void tail_epilogue(const F& f, const uint64_t* partia
   if (threadIdx.x < 32) gkr_tail::round_tail(s, in, t);
 }
 
+// One proof's three tables (rows of [B, n]) and, where a round folds, the
+// rows of their folds.
+template <class W>
+struct Proof3 {
+  const W* src[3];
+  W* dst[3];
+};
+
+// Pair index i of one proof: the three tables' (folded) values lo and hi
+// into s(0), s(1) (left out with SKIP1) and s(2).
+template <class F, int PHASE, bool FOLD, bool SKIP1>
+__device__ __forceinline__ void libra_point(const F& f, const Proof3<typename F::word>& t, long long i,
+                                            long long half, typename F::word rb, typename F::word s,
+                                            typename F::Acc (&acc)[3]) {
+  using W = typename F::word;
+  W lo[3], hi[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    if (FOLD) {
+      // quarters q0..q3 of T: f_lo = fold(q0, q2), f_hi = fold(q1, q3)
+      lo[g] = f.fold(t.src[g][i], t.src[g][i + 2 * half], rb);
+      hi[g] = f.fold(t.src[g][i + half], t.src[g][i + 3 * half], rb);
+      t.dst[g][i] = lo[g];
+      t.dst[g][i + half] = hi[g];
+    } else {
+      lo[g] = t.src[g][i];
+      hi[g] = t.src[g][i + half];
+    }
+  }
+  add_point<F, PHASE, SKIP1>(f, acc, lo, hi, s);
+}
+
+// 16-byte group q of one proof (hq groups a quarter): 12 loads and,
+// folding, 6 stores of 16 bytes, every load issued before the first store.
+template <class F, int PHASE, bool FOLD, bool SKIP1>
+__device__ __forceinline__ void libra_group(const F& f, const Proof3<typename F::word>& t, long long q,
+                                            long long hq, typename F::word rb, typename F::word s,
+                                            typename F::Acc (&acc)[3]) {
+  using W = typename F::word;
+  using P = Pack<W>;
+  constexpr int V = P::N;
+  P lo[3], hi[3];
+  if (FOLD) {
+    P x[3][4];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) x[g][h] = reinterpret_cast<const P*>(t.src[g])[q + h * hq];
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        lo[g].w[j] = f.fold(x[g][0].w[j], x[g][2].w[j], rb);
+        hi[g].w[j] = f.fold(x[g][1].w[j], x[g][3].w[j], rb);
+      }
+      reinterpret_cast<P*>(t.dst[g])[q] = lo[g];
+      reinterpret_cast<P*>(t.dst[g])[q + hq] = hi[g];
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      lo[g] = reinterpret_cast<const P*>(t.src[g])[q];
+      hi[g] = reinterpret_cast<const P*>(t.src[g])[q + hq];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const W l[3] = {lo[0].w[j], lo[1].w[j], lo[2].w[j]};
+    const W h[3] = {hi[0].w[j], hi[1].w[j], hi[2].w[j]};
+    add_point<F, PHASE, SKIP1>(f, acc, l, h, s);
+  }
+}
+
 template <class F, int PHASE, bool FOLD, bool SKIP1, bool TAIL>
 __global__ void __launch_bounds__(THREADS)
     libra_round_kernel(F f, Tables<typename F::word, 3> t, const typename F::word* __restrict__ r,
                        const typename F::word* __restrict__ scalar, LibraOut<typename F::word> o, long long n,
                        long long chunk, int vec, gkr_tail::RoundArgs tail) {
   using W = typename F::word;
-  using P = Pack<W>;
-  constexpr int V = P::N;
+  constexpr int V = Pack<W>::N;
   __shared__ gkr_tail::ChainIn chain_in;
   if constexpr (TAIL) gkr_tail::load_chain_async(chain_in, tail);
   const long long b = blockIdx.y;
@@ -339,35 +415,16 @@ __global__ void __launch_bounds__(THREADS)
   const long long end = begin + chunk < half ? begin + chunk : half;
   const W rb = FOLD ? r[b] : 0;
   const W s = PHASE == 2 ? scalar[b] : 0;
-  const W* src[3];
-  W* dst[3];
+  Proof3<W> pr;
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    src[g] = t.in[g] + b * n;
-    dst[g] = FOLD ? t.out[g] + b * (n / 2) : nullptr;
+    pr.src[g] = t.in[g] + b * n;
+    pr.dst[g] = FOLD ? t.out[g] + b * (n / 2) : nullptr;
   }
 
   typename F::Acc acc[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) acc[j] = typename F::Acc{};
-
-  const auto one_point = [&](long long i) {
-    W lo[3], hi[3];
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      if (FOLD) {
-        // quarters q0..q3 of T: f_lo = fold(q0, q2), f_hi = fold(q1, q3)
-        lo[g] = f.fold(src[g][i], src[g][i + 2 * half], rb);
-        hi[g] = f.fold(src[g][i + half], src[g][i + 3 * half], rb);
-        dst[g][i] = lo[g];
-        dst[g][i + half] = hi[g];
-      } else {
-        lo[g] = src[g][i];
-        hi[g] = src[g][i + half];
-      }
-    }
-    add_point<F, PHASE, SKIP1>(f, acc, lo, hi, s);
-  };
 
   // the range's whole groups [vb, ve), and the entries around them
   long long vb = end, ve = end;
@@ -377,42 +434,13 @@ __global__ void __launch_bounds__(THREADS)
     ve = end / V * V;
     ve = ve > vb ? ve : vb;
   }
-  for (long long i = begin + threadIdx.x; i < vb; i += THREADS) one_point(i);
-  for (long long i = ve + threadIdx.x; i < end; i += THREADS) one_point(i);
+  for (long long i = begin + threadIdx.x; i < vb; i += THREADS)
+    libra_point<F, PHASE, FOLD, SKIP1>(f, pr, i, half, rb, s, acc);
+  for (long long i = ve + threadIdx.x; i < end; i += THREADS)
+    libra_point<F, PHASE, FOLD, SKIP1>(f, pr, i, half, rb, s, acc);
   const long long hq = half / V;  // a quarter in groups
-  for (long long q = vb / V + threadIdx.x; q < ve / V; q += THREADS) {
-    P lo[3], hi[3];
-    if (FOLD) {
-      P x[3][4];
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-#pragma unroll
-        for (int h = 0; h < 4; ++h) x[g][h] = reinterpret_cast<const P*>(src[g])[q + h * hq];
-      }
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          lo[g].w[j] = f.fold(x[g][0].w[j], x[g][2].w[j], rb);
-          hi[g].w[j] = f.fold(x[g][1].w[j], x[g][3].w[j], rb);
-        }
-        reinterpret_cast<P*>(dst[g])[q] = lo[g];
-        reinterpret_cast<P*>(dst[g])[q + hq] = hi[g];
-      }
-    } else {
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        lo[g] = reinterpret_cast<const P*>(src[g])[q];
-        hi[g] = reinterpret_cast<const P*>(src[g])[q + hq];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const W l[3] = {lo[0].w[j], lo[1].w[j], lo[2].w[j]};
-      const W h[3] = {hi[0].w[j], hi[1].w[j], hi[2].w[j]};
-      add_point<F, PHASE, SKIP1>(f, acc, l, h, s);
-    }
-  }
+  for (long long q = vb / V + threadIdx.x; q < ve / V; q += THREADS)
+    libra_group<F, PHASE, FOLD, SKIP1>(f, pr, q, hq, rb, s, acc);
 
   W sums[3];
 #pragma unroll
@@ -438,6 +466,116 @@ __global__ void __launch_bounds__(THREADS)
     }
     if (threadIdx.x == 0) *o.counter = 0;
   }
+}
+
+// ---- K1's TOTAL form: a device's shard rows, finished in the launch ------
+//
+// A sharded round (parallel/sharded.py; JAX parallel/sharded.py _fold2d
+// :90 and _sums2d :101 under GSPMD) runs the LibraW shapes over the B shard
+// rows of one device, which all fold at one challenge r and share one
+// phase-2 scalar, and needs only their sum: s(t) = sum_b s_b(t), s(1) left
+// 0 with SKIP1 (the claim holds for the global sums; the tail fills s(1)
+// after the reduction). The per-row form above gives each row a wave of
+// blocks (grid y = the row), so B rows take B waves, B tickets and B rows
+// of sums that the caller then adds. Here one wave of blocks covers rows x
+// pair indices: the B rows' units (16-byte groups with `vec`, else pair
+// indices; a row holds 2^log_row of them, so a group never crosses a row)
+// are one index space cut into equal ranges, one per block, a range
+// spanning rows where it falls so. Each block writes one partial [3]; the
+// grid's last block (the ticket) sums them and writes the device's total
+// [3]: the round is one launch and one row of sums per device.
+template <class F, int PHASE, bool FOLD, bool SKIP1>
+__global__ void __launch_bounds__(THREADS)
+    libra_total_kernel(F f, Tables<typename F::word, 3> t, const typename F::word* __restrict__ r,
+                       const typename F::word* __restrict__ scalar, LibraOut<typename F::word> o, long long n,
+                       int log_row, long long units, long long chunk, int vec) {
+  using W = typename F::word;
+  const long long half = FOLD ? n / 4 : n / 2;
+  const long long begin = (long long)blockIdx.x * chunk;
+  const long long end = begin + chunk < units ? begin + chunk : units;
+  const long long in_row = (1LL << log_row) - 1;
+  const W rb = FOLD ? r[0] : 0;
+  const W s = PHASE == 2 ? scalar[0] : 0;
+
+  typename F::Acc acc[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) acc[j] = typename F::Acc{};
+  for (long long u = begin + threadIdx.x; u < end; u += THREADS) {
+    const long long b = u >> log_row;
+    Proof3<W> pr;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      pr.src[g] = t.in[g] + b * n;
+      pr.dst[g] = FOLD ? t.out[g] + b * (n / 2) : nullptr;
+    }
+    if (vec) {
+      libra_group<F, PHASE, FOLD, SKIP1>(f, pr, u & in_row, half / Pack<W>::N, rb, s, acc);
+    } else {
+      libra_point<F, PHASE, FOLD, SKIP1>(f, pr, u & in_row, half, rb, s, acc);
+    }
+  }
+
+  W sums[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) sums[j] = f.acc_reduce(acc[j]);
+  block_sum<F, 3>(f, sums);
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) write_sums(f, o, 0, sums);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    W* part = o.partials + blockIdx.x * 3;
+    part[0] = sums[0];
+    part[1] = sums[1];
+    part[2] = sums[2];
+  }
+  if (!last_block(o.counter, gridDim.x)) return;
+  grid_sums(f, o.partials, 0, gridDim.x, sums);
+  if (threadIdx.x == 0) {
+    write_sums(f, o, 0, sums);
+    *o.counter = 0;
+  }
+}
+
+template <class F>
+using TotalKernel = void (*)(F, Tables<typename F::word, 3>, const typename F::word*, const typename F::word*,
+                             LibraOut<typename F::word>, long long, int, long long, long long, int);
+
+// The TOTAL instantiation for (phase, fold, skip_t1), or null for a phase
+// other than 1 and 2.
+template <class F>
+TotalKernel<F> total_kernel(int phase, int fold, int skip_t1) {
+  if (phase == 1) {
+    if (fold) return skip_t1 ? libra_total_kernel<F, 1, true, true> : libra_total_kernel<F, 1, true, false>;
+    return skip_t1 ? libra_total_kernel<F, 1, false, true> : libra_total_kernel<F, 1, false, false>;
+  }
+  if (phase == 2) {
+    if (fold) return skip_t1 ? libra_total_kernel<F, 2, true, true> : libra_total_kernel<F, 2, true, false>;
+    return skip_t1 ? libra_total_kernel<F, 2, false, true> : libra_total_kernel<F, 2, false, false>;
+  }
+  return nullptr;
+}
+
+template <class F>
+int launch_total(const F& f, int phase, int fold, int skip_t1, const void* const* in, void* const* out,
+                 const void* r, const void* scalar, const LibraOut<typename F::word>& o, long long batch, long long n,
+                 int blocks, int vec, cudaStream_t stream) {
+  using W = typename F::word;
+  const TotalKernel<F> kernel = total_kernel<F>(phase, fold, skip_t1);
+  if (!kernel || blocks < 1) return (int)cudaErrorInvalidValue;
+  Tables<W, 3> t;
+  for (int g = 0; g < 3; ++g) {
+    t.in[g] = static_cast<const W*>(in[g]);
+    t.out[g] = static_cast<W*>(out[g]);
+  }
+  const long long half = fold ? n / 4 : n / 2;
+  const long long per_row = vec ? half / Pack<W>::N : half;  // a power of two
+  int log_row = 0;
+  while ((1LL << log_row) < per_row) ++log_row;
+  const long long units = batch * per_row;
+  kernel<<<blocks, THREADS, 0, stream>>>(f, t, static_cast<const W*>(r), static_cast<const W*>(scalar), o, n,
+                                         log_row, units, (units + blocks - 1) / blocks, vec);
+  return 0;
 }
 
 template <class F>
@@ -477,11 +615,10 @@ int launch_libra(const F& f, int phase, int fold, int skip_t1, const void* const
   return 0;
 }
 
-// Blocks of one wave of an instantiation on the current device: its SMs
-// times the blocks of that kernel resident on one SM; -1 on an error.
-template <class F, bool TAIL>
-int libra_wave(int phase, int fold, int skip_t1) {
-  const LibraKernel<F> kernel = libra_kernel<F, TAIL>(phase, fold, skip_t1);
+// Blocks of one wave of a kernel on the current device: its SMs times the
+// blocks of that kernel resident on one SM; -1 on an error.
+template <class K>
+int wave_of(K kernel) {
   int device = 0, sms = 0, per_sm = 0;
   if (!kernel || cudaGetDevice(&device) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0))
@@ -491,7 +628,7 @@ int libra_wave(int phase, int fold, int skip_t1) {
 
 template <class F, int K, bool FOLD, bool SKIP1>
 void launch(const F& f, const void* const* in, void* const* out, const void* r, void* partials,
-            long long batch, long long n, int blocks, long long chunk, cudaStream_t stream) {
+            long long batch, long long n, int blocks, long long chunk, int r_step, cudaStream_t stream) {
   using W = typename F::word;
   Tables<W, K> t;
   for (int g = 0; g < K; ++g) {
@@ -500,30 +637,30 @@ void launch(const F& f, const void* const* in, void* const* out, const void* r, 
   }
   dim3 grid(blocks, (unsigned)batch);
   round_kernel<F, K, FOLD, SKIP1><<<grid, THREADS, 0, stream>>>(
-      f, t, static_cast<const W*>(r), static_cast<W*>(partials), n, chunk);
+      f, t, static_cast<const W*>(r), static_cast<W*>(partials), n, chunk, r_step);
 }
 
 template <class F, int K>
 void launch_k(const F& f, int fold, int skip_t1, const void* const* in, void* const* out,
               const void* r, void* partials, long long batch, long long n, int blocks,
-              long long chunk, cudaStream_t s) {
-  if (fold && skip_t1) launch<F, K, true, true>(f, in, out, r, partials, batch, n, blocks, chunk, s);
-  else if (fold) launch<F, K, true, false>(f, in, out, r, partials, batch, n, blocks, chunk, s);
-  else if (skip_t1) launch<F, K, false, true>(f, in, out, r, partials, batch, n, blocks, chunk, s);
-  else launch<F, K, false, false>(f, in, out, r, partials, batch, n, blocks, chunk, s);
+              long long chunk, int r_step, cudaStream_t s) {
+  if (fold && skip_t1) launch<F, K, true, true>(f, in, out, r, partials, batch, n, blocks, chunk, r_step, s);
+  else if (fold) launch<F, K, true, false>(f, in, out, r, partials, batch, n, blocks, chunk, r_step, s);
+  else if (skip_t1) launch<F, K, false, true>(f, in, out, r, partials, batch, n, blocks, chunk, r_step, s);
+  else launch<F, K, false, false>(f, in, out, r, partials, batch, n, blocks, chunk, r_step, s);
 }
 
 // the instantiation for k among K, K + 1, ..., MAX_K
 template <class F, int K = 1>
 int launch_field(const F& f, int k, int fold, int skip_t1, const void* const* in,
                  void* const* out, const void* r, void* partials, long long batch, long long n,
-                 int blocks, long long chunk, cudaStream_t s) {
+                 int blocks, long long chunk, int r_step, cudaStream_t s) {
   if (k == K) {
-    launch_k<F, K>(f, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, s);
+    launch_k<F, K>(f, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, r_step, s);
     return 0;
   }
   if constexpr (K < MAX_K) {
-    return launch_field<F, K + 1>(f, k, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, s);
+    return launch_field<F, K + 1>(f, k, fold, skip_t1, in, out, r, partials, batch, n, blocks, chunk, r_step, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -534,15 +671,17 @@ int launch_field(const F& f, int k, int fold, int skip_t1, const void* const* in
 // takes Goldilocks int64 words; mont32 = 1 takes Montgomery words of the
 // field with modulus p < 2^31 and pinv = -p^-1 mod 2^32. in: k table
 // pointers, 1 <= k <= 8; out: k output pointers when folding (else
-// ignored). The wrapper checks every argument first.
+// ignored); r_step 1: proof b folds at r[b], 0: every proof at r[0]. The
+// wrapper checks every argument first.
 extern "C" int ts_round_launch(int mont32, unsigned p, unsigned pinv, int k, int fold, int skip_t1,
                                const void* const* in, void* const* out, const void* r, void* partials,
-                               long long batch, long long n, int blocks, long long chunk, void* stream) {
+                               long long batch, long long n, int blocks, long long chunk, int r_step,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = mont32 ? launch_field(M32Ops{{p, pinv}}, k, fold, skip_t1, in, out, r, partials,
-                                       batch, n, blocks, chunk, s)
+                                       batch, n, blocks, chunk, r_step, s)
                         : launch_field(GlOps{}, k, fold, skip_t1, in, out, r, partials, batch, n,
-                                       blocks, chunk, s);
+                                       blocks, chunk, r_step, s);
   return rc ? rc : (int)cudaGetLastError();
 }
 
@@ -580,11 +719,42 @@ extern "C" int ts_libra_round_launch(int mont32, unsigned p, unsigned pinv, int 
 }
 
 // Blocks of one wave of the instantiation (mont32, phase, fold, skip_t1,
-// tail) on the current device; tail = 1 only with mont32 = 0. Returns -1
-// on a CUDA error or a phase other than 1 and 2.
-extern "C" int ts_libra_wave_blocks(int mont32, int phase, int fold, int skip_t1, int tail) {
-  if (tail) return mont32 ? -1 : libra_wave<GlOps, true>(phase, fold, skip_t1);
-  return mont32 ? libra_wave<M32Ops, false>(phase, fold, skip_t1) : libra_wave<GlOps, false>(phase, fold, skip_t1);
+// form) on the current device: form 0 the per-row K1, 1 K1 with the round
+// tail (mont32 = 0 only), 2 the TOTAL form. Returns -1 on a CUDA error or
+// a phase other than 1 and 2.
+extern "C" int ts_libra_wave_blocks(int mont32, int phase, int fold, int skip_t1, int form) {
+  if (form == 1) return mont32 ? -1 : wave_of(libra_kernel<GlOps, true>(phase, fold, skip_t1));
+  if (form == 2)
+    return mont32 ? wave_of(total_kernel<M32Ops>(phase, fold, skip_t1))
+                  : wave_of(total_kernel<GlOps>(phase, fold, skip_t1));
+  return mont32 ? wave_of(libra_kernel<M32Ops, false>(phase, fold, skip_t1))
+                : wave_of(libra_kernel<GlOps, false>(phase, fold, skip_t1));
+}
+
+// K1's TOTAL form (libra_total_kernel): the LibraW shape `phase` over the
+// batch rows of three [batch][n] tables that fold at r[0] (null without a
+// fold) with the phase-2 scalar scalar[0]; sums [3] the rows' summed
+// s(0..2) (s(1) = 0 with skip_t1), partials [blocks][3] scratch, counter
+// one int that is 0 (and 0 again after the kernel), vec = 1 as for
+// ts_libra_round_launch. Returns as above.
+extern "C" int ts_libra_total_launch(int mont32, unsigned p, unsigned pinv, int phase, int fold, int skip_t1,
+                                     const void* in0, const void* in1, const void* in2, void* out0, void* out1,
+                                     void* out2, const void* r, const void* scalar, void* partials, void* sums,
+                                     void* counter, long long batch, long long n, int blocks, int vec,
+                                     void* stream) {
+  const void* in[3] = {in0, in1, in2};
+  void* out[3] = {out0, out1, out2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* ticket = static_cast<int*>(counter);
+  int rc;
+  if (mont32) {
+    const LibraOut<uint32_t> o{static_cast<uint32_t*>(partials), static_cast<uint32_t*>(sums), nullptr, ticket};
+    rc = launch_total(M32Ops{{p, pinv}}, phase, fold, skip_t1, in, out, r, scalar, o, batch, n, blocks, vec, s);
+  } else {
+    const LibraOut<uint64_t> o{static_cast<uint64_t*>(partials), static_cast<uint64_t*>(sums), nullptr, ticket};
+    rc = launch_total(GlOps{}, phase, fold, skip_t1, in, out, r, scalar, o, batch, n, blocks, vec, s);
+  }
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 // The LibraW shapes over Goldilocks for one proof (batch 1) with the GKR

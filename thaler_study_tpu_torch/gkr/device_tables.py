@@ -79,7 +79,6 @@ line_launches = {"goldilocks": 0, "mont32": 0}
 
 _fn = None
 _tables = None
-_counters = {}  # the tickets' counter per device (:func:`_counter`)
 
 
 def _kernel():
@@ -171,7 +170,7 @@ def eq_table_dot(u: FArray, w_lsb: FArray, n: int) -> Tuple[FArray, FArray]:
     with torch.cuda.device(dev):
         rc = _tables_lib().ts_eq_dot_launch(
             *_field_args(u.field), u.data.data_ptr(), n, out.data_ptr(), w_lsb.data.data_ptr(), partials.data_ptr(),
-            _counter(dev).data_ptr(), w_u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            _build.ticket_counter(dev).data_ptr(), w_u.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"eq-with-dot kernel launch failed: CUDA error {rc}")
@@ -251,16 +250,6 @@ def line_launches_of(tiles: List[int]) -> List[Tuple[int, int]]:
     return [(t, 0) for t in tiles[:-2]] + [(tiles[-2], tiles[-1])]
 
 
-def _counter(dev) -> torch.Tensor:
-    """The tickets' counter on ``dev`` (one int, 0 between launches; the
-    eq table with the dot and the line restriction, each kernel leaving it
-    at 0, so launches on one stream share it)."""
-    counter = _counters.get(dev)
-    if counter is None:
-        counter = _counters[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return counter
-
-
 def _line_tiles(w_lsb: FArray, k: int, u: torch.Tensor, v: torch.Tensor, v_is_c: bool) -> FArray:
     """The launches of :func:`line_plan` on the card."""
     field, dev = w_lsb.field, w_lsb.device
@@ -279,7 +268,8 @@ def _line_tiles(w_lsb: FArray, k: int, u: torch.Tensor, v: torch.Tensor, v_is_c:
         with torch.cuda.device(dev):
             rc = lib.ts_line_tile_launch(
                 *args, cur.data_ptr(), d, t, u.data_ptr(), v.data_ptr(), int(v_is_c), out.data_ptr(), blocks,
-                words * word_bytes, tail, final.data_ptr() if tail else None, _counter(dev).data_ptr(), stream,
+                words * word_bytes, tail, final.data_ptr() if tail else None, _build.ticket_counter(dev).data_ptr(),
+                stream,
             )
         if rc != 0:
             raise RuntimeError(f"line-restriction kernel launch failed: CUDA error {rc}")

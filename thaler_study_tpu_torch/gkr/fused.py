@@ -57,7 +57,7 @@ import torch
 
 from ..fields import FArray, FieldConfig
 from ..mle.dense import bitrev_perm
-from ..ops.cuda_round import LIBRA_PHASE1, LIBRA_PHASE2, libra_round_sums, round_partials
+from ..ops.cuda_round import LIBRA_PHASE1, LIBRA_PHASE2, libra_round_total, round_partials
 from ..ops.gkr_tail import (
     ROUND_LEN,
     START_LEN,
@@ -234,11 +234,12 @@ class _ShardedLayer(_Layer):
       device), the eq table of u with W~(u) (phase 2; u sent once);
     - per group: K2 over its shard rows (``phase_tables_rows``), W's rows
       gathered from the cached index;
-    - L = k - n_shard sharded rounds: K1 over each group's rows with s(1)
-      left out (``libra_round_sums``, batch = the rows, no claim), one
-      reduction (``collective("sum")``) and the round tail over the reduced
-      rows on the first device (``gkr_tail.round_tail``); the round's
-      challenge is sent where the next sharded fold reads it;
+    - L = k - n_shard sharded rounds: K1's TOTAL form over each group's
+      rows, s(1) left out (``libra_round_total``: one row of sums per
+      group, no claim), one reduction (``collective("sum")``) and the round
+      tail over the reduced rows on the first device
+      (``gkr_tail.round_tail``); the round's challenge is sent where the
+      next sharded fold reads it;
     - one gather per table of the residual [rows, 2] columns ([rows, 1]
       when L = 0), reassembled in MSB-first order on the first device,
       where the remaining rounds run as in :class:`_Layer` (the first of
@@ -269,9 +270,9 @@ class _ShardedLayer(_Layer):
         terms = LIBRA_PHASE1 if phase == 1 else LIBRA_PHASE2
         for j in range(self.local):
             sums = []
-            for g, (dev, _, rows) in enumerate(ms.groups):
-                r = None if j == 0 else self._chal(dev)[c0 + j - 1 : c0 + j].expand(rows).contiguous()
-                folded, s = libra_round_sums(tables[g], r, phase == 2 or j > 0, None, self.field, terms, scalars[g])
+            for g, (dev, _, _) in enumerate(ms.groups):
+                r = None if j == 0 else self._chal(dev)[c0 + j - 1 : c0 + j]
+                folded, s = libra_round_total(tables[g], r, phase == 2 or j > 0, self.field, terms, scalars[g])
                 tables[g] = folded or tables[g]
                 sums.append(s)
             tail = RoundTail(self.tail, self.off, c0 + j, 2 if phase == 2 and j == k - 2 else 1,
@@ -325,7 +326,7 @@ class _ShardedLayer(_Layer):
             wiring = ms.prover.circuit.device_wiring(self.i, dev)
             b1, b2 = phase_tables_rows(2, wiring, eq_r[dev], eq_u[dev], k, ms.n_shard, row0, rows)
             tables.append([b1.data, b2.data, w_part])
-            scalars.append([w_u[dev].data.expand(rows).contiguous()])
+            scalars.append([w_u[dev].data.reshape(1)])
         self._sharded_rounds(tables, 2, scalars)
         return self._phase2_rounds(self._gather(tables), self.local, w_u[ms.primary])
 

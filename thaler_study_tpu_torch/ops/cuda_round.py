@@ -23,7 +23,10 @@ kernel, ``round_kernel.round_step`` for the products, the GKR tails).
 :func:`libra_round_sums` runs a LibraW round to its end in one launch
 (K1's last block sums every block's partials and writes s(0..2), s(1) from
 the claim where one is given); :func:`libra_round_sums_plain` is its plain
-version. ``round_kernel.round_step`` sends a single proof of a product
+version. :func:`libra_round_total` (K1's TOTAL form) runs the B shard rows
+of one device in a sharded round, folding at one challenge, as one wave and
+writes their summed s(0..2): one row of sums per device.
+``round_kernel.round_step`` sends a single proof of a product
 of 2 or 3 tables here and every other single-block shape of one proof
 (k = 1, k >= 4, other scalar terms) to the multi-block kernel
 (``ops/multiblock.py``), which finishes s(0..D) in its launch; a batch of
@@ -52,13 +55,15 @@ LIBRA_PHASE1 = ((0, 1), (2,))
 LIBRA_PHASE2 = ((0, 3), (0, 2), (1, 3, 2))
 _LIBRA = {LIBRA_PHASE1: (1, 0), LIBRA_PHASE2: (2, 1)}  # terms -> (phase, scalars)
 
-# launches of the CUDA kernels (not of the plain version), per instantiation
+# launches of the CUDA kernels (not of the plain version), per instantiation:
+# the product form, K1 (per proof, with or without the round tail) and K1's
+# TOTAL form (a device's shard rows summed in the launch)
 launches = {"goldilocks": 0, "mont32": 0}
 libra_launches = {"goldilocks": 0, "mont32": 0}
+total_launches = {"goldilocks": 0, "mont32": 0}
 
 _fns = {}
-_wave = {}  # (device index, backend, phase, fold, skip_t1, tail) -> blocks of one wave
-_counters = {}  # device index -> K1's ticket counter
+_wave = {}  # (device index, backend, phase, fold, skip_t1, form) -> blocks of one wave
 
 
 def _kernel(name: str = "ts_round_launch"):
@@ -69,24 +74,28 @@ def _kernel(name: str = "ts_round_launch"):
         head = [i, ctypes.c_uint, ctypes.c_uint, i, i, i]
         if name == "ts_libra_round_launch":  # 3 in, 3 out, r, scalar, partials, sums, claim, counter; then vec
             fn.argtypes = head + [vp] * 12 + [ll, ll, i, ll, i, vp]
+        elif name == "ts_libra_total_launch":  # 3 in, 3 out, r, scalar, partials, sums, counter
+            fn.argtypes = head + [vp] * 11 + [ll, ll, i, i, vp]
         elif name == "ts_libra_wave_blocks":
             fn.argtypes = [i] * 5
-        else:  # in[k], out[k], r, partials
-            fn.argtypes = head + [vp] * 4 + [ll, ll, i, ll, vp]
+        else:  # in[k], out[k], r, partials; then r_step
+            fn.argtypes = head + [vp] * 4 + [ll, ll, i, ll, i, vp]
         fn.restype = i
         _fns[name] = fn
     return fn
 
 
-def wave_blocks(dev: torch.device, backend: str, phase: int, fold: bool, skip_t1: bool, tail: bool = False) -> int:
+def wave_blocks(dev: torch.device, backend: str, phase: int, fold: bool, skip_t1: bool, tail: bool = False,
+                total: bool = False) -> int:
     """Blocks of one wave of K1's instantiation on ``dev``: its SMs times
     the blocks of that kernel resident on one SM (``tail``: the Goldilocks
-    form with the GKR round tail)."""
-    key = (dev.index, backend, phase, fold, skip_t1, tail)
+    form with the GKR round tail; ``total``: the TOTAL form)."""
+    form = 2 if total else int(tail)
+    key = (dev.index, backend, phase, fold, skip_t1, form)
     n = _wave.get(key)
     if n is None:
         with torch.cuda.device(dev):
-            n = _kernel("ts_libra_wave_blocks")(int(backend == "mont32"), phase, int(fold), int(skip_t1), int(tail))
+            n = _kernel("ts_libra_wave_blocks")(int(backend == "mont32"), phase, int(fold), int(skip_t1), form)
         if n < 1:
             raise RuntimeError("could not read the round kernel's occupancy on the card")
         _wave[key] = n
@@ -105,15 +114,6 @@ def vec_words(half: int, word_bytes: int, tensors) -> int:
     multiple of that and every tensor is 16-byte aligned, else 1."""
     v = VEC_BYTES // word_bytes
     return v if half % v == 0 and all(t.data_ptr() % VEC_BYTES == 0 for t in tensors) else 1
-
-
-def _counter(dev: torch.device) -> torch.Tensor:
-    """The device's ticket counter for K1 (int32, 0 between launches)."""
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    c = _counters.get(key)
-    if c is None:
-        c = _counters[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return c
 
 
 def takes(terms: Optional[Sequence[Sequence[int]]], k: int, n_scalars: int) -> Optional[Tuple[int, int]]:
@@ -141,7 +141,7 @@ def degree_of(terms: Sequence[Sequence[int]], k: int) -> int:
     return max(sum(1 for i in term if i < k) for term in terms)
 
 
-def _check(tables, r, out, fold: bool, dtype) -> Tuple[int, int, torch.device]:
+def _check(tables, r, out, fold: bool, dtype, r_one: bool = False) -> Tuple[int, int, torch.device]:
     if not tables:
         raise ValueError("round_partials needs at least one table")
     t0 = tables[0]
@@ -157,8 +157,9 @@ def _check(tables, r, out, fold: bool, dtype) -> Tuple[int, int, torch.device]:
         if not t.is_contiguous():
             raise ValueError("tables must be contiguous")
     if fold:
-        if r is None or r.dtype != dtype or r.shape != (batch,) or r.device != dev:
-            raise ValueError(f"r must be a {dtype} [{batch}] tensor on {dev}")
+        shapes = ((batch,), (1,)) if r_one else ((batch,),)
+        if r is None or r.dtype != dtype or r.shape not in shapes or r.device != dev:
+            raise ValueError(f"r must be a {dtype} [{batch}]{' or [1]' if r_one else ''} tensor on {dev}")
         if not r.is_contiguous():
             raise ValueError("r must be contiguous")
     if out is not None:
@@ -193,7 +194,9 @@ def round_partials(
     """One round over B proofs of a single-block polynomial.
 
     ``tables``: k [B, n] tensors of ``field``'s words (``FArray`` data,
-    MSB-first). ``r``: [B] challenges, or None for a round without a fold.
+    MSB-first). ``r``: [B] challenges, or one [1] challenge for every
+    proof (a device's shard rows of one sharded proof), or None for a
+    round without a fold.
     ``skip_t1``: leave s(1) out (0); the caller fills claim - s(0).
     ``out``: k [B, n/2] buffers for the folded tables (allocated when
     None). ``terms``: the polynomial as a sum of products of table ids,
@@ -204,7 +207,7 @@ def round_partials(
     """
     fold = r is not None
     dtype = word_dtype(field)
-    batch, n, dev = _check(tables, r, out, fold, dtype)
+    batch, n, dev = _check(tables, r, out, fold, dtype, r_one=True)
     k = len(tables)
     if terms is not None:
         terms = tuple(tuple(term) for term in terms)
@@ -244,7 +247,7 @@ def round_partials(
     with torch.cuda.device(dev):
         rc = _kernel()(*_head(field), k, int(fold), int(skip_t1), ins, outs, r.data_ptr() if fold else None,
                        partials.data_ptr(), batch, n, blocks, -(-half // blocks),
-                       torch.cuda.current_stream(dev).cuda_stream)
+                       int(not fold or r.shape[0] == batch), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
     launches[field.backend] += 1
@@ -275,7 +278,7 @@ def _libra_launch(tables, r, skip_t1, out, field, phase, scalars, sums, batch, n
             *([o.data_ptr() for o in out] if fold else [None] * 3), r.data_ptr() if fold else None,
             scalars[0].data_ptr() if scalars else None, partials.data_ptr(),
             s_out.data_ptr() if s_out is not None else None, claim.data_ptr() if claim is not None else None,
-            _counter(dev).data_ptr(), batch, n, blocks, -(-half // blocks), int(vec > 1),
+            _build.ticket_counter(dev).data_ptr(), batch, n, blocks, -(-half // blocks), int(vec > 1),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -304,7 +307,7 @@ def round_partials_plain(
     consts = [FArray(s.reshape(batch, 1), field) for s in scalars]
     if r is not None:
         h = n // 4
-        rr = FArray(r.reshape(batch, 1), field)
+        rr = FArray(r.reshape(-1, 1), field)
         lo = [FArray.fold(t[:, :h], t[:, 2 * h : 3 * h], rr) for t in tabs]
         hi = [FArray.fold(t[:, h : 2 * h], t[:, 3 * h :], rr) for t in tabs]
         folded = [torch.cat([a.data, b.data], dim=1) for a, b in zip(lo, hi)]
@@ -406,3 +409,99 @@ def libra_round_sums_plain(
     if claim is not None:
         s[:, 1] = (FArray(claim, field) - FArray(s[:, 0], field)).data
     return folded, s
+
+
+def libra_round_total(
+    tables: Sequence[torch.Tensor],
+    r: Optional[torch.Tensor],
+    skip_t1: bool,
+    field: FieldConfig,
+    terms: Sequence[Sequence[int]],
+    scalars: Sequence[torch.Tensor] = (),
+    out: Optional[Sequence[torch.Tensor]] = None,
+    total: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
+    """K1's TOTAL form: one round of a LibraW shape over the B rows of one
+    device (a sharded round's shard rows), which all fold at one challenge
+    ``r`` ([1] words, None without a fold) and share the phase-2 scalar
+    (``scalars``: one [1] word in phase 2); returns (the folded rows or
+    None, s [3]: the rows' s(0..2) summed, s(1) left 0 with ``skip_t1``:
+    the claim holds for the global sums only). ``tables``, ``out`` as
+    :func:`round_partials` takes them; ``total``: a contiguous [3] buffer
+    for s (allocated when None). CPU tensors go to
+    :func:`libra_round_total_plain`; CUDA tensors to one launch, whose
+    last block sums every block's partials, or raise."""
+    fold = r is not None
+    dtype = word_dtype(field)
+    batch, n, dev = _check(tables, r, out, fold, dtype, r_one=True)
+    terms = tuple(tuple(term) for term in terms)
+    shape = takes(terms, len(tables), len(scalars))
+    if shape is None or shape[0] == 0:
+        raise ValueError(f"libra_round_total takes the two LibraW shapes, not terms {terms}")
+    for x, what in ([(r, "r")] if fold else []) + [(x, "scalars") for x in scalars]:
+        if x.dtype != dtype or x.shape != (1,) or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous {dtype} [1] words on {dev}")
+    if total is not None and (total.dtype != dtype or total.shape != (3,) or total.device != dev
+                              or not total.is_contiguous()):
+        raise ValueError(f"total must be a contiguous {dtype} [3] tensor on {dev}")
+    if dev.type == "cpu":
+        folded, s = libra_round_total_plain(tables, r, skip_t1, field, terms, scalars)
+        if out is not None and folded is not None:
+            for o, f in zip(out, folded):
+                o.copy_(f)
+            folded = list(out)
+        if total is not None:
+            total.copy_(s)
+            s = total
+        return folded, s
+    if dev.type != "cuda":
+        raise ValueError(f"libra_round_total runs on cpu or cuda, not {dev}")
+    phase = shape[0]
+    if fold and out is None:
+        out = [torch.empty((batch, n // 2), dtype=dtype, device=dev) for _ in tables]
+    if total is None:
+        total = torch.empty((3,), dtype=dtype, device=dev)
+    half = n // 4 if fold else n // 2
+    vec = vec_words(half, tables[0].element_size(), list(tables) + (list(out) if fold else []))
+    wave = wave_blocks(dev, field.backend, phase, fold, skip_t1, total=True)
+    blocks = max(1, min(wave, -(-batch * half // (THREADS * vec))))
+    partials = torch.empty((blocks, 3), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernel("ts_libra_total_launch")(
+            *_head(field), phase, int(fold), int(skip_t1), *(t.data_ptr() for t in tables),
+            *([o.data_ptr() for o in out] if fold else [None] * 3), r.data_ptr() if fold else None,
+            scalars[0].data_ptr() if scalars else None, partials.data_ptr(), total.data_ptr(),
+            _build.ticket_counter(dev).data_ptr(), batch, n, blocks, int(vec > 1),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"round kernel launch failed: CUDA error {rc}")
+    total_launches[field.backend] += 1
+    return (list(out) if fold else None), total
+
+
+def libra_round_total_plain(
+    tables: Sequence[torch.Tensor],
+    r: Optional[torch.Tensor],
+    skip_t1: bool,
+    field: FieldConfig,
+    terms: Sequence[Sequence[int]],
+    scalars: Sequence[torch.Tensor] = (),
+) -> Tuple[Optional[List[torch.Tensor]], torch.Tensor]:
+    """:func:`libra_round_total` in plain torch ops (any device): the rows
+    read as one table of B x n/2 pairs (a row's halves, then the next
+    row's), folded where ``r`` is given, and s(0..2) summed over every
+    pair."""
+    batch, n = tables[0].shape
+    h = n // 2
+    if r is not None:
+        folded = [FArray.fold(FArray(t[:, :h], field), FArray(t[:, h:], field), FArray(r.reshape(()), field)).data
+                  for t in tables]
+        halves = folded
+    else:
+        folded, halves = None, list(tables)
+    # each row's (lo, hi) pairs side by side: [2, B h / 2] -> one table of 2 x (B h / 2)
+    q = halves[0].shape[1] // 2
+    flat = [torch.cat([x[:, :q].reshape(-1), x[:, q:].reshape(-1)]).reshape(1, -1) for x in halves]
+    _, partials = round_partials_plain(flat, None, skip_t1, 1, field, terms, [x.reshape(1) for x in scalars])
+    return folded, partials[0, 0]

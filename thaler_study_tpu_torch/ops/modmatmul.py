@@ -5,8 +5,9 @@ Counterpart of ``thaler_study_tpu/ops/modmatmul.py``: ``modmatmul``
 :160 both compute C = A B^T mod p for A [M, K] and B [N, K]. The JAX
 package takes it for the triangle IP's X-phase contraction
 (``ops/round_kernel.py`` ``_term_total`` :186-208),
-s = sum_{x,y} f1[x][y] (f3 @ f2^T)[x][y]: :func:`contract_partials` is that
-contraction with the dot in the kernel's epilogue, so C is never written.
+s = sum_{x,y} f1[x][y] (f3 @ f2^T)[x][y]: :func:`contract_total` is that
+contraction with the dot in the kernel's epilogue, so C is never written,
+and the tiles' partials summed in the launch.
 
 On the card every shape runs on ``csrc/modmatmul_tc.cu`` (the tensor
 cores: byte digit planes from a pre-pass, digit-pair products on
@@ -21,14 +22,18 @@ counterpart of ``modmatmul_impl``) stays as the yardstick that
 reach it.
 
 Each source's note says what bounds it and how. CPU tensors take the plain
-versions; CUDA tensors launch the kernel or raise. The two kernels write
-their partials at their own tiles (:func:`tile`), which callers only sum.
-The tensor-core entries also take a batch of S products of one shape
-(JAX ``modmatmul_batched_impl`` :235 and ``_mxu_modmatmul_batched_impl``
-:267, C[s] = A[s] @ B[s]^T; :func:`modmatmul_batched`): the sharded
-triangle IP's X phase (``parallel/sharded.py``) contracts every shard on
-a device in one launch (:func:`contract_partials_many` over [S, M, K]
-operands, grid y = the shard), with f1 shared by the shards.
+versions; CUDA tensors launch the kernel or raise. The tensor-core kernel
+has one dot form: :func:`contract_total` over S >= 1 shard rows of one
+shape, D shared. S = 1 is the unsharded triangle IP's contraction; the
+sharded triangle IP's X phase (``parallel/sharded.py``) is sharded on Z,
+the contraction axis, so a device's S shard rows are one contraction over
+K_dev = S K, whose K stages the kernel walks as one K (JAX
+``_mxu_modmatmul_batched_impl`` :267 per shard, summed).
+:func:`contract_partials` gives the same launch's per-tile partials (one
+product, one K range), which the checks hold tile by tile against the
+plain version and the CUDA-core kernel's (:func:`tile`). C = A @ B^T also
+takes a batch of S products of one shape (JAX ``modmatmul_batched_impl``
+:235, :func:`modmatmul_batched`).
 """
 
 from __future__ import annotations
@@ -54,12 +59,17 @@ TC_TILE = {"goldilocks": (32, 64), "mont32": (64, 64)}
 FLUSH_K = {"goldilocks": 4096, "mont32": 8192}
 
 # launches of the CUDA kernels (not of the plain versions), per field family:
-# the CUDA-core kernel, the tensor-core kernel and its digit pre-pass
+# the CUDA-core kernel, the tensor-core kernel over one product (C = A B^T,
+# or the dot form over S = 1), its digit pre-pass, and its dot form over S >
+# 1 shard rows (a device's shard rows as one contraction)
 launches = {"goldilocks": 0, "mont32": 0}
 tc_launches = {"goldilocks": 0, "mont32": 0}
 digit_launches = {"goldilocks": 0, "mont32": 0}
+total_launches = {"goldilocks": 0, "mont32": 0}
+BK = 128  # csrc/modmatmul_tc.cu BK: K bytes per stage
 
 _fns = {}
+_sms = {}  # device index -> SMs
 
 
 def _kernel():
@@ -78,13 +88,14 @@ def _tc_kernels():
     if "tc" not in _fns:
         lib = _build.load("modmatmul_tc")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        digits, mm = lib.ts_mm_tc_digits, lib.ts_mm_tc_launch
+        digits, mm, dot = lib.ts_mm_tc_digits, lib.ts_mm_tc_launch, lib.ts_mm_tc_dot_launch
         digits.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, ptr, ctypes.c_ulonglong, i32, ptr, i32, i32, i32, i32,
                            ptr]
-        mm.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, i32, ptr, ptr, i32, ptr, ptr, ctypes.c_ulonglong, ptr,
-                       i32, i32, i32, i32, ptr]
-        digits.restype = mm.restype = i32
-        _fns["tc"] = (digits, mm)
+        mm.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr]
+        dot.argtypes = [i32, ctypes.c_uint, ctypes.c_uint, i32, ptr, ptr, i32, ptr, ctypes.c_ulonglong, ptr, ptr,
+                        i32, ptr, i32, i32, i32, i32, i32, ptr]
+        digits.restype = mm.restype = dot.restype = i32
+        _fns["tc"] = (digits, mm, dot)
     return _fns["tc"]
 
 
@@ -166,26 +177,10 @@ def contract_partials(
     they are; with ``t`` an int, A [2M, K] and D [2M, N] hold two halves of
     rows and A_t = A_lo + t (A_hi - A_lo), D_t likewise (a round's views at
     t). B is [N, K]."""
-    return contract_partials_many(a, b, d, field, [t])[0]
-
-
-def contract_partials_many(
-    a: torch.Tensor, b: torch.Tensor, d: torch.Tensor, field: FieldConfig, ts: Sequence[Optional[int]]
-) -> list:
-    """:func:`contract_partials` at every t of ``ts`` (all None or all
-    ints): a round's launches, with B's digit planes made once. A [S, M or
-    2M, K] and B [S, N, K] are a batch of S contractions with D shared
-    (the sharded triangle IP's shards): partials [S, tiles] per t, one
-    launch for every shard."""
-    halves = ts[0] is not None
-    if any((t is not None) != halves for t in ts):
-        raise ValueError("ts must be all None or all ints")
-    _check_tc(a, b, d, field, halves)
+    _check(a, b, d, field, t is not None)
     if not _on_card(a, "contract_partials"):
-        return [_per_batch(lambda x, y: contract_partials_plain(x, y, d, field, t, tile(field, True)), a, b)
-                for t in ts]
-    b_planes = digit_planes(b, field)
-    return [contract_partials_tc(a, b, d, field, t, b_planes) for t in ts]
+        return contract_partials_plain(a, b, d, field, t, tile(field, True))
+    return contract_partials_tc(a, b, d, field, t)
 
 
 # ---- the CUDA-core kernel (csrc/modmatmul.cu) ------------------------------------
@@ -280,7 +275,7 @@ def digit_planes(x: torch.Tensor, field: FieldConfig, t: Optional[int] = None) -
         raise ValueError("S R and K must lie in [1, 2^31)")
     kp = padded_k(k)
     out = torch.empty((DIGITS[field.backend], batch * rows, kp), dtype=torch.uint8, device=x.device)
-    digits, _ = _tc_kernels()
+    digits, _, _ = _tc_kernels()
     with torch.cuda.device(x.device):
         rc = digits(*_field_args(field), x.data_ptr(), 0 if t is None else _t_word(field, t), int(t is not None),
                     out.data_ptr(), rows, k, kp, batch, _stream(x))
@@ -290,14 +285,14 @@ def digit_planes(x: torch.Tensor, field: FieldConfig, t: Optional[int] = None) -
     return out
 
 
-def _launch_tc(field, mode, a_planes, b_planes, c, d, t, partials, batch, m, n, k):
+def _launch_tc(field, a_planes, b_planes, c, batch, m, n, k):
+    """One launch of C = A B^T over a batch of products."""
     if a_planes.shape[1:] != (batch * m, padded_k(k)) or b_planes.shape[1:] != (batch * n, padded_k(k)):
         raise ValueError("digit planes of the wrong shape")
-    _, mm = _tc_kernels()
+    _, mm, _ = _tc_kernels()
     with torch.cuda.device(a_planes.device):
-        rc = mm(*_field_args(field), mode, a_planes.data_ptr(), b_planes.data_ptr(), padded_k(k),
-                None if c is None else c.data_ptr(), None if d is None else d.data_ptr(), t,
-                None if partials is None else partials.data_ptr(), m, n, k, batch, _stream(a_planes))
+        rc = mm(*_field_args(field), a_planes.data_ptr(), b_planes.data_ptr(), padded_k(k), c.data_ptr(), m, n, k,
+                batch, _stream(a_planes))
     if rc != 0:
         raise RuntimeError(f"tensor-core modmatmul kernel launch failed: error {rc}")
     tc_launches[field.backend] += 1
@@ -313,7 +308,7 @@ def modmatmul_tc(a: FArray, b: FArray) -> FArray:
         return FArray(_per_batch(lambda x, y: modmatmul_digits_plain(FArray(x, field), FArray(y, field)).data,
                                  a.data, b.data), field)
     c = torch.empty(tuple(a.shape[:-1]) + (n,), dtype=word_dtype(field), device=a.device)
-    _launch_tc(field, 0, digit_planes(a.data, field), digit_planes(b.data, field), c, None, 0, None, batch, m, n, k)
+    _launch_tc(field, digit_planes(a.data, field), digit_planes(b.data, field), c, batch, m, n, k)
     return FArray(c, field)
 
 
@@ -330,26 +325,110 @@ def contract_partials_tc(
     a: torch.Tensor, b: torch.Tensor, d: torch.Tensor, field: FieldConfig, t: Optional[int] = None,
     b_planes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """:func:`contract_partials` on the tensor-core kernel at any shape,
-    one partial per :data:`TC_TILE` tile; for a batch (A [S, M or 2M, K],
-    B [S, N, K], D shared) partials [S, tiles] from one launch.
-    ``b_planes`` are B's digit planes where the caller has them (CPU
-    tensors: the plain digit form)."""
+    """:func:`contract_partials` on the tensor-core kernel at any shape: the
+    dot form's launch over one product and one K range, its per-tile
+    partials (one per :data:`TC_TILE` tile). ``b_planes`` are B's digit
+    planes where the caller has them (CPU tensors: the plain digit form)."""
     halves = t is not None
-    batch, m, n, k = _check_tc(a, b, d, field, halves)
+    m, n, k = _check(a, b, d, field, halves)
     if not _on_card(a, "contract_partials_tc"):
-        return _per_batch(lambda x, y: contract_partials_plain(x, y, d, field, t, tile(field, True), digits=True),
-                          a, b)
+        return contract_partials_plain(a, b, d, field, t, tile(field, True), digits=True)
     if b_planes is None:
         b_planes = digit_planes(b, field)
-    partials = torch.empty(tuple(a.shape[:-2]) + (tile_count(field, True, m, n),), dtype=word_dtype(field),
-                           device=a.device)
-    _launch_tc(field, 2 if halves else 1, digit_planes(a, field, t), b_planes, None, d,
-               _t_word(field, t) if halves else 0, partials, batch, m, n, k)
+    partials = torch.empty((tile_count(field, True, m, n),), dtype=word_dtype(field), device=a.device)
+    word = torch.empty((1,), dtype=word_dtype(field), device=a.device)
+    _launch_dot(field, 2 if halves else 1, digit_planes(a, field, t), b_planes, d,
+                _t_word(field, t) if halves else 0, partials, word, -1, 1, m, n, k, 1)
     return partials
 
 
+def splits_for(dev: torch.device, field: FieldConfig, m: int, n: int, k: int, shards: int) -> int:
+    """Grid y of a dot launch: the K walk (shards x K stages) cut into as
+    many ranges as leave no SM idle where the tiles are fewer than the
+    SMs, one range otherwise."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _sms:
+        _sms[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    stages = shards * -(-k // BK)
+    return max(1, min(stages, _sms[key] // tile_count(field, True, m, n)))
+
+
+def contract_total(
+    a: torch.Tensor, b: torch.Tensor, d: torch.Tensor, field: FieldConfig, ts: Sequence[Optional[int]],
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """The triangle contraction sum D_t * (A_t @ B^T) at every t of ``ts``
+    (all ints, a round's views; or [None], no view; A [M or 2M, K], B [N,
+    K] as in :func:`contract_partials`), or over S shard rows (A [S, M or
+    2M, K], B [S, N, K], D shared) their sum as one contraction over K_dev
+    = S K, sum_s sum D_t * (A_t[s] @ B[s]^T): one word per t, written into
+    ``out`` (a contiguous [columns] row of words on the card or the CPU) at
+    column t (column 0 for None); every column that no t fills is written 0
+    (s(1) where the round leaves it out; c_1's). B's digit planes made
+    once, then one launch per t, each summing its tiles in the launch (CPU
+    tensors: :func:`contract_total_plain`). Returns ``out``."""
+    halves = ts[0] is not None
+    if any((t is not None) != halves for t in ts):
+        raise ValueError("ts must be all None or all ints")
+    if a.dim() == 2:
+        a, b = a[None], b[None]
+    batch, m, n, k = _check_tc(a, b, d, field, halves)
+    cols = [0 if t is None else t for t in ts]
+    zeros = [c for c in range(out.shape[0]) if c not in cols]
+    if (out.dim() != 1 or out.dtype != word_dtype(field) or out.device != a.device or not out.is_contiguous()
+            or max(cols) >= out.shape[0] or len(zeros) > len(ts)):
+        raise ValueError(f"out must be a contiguous 1-D row of {word_dtype(field)} words on {a.device} with a "
+                         f"column for each t of {list(ts)}")
+    if not _on_card(a, "contract_total"):
+        for t, c in zip(ts, cols):
+            out[c] = contract_total_plain(a, b, d, field, t)
+        for c in zeros:
+            out[c] = 0
+        return out
+    b_planes = digit_planes(b, field)
+    splits = splits_for(a.device, field, m, n, k, batch)
+    partials = torch.empty((splits * tile_count(field, True, m, n),), dtype=word_dtype(field), device=a.device)
+    for i, (t, c) in enumerate(zip(ts, cols)):
+        _launch_dot(field, 2 if halves else 1, digit_planes(a, field, t), b_planes, d,
+                    _t_word(field, t) if halves else 0, partials, out[c:], zeros[i] - c if i < len(zeros) else -1,
+                    batch, m, n, k, splits)
+    return out
+
+
+def _launch_dot(field, mode, a_planes, b_planes, d, t, partials, out, zero, shards, m, n, k, splits):
+    """One launch of the dot form over ``shards`` shard rows: its word to
+    out[0], a 0 to out[zero] where zero >= 0, the blocks' partials to
+    ``partials`` [splits x tiles]."""
+    if a_planes.shape[1:] != (shards * m, padded_k(k)) or b_planes.shape[1:] != (shards * n, padded_k(k)):
+        raise ValueError("digit planes of the wrong shape")
+    _, _, dot = _tc_kernels()
+    with torch.cuda.device(a_planes.device):
+        rc = dot(*_field_args(field), mode, a_planes.data_ptr(), b_planes.data_ptr(), padded_k(k), d.data_ptr(), t,
+                 partials.data_ptr(), out.data_ptr(), zero, _build.ticket_counter(a_planes.device).data_ptr(), m, n,
+                 k, shards, splits, _stream(a_planes))
+    if rc != 0:
+        raise RuntimeError(f"tensor-core modmatmul (dot form) launch failed: error {rc}")
+    (tc_launches if shards == 1 else total_launches)[field.backend] += 1
+
+
 # ---- plain versions ---------------------------------------------------------------
+
+
+def contract_total_plain(
+    a: torch.Tensor, b: torch.Tensor, d: torch.Tensor, field: FieldConfig, t: Optional[int] = None,
+    digits: bool = False,
+) -> torch.Tensor:
+    """:func:`contract_total`'s word for one t in plain torch ops (any
+    device): the S shard rows laid side by side along K (A' [M, S K], B'
+    [N, S K]), one contraction, every product summed; ``digits`` forms the
+    product in the digit form (float64 grids: fast on a card)."""
+    s, rows, k = a.shape
+    a2 = a.permute(1, 0, 2).reshape(rows, s * k)
+    b2 = b.permute(1, 0, 2).reshape(b.shape[1], s * k)
+    prods = contract_products_plain(a2, b2, d, field, t, digits)
+    return FArray(prods.data.reshape(-1), field).sum(axis=0).data
+
+
 
 
 def modmatmul_plain(a: FArray, b: FArray) -> FArray:

@@ -68,7 +68,6 @@ launches = {"goldilocks": 0, "mont32": 0}
 fold_launches = {"goldilocks": 0, "mont32": 0}
 
 _fns = {}
-_counters = {}
 
 
 class _Args(ctypes.Structure):
@@ -99,7 +98,7 @@ class _Args(ctypes.Structure):
         "ntables", "ni", "nterms", "degree", "skip1", "vec", "rl1", "span", "spans", "rt", "tpr", "rpi",
         "ntiles", "max_blocks", "rp", "nstaged", "stage_a")] + [
         ("pslot", ctypes.c_int * MAX_TABLES), ("pipe_k", ctypes.c_int), ("pipe_stages", ctypes.c_int),
-        ("pipe_off", ctypes.c_int)]
+        ("pipe_off", ctypes.c_int), ("scaled", ctypes.c_int), ("scale", ctypes.c_ulonglong)]
 
 
 def _kernel(name: str):
@@ -406,6 +405,12 @@ def _head(field: FieldConfig):
     return int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0
 
 
+def _word(field: FieldConfig, v: int) -> int:
+    """The integer v as a word of ``field`` (mont32: its Montgomery word)."""
+    v %= field.p
+    return v * field.mont_r % field.p if field.backend == "mont32" else v
+
+
 def _ptrs(xs) -> ctypes.Array:
     return (ctypes.c_void_p * len(xs))(*[None if x is None else x.data_ptr() for x in xs])
 
@@ -434,15 +439,6 @@ def _template(plan: Plan, word_bytes: int) -> bytes:
     return bytes(a)
 
 
-def _counter(dev: torch.device) -> torch.Tensor:
-    """The device's ticket counter (int32, 0 between launches)."""
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    c = _counters.get(key)
-    if c is None:
-        c = _counters[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return c
-
-
 def round_sums(
     plan: Plan,
     tables: Sequence[torch.Tensor],
@@ -451,6 +447,8 @@ def round_sums(
     skip_t1: bool = False,
     claim: Optional[torch.Tensor] = None,
     out: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    sums: Optional[torch.Tensor] = None,
+    scale: Optional[int] = None,
 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
     """One round of ``plan``: ``tables`` are 1-D tensors of ``field``'s
     words (MSB-first), before the fold where ``r`` (a [1] challenge) is
@@ -461,7 +459,11 @@ def round_sums(
     and s(1) is ``claim`` - s(0) (``claim`` a [1] word), or 0 without a
     claim (the caller fills it: the sharded rounds sum the shards' s(0)
     first). ``out``: the folded tables' buffers, None elsewhere (allocated
-    when None). The input tables are never written."""
+    when None). ``sums``: a contiguous [degree + 1] buffer for s (a row
+    of the sharded round's rows; allocated when None). ``scale``: s is
+    written times this integer (the sharded rounds' replicated-only
+    terms, times their 2^n_shard shard rows). The input tables are never
+    written."""
     fold = r is not None
     dtype = word_dtype(field)
     if len(tables) != len(plan.sizes):
@@ -475,12 +477,18 @@ def round_sums(
     if claim is not None:
         _check_r(claim, dtype, dev, "claim")
     out = _check_out(out, [(s,) if fold and f else None for s, f in zip(plan.sizes, plan.folded)], dtype, dev)
+    if sums is not None and (sums.dtype != dtype or sums.device != dev or tuple(sums.shape) != (plan.degree + 1,)
+                             or not sums.is_contiguous()):
+        raise ValueError(f"sums must be a contiguous {dtype} [{plan.degree + 1}] tensor on {dev}")
     sp = split(plan)
     if max(s[0] for s in shapes) >= _LIMIT or sp.rows >= _LIMIT or sp.inner >= _LIMIT:
         raise ValueError("the multi-block round kernel takes tables, rows and rows' lengths below 2^31 entries")
     if dev.type == "cpu":
-        folded, sums = round_sums_plain(plan, tables, r, field, skip_t1, claim)
-        return _copy_out(folded, out), sums
+        folded, s = round_sums_plain(plan, tables, r, field, skip_t1, claim, scale)
+        if sums is not None:
+            sums.copy_(s)
+            s = sums
+        return _copy_out(folded, out), s
     if dev.type != "cuda":
         raise ValueError(f"round_sums runs on cpu or cuda, not {dev}")
     wb = tables[0].element_size()
@@ -488,7 +496,8 @@ def round_sums(
     if out is None:
         out = [torch.empty((s,), dtype=dtype, device=dev) if fold and f else None
                for s, f in zip(plan.sizes, plan.folded)]
-    sums = torch.empty((plan.degree + 1,), dtype=dtype, device=dev)
+    if sums is None:
+        sums = torch.empty((plan.degree + 1,), dtype=dtype, device=dev)
     partials = torch.empty((min(lay.tiles, MAX_GRID) * (plan.degree + 1),), dtype=dtype, device=dev)
     a = _Args.from_buffer_copy(_template(plan, wb))
     for i, k in enumerate(sp.order):
@@ -496,8 +505,10 @@ def round_sums(
         a.out[i] = out[k].data_ptr() if out[k] is not None else 0
     a.r = r.data_ptr() if fold else 0
     a.claim = claim.data_ptr() if claim is not None else 0
-    a.sums, a.partials, a.counter = sums.data_ptr(), partials.data_ptr(), _counter(dev).data_ptr()
+    a.sums, a.partials, a.counter = sums.data_ptr(), partials.data_ptr(), _build.ticket_counter(dev).data_ptr()
     a.skip1 = int(skip_t1)
+    if scale is not None:
+        a.scaled, a.scale = 1, _word(field, scale)
     a.vec = int(lay.span % 2 == 0 and all(x % (2 * wb) == 0 for x in list(a.in_)[:sp.ni] + list(a.out)[:sp.ni]))
     with torch.cuda.device(dev):
         rc = _kernel("ts_mb_round_launch")(*_head(field), ctypes.byref(a), lay.words * wb,
@@ -549,6 +560,7 @@ def round_sums_plain(
     field: FieldConfig,
     skip_t1: bool = False,
     claim: Optional[torch.Tensor] = None,
+    scale: Optional[int] = None,
 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
     """The kernel's function in plain torch ops (``FArray`` arithmetic, any
     device): the same folded tables and the same s(0..degree)."""
@@ -579,7 +591,10 @@ def round_sums_plain(
                     prod = v[k] if prod is None else prod * v[k]
             prod = FArray(prod.data.expand(shape), field)
             total = prod if total is None else total + prod
-        sums.append(FArray(total.data.reshape(-1), field).sum(axis=0).data)
+        total = FArray(total.data.reshape(-1), field).sum(axis=0)
+        if scale is not None:
+            total = total * FArray.scalar(field.felt(scale), device=total.data.device)
+        sums.append(total.data)
     if skip_t1:
         s0 = FArray(sums[0], field)
         sums[1] = (FArray(claim.reshape(()), field) - s0).data if claim is not None else torch.zeros_like(s0.data)

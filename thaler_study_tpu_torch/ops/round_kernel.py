@@ -4,8 +4,11 @@ The port's counterpart of ``thaler_study_tpu/ops/round_kernel.py``. A
 :class:`PolySpec` describes g(x) = sum over terms of products of dense MLE
 factor tables over variable blocks: the matmul IP and the batched prover's
 product (one block), GKR's LibraW phases (one block and a 0-block scalar
-w_u), GKR's dense W (two blocks), the triangle IP (three blocks). Specs of
-up to three blocks are ported; wider ones raise.
+w_u), GKR's dense W (two blocks), the triangle IP (three blocks). A spec
+of more than three blocks (no protocol makes one, but ``PolySpec`` is
+public) is brought down to three before any kernel sees it
+(:func:`merge_blocks`): the round runs on merged views of its tables, and
+the tables stay unmerged between rounds.
 
 Tables are flat, MSB-first: the round variable (block 0's first) splits
 each table over block 0 in halves. :func:`round_step` runs a round on one
@@ -20,9 +23,10 @@ of three kernels, each with a plain version for CPU tensors:
 - ``multiblock.round_sums`` (``csrc/multiblock_round.cu``) for every
   other spec: the fold and the round sums s(0..D), the claim shortcut's
   s(1) included, in one launch;
-- ``modmatmul.contract_partials_many`` for the triangle term whose grid
-  exceeds :data:`CONTRACT_THRESHOLD` (the X phase), after
-  ``multiblock.fold_tables``: ``csrc/modmatmul_tc.cu`` (tensor cores).
+- ``modmatmul.contract_total`` for the triangle term whose grid exceeds
+  :data:`CONTRACT_THRESHOLD` (the X phase), after
+  ``multiblock.fold_tables``: ``csrc/modmatmul_tc.cu`` (tensor cores), the
+  tiles' sum in the launch.
 
 Every function here takes Goldilocks and the mont32 fields; round sums of a
 mont32 field are Montgomery words, as in the JAX package.
@@ -36,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..fields import FArray, FieldConfig
+from ..fields.farray import word_dtype
 from . import cuda_round, modmatmul, multiblock
 
 
@@ -115,15 +120,9 @@ def _broadcast_dims(spec: PolySpec, k: int) -> Tuple[int, ...]:
 
 
 def check_spec(spec: PolySpec, tables: Sequence[FArray]) -> None:
-    """Raise unless ``spec`` is a spec the port runs and ``tables`` fit it:
-    up to three variable blocks, each table over a strictly increasing
-    subset of them (a 0-block scalar of shape (1,) too), non-empty terms
-    over the tables."""
-    if len(spec.block_sizes) > multiblock.MAX_BLOCKS:
-        raise NotImplementedError(
-            f"specs of more than {multiblock.MAX_BLOCKS} variable blocks are not ported "
-            f"(got {len(spec.block_sizes)}; ROADMAP C7)"
-        )
+    """Raise unless ``tables`` fit ``spec``: each table over a strictly
+    increasing subset of its variable blocks (a 0-block scalar of shape
+    (1,) too), non-empty terms over the tables. Any number of blocks."""
     nb = len(spec.block_sizes)
     ok = (
         len(spec.table_blocks) == len(tables)
@@ -135,6 +134,67 @@ def check_spec(spec: PolySpec, tables: Sequence[FArray]) -> None:
         raise ValueError(
             f"tables of shapes {[t.shape for t in tables]} do not fit the spec {spec}"
         )
+
+
+# ---- specs of more than three blocks ------------------------------------------
+#
+# The kernels take up to multiblock.MAX_BLOCKS = 3 blocks. A wider spec is
+# merged down to three for each round: the last two blocks become one
+# block (their variables concatenated, MSB-first, as PolySpec orders a
+# table's index), last pair first, until three are left. A table over both
+# merged blocks keeps its words; a table over one of them is broadcast
+# along the other (data movement only: a copy of 2^(the other block's
+# variables) times its words); a table over neither is left alone. Blocks
+# 0 and 1 are never merged: a round's degree counts the factors over block
+# 0, and a table broadcast into a merged block that is being folded would
+# count toward it (a coefficient the JAX package's message does not have).
+# The merge is derived again every round from the unmerged spec, and after
+# the round a folded broadcast table is taken back to its own blocks by
+# slicing the broadcast axis at index 0. The same polynomial, so the same
+# sums and transcript bytes.
+
+
+@dataclasses.dataclass(frozen=True)
+class Merge:
+    """How :func:`merge_blocks` made each table's view: per table the
+    broadcasts it took, in order, each (axis, 2^sa, 2^sb) with axis 2 for
+    a table over block a broadcast along b (the last axis of [.., 2^sa,
+    2^sb]) and 1 for a table over b broadcast along a."""
+
+    broadcasts: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+
+    def unmerge(self, k: int, table: torch.Tensor) -> torch.Tensor:
+        """Table k's view (after a round's fold, which changes only its
+        leading variables) taken back to its own blocks."""
+        for axis, na, nb in reversed(self.broadcasts[k]):
+            view = table.reshape(-1, na, nb)
+            table = (view[:, :, 0] if axis == 2 else view[:, 0, :]).contiguous().reshape(-1)
+        return table
+
+
+def merge_blocks(spec: PolySpec, tables: Sequence[torch.Tensor]) -> Tuple[PolySpec, list, Merge]:
+    """``spec`` (more than three blocks) and its tables' words merged to
+    three blocks: (the merged spec, the tables' views, the :class:`Merge`
+    that undoes them). The last two blocks merge, last pair first."""
+    sizes = list(spec.block_sizes)
+    tbs = [tuple(tb) for tb in spec.table_blocks]
+    data = list(tables)
+    steps: list = [[] for _ in tables]
+    while len(sizes) > multiblock.MAX_BLOCKS:
+        a, b = len(sizes) - 2, len(sizes) - 1
+        na, nb = 1 << sizes[a], 1 << sizes[b]
+        for k, tb in enumerate(tbs):
+            if a in tb and b not in tb:  # a is its last block
+                data[k] = data[k].reshape(-1, na, 1).expand(-1, na, nb).reshape(-1)
+                steps[k].append((2, na, nb))
+            elif b in tb and a not in tb:  # b is its last block
+                data[k] = data[k].reshape(-1, 1, nb).expand(-1, na, nb).reshape(-1)
+                steps[k].append((1, na, nb))
+            if a in tb or b in tb:
+                tbs[k] = tuple(x for x in tb if x < a) + (a,)
+        sizes[a:] = [sizes[a] + sizes[b]]
+    merged = PolySpec(tuple(sizes), tuple(tbs), spec.terms)
+    return merged, [d.contiguous() for d in data], Merge(tuple(tuple(st) for st in steps))
 
 
 def _split(spec: PolySpec):
@@ -189,17 +249,18 @@ def _contraction(spec: PolySpec, term, halved: bool, shards: int = 1):
     return ks if grid * shards > CONTRACT_THRESHOLD else None
 
 
-def _contract(spec: PolySpec, ks, data, field: FieldConfig, ts) -> FArray:
+def _contract(spec: PolySpec, ks, data, field: FieldConfig, ts, width: int) -> FArray:
     """s(t) for t in ``ts`` (None: the whole-grid sum) of the triangle term
-    (k1, k2, k3): sum over the grid of f1_t (f3_t @ f2^T), on the modular
-    matmul kernel with the dot in its epilogue (f2's digit planes made once
-    for all of ``ts``)."""
+    (k1, k2, k3), sum over the grid of f1_t (f3_t @ f2^T), as a row of
+    ``width`` words: column t (0 for None), 0 in every other column. On the
+    modular matmul kernel with the dot and the tiles' sum in its launch
+    (f2's digit planes made once for all of ``ts``)."""
     sx, sy, sz = spec.block_sizes
     f1 = data[ks[0]].reshape(1 << sx, 1 << sy)
     f2 = data[ks[1]].reshape(1 << sy, 1 << sz)
     f3 = data[ks[2]].reshape(1 << sx, 1 << sz)
-    sums = [FArray(p, field).sum(axis=0) for p in modmatmul.contract_partials_many(f3, f2, f1, field, ts)]
-    return FArray(torch.stack([s.data for s in sums]), field)
+    out = torch.empty((width,), dtype=word_dtype(field), device=f1.device)
+    return FArray(modmatmul.contract_total(f3, f2, f1, field, ts, out), field)
 
 
 def round_step(
@@ -220,6 +281,12 @@ def round_step(
     """
     check_spec(spec, tables)
     field = tables[0].field
+    if len(spec.block_sizes) > multiblock.MAX_BLOCKS:
+        merged, views, merge = merge_blocks(spec, [t.data for t in tables])
+        sums, new = round_step(merged, [FArray(v, field) for v in views], r_prev, claim)
+        folds = r_prev is not None
+        return sums, tuple(FArray(merge.unmerge(k, n.data), field) if folds and 0 in tb else t
+                           for k, (t, n, tb) in enumerate(zip(tables, new, spec.table_blocks)))
     sums_spec = spec.after_fold() if r_prev is not None else spec
     degree = sums_spec.degree()
     if degree < 1:
@@ -265,9 +332,7 @@ def round_step(
         for _, ks in contracted:
             if ks is None:
                 continue
-            part = _contract(sums_spec, ks, data, field, ts)
-            if skip_t1:
-                part = FArray(torch.cat([part.data[:1], torch.zeros_like(part.data[:1]), part.data[1:]]), field)
+            part = _contract(sums_spec, ks, data, field, ts, degree + 1)
             sums = part if sums is None else sums + part
     if claim is not None and not filled:
         sums.data[1] = (claim - sums[0]).data
@@ -293,6 +358,9 @@ def sum_products(spec: PolySpec, tables: Sequence[FArray]) -> FArray:
     contraction on the modular matmul kernel where its grid is large."""
     check_spec(spec, tables)
     field = tables[0].field
+    if len(spec.block_sizes) > multiblock.MAX_BLOCKS:
+        merged, views, _ = merge_blocks(spec, [t.data for t in tables])
+        return sum_products(merged, [FArray(v, field) for v in views])
     if not spec.block_sizes:
         return product_evals(spec, tables).sum(axis=0)
     data = [t.data for t in tables]
@@ -304,7 +372,7 @@ def sum_products(spec: PolySpec, tables: Sequence[FArray]) -> FArray:
         total = FArray(s[0], field) + FArray(s[1], field)
     for _, ks in contracted:
         if ks is not None:
-            part = _contract(spec, ks, data, field, [None])[0]
+            part = _contract(spec, ks, data, field, [None], 1)[0]
             total = part if total is None else total + part
     return total
 

@@ -16,19 +16,25 @@ keeps the layout and makes the rest explicit:
   (row i = shard row0 + i, each row a table of the local spec, MSB-first),
   a table without the last block one [1, size] copy per device;
 - a round runs each group's shards in one launch where a kernel has a
-  batch form (``cuda_round.round_partials`` for a product of 1 to 8
-  tables, ``libra_round_sums`` for the LibraW shapes: S tables of one
-  batch; ``modmatmul.contract_partials_many`` over [S, M, K] for the
-  triangle's contracted term: grid y = the shard), else one launch of the multi-block
-  kernel per shard. Each writes its shards' s(0), s(2..D) and leaves s(1)
-  out where the claim is known: s(1) = claim - s(0) holds only for the
-  *global* s(0), so it is filled after the reduction (by the FS tail or
-  the host). A term that covers no sharded variable is summed once, on one
-  group of one process, and scaled by 2^n_shard (JAX ``_mb_sums`` :548);
+  form for them (``cuda_round.round_partials`` for a product of 1 to 8
+  tables: S tables of one batch folding at one challenge, the blocks'
+  partials as the group's rows; ``libra_round_total`` for the LibraW
+  shapes and ``modmatmul.contract_total`` for the triangle's contracted
+  term: the S shard rows summed in the launch into one row), else one
+  launch of the multi-block kernel per shard, each writing its row. Each
+  writes s(0), s(2..D) and leaves s(1) out where the claim is known:
+  s(1) = claim - s(0) holds only for the *global* s(0), so it is filled
+  after the reduction (by the FS tail or the host). A term that covers no
+  sharded variable is summed once, on one group of one process, by the
+  multi-block kernel with its sums scaled by 2^n_shard (JAX ``_mb_sums``
+  :548). A group's rows are concatenated, never added, in plain torch:
+  every word of a round's rows is written by a kernel of the port;
 - :func:`collective` is the one function that moves data between shards:
-  the round sums' reduction (each other device's D + 1 sums to the first
-  device, then one ``all_reduce`` of 32-bit lanes across processes, exact,
-  as JAX's ``sum_mod(force_lanes=True)`` makes its psum exact) and, when the local
+  the round sums' reduction (each other device's rows summed there by
+  ``ops/row_sums.py`` and its D + 1 sums copied to the first device, then
+  one ``all_reduce`` of 32-bit lanes across processes, exact, as JAX's
+  ``sum_mod(force_lanes=True)`` makes its psum exact, split and recombined
+  by the same kernel) and, when the local
   variables are exhausted, the gather of the residual [2^n_shard] tables
   after which the last rounds run replicated (a ``ProductPoly`` on the
   first device). It counts what it issues in :data:`collectives`;
@@ -49,9 +55,9 @@ import torch
 import torch.distributed as dist
 
 from ..fields import FArray, Felt, FieldConfig
-from ..fields.farray import resolve_device
-from ..ops import cuda_round, modmatmul, multiblock
-from ..ops.round_kernel import PolySpec, _contraction, _split, check_spec, round_step
+from ..fields.farray import resolve_device, word_dtype
+from ..ops import cuda_round, modmatmul, multiblock, row_sums
+from ..ops.round_kernel import Merge, PolySpec, _contraction, _split, check_spec, merge_blocks, round_step
 from ..protocols.factor_poly import ProductPoly
 from ..sumcheck.univariate import UniPoly, interpolate_at_small_points
 
@@ -198,19 +204,18 @@ def _replicate(table: FArray, layout) -> Sharded:
     return Sharded(parts, table.field, False)
 
 
-def _lanes_all_reduce(words: torch.Tensor, field: FieldConfig, group) -> torch.Tensor:
-    """The exact sum over the group's processes of ``words`` (field words):
-    Goldilocks words cross as two 32-bit lanes in int64 (each lane sum <
-    2^63 for any world size below 2^31), mont32 words as they are."""
-    if field.backend == "goldilocks":
-        lanes = torch.stack([words & 0xFFFFFFFF, (words >> 32) & 0xFFFFFFFF], dim=-1)
-    else:
-        lanes = words.to(torch.int64).unsqueeze(-1)
-    dist.all_reduce(lanes, op=dist.ReduceOp.SUM, group=group)
-    if field.backend == "goldilocks":
-        lo, hi = FArray(lanes[..., 0].contiguous(), field), FArray(lanes[..., 1].contiguous(), field)
-        return (lo + hi * FArray.scalar(field.felt(1 << 32), device=words.device)).data
-    return (lanes[..., 0] % field.p).to(torch.int32)
+def _gather_rows(rows: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
+    """``rows`` ([R_i, D1] each, on ``dev``) as one [sum R_i, D1] tensor:
+    copies into one buffer (device-to-device copies, no arithmetic)."""
+    if len(rows) == 1:
+        return rows[0]
+    out = torch.empty((sum(r.shape[0] for r in rows), rows[0].shape[1]), dtype=rows[0].dtype, device=dev)
+    off = 0
+    for r in rows:
+        if r.shape[0]:
+            out[off : off + r.shape[0]].copy_(r)
+        off += r.shape[0]
+    return out
 
 
 def collective(mesh: Mesh, op: str, parts: Sequence[torch.Tensor], field: FieldConfig) -> torch.Tensor:
@@ -221,15 +226,18 @@ def collective(mesh: Mesh, op: str, parts: Sequence[torch.Tensor], field: FieldC
       rows sum, mod p, to the round sums over every shard of every process.
       The rows of a group on the primary device stay as they are (the FS
       tail and the host sum rows anyway); a group on another device sums
-      its rows there and sends its D + 1 sums; in a process group the rows'
-      sum goes through one exact ``all_reduce`` (R = 1);
+      its rows there (``ops/row_sums.py``, where it has more than one) and
+      sends its D + 1 sums, or nothing where it has no row; in a process
+      group the rows' sum (0 where it has none) goes through
+      one exact ``all_reduce`` of its 32-bit lanes (R = 1), split and
+      recombined by the same kernel;
     - ``"gather"``: ``parts`` are the groups' residual columns ([rows]
       words each); returns the [2^n_shard] residual table, in shard order,
       on the primary device (``all_gather`` across processes).
 
     Counts each call and the field words it sends off a device in
-    :data:`collectives`: D + 1 per other device and D + 1 per
-    ``all_reduce`` for a reduction, 2^n_shard for a gather."""
+    :data:`collectives`: D + 1 per other device's group with rows and D + 1
+    per ``all_reduce`` for a reduction, 2^n_shard for a gather."""
     dev = mesh.primary
     if op == "sum":
         d1 = parts[0].shape[-1]
@@ -238,14 +246,20 @@ def collective(mesh: Mesh, op: str, parts: Sequence[torch.Tensor], field: FieldC
         for p, (gdev, _, _) in zip(parts, mesh.layout(mesh.devices.size)):
             p = p.reshape(-1, d1)
             if gdev != dev:
-                p = FArray(p, field).sum(axis=0).data.reshape(1, d1).to(dev)
+                if p.shape[0] == 0:  # its terms run on another group: nothing to send
+                    continue
+                if p.shape[0] > 1:
+                    p = row_sums.row_sums(p, field)
+                p = p.reshape(1, d1).to(dev)
                 collectives["reduce_words"] += d1
             rows.append(p)
-        local = rows[0] if len(rows) == 1 else torch.cat(rows)
+        local = _gather_rows(rows, dev)
         if mesh.group is None:
             return local.reshape(1, -1, d1)
         collectives["reduce_words"] += d1
-        return _lanes_all_reduce(FArray(local, field).sum(axis=0).data, field, mesh.group).reshape(1, 1, d1)
+        lanes = row_sums.row_sums(local, field, out_lanes=True)
+        dist.all_reduce(lanes, op=dist.ReduceOp.SUM, group=mesh.group)
+        return row_sums.row_sums(lanes, field, in_lanes=True).reshape(1, 1, d1)
     if op == "gather":
         local = torch.cat([p.reshape(-1).to(dev) for p in parts])
         if mesh.group is not None:
@@ -338,6 +352,41 @@ class ShardedBlockPoly:
     def _layout(self):
         return self.mesh.layout(1 << self.n_shard)
 
+    def _merged(self) -> Tuple["ShardedBlockPoly", Optional[Merge]]:
+        """This poly as the kernels take it, and the :class:`Merge` that
+        undoes it: itself (None) where its spec has at most three blocks,
+        else its spec merged down to three (``round_kernel.merge_blocks``,
+        the trailing blocks, last pair first; derived again every round)
+        on every group's rows. The sharded variables, the last block's
+        last, stay the merged block's last; a replicated table that the
+        merge broadcasts along the last block becomes sharded, its rows
+        alike."""
+        if len(self.spec.block_sizes) <= multiblock.MAX_BLOCKS:
+            return self, None
+        parts: List[list] = [[] for _ in self.tables]
+        for g, (_, _, n_rows) in enumerate(self._layout()):
+            spec, views, merge = merge_blocks(self.spec, [t.parts[g].reshape(-1) for t in self.tables])
+            last = len(spec.block_sizes) - 1
+            has_shard = tuple(last in tb and self.n_shard > 0 for tb in spec.table_blocks)
+            for k, (v, hs) in enumerate(zip(views, has_shard)):
+                rows = v.reshape(self.tables[k].parts[g].shape[0], -1)
+                parts[k].append(rows.expand(n_rows, -1).contiguous() if hs and rows.shape[0] < n_rows else rows)
+        tables = [Sharded(p, self.field, hs) for p, hs in zip(parts, has_shard)]
+        return ShardedBlockPoly(spec, tables, has_shard, self.n_shard, self.mesh), merge
+
+    def _unmerged(self, merged: Sequence[Sharded], merge: Merge) -> Tuple[Sharded, ...]:
+        """A merged round's folded tables taken back to this poly's blocks
+        (``Merge.unmerge``; a replicated table's first row); a table
+        without block 0 as it was."""
+        out = []
+        for k, (t, m, tb) in enumerate(zip(self.tables, merged, self.spec.table_blocks)):
+            if 0 not in tb:
+                out.append(t)
+                continue
+            parts = [merge.unmerge(k, p.reshape(-1)).reshape(p.shape[0], -1) for p in m.parts]
+            out.append(Sharded(parts if t.sharded else [p[:1] for p in parts], self.field, t.sharded))
+        return tuple(out)
+
     def _word(self, r: Felt) -> torch.Tensor:
         """A challenge as a [1] word on the primary device."""
         return FArray.scalar(r, device=self.mesh.primary).data.reshape(1)
@@ -361,20 +410,21 @@ class ShardedBlockPoly:
         return None if shape is None else (fold_ids, scalar_ids, terms, shape[0])
 
     def _kernel_rows(self, shape, r, skip_t1: bool, degree: int):
+        """Each group's rows of one launch: a LibraW shape's rows summed in
+        the launch (one row), a product's per-block partials of every row."""
         fold_ids, scalar_ids, terms, phase = shape
         field = self.field
         new = [list(t.parts) for t in self.tables]
         rows = []
         for g, (dev, _, n_rows) in enumerate(self._layout()):
             tabs = [self.tables[k].parts[g] for k in fold_ids]
-            scalars = [self.tables[k].parts[g].reshape(1).expand(n_rows).contiguous() for k in scalar_ids]
-            rr = None if r is None else r.to(dev).expand(n_rows).contiguous()
+            rr = None if r is None else r.to(dev)
             if phase:
-                folded, s = cuda_round.libra_round_sums(tabs, rr, skip_t1, None, field, terms, scalars)
-                rows.append(s)
+                scalars = [self.tables[k].parts[g].reshape(1) for k in scalar_ids]
+                folded, s = cuda_round.libra_round_total(tabs, rr, skip_t1, field, terms, scalars)
+                rows.append(s.reshape(1, 3))
             else:
-                folded, partials = cuda_round.round_partials(tabs, rr, skip_t1, field=field, terms=terms,
-                                                             scalars=scalars)
+                folded, partials = cuda_round.round_partials(tabs, rr, skip_t1, field=field, terms=terms)
                 rows.append(partials.reshape(-1, degree + 1))
             for k, f in zip(fold_ids, folded or ()):
                 new[k][g] = f
@@ -409,12 +459,14 @@ class ShardedBlockPoly:
                                        out=[b for _, b in chunk])
 
     def _block_rows(self, post: PolySpec, r, skip_t1: bool, degree: int, halved: bool):
-        """Every group's rows of s(0..degree) over any spec: the sharded
+        """Every group's rows of s(0..degree) over any spec, each row written
+        by a kernel into the group's [rows, degree + 1] buffer: the sharded
         terms by one multi-block launch per shard (folding its sharded rows
         too where no contraction needs them folded first), the triangle's
-        contracted term by one batched tensor-core launch per t for the
-        group, the replicated-only terms once (first group, first process)
-        times 2^n_shard. ``halved``: a round (views at t) or, False, c_1
+        contracted term by one tensor-core launch per t over the group's
+        shard rows as one contraction (one row), the replicated-only terms
+        once (first group, first process), their sums scaled by 2^n_shard
+        in the launch. ``halved``: a round (views at t) or, False, c_1
         (degree 1, the contraction's whole-grid sum in column 0)."""
         spec, field, hs = self.spec, self.field, self.has_shard
         fold = r is not None
@@ -441,65 +493,62 @@ class ShardedBlockPoly:
                 plan = dataclasses.replace(plan, folded=tuple(f and hs[k] for k, f in enumerate(plan.folded)))
         rows = []
         for g, (dev, _, n_rows) in enumerate(self._layout()):
-            acc = None
+            rep = bool(rep_terms) and g == 0 and self.mesh.owner
+            mb_rows = n_rows if plan is not None else 0
+            out = torch.empty((mb_rows + len(contract) + int(rep), degree + 1), dtype=word_dtype(field), device=dev)
             if plan is not None:
                 rr = r.to(dev) if in_mb else None
                 if in_mb:
                     for k, f in enumerate(plan.folded):
                         if f:
                             new[k][g] = torch.empty((n_rows, plan.sizes[k]), dtype=new[k][g].dtype, device=dev)
-                sums = []
                 for i in range(n_rows):
                     tabs = [(self.tables[k].parts[g] if in_mb else new[k][g])[i] if hs[k] else new[k][g].reshape(-1)
                             for k in range(len(hs))]
                     outs = [new[k][g][i] if in_mb and plan.folded[k] else None for k in range(len(hs))]
-                    _, s = multiblock.round_sums(plan, tabs, rr, field, skip_t1, None, out=outs)
-                    sums.append(s)
-                acc = FArray(torch.stack(sums), field)
-            for ks in contract:
-                part = self._contract_rows(post, ks, new, g, n_rows, degree, skip_t1, halved)
-                acc = part if acc is None else acc + part
-            out = acc.data if acc is not None else torch.zeros((0, degree + 1), dtype=new[0][g].dtype, device=dev)
-            if rep_terms and g == 0 and self.mesh.owner:
-                out = torch.cat([out, self._rep_row(post, rep_terms, new, g, degree, skip_t1).reshape(1, -1)])
+                    multiblock.round_sums(plan, tabs, rr, field, skip_t1, None, out=outs, sums=out[i])
+            for j, ks in enumerate(contract):
+                self._contract_row(post, ks, new, g, n_rows, degree, skip_t1, halved, out[mb_rows + j])
+            if rep:
+                self._rep_row(post, rep_terms, new, g, degree, skip_t1, out[-1])
             rows.append(out)
         return new, rows
 
-    def _contract_rows(self, post, ks, new, g, n_rows, degree, skip_t1, halved) -> FArray:
-        """The group's [rows, degree + 1] sums of the triangle term
-        f1(X,Y) f2(Y,Z) f3(X,Z), f1 replicated: sum_{x,y} f1 (f3_s f2_s^T)
-        per shard s, on the batched tensor-core kernel."""
+    def _contract_row(self, post, ks, new, g, n_rows, degree, skip_t1, halved, out) -> None:
+        """The group's one row of sums of the triangle term f1(X,Y) f2(Y,Z)
+        f3(X,Z), f1 replicated, into ``out``: sum_s sum_{x,y} f1 (f3_s
+        f2_s^T) over its shard rows s, one contraction over their Z (the
+        tensor-core kernel's dot form), s(1) 0 where the round leaves it
+        out."""
         k1, k2, k3 = ks
         sx, sy, sz = post.block_sizes
-        field = self.field
         f1 = new[k1][g].reshape(1 << sx, 1 << sy)
         f2 = new[k2][g].reshape(n_rows, 1 << sy, 1 << sz)
         f3 = new[k3][g].reshape(n_rows, 1 << sx, 1 << sz)
         ts = [t for t in range(degree + 1) if not (skip_t1 and t == 1)] if halved else [None]
-        cols = [FArray(p, field).sum(axis=1).data for p in modmatmul.contract_partials_many(f3, f2, f1, field, ts)]
-        zero = torch.zeros_like(cols[0])
-        if not halved:
-            cols = [cols[0]] + [zero] * degree
-        elif skip_t1:
-            cols = cols[:1] + [zero] + cols[1:]
-        return FArray(torch.stack(cols, dim=1), field)
+        modmatmul.contract_total(f3, f2, f1, self.field, ts, out)
 
-    def _rep_row(self, post, rep_terms, new, g, degree, skip_t1) -> torch.Tensor:
+    def _rep_row(self, post, rep_terms, new, g, degree, skip_t1, out) -> None:
         """s(0..degree) of the terms over replicated tables only, summed
-        once over the local grid and scaled by the 2^n_shard shard rows."""
+        once over the local grid and scaled by the 2^n_shard shard rows in
+        the launch, into ``out``."""
         ids = sorted({k for term in rep_terms for k in term})
         pos = {k: i for i, k in enumerate(ids)}
         sub = PolySpec(post.block_sizes, tuple(post.table_blocks[k] for k in ids),
                        tuple(tuple(pos[k] for k in term) for term in rep_terms))
         plan = multiblock.round_plan(sub, False, sub.terms, degree)
-        _, s = multiblock.round_sums(plan, [new[k][g].reshape(-1) for k in ids], None, self.field, skip_t1)
-        scale = FArray.scalar(self.field.felt(1 << self.n_shard), device=s.device)
-        return (FArray(s, self.field) * scale).data
+        multiblock.round_sums(plan, [new[k][g].reshape(-1) for k in ids], None, self.field, skip_t1, sums=out,
+                              scale=1 << self.n_shard)
 
     def _round(self, r: Optional[torch.Tensor], skip_t1: bool):
         """One sharded round (the fold at r, a [1] word on the primary
         device, where given): (the new tables, :func:`collective`'s rows of
-        s(0..D) with s(1) left 0 where ``skip_t1``)."""
+        s(0..D) with s(1) left 0 where ``skip_t1``). A spec of more than
+        three blocks runs on its merged view (:meth:`_merged`)."""
+        view, merge = self._merged()
+        if merge is not None:
+            tables, rows = view._round(r, skip_t1)
+            return (self._unmerged(tables, merge) if r is not None else self.tables), rows
         fold = r is not None
         post = self.spec.after_fold() if fold else self.spec
         degree = post.degree()
@@ -579,7 +628,8 @@ class ShardedBlockPoly:
             return self._local_poly.sum_evaluations()
         if self.spec.num_vars() == 0:
             return self._gather_to_local().sum_evaluations()
-        _, rows = self._block_rows(self.spec, None, False, 1, False)
+        view, _ = self._merged()
+        _, rows = view._block_rows(view.spec, None, False, 1, False)
         s = _row_sums(collective(self.mesh, "sum", rows, self.field), self.field)
         return s[0] + s[1]
 
