@@ -78,7 +78,12 @@ The paths, each driven through the entry points a user calls:
   (``modmatmul.contract_total``, also the unsharded triangle's with one
   row), every row of a round written by a kernel
   (the multi-block kernel's sums into their rows, scaled in the launch),
-  the reduction's sums across processes by ``ops/row_sums.py``.
+  the reduction's sums across processes by ``ops/row_sums.py``;
+- slice 16, the one-program forms: the batch dispatch's rounds 2..n-1 and
+  the unsharded fused GKR proof's layer loop, each captured as a CUDA
+  graph at its program's first run (``ops/fs_kernel._BatchProgram``,
+  ``gkr/fused._Program``) and replayed by every later dispatch or proof:
+  the counted main-path runs above are replays.
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -204,6 +209,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    proof, the sharded triangle proofs and the sharded fused flagship with
    each sharded round in a synced range: 0 plain-torch kernels per round
    is the pass (``ranged_trace``, ``check_ranged``);
+   slice 16: each program's first run (the eager loop and the capture)
+   and a replay with the eager run's launch counts, byte-identical to it;
+   a second input per program (the batch tables with every row rolled by
+   one word, fresh flagship inputs) replayed byte-identical to the eager
+   route (``fs_kernel._prove_batch(..., graph=False)``,
+   ``gkr.fused._transcript(..., graph=False)``) and to ``device="cpu"``
+   (the batch's instances 0 and B - 1), accepted, rejected when
+   tampered; graph against eager in turns (dispatch_ms and field-ops/s;
+   the flagship proof with and without its forward pass), traces of both
+   routes (idle share, device-to-host reads, device records), the
+   replayed proof's ``timings`` (the JAX package's scan names) and the
+   eager route's per-step split, the bytes each program holds;
    slice 14 (``sharded_fused_slice``, on the flagship): the sharded fused
    proof byte-identical to the unsharded one, accepted, a tampered copy
    rejected, its launches, reductions, gathers and challenge sends against
@@ -385,9 +402,11 @@ def template_flag(name: str, kernel: str) -> bool:
     return name.split(kernel + "<", 1)[-1].split(">", 1)[0].endswith("true")
 
 
-def fused_trace(gkr, circuit, inputs, field):
-    """One fused proof of a fresh prover under the profiler: (wall ms,
-    device records, busy us, device ms by kernel label, aten split)."""
+def fused_trace(gkr, circuit, inputs, field, prove=None):
+    """One fused proof of a fresh prover under the profiler (``prove``:
+    prover -> transcript, default ``gkr.generate_gkr_transcript_fused``):
+    (wall ms, device records, busy us, device ms by kernel label, aten
+    split)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -395,7 +414,10 @@ def fused_trace(gkr, circuit, inputs, field):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gkr.generate_gkr_transcript_fused(prover, field)
+        if prove is None:
+            gkr.generate_gkr_transcript_fused(prover, field)
+        else:
+            prove(prover)
         traced_ms = (time.perf_counter() - t0) * 1e3
     spans, busy_us = device_spans(prof)
     by_kernel = {}
@@ -684,6 +706,9 @@ def port_launches() -> int:
     return sum(sum(c.values()) for c in counts)
 
 
+RANGE_GAP_S = 0.002  # idle host time around each traced range
+
+
 def ranged_trace(run, targets) -> dict:
     """``run()`` under the profiler, each call of a method in ``targets``
     ((class, name, kind) triples; ``kind(self, *args)`` gives the call's
@@ -694,7 +719,11 @@ def ranged_trace(run, targets) -> dict:
     the plain-torch launches as the difference, and the device records that
     start in the ranges (the port's kernels, the others by name, copies;
     the card's clock may place a short record outside its range, so these
-    are a report, and the count of plain-torch launches is the host's)."""
+    are a report, and the count of plain-torch launches is the host's).
+    The host idles ``RANGE_GAP_S`` after the sync before a range and after
+    its end, so that the records of the work just before and after a range
+    (the sharded fused layer's gathers, launched the moment its rounds
+    return) cannot be placed inside it by that clock's offset."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -707,12 +736,14 @@ def ranged_trace(run, targets) -> dict:
         def ranged(self, *args, **kwargs):
             label, rounds = kind(self, *args)
             torch.cuda.synchronize()
+            time.sleep(RANGE_GAP_S)
             with record_function(f"ranged {label} {rounds} {seq[0]}"):
                 seq[0] += 1
                 before = port_launches()
                 out = orig(self, *args, **kwargs)
                 torch.cuda.synchronize()
                 port.append(port_launches() - before)
+            time.sleep(RANGE_GAP_S)
             return out
 
         setattr(cls, name, ranged)
@@ -3444,6 +3475,17 @@ def main(argv=None) -> int:
         poly = BatchedProductPoly(tables)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # the first dispatch of (k, n, field, B, card) runs every round
+        # eagerly, then captures rounds 2..n-1; the counted one replays them
+        reset_counts()
+        t0 = time.perf_counter()
+        ts_first = generate_transcripts_batch(poly, field)
+        first_s = time.perf_counter() - t0
+        first_counts = read_counts()
+        prog = fs_kernel.programs[(2, n, field.name, B, tables[0].data.device)]
+        if prog.graph is None:
+            raise AssertionError(f"{field.name}: the batch program was not captured")
+        replays = prog.graph.replays
         reset_counts()
         ts = generate_transcripts_batch(poly, field)
         counts = read_counts()
@@ -3451,8 +3493,18 @@ def main(argv=None) -> int:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = dict.fromkeys(counters, 0)
         want.update(round_kernel=n, fs_tail=n)
-        if launches != want or sum(sum(v.values()) for v in counts.values()) != 2 * n:
-            raise AssertionError(f"{field.name}: expected {n} launches of each kernel per dispatch, got {counts}")
+        if launches != want or sum(sum(v.values()) for v in counts.values()) != 2 * n or counts != first_counts:
+            raise AssertionError(f"{field.name}: expected {n} launches of each kernel per dispatch, eager and "
+                                 f"replayed alike, got {counts} (eager {first_counts})")
+        if prog.graph.replays != replays + 1:
+            raise AssertionError(f"{field.name}: the counted dispatch did not replay the batch program")
+        launches["fs_batch_program"] = prog.graph.replays - replays
+        if any(a.to_bytes() != b.to_bytes() for a, b in zip(ts, ts_first)):
+            raise AssertionError(f"{field.name}: the replayed dispatch != the first (eager) dispatch")
+        log(f"{field.name} batch program: first dispatch (every round eager, then the capture of rounds 2..{n - 1}) "
+            f"{first_s:.3f} s; the replayed dispatch byte-identical to it, with the same launch counts; the "
+            f"program holds {prog.held_bytes() / 1e9:.3f} GB (its graph's pool {prog.graph.pool_bytes / 1e6:.1f} MB) "
+            f"{tag}")
         bs = field.byte_size
         if len(ts) != B or any(len(t.g) != n for t in ts):
             raise AssertionError("wrong transcript shape")
@@ -3509,6 +3561,52 @@ def main(argv=None) -> int:
         log(f"{field.name} zero batch: instance {z} took the host fallback (== CPU host loop, accepted); "
             f"the other {B - 1} kept the fused result")
         return tables, poly, ts, launches
+
+    def batch_program_inputs(field, tables, ts):
+        """The batch program over two inputs: the main path's tables and
+        the same tables with every row rolled by one word. Each replayed
+        dispatch byte-identical to the eager route (the same launches issued
+        from Python, no graph); the second's instances 0 and B - 1 to the
+        plain path on CPU copies, accepted, rejected when tampered; a replay
+        makes the eager route's launches."""
+        def eager(t):
+            return fs_kernel._prove_batch(spec, t, b"", graph=False)
+
+        if eager(tables) != [t.g for t in ts]:
+            raise AssertionError(f"{field.name} batch program: the eager route != the replayed dispatch")
+        tables2 = [FArray(t.data.roll(1, 1), field) for t in tables]
+        reset_counts()
+        got = fs_kernel.fs_prove_device_batch(spec, tables2)
+        counts = read_counts()
+        if counts["round_kernel"][field.backend] != n or counts["fs_tail"][field.backend] != n:
+            raise AssertionError(f"{field.name} batch program, second input: launches {counts}")
+        if got != eager(tables2) or any(m is None for m in got) or got[0] == ts[0].g:
+            raise AssertionError(f"{field.name} batch program, second input: the replay != the eager route, an "
+                                 "instance fell back, or the input did not change the transcript")
+        idx = [0, B - 1]
+        cpu_tables = [FArray(t.data[idx].cpu(), field) for t in tables2]
+        ts_cpu = generate_transcripts_batch(BatchedProductPoly(cpu_tables), field)
+        if [t.g for t in ts_cpu] != [got[i] for i in idx]:
+            raise AssertionError(f"{field.name} batch program, second input, instances {idx}: != the CPU plain path")
+        for j, i in enumerate(idx[:1]):
+            inst = [FArray(t.data[j], field) for t in cpu_tables]
+            v = SumcheckInteractiveVerifier(Verifier(n, ProductPoly(spec, inst)), field)
+            if not verify_transcript(FiatShamirTranscript(got[i]), v, field):
+                raise AssertionError(f"{field.name} batch program, second input, instance {i}: rejected")
+            bad = [bytearray(m) for m in got[i]]
+            bad[n // 2][16] ^= 1
+            v = SumcheckInteractiveVerifier(Verifier(n, ProductPoly(spec, inst)), field)
+            try:
+                accepted = verify_transcript(FiatShamirTranscript([bytes(m) for m in bad]), v, field)
+            except (SumCheckError, SerializationError):
+                accepted = False
+            if accepted:
+                raise AssertionError(f"{field.name} batch program, second input, instance {i}: tampered, accepted")
+        del tables2
+        log(f"{field.name} batch program, two inputs (the main tables; every row rolled by one word): each replayed "
+            f"dispatch byte-identical to the eager route; the second's instances {idx} byte-identical to the plain "
+            f"path on CPU copies, instance 0 accepted, rejected with one byte flipped; {n} + {n} launches per replay "
+            f"{tag}")
 
     # ---- phase 4: timing ---------------------------------------------
     def events():
@@ -3645,25 +3743,49 @@ def main(argv=None) -> int:
             f"over {n} launches (rounds 0-3: {[round(x, 4) for x in per_round[:4]]}), FS tail {n * k2_ms:.3f} ms; "
             f"sum {device_ms:.3f} of {dispatch_ms:.3f} ms dispatch {tag}")
 
-        # device busy time inside one dispatch, from the CUPTI records of a trace
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            generate_transcripts_batch(poly, field)
-        spans, busy_us = device_spans(prof)
-        per_kernel = {}
-        for key in ("round_kernel", "fs_tail_kernel"):
-            mine = [s1 - s0 for s0, s1, name in spans if key in name]
-            per_kernel[key] = (sum(mine) / 1e3, len(mine))
-        if spans:
+        # the batch program's replay against the eager route (the same
+        # launches issued one by one from Python), in turns
+        def eager_dispatch():
+            return fs_kernel._prove_batch(spec, tables, b"", graph=False)
+
+        turns = in_turns({"graph": lambda: fs_kernel.fs_prove_device_batch(spec, tables), "eager": eager_dispatch},
+                         args.reps, torch.cuda.synchronize)
+        graph_ms_, eager_ms = turns["graph"][0], turns["eager"][0]
+        log(f"{field.name} dispatch, graph against eager in turns (fs_prove_device_batch, host clock, ends in the "
+            f"host read): graph {graph_ms_:.3f} ms ({[round(x, 3) for x in turns['graph'][1]]}), "
+            f"{ops_per_proof * B / (graph_ms_ / 1e3):.4e} field-ops/s; eager {eager_ms:.3f} ms "
+            f"({[round(x, 3) for x in turns['eager'][1]]}), {ops_per_proof * B / (eager_ms / 1e3):.4e} field-ops/s; "
+            f"{eager_ms / graph_ms_:.3f}x {tag}")
+
+        # device busy time inside one dispatch, from the CUPTI records of a
+        # trace: a replayed dispatch, then the eager route
+        busy = {}
+        for route, run, wall_ms in (("replayed", lambda: generate_transcripts_batch(poly, field), dispatch_ms),
+                                    ("eager", eager_dispatch, eager_ms)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+            spans, busy_us = device_spans(prof)
+            per_kernel = {}
+            for key in ("round_kernel", "fs_tail_kernel"):
+                mine = [s1 - s0 for s0, s1, name in spans if key in name]
+                per_kernel[key] = (sum(mine) / 1e3, len(mine))
+            if not spans:
+                log(f"{field.name} profiler trace of one {route} dispatch: no device records, device idle share not "
+                    "measured")
+                continue
             busy_ms = busy_us / 1e3
+            busy[route] = (busy_ms, len(spans), 1 - busy_ms / wall_ms)
             tail_ms, tail_n = per_kernel["fs_tail_kernel"]
-            log(f"{field.name} profiler trace of one dispatch: device busy {busy_ms:.3f} ms (union of {len(spans)} "
-                f"device records; round kernel {per_kernel['round_kernel'][0]:.3f} ms over "
+            log(f"{field.name} profiler trace of one {route} dispatch: device busy {busy_ms:.3f} ms (union of "
+                f"{len(spans)} device records; round kernel {per_kernel['round_kernel'][0]:.3f} ms over "
                 f"{per_kernel['round_kernel'][1]} launches, FS tail {tail_ms:.4f} ms over {tail_n}, "
-                f"{tail_ms / max(tail_n, 1) * 1e3:.2f} us each) against the {dispatch_ms:.3f} ms dispatch -> device "
-                f"idle share {1 - busy_ms / dispatch_ms:.1%} {tag}")
-        else:
-            log(f"{field.name} profiler trace of one dispatch: no device records, device idle share not measured")
-        return {"round_kernel": (k1_ms, k1_plain_ms, k1_bound), "fs_tail": (k2_ms, k2_plain_ms, k2_bound, k2_floor)}
+                f"{tail_ms / max(tail_n, 1) * 1e3:.2f} us each) against the {wall_ms:.3f} ms dispatch -> device "
+                f"idle share {1 - busy_ms / wall_ms:.1%} {tag}")
+        if "replayed" not in busy:
+            raise AssertionError(f"{field.name}: no device records in the trace of a replayed dispatch")
+        program = (graph_ms_, eager_ms, busy["replayed"][0], busy["replayed"][1])
+        return {"round_kernel": (k1_ms, k1_plain_ms, k1_bound), "fs_tail": (k2_ms, k2_plain_ms, k2_bound, k2_floor),
+                "program": program}
 
     # the latency floor: one thread's chain of dependent compressions; the
     # difference of two chain lengths takes the launch out
@@ -3675,8 +3797,10 @@ def main(argv=None) -> int:
     launches, timing = {}, {}
     for field, label in ((GOLDILOCKS, "goldilocks(2^64-2^32+1)"), (BABYBEAR, "babybear(2^31-2^27+1)")):
         tables, poly, ts, launches[field.backend] = batch_path(field)
+        batch_program_inputs(field, tables, ts)
         timing[field.backend] = time_batch_path(field, tables, poly, ts, label)
         del tables, poly, ts
+        fs_kernel.programs.clear()  # the program's buffers: 3.2 GB for Goldilocks
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
@@ -4019,8 +4143,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     reset_counts()
     f0 = gkr_fused.fallbacks
+    first_timings = []
     t0 = time.perf_counter()
-    fused_t = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F)
+    fused_t = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F, timings=first_timings)
     fused_first_s = time.perf_counter() - t0
     counts = read_counts()
     if gkr_fused.fallbacks != f0 or not gkr_counts_ok(counts, F, circuit, fused_path=True):
@@ -4039,22 +4164,83 @@ def main(argv=None) -> int:
     bad[flip_f] = bad[flip_f][:-1] + bytes([bad[flip_f][-1] ^ 1])
     if accepts(gkr.GKRTranscript(bad), circuit, inputs, F):
         raise AssertionError("GKR flagship: a tampered fused transcript was accepted")
+    capture_s = sum(sec for name_, _, sec in first_timings if name_ == "capture")
     log(f"GKR flagship fused: generate_gkr_transcript_fused byte-identical to the per-layer transcript, no fallback, "
-        f"launches {fused_launches} (first run {fused_first_s:.3f} s with the prover's forward pass); "
+        f"launches {fused_launches} (first run {fused_first_s:.3f} s with the prover's forward pass, the eager loop "
+        f"and the capture of the layer loop as one CUDA graph, {capture_s:.3f} s of it; a sync after every step); "
         f"verify_gkr_transcript accepted in {fused_verify_s:.3f} s; rejected with one byte flipped in final "
         f"message {flip_f} {tag}")
 
-    # warm proofs: host clock around Prover (the forward pass) + the fused
-    # call, which ends in its host read; then the forward pass alone, the
-    # timings breakdown (a sync after every step) and one traced proof
-    fused_s = []
-    for _ in range(max(3, args.reps)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F)
-        fused_s.append(time.perf_counter() - t0)
-        if again.to_bytes() != transcript.to_bytes():
-            raise AssertionError("GKR flagship: a warm fused proof differs")
+    # the circuit's program: every later unsharded proof replays its graph,
+    # with the eager loop's launch counts
+    (prog,) = circuit._fused_programs.values()
+    if prog.graph is None:
+        raise AssertionError("GKR flagship fused: the program was not captured")
+    replays = prog.graph.replays
+    reset_counts()
+    again = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F)
+    counts = read_counts()
+    if prog.graph.replays != replays + 1 or again.to_bytes() != transcript.to_bytes():
+        raise AssertionError("GKR flagship fused: a warm proof did not replay the program, or its bytes differ")
+    if not gkr_counts_ok(counts, F, circuit, fused_path=True):
+        raise AssertionError(f"GKR flagship fused, replayed: launches {counts}, expected the eager loop's "
+                             f"{gkr_launch_counts(circuit, True)}")
+    fused_launches["gkr_fused_program"] = prog.graph.replays - replays
+
+    def eager_fused(prover):  # the private eager route: the same loop, issued from Python
+        return gkr_fused._transcript(prover, F, b"", None, None, graph=False)
+
+    # a second input through the same program: the replay, the eager route and
+    # device="cpu" byte-identical, accepted, rejected when tampered
+    inputs_b = np.random.default_rng(args.seed + 16).integers(0, 1 << 62, width)
+    t_b = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs_b, F), F)
+    e_b = eager_fused(gkr.Prover(circuit, inputs_b, F))
+    t0 = time.perf_counter()
+    c_b = gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs_b, F, device="cpu"), F)
+    cpu_b_s = time.perf_counter() - t0
+    if gkr_fused.fallbacks != f0 or prog.graph.replays != replays + 2:
+        raise AssertionError("GKR flagship fused, second input: a fallback, or the proof did not replay")
+    if not t_b.to_bytes() == e_b.to_bytes() == c_b.to_bytes() or t_b.to_bytes() == transcript.to_bytes():
+        raise AssertionError("GKR flagship fused, second input: the replay != the eager route or device='cpu', or "
+                             "the same bytes as the first input")
+    if not accepts(t_b, circuit, inputs_b, F):
+        raise AssertionError("GKR flagship fused, second input: the verifier rejected the replayed transcript")
+    bad_b = list(t_b.g)
+    bad_b[flip_f] = bad_b[flip_f][:-1] + bytes([bad_b[flip_f][-1] ^ 1])
+    if accepts(gkr.GKRTranscript(bad_b), circuit, inputs_b, F):
+        raise AssertionError("GKR flagship fused, second input: a tampered transcript was accepted")
+    del t_b, e_b, c_b, bad_b
+    log(f"GKR flagship fused program, two inputs: the first's replay byte-identical to the per-layer run with the "
+        f"eager loop's launch counts; the second's replay byte-identical to the eager route and to device='cpu' "
+        f"({cpu_b_s:.1f} s on the host, {torch.get_num_threads()} threads), accepted, rejected with one byte flipped; "
+        f"the program holds "
+        f"{prog.held_bytes() / 1e6:.1f} MB (its graph's pool {prog.graph.pool_bytes / 1e6:.1f} MB) {tag}")
+
+    # the graph against the eager route in turns: host clock around Prover
+    # (the forward pass) and the proof, which ends in its host read; the
+    # proof alone from after the forward pass's sync
+    routes = {"graph": lambda pr: gkr.generate_gkr_transcript_fused(pr, F), "eager": eager_fused}
+    turn_s = {name: [] for name in routes}
+    proof_s = {name: [] for name in routes}
+    for rep in range(max(3, args.reps)):
+        for name in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prover = gkr.Prover(circuit, inputs, F)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again = routes[name](prover)
+            t2 = time.perf_counter()
+            turn_s[name].append(t2 - t0)
+            proof_s[name].append(t2 - t1)
+            if again.to_bytes() != transcript.to_bytes():
+                raise AssertionError(f"GKR flagship: a warm fused proof ({name}) differs")
+    fused_s = turn_s["graph"]
+    graph_med, eager_med = statistics.median(fused_s), statistics.median(turn_s["eager"])
+    log(f"GKR flagship fused, graph against eager in turns (host clock, forward pass included): graph "
+        f"{graph_med:.4f} s ({[round(x, 4) for x in fused_s]}), eager {eager_med:.4f} s "
+        f"({[round(x, 4) for x in turn_s['eager']]}); the proof after the forward pass: graph "
+        f"{statistics.median(proof_s['graph']):.4f} s, eager {statistics.median(proof_s['eager']):.4f} s {tag}")
     fwd_s = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -4063,12 +4249,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         fwd_s.append(time.perf_counter() - t0)
     fwd_med = statistics.median(fwd_s)
+    # the per-step split on the eager route, and a replayed proof's
     timings = []
-    gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F, timings=timings)
+    gkr_fused._transcript(gkr.Prover(circuit, inputs, F), F, b"", timings, None, graph=False)
     parts = {name: sum(sec for n_, _, sec in timings if n_ == name)
              for name in ("prelude", "phase1", "phase2", "pull", "assemble")}
     per_layer_ms = [1e3 * sum(sec for n_, i_, sec in timings if i_ == i and n_ in ("phase1", "phase2"))
                     for i in range(depth)]
+    scan_timings = []
+    gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, F), F, timings=scan_timings)
+    scan_parts = {name: sec for name, _, sec in scan_timings}
+    if list(scan_parts) != ["prelude", "scan_layers", "pull", "assemble"]:
+        raise AssertionError(f"GKR flagship fused: a replayed proof's timings {list(scan_parts)}")
     # the prelude's parts on a fresh prover: the W_0 pull with Begin's
     # serialization, the native midstate over Z_pad || Begin, r_0's draw
     fprover = gkr.Prover(circuit, inputs, F)
@@ -4084,49 +4276,70 @@ def main(argv=None) -> int:
         f"native SHA-256 midstate over {len(begin_raw) / 1e6:.2f} MB {(t2 - t1) * 1e3:.2f} ms "
         f"({len(begin_raw) / (t2 - t1) / 1e6:.0f} MB/s), r_0's draw ({circuit.num_vars_at(0)} elements, Python "
         f"compressions) {(t3 - t2) * 1e3:.2f} ms {tag}")
-    traced_ms, spans, busy_us, fused_kernels, fused_aten = fused_trace(gkr, circuit, inputs, F)
-    if any("gkr_round_tail" in name for _, _, name in spans):
-        raise AssertionError("GKR flagship fused: a standalone round-tail kernel ran")
-    # the TAIL launches by inner round (2k - 1 per layer, in issue order),
-    # grouped by table size: rounds 0-2 of each phase are the large ones
-    k_f = circuit.num_vars_at(1)
-    per_j = tail_by_round(spans, k_f, depth)
-    if per_j is not None:
-        log(f"GKR flagship fused trace, K1 with TAIL by inner round (mean over {depth} layers, us): phase 1 "
-            f"{[round(x, 1) for x in per_j[:k_f]]}; phase 2 {[round(x, 1) for x in per_j[k_f:]]} {tag}")
-    layer_start = min((s0 for s0, _, name in spans if "eq_table_kernel" in name), default=None)
-    copies = [(s0, name) for s0, _, name in spans if "Memcpy" in name]
-    if copies and layer_start is not None:
-        reads = [name for s0, name in copies if "DtoH" in name and s0 > layer_start]
-        writes = [name for s0, name in copies if "HtoD" in name and s0 > layer_start]
-        if len(reads) != 1:
-            raise AssertionError(f"GKR flagship fused: {len(reads)} device-to-host reads after the prelude: {reads}")
-        reads_note = (f"device-to-host copies after the prelude (the first eq-table kernel): {len(reads)} "
-                      f"({reads[0]}); host-to-device copies after it: {len(writes)}")
-    else:
-        reads_note = "device-to-host copies: not measured (no copy records in the trace)"
-    fused_idle = 1 - busy_us / 1e3 / traced_ms if spans else None
-    log(f"GKR flagship fused, traced proof: {traced_ms:.3f} ms wall (profiler on), device busy {busy_us / 1e3:.3f} ms "
-        f"(union of {len(spans)} device records; {split_line(fused_kernels, fused_aten)}); {reads_note}; "
-        "device idle share " + (f"{fused_idle:.1%}" if spans else "not measured (no device records)") + f" {tag}")
-    log(f"GKR flagship fused breakdown (a sync after every step): prelude {parts['prelude']:.4f} s, phase 1 "
-        f"{parts['phase1']:.4f} s, phase 2 {parts['phase2']:.4f} s over {depth} layers (per layer "
+    del fprover
+    # traces: a replayed proof (the default route), then the eager route
+    traced = {}
+    for route, prove in (("replayed", None), ("eager", eager_fused)):
+        traced_ms, spans, busy_us, fused_kernels, fused_aten = fused_trace(gkr, circuit, inputs, F, prove)
+        if any("gkr_round_tail" in name for _, _, name in spans):
+            raise AssertionError(f"GKR flagship fused ({route}): a standalone round-tail kernel ran")
+        layer_start = min((s0 for s0, _, name in spans if "eq_table_kernel" in name), default=None)
+        copies = [(s0, name) for s0, _, name in spans if "Memcpy" in name]
+        if copies and layer_start is not None:
+            reads = [name for s0, name in copies if "DtoH" in name and s0 > layer_start]
+            writes = [name for s0, name in copies if "HtoD" in name and s0 > layer_start]
+            if len(reads) != 1:
+                raise AssertionError(f"GKR flagship fused ({route}): {len(reads)} device-to-host reads after the "
+                                     f"prelude: {reads}")
+            reads_note = (f"device-to-host copies after the prelude (the first eq-table kernel): {len(reads)} "
+                          f"({reads[0]}); host-to-device copies after it: {len(writes)}")
+        else:
+            reads_note = "device-to-host copies: not measured (no copy records in the trace)"
+        kernel_records = sum(1 for _, _, name in spans if "Memcpy" not in name and "Memset" not in name)
+        idle = 1 - busy_us / 1e3 / traced_ms if spans else None
+        traced[route] = (traced_ms, busy_us / 1e3, len(spans), kernel_records, idle)
+        log(f"GKR flagship fused, traced {route} proof: {traced_ms:.3f} ms wall (profiler on), device busy "
+            f"{busy_us / 1e3:.3f} ms (union of {len(spans)} device records, {kernel_records} of them kernels; "
+            f"{split_line(fused_kernels, fused_aten)}); {reads_note}; device idle share "
+            + (f"{idle:.1%}" if spans else "not measured (no device records)") + f" {tag}")
+        if route == "replayed":
+            # the TAIL launches by inner round (2k - 1 per layer, in issue
+            # order), grouped by table size: rounds 0-2 of each phase are the
+            # large ones
+            k_f = circuit.num_vars_at(1)
+            per_j = tail_by_round(spans, k_f, depth)
+            if per_j is not None:
+                log(f"GKR flagship fused trace, K1 with TAIL by inner round (mean over {depth} layers, us): phase 1 "
+                    f"{[round(x, 1) for x in per_j[:k_f]]}; phase 2 {[round(x, 1) for x in per_j[k_f:]]} {tag}")
+    if traced["replayed"][2] == 0:
+        raise AssertionError("GKR flagship fused: no device records in the trace of a replayed proof")
+    fused_idle = traced["replayed"][4]
+    log(f"GKR flagship fused breakdown on the eager route (a sync after every step): prelude {parts['prelude']:.4f} "
+        f"s, phase 1 {parts['phase1']:.4f} s, phase 2 {parts['phase2']:.4f} s over {depth} layers (per layer "
         f"{min(per_layer_ms):.2f}-{max(per_layer_ms):.2f} ms), pull {parts['pull']:.4f} s, assemble "
-        f"{parts['assemble']:.4f} s; forward pass {fwd_med:.4f} s (median of 3) {tag}")
-    prove_med = statistics.median(fused_s)
+        f"{parts['assemble']:.4f} s; a replayed proof: prelude {scan_parts['prelude']:.4f} s, scan_layers "
+        f"{scan_parts['scan_layers']:.4f} s, pull {scan_parts['pull']:.4f} s, assemble {scan_parts['assemble']:.4f} s; "
+        f"forward pass {fwd_med:.4f} s (median of 3) {tag}")
+    prove_med = graph_med
     log(json.dumps({
         "bench": "gkr_prover_fused_noninteractive", "gates": depth * width, "depth": depth, "width": width,
         "field": F.name, "accepted": True, "prover_s": prove_med, "verifier_s": fused_verify_s,
         "messages": len(fused_t.g), "transcript_bytes": sum(len(m) for m in fused_t.g),
         "breakdown": {"forward_pass_s": fwd_med, "fused_layers_s": prove_med - fwd_med,
-                      "phase1_s": parts["phase1"], "phase2_s": parts["phase2"], "prelude_s": parts["prelude"],
-                      "assemble_s": parts["assemble"], "final_pull_s": parts["pull"]},
-        "prover_s_all": fused_s, "reps": len(fused_s), "per_layer_path_prover_s": prove_s,
-        "device_idle_share": fused_idle, "traced_ms": traced_ms, "device_records": len(spans),
-        "device_busy_ms": busy_us / 1e3, "launches": fused_launches, "card": card,
+                      "scan_layers_s": scan_parts["scan_layers"], "prelude_s": scan_parts["prelude"],
+                      "eager_phase1_s": parts["phase1"], "eager_phase2_s": parts["phase2"],
+                      "assemble_s": scan_parts["assemble"], "final_pull_s": scan_parts["pull"]},
+        "prover_s_all": fused_s, "reps": len(fused_s), "eager_prover_s": eager_med,
+        "eager_prover_s_all": turn_s["eager"], "first_proof_s": fused_first_s, "capture_s": capture_s,
+        "program_bytes": prog.held_bytes(), "per_layer_path_prover_s": prove_s,
+        "device_idle_share": fused_idle, "traced_ms": traced["replayed"][0], "device_records": traced["replayed"][2],
+        "device_busy_ms": traced["replayed"][1], "eager_device_idle_share": traced["eager"][4],
+        "launches": fused_launches, "card": card,
     }))
+    fused_program = (statistics.median(proof_s["graph"]) * 1e3, statistics.median(proof_s["eager"]) * 1e3,
+                     traced["replayed"][1], traced["replayed"][3])
     fused_bytes = fused_t.to_bytes()
-    del transcript, timed_t, bad, fused_t, again
+    del transcript, timed_t, bad, fused_t, again, prog
 
     # K1 and K2 at the flagship's shapes: a 2^20-entry phase round with a
     # fold and the claim shortcut (batch 1), and layer 0's phase tables.
@@ -4420,6 +4633,29 @@ def main(argv=None) -> int:
         if floor:
             row["latency_floor_ms"] = floor[0]
         kernels.append(row)
+    # the one-program forms (CUDA graphs of the kernels above): launches =
+    # replays on the main path's counted run; ms = the replayed dispatch or
+    # proof (host clock, ends in its host read; the GKR proof after the
+    # forward pass); plain_ms = the same launches issued from Python (the
+    # eager route); bound_ms = the device busy time of a traced replay (the
+    # union of its device records), so ms / bound_ms - 1 is the host's share
+    # left; max_abs_err = 0: replays byte-identical to the eager route
+    for backend in ("goldilocks", "mont32"):
+        ms, plain_ms, busy_ms, records = timing[backend]["program"]
+        kernels.append({
+            "name": f"fs_batch_program_{backend}", "route": "cuda",
+            "source": "thaler_study_tpu_torch/ops/fs_kernel.py", "replaces": "thaler_study_tpu/ops/fs_kernel.py:337",
+            "launches": launches[backend]["fs_batch_program"], "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": busy_ms, "bound_by": "bytes", "bound_is": "device busy time of a traced replay",
+            "device_records": records, "library_ms": None,
+        })
+    ms, plain_ms, busy_ms, records = fused_program
+    kernels.append({
+        "name": "gkr_fused_program_goldilocks", "route": "cuda", "source": "thaler_study_tpu_torch/gkr/fused.py",
+        "replaces": "thaler_study_tpu/gkr/fused.py:398", "launches": fused_launches["gkr_fused_program"],
+        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": busy_ms, "bound_by": "bytes",
+        "bound_is": "device busy time of a traced replay", "device_records": records, "library_ms": None,
+    })
     kernels += slice_rows + slice14_rows
     log(card)
     log(json.dumps({"kernels": kernels}))

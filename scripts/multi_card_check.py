@@ -33,7 +33,11 @@ Phases (each prints one line; any mismatch raises and the exit code is 1):
    reduction (the copies to card 0; a row-sum kernel where a card has more
    than one row), the round tail and the challenge sends,
    each step timed alone between syncs of every card (so the split adds
-   up to more than a proof: the steps no longer overlap).
+   up to more than a proof: the steps no longer overlap);
+6. (run first) the one-program forms on the last card while the current
+   device stays card 0: the batch program (n = 14, B = 8, both fields)
+   and the fused GKR program (4 x 2^10), each captured at its first run
+   and replayed at its second, equal to the same runs on card 0.
 
 ``--cpu K`` rehearses the same phases on K alternating CPU positions
 (``["cpu", "cpu:0"] * (K // 2)``) and processes of one CPU device each
@@ -213,6 +217,7 @@ def main(argv=None) -> int:
         generate_transcript,
         generate_transcript_device,
     )
+    from thaler_study_tpu_torch.fields import FArray
     from thaler_study_tpu_torch.ops import fs_kernel, modmatmul
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.parallel import ShardedBlockPoly, make_mesh, sharded
@@ -246,6 +251,43 @@ def main(argv=None) -> int:
     def reset():
         for key in sharded.collectives:
             sharded.collectives[key] = 0
+
+    # phase 6 (first, it is short): the one-program forms on the last card
+    # while the current device stays the first
+    last = list(cards.devices.flat)[-1]
+    rng6 = np.random.default_rng(args.seed + 6)
+    n6, b6 = 14, 8
+    vals6 = {f.name: [rng6.integers(0, min(f.p, 1 << 63), (b6, 1 << n6), dtype=np.uint64) for _ in range(2)]
+             for f in fields()}
+    circuit6 = gate_circuit(gkr, [1 << 10] * 5, np.random.default_rng(args.seed + 6))
+    inputs6 = [int(x) for x in rng6.integers(0, 1 << 62, 1 << 10)]
+    runs6 = {}
+    for dev in (first, last):
+        for field in fields():
+            tabs = [FArray.from_ints(v, field, device=dev) for v in vals6[field.name]]
+            spec6 = single_block_spec(2, n6)
+            runs6[(str(dev), field.name)] = [digest(sum(fs_kernel.fs_prove_device_batch(spec6, tabs), []))
+                                             for _ in range(2)]
+            prog = fs_kernel.programs[(2, n6, field.name, b6, tabs[0].data.device)]
+            if not args.cpu and (prog.graph is None or prog.graph.replays != 1):
+                raise AssertionError(f"phase 6: the batch program on {dev} was not captured and replayed")
+        runs6[(str(dev), "gkr")] = [digest(gkr.generate_gkr_transcript_fused(
+            gkr.Prover(circuit6, inputs6, gkr_field(), device=dev), gkr_field()).g) for _ in range(2)]
+        if not args.cpu:
+            progs = [pr for key, pr in circuit6._fused_programs.items() if key[0] == dev]
+            if len(progs) != 1 or progs[0].graph is None or progs[0].graph.replays != 1:
+                raise AssertionError(f"phase 6: the fused GKR program on {dev} was not captured and replayed")
+            if torch.cuda.current_device() != 0:
+                raise AssertionError(f"phase 6: the current device moved to {torch.cuda.current_device()}")
+    for key, (a, b) in runs6.items():
+        if a != b or runs6[(str(first), key[1])][0] != a:
+            raise AssertionError(f"phase 6: {key}: the first run {a}, the replay {b}, on {first} "
+                                 f"{runs6[(str(first), key[1])][0]}")
+    print(f"phase 6: the batch programs (n = {n6}, B = {b6}, both fields) and the fused GKR program (4 x 2^10) on "
+          f"{last}, the current device {first}: each first run and its replay == the same on {first} "
+          f"({sorted(set(v[0] for v in runs6.values()))})", flush=True)
+    report["programs"] = {f"{k[0]} {k[1]}": v[0] for k, v in runs6.items()}
+    fs_kernel.programs.clear()
 
     # phase 1: the sharded FS proof on meshes of the cards
     spec = single_block_spec(2, args.n)

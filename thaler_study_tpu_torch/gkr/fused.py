@@ -38,13 +38,19 @@ As in the JAX package, the fixed message lengths assume every serialized
 coefficient is nonzero (arkworks drops zero terms); a zero is flagged on
 the card and the proof is redone on the per-layer path.
 
+Without ``mesh=`` the proof runs as one program, the port's form of the
+JAX package's layer scan (``_scan_proof_jit``): a :class:`_Program` per
+circuit, device, field and Begin length holds the state above and a static
+copy of the layer values; each proof binds its inputs (one host-to-device
+copy of the chain and r_0, one device-to-device copy per layer) and, after
+the circuit's first proof, replays the layer loop as one CUDA graph
+(``ops/graphs.py``).
+
 Scope (``supports_fused_gkr``): Goldilocks, the empty DST, every layer with
 k >= 2 variables. Every other input takes the per-layer path, on the
-prover's device and mesh. Not ported: the JAX package's one-program layer
-scan (``_scan_proof_jit``; the layer loop here already has no sync), the
-``interp`` line restriction and the ``plan`` / ``segment`` scatter modes
-(A/B switches), and ``_pack_outputs`` (the transcript bytes are written on
-the card).
+prover's device and mesh. Not ported: the ``interp`` line restriction and
+the ``plan`` / ``segment`` scatter modes (A/B switches), and
+``_pack_outputs`` (the transcript bytes are written on the card).
 """
 
 from __future__ import annotations
@@ -55,8 +61,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import _build
 from ..fields import FArray, FieldConfig
 from ..mle.dense import bitrev_perm
+from ..ops import graphs
 from ..ops.cuda_round import LIBRA_PHASE1, LIBRA_PHASE2, libra_round_total, round_partials
 from ..ops.gkr_tail import (
     ROUND_LEN,
@@ -107,12 +115,11 @@ class _Layer:
     flag, the running claim, the challenge vector u then c, the round
     kernel's ticket counter), the write position in the transcript bytes,
     and the proof's ping-pong buffers for the folded tables. ``w_lsb``:
-    the layer's input values on the tail's device (default: the prover's)."""
+    the layer's input values (label order) on the tail's device."""
 
-    def __init__(self, prover, i: int, chain, msgs, zero, counter, bufs, off: int, w_lsb: Optional[FArray] = None):
-        circuit = prover.circuit
+    def __init__(self, circuit, i: int, chain, msgs, zero, counter, bufs, off: int, w_lsb: FArray):
         self.i, self.k, self.k_cur = i, circuit.num_vars_at(i + 1), circuit.num_vars_at(i)
-        self.w_lsb = prover.layers_dev[i + 1] if w_lsb is None else w_lsb
+        self.w_lsb = w_lsb
         self.field = self.w_lsb.field
         dev = self.w_lsb.device
         self.wiring = circuit.device_wiring(i, dev)
@@ -251,7 +258,7 @@ class _ShardedLayer(_Layer):
     reads); no host read."""
 
     def __init__(self, prover, ms: _MeshState, i: int, chain, msgs, zero, counter, bufs, off: int):
-        super().__init__(prover, i, chain, msgs, zero, counter, bufs, off, ms.values(i + 1, ms.primary))
+        super().__init__(prover.circuit, i, chain, msgs, zero, counter, bufs, off, ms.values(i + 1, ms.primary))
         self.ms = ms
         self.local = self.k - ms.n_shard
         self.chals = {dev: torch.empty(2 * self.k, dtype=torch.int64, device=dev) for dev in ms.others}
@@ -331,13 +338,147 @@ class _ShardedLayer(_Layer):
         return self._phase2_rounds(self._gather(tables), self.local, w_u[ms.primary])
 
 
+class _Proof:
+    """One fused proof's state on the card: the chain (its state, partial
+    block and r_0 in one buffer, ``seed``, written by one copy per proof),
+    the transcript bytes after the zero flag (``out``), the per-layer ticket
+    counters of K1 and the ping-pong fold buffers (three tables x (half,
+    quarter) of the widest layer). ``nbegin``: Begin's length, the chain's
+    byte count before the first layer."""
+
+    def __init__(self, circuit, field: FieldConfig, dev, nbegin: int):
+        ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
+        self.circuit, self.field, self.dev, self.nbegin = circuit, field, dev, nbegin
+        self.lens = [n for k in ks for n in _layer_lens(k)]
+        self.seed = torch.zeros(96 + 8 * circuit.num_vars_at(0), dtype=torch.uint8, device=dev)
+        self.chain = GKRChain(self.seed[:32].view(torch.int32), self.seed[32:96], nbegin)
+        self.r0 = FArray(self.seed[96:].view(torch.int64), field)
+        self.out = torch.zeros(4 + sum(self.lens), dtype=torch.uint8, device=dev)
+        self.zero, self.msgs = self.out[:4].view(torch.int32), self.out[4:]
+        self.counters = torch.zeros(len(ks), dtype=torch.int32, device=dev)
+        half = 1 << (max(ks) - 1)
+        self.bufs = [[torch.empty(half, dtype=torch.int64, device=dev),
+                      torch.empty(half // 2, dtype=torch.int64, device=dev)] for _ in range(3)]
+
+    def seed_with(self, state, rest: bytes, r0: List[int]) -> None:
+        """The chain after Begin (``state``: 8 u32 words, ``rest``: the
+        partial block) and r_0, in one host-to-device copy; the zero flag
+        and the ticket counters back to 0."""
+        host = np.zeros(self.seed.shape[0], dtype=np.uint8)
+        host[:32] = np.asarray(state, dtype=np.uint32).view(np.uint8)
+        host[32 : 32 + len(rest)] = np.frombuffer(rest, dtype=np.uint8)
+        host[96:] = np.asarray(r0, dtype=np.uint64).view(np.uint8)
+        self.seed.copy_(torch.from_numpy(host))
+        self.zero.zero_()
+        self.counters.zero_()
+
+    def layers(self, layer_of, mark) -> None:
+        """Every layer's launches in order: ``layer_of(i, off)`` makes layer
+        i's :class:`_Layer`, its messages from byte ``off``."""
+        self.chain.nbytes = self.nbegin
+        r_i, off = self.r0, 0
+        for i in range(len(self.circuit.layers)):
+            layer = layer_of(i, off)
+            w_msb, eq_r = layer.phase1(r_i)
+            mark("phase1", i)
+            r_i = layer.phase2(w_msb, eq_r)
+            off = layer.off
+            mark("phase2", i)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.seed, self.out, self.counters] + [b for pair in self.bufs for b in pair]
+
+
+def _quiet(name: str, layer: int) -> None:
+    pass
+
+
+class _Program(_Proof):
+    """The unsharded fused proof of one circuit on one device as one
+    program: the counterpart of the JAX package's ``_scan_proof_jit``
+    (``thaler_study_tpu/gkr/fused.py:398``), kept on the circuit per
+    (device, field, Begin's length) as the JAX package keeps its
+    ``_fused_wiring_cache``. Beside :class:`_Proof`'s state it holds a
+    static copy of each layer's values (``values``), which every proof
+    binds (:meth:`bind`: the seed and one device-to-device copy per layer).
+
+    The layer loop is the same on every route. The first proof runs it
+    eagerly (which fills every lazy cache: the libraries, the wiring, the
+    occupancy, the ticket counter, the bit-reversal index) and then, on a
+    CUDA device, captures it as one CUDA graph (``ops/graphs.Graph``); every
+    later proof replays it. On the CPU :meth:`run` is the eager loop over
+    the plain versions. Unlike ``_scan_supported``, any layer widths: the
+    graph is the circuit's own. One proof runs on a program at a time."""
+
+    def __init__(self, circuit, field: FieldConfig, dev, nbegin: int):
+        super().__init__(circuit, field, dev, nbegin)
+        self.values = [FArray(torch.empty(1 << circuit.num_vars_at(i + 1), dtype=torch.int64, device=dev), field)
+                       for i in range(len(circuit.layers))]
+        self.graph: Optional[graphs.Graph] = None
+        self.warm = False  # a proof has run the loop eagerly for this program
+
+    def bind(self, prover, state, rest: bytes, r0: List[int]) -> None:
+        """A proof's inputs: the seed, and the prover's layer values copied
+        into the static ones; on the card the device's ticket counter is
+        set back to 0 too (a launch that was cut leaves no ticket)."""
+        self.seed_with(state, rest, r0)
+        for v, w in zip(self.values, prover.layers_dev[1:]):
+            v.data.copy_(w.data)
+        if self.dev.type == "cuda":
+            _build.ticket_counter(self.dev).zero_()
+
+    def _layer(self, i: int, off: int) -> _Layer:
+        return _Layer(self.circuit, i, self.chain, self.msgs, self.zero, self.counters[i : i + 1], self.bufs, off,
+                      self.values[i])
+
+    def loop(self, mark) -> None:
+        self.layers(self._layer, mark)
+
+    def run(self) -> None:
+        """The bound proof's layers: the graph's replay, or on the CPU the
+        eager loop."""
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.loop(_quiet)
+
+    def capture(self) -> None:
+        self.graph = graphs.Graph(self.dev, lambda: self.loop(_quiet))
+
+    def held_bytes(self) -> int:
+        """Device bytes the program holds: its buffers, the static layer
+        values and its graph's pool."""
+        ts = self.tensors() + [v.data for v in self.values]
+        return sum(t.numel() * t.element_size() for t in ts) + (self.graph.pool_bytes if self.graph else 0)
+
+
+def _program(circuit, field: FieldConfig, dev, nbegin: int) -> _Program:
+    """The circuit's fused program on ``dev`` for a Begin message of
+    ``nbegin`` bytes (made at first use): every host int its launches bake
+    in follows from the circuit's widths and ``nbegin``."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    programs = circuit.__dict__.setdefault("_fused_programs", {})
+    key = (dev, field.name, nbegin)
+    prog = programs.get(key)
+    if prog is None:
+        prog = programs[key] = _Program(circuit, field, dev, nbegin)
+    return prog
+
+
 def _prove_fused(prover, field: FieldConfig, timings: Optional[list] = None,
-                 ms: Optional[_MeshState] = None) -> Optional[List[bytes]]:
+                 ms: Optional[_MeshState] = None, graph: bool = True) -> Optional[List[bytes]]:
     """The fused proof's messages, or None when a serialized coefficient is
-    zero; sharded over ``ms`` where given. ``timings``, when given,
-    receives ("prelude" | "phase1" | "phase2" | "pull" | "assemble", layer,
-    seconds) with a device sync after every step (which serializes the host
-    with the card, so only profiling runs pass it)."""
+    zero; sharded over ``ms`` where given, else through the circuit's
+    :class:`_Program` (``graph`` False: the eager loop, no capture, the
+    profiling route). ``timings``, when given, receives ("prelude" |
+    "phase1" | "phase2" | "pull" | "assemble", layer, seconds) with a
+    device sync after every step (which serializes the host with the card,
+    so only profiling runs pass it); a program's replayed (or, on the CPU,
+    warm) proof gives one ("scan_layers", -1, seconds) in place of the
+    layers' entries, as the JAX package's scan does, and the first proof on
+    a card a ("capture", -1, seconds) after its pull."""
     circuit = prover.circuit
     dev = prover.device if ms is None else ms.primary
     clock = [time.perf_counter()]
@@ -356,37 +497,39 @@ def _prove_fused(prover, field: FieldConfig, timings: Optional[list] = None,
     begin_raw = serialize_gkr_message(prover.start_protocol())
     state, rest = midstate(begin_raw)
     r0 = draw_many_py(field, state.tolist(), rest, len(begin_raw), circuit.num_vars_at(0))
-    chain = GKRChain.seeded(state, rest, len(begin_raw), dev)
-    lens = [n for i in range(len(circuit.layers)) for n in _layer_lens(circuit.num_vars_at(i + 1))]
-    out = torch.zeros(4 + sum(lens), dtype=torch.uint8, device=dev)
-    zero, msgs = out[:4].view(torch.int32), out[4:]
-    counters = torch.zeros(len(circuit.layers), dtype=torch.int32, device=dev)
-    # ping-pong fold buffers, three tables x (half, quarter) of the widest layer
-    half = 1 << (max(circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))) - 1)
-    bufs = [[torch.empty(half, dtype=torch.int64, device=dev), torch.empty(half // 2, dtype=torch.int64, device=dev)]
-            for _ in range(3)]
-    r_i = FArray.from_ints(r0, field, device=dev)
-    mark("prelude", -1)
-
-    off = 0
-    for i in range(len(circuit.layers)):
-        if ms is not None and ms.shards(circuit.num_vars_at(i + 1)):
-            layer = _ShardedLayer(prover, ms, i, chain, msgs, zero, counters[i : i + 1], bufs, off)
+    if ms is None:
+        proof = _program(circuit, field, dev, len(begin_raw))
+        proof.bind(prover, state, rest, r0)
+        mark("prelude", -1)
+        if graph and proof.warm:
+            proof.run()
+            mark("scan_layers", -1)
         else:
-            w_lsb = None if ms is None else ms.values(i + 1, dev)
-            layer = _Layer(prover, i, chain, msgs, zero, counters[i : i + 1], bufs, off, w_lsb)
-        w_msb, eq_r = layer.phase1(r_i)
-        mark("phase1", i)
-        r_i = layer.phase2(w_msb, eq_r)
-        off = layer.off
-        mark("phase2", i)
+            proof.loop(mark)
+    else:
+        proof = _Proof(circuit, field, dev, len(begin_raw))
+        proof.seed_with(state, rest, r0)
+        mark("prelude", -1)
 
-    host = out.cpu().numpy()  # the one read: the zero flag and every message
+        def layer_of(i: int, off: int) -> _Layer:
+            args = (proof.chain, proof.msgs, proof.zero, proof.counters[i : i + 1], proof.bufs, off)
+            if ms.shards(circuit.num_vars_at(i + 1)):
+                return _ShardedLayer(prover, ms, i, *args)
+            return _Layer(circuit, i, *args, ms.values(i + 1, dev))
+
+        proof.layers(layer_of, mark)
+
+    host = proof.out.cpu().numpy()  # the one read: the zero flag and every message
     mark("pull", -1)
+    if ms is None and graph and not proof.warm:
+        if dev.type == "cuda":
+            proof.capture()
+            mark("capture", -1)
+        proof.warm = True
     if host[:4].any():
         return None
     blob = host[4:].tobytes()
-    cuts = np.cumsum([0] + lens).tolist()
+    cuts = np.cumsum([0] + proof.lens).tolist()
     msgs_out = [begin_raw] + [blob[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
     mark("assemble", -1)
     return msgs_out
@@ -396,17 +539,26 @@ def generate_gkr_transcript_fused(
     prover, field: FieldConfig, dst: bytes = b"", timings: Optional[list] = None, mesh=None
 ) -> GKRTranscript:
     """Drop-in for ``generate_gkr_transcript``: the fused proof on the
-    prover's device, or sharded over ``mesh`` (a ``parallel`` mesh whose
-    size is a power of two, else ``ValueError``; its first device holds
-    the tail state and the layers too small to split), or the per-layer
-    path, on the prover's own device and mesh, for inputs outside
-    :func:`supports_fused_gkr` and for a flagged zero coefficient (each
-    counted in ``fallbacks``). ``prover`` is a fresh ``gkr.Prover``; the
-    fused path reads only its circuit and forward-pass values. ``timings``:
-    see :func:`_prove_fused`."""
+    prover's device (every proof of a circuit after its first replays the
+    circuit's program, :class:`_Program`), or sharded over ``mesh`` (a
+    ``parallel`` mesh whose size is a power of two, else ``ValueError``;
+    its first device holds the tail state and the layers too small to
+    split; the eager loop, as the JAX package keeps its mesh path off the
+    scan), or the per-layer path, on the prover's own device and mesh, for
+    inputs outside :func:`supports_fused_gkr` and for a flagged zero
+    coefficient (each counted in ``fallbacks``). ``prover`` is a fresh
+    ``gkr.Prover``; the fused path reads only its circuit and forward-pass
+    values. ``timings``: see :func:`_prove_fused`."""
+    return _transcript(prover, field, dst, timings, mesh, graph=True)
+
+
+def _transcript(prover, field: FieldConfig, dst: bytes, timings: Optional[list], mesh, graph: bool) -> GKRTranscript:
+    """:func:`generate_gkr_transcript_fused`; ``graph`` False runs the
+    program's layer loop eagerly (the profiling route: per-layer timings,
+    no capture)."""
     global fallbacks
     ms = None if mesh is None else _MeshState(prover, mesh)
-    msgs = _prove_fused(prover, field, timings, ms) if supports_fused_gkr(prover.circuit, field, dst) else None
+    msgs = _prove_fused(prover, field, timings, ms, graph) if supports_fused_gkr(prover.circuit, field, dst) else None
     if msgs is None:
         fallbacks += 1
         return generate_gkr_transcript(prover, field, dst)

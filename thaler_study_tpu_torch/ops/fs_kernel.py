@@ -28,6 +28,14 @@ host reads nothing inside the loop, and afterwards reads only the
 transcript bytes and the zero flags, out of which it slices the messages
 (:func:`split_transcripts`).
 
+The single-block product's loop is the port's form of the JAX package's
+one program (``_fs_prove_batch_jit``): a :class:`_BatchProgram` per (k,
+n, field, B, device), kept in :data:`programs`, whose rounds 2..n-1 are
+captured once as a CUDA graph and replayed by every later dispatch
+(``ops/graphs.py``); rounds 0 and 1 read the caller's tables and run
+eagerly. The multi-block specs (``_spec_rounds``) and
+:func:`fs_prove_device_sharded` run eagerly.
+
 Bit-exactness caveat (as in the JAX package): arkworks drops zero
 coefficients from serialized ``SparsePolynomial`` terms, which would make
 message lengths value-dependent. The device path assumes every coefficient
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import itertools
+from collections import OrderedDict
 from functools import lru_cache
 from typing import List, Optional, Sequence
 
@@ -60,6 +69,7 @@ import torch
 from .. import _build
 from ..fields import GOLDILOCKS, FArray, FieldConfig
 from ..fields.farray import tensor_u64, u64_tensor, word_dtype
+from . import graphs
 from .cuda_round import round_partials
 from .round_kernel import PolySpec, check_spec, round_step
 from .sha256 import H0, py_compress
@@ -347,6 +357,129 @@ def fs_tail_plain(
     chain.buf.copy_(torch.tensor([list(bb) for bb in bufs], dtype=torch.uint8))
 
 
+class _Dispatch:
+    """One dispatch's state for B proofs on one device, the FS tail's
+    in-place operands: the chains, the challenges, claims, c_1 and
+    coefficients, the transcript bytes and the zero flags, and one
+    interpolation matrix per distinct round degree."""
+
+    def __init__(self, spec: PolySpec, field: FieldConfig, batch: int, dev):
+        self.field, self.n = field, spec.num_vars()
+        self.degrees = spec.round_degrees()
+        self.vinv = {d: interp_tensor(field, d, dev) for d in sorted(set(self.degrees))}
+        w = word_dtype(field)
+        self.chain = DevChain.fresh(batch, dev)
+        self.r, self.claim, self.c1 = (torch.zeros(batch, dtype=w, device=dev) for _ in range(3))
+        self.coeffs = torch.zeros((batch, sum(d + 1 for d in self.degrees)), dtype=w, device=dev)
+        self.offs = list(itertools.accumulate((d + 1 for d in self.degrees), initial=0))
+        self.lens = [_msg_len(j, d, field.byte_size) for j, d in enumerate(self.degrees)]
+        self.msgs = torch.zeros((batch, sum(self.lens)), dtype=torch.uint8, device=dev)
+        self.any_zero = torch.zeros(batch, dtype=torch.int32, device=dev)
+
+    def tail(self, j: int, partials: torch.Tensor) -> None:
+        """Round j's FS tail over its round sums or partials."""
+        fs_tail(partials, self.chain, self.claim, self.r, self.c1, self.coeffs, self.msgs, self.any_zero,
+                self.vinv[self.degrees[j]], j, self.offs[j], j < self.n - 1, self.field)
+
+    def read(self) -> List[Optional[list]]:
+        """The one host read, the transcript bytes and the zero flags, and
+        each proof's messages (:func:`split_transcripts`)."""
+        host = torch.cat([self.msgs, self.any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
+        return split_transcripts(host, self.lens)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.chain.state, self.chain.buf, self.r, self.claim, self.c1, self.coeffs, self.msgs,
+                self.any_zero, *self.vinv.values()]
+
+
+class _BatchProgram:
+    """The batch round loop of a single-block product of k tables (k = 1..8)
+    over B proofs of n variables on one device, as one program: the
+    counterpart of the JAX package's ``_fs_prove_batch_jit``
+    (``jax.jit(jax.vmap(_fs_prove_impl))``). It holds the dispatch state
+    (:class:`_Dispatch`) and the ping-pong fold buffers; round j >= 1 folds
+    [B, 2^(n - j + 1)] into buffer (j - 1) % 2.
+
+    Rounds 0 and 1 read the caller's tables (never copied, never written),
+    so they run eagerly in every dispatch: the round kernel, then the FS
+    tail. Rounds 2..n-1 read only the program's buffers: on a CUDA device
+    the first dispatch runs them eagerly (filling every lazy cache; its
+    bytes are the result) and then captures them as one CUDA graph
+    (:class:`graphs.Graph`), which every later dispatch replays. On the CPU
+    they run eagerly over the plain versions every time. Before round 0
+    each dispatch resets the chains and the zero flags; every other operand
+    is written before it is read (the transcript bytes and coefficients in
+    full, r, claim and c_1 by round 0's tail)."""
+
+    def __init__(self, spec: PolySpec, field: FieldConfig, batch: int, dev):
+        self.n, self.batch, self.field, self.dev = spec.num_vars(), batch, field, dev
+        self.state = _Dispatch(spec, field, batch, dev)
+        self.fresh = self.state.chain.state.clone()
+        w = word_dtype(field)
+        size = 1 << self.n
+        self.bufs = [[torch.empty(batch * size // 2, dtype=w, device=dev),
+                      torch.empty(batch * size // 4, dtype=w, device=dev)] for _ in spec.table_blocks]
+        self.graph: Optional[graphs.Graph] = None
+
+    def held_bytes(self) -> int:
+        """Device bytes the program holds: its buffers and its graph's pool."""
+        ts = self.state.tensors() + [self.fresh] + [b for pp in self.bufs for b in pp]
+        return sum(t.numel() * t.element_size() for t in ts) + (self.graph.pool_bytes if self.graph else 0)
+
+    def _rounds(self, cur, j0: int, j1: int):
+        """Rounds j0..j1-1 over ``cur`` (the tables before round j0);
+        returns the tables after them."""
+        s, batch, size = self.state, self.batch, 1 << self.n
+        for j in range(j0, j1):
+            if j == 0:
+                _, partials = round_partials(cur, field=self.field)
+            else:
+                m = size >> j
+                out = [pp[(j - 1) % 2][: batch * m].view(batch, m) for pp in self.bufs]
+                cur, partials = round_partials(cur, s.r, skip_t1=True, out=out, field=self.field)
+            s.tail(j, partials)
+        return cur
+
+    def prove(self, data, graph: bool = True) -> List[Optional[list]]:
+        """One dispatch over the caller's [B, 2^n] tables ``data``; with
+        ``graph`` False rounds 2..n-1 run eagerly (the profiling route)."""
+        s = self.state
+        if any(d.shape != (self.batch, 1 << self.n) for d in data):
+            raise ValueError(f"tables of {list(data[0].shape)} words for {self.batch} proofs of {self.n} variables")
+        s.chain.state.copy_(self.fresh)
+        s.chain.buf.zero_()
+        s.chain.nbytes = 0
+        s.any_zero.zero_()
+        first = self._rounds(data, 0, min(2, self.n))
+        if graph and self.graph is not None:
+            self.graph.replay()
+        else:
+            self._rounds(first, 2, self.n)
+        out = s.read()
+        if graph and self.graph is None and self.n > 2 and self.dev.type == "cuda":
+            s.chain.nbytes = sum(s.lens[:2])
+            self.graph = graphs.Graph(self.dev, lambda: self._rounds(first, 2, self.n))
+        return out
+
+
+# the batch programs, (k, n, field, B, device) -> _BatchProgram, the most
+# recently used last; at most MAX_PROGRAMS are kept (each holds its fold
+# buffers: 3.2 GB for B = 64 Goldilocks proofs of n = 22)
+programs: "OrderedDict[tuple, _BatchProgram]" = OrderedDict()
+MAX_PROGRAMS = 4
+
+
+def _batch_program(spec: PolySpec, field: FieldConfig, batch: int, dev) -> _BatchProgram:
+    key = (len(spec.table_blocks), spec.num_vars(), field.name, batch, dev)
+    prog = programs.get(key)
+    if prog is None:
+        while len(programs) >= MAX_PROGRAMS:
+            programs.popitem(last=False)
+        prog = programs[key] = _BatchProgram(spec, field, batch, dev)
+    programs.move_to_end(key)
+    return prog
+
+
 def fs_prove_device_batch(
     spec: PolySpec, tables: Sequence[FArray], dst: bytes = b""
 ) -> Optional[List[Optional[list]]]:
@@ -355,12 +488,21 @@ def fs_prove_device_batch(
 
     ``tables``: per-table FArrays of shape [B, size_k] on one device, size_k
     the entries of table k under ``spec`` (2^n for the batched prover's
-    single-block product); the inputs are never written. Returns a list of
-    B entries — each a message list, or ``None`` for an instance whose
-    serialized coefficients hit a zero (the caller re-proves only that
-    instance on the host loop). Returns ``None`` outright when
-    :func:`supports_fused_fs` does not cover (spec, field, dst), as the JAX
-    package's does."""
+    single-block product); the inputs are never written. A single-block
+    product of all the tables runs as one program per (k, n, field, B,
+    device) (:class:`_BatchProgram`: rounds 2..n-1 replayed from a CUDA
+    graph after the first dispatch); every other spec runs ``round_step``
+    per proof and round. Returns a list of B entries — each a message
+    list, or ``None`` for an instance whose serialized coefficients hit a
+    zero (the caller re-proves only that instance on the host loop).
+    Returns ``None`` outright when :func:`supports_fused_fs` does not cover
+    (spec, field, dst), as the JAX package's does."""
+    return _prove_batch(spec, tables, dst, graph=True)
+
+
+def _prove_batch(spec: PolySpec, tables: Sequence[FArray], dst: bytes, graph: bool):
+    """:func:`fs_prove_device_batch`; ``graph`` False runs a product's
+    rounds 2..n-1 eagerly (the profiling route, no capture)."""
     field = tables[0].field
     if not supports_fused_fs(spec, field, dst):
         return None
@@ -369,58 +511,13 @@ def fs_prove_device_batch(
     data = [t.data for t in tables]
     if any(d.dim() != 2 for d in data):
         raise ValueError("fs_prove_device_batch takes [B, size] tables")
-    batch = data[0].shape[0]
-    n = spec.num_vars()
-    dev = data[0].device
-    degrees = spec.round_degrees()
-    # one interpolation matrix per distinct round degree
-    vinv = {d: interp_tensor(field, d, dev) for d in sorted(set(degrees))}
-    w = word_dtype(field)
-
-    def zeros(*shape, dtype=w):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    chain = DevChain.fresh(batch, dev)
-    r, claim, c1 = zeros(batch), zeros(batch), zeros(batch)
-    coeffs = zeros(batch, sum(d + 1 for d in degrees))
-    lens = [_msg_len(j, d, field.byte_size) for j, d in enumerate(degrees)]
-    msgs = zeros(batch, sum(lens), dtype=torch.uint8)
-    any_zero = zeros(batch, dtype=torch.int32)
-    rounds = _product_rounds if _single_product(spec) else _spec_rounds
-    off = 0
-    for j, partials in enumerate(rounds(spec, data, field, r, claim)):
-        fs_tail(partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv[degrees[j]], j, off, j < n - 1, field)
-        off += degrees[j] + 1
-    # the one host read: the transcript bytes and the zero flags
-    host = torch.cat([msgs, any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
-    return split_transcripts(host, lens)
-
-
-def _product_rounds(spec: PolySpec, data, field: FieldConfig, r: torch.Tensor, claim: torch.Tensor):
-    """Round j's partials [B, blocks, k + 1] of a single-block product of k
-    tables ([B, 2^n] each): one round kernel launch for the batch, folding
-    at the challenges ``r`` the previous round's tail drew."""
-    batch, size = data[0].shape
-    n = spec.num_vars()
-    if size != 1 << n or any(d.shape != data[0].shape for d in data):
-        raise ValueError(f"tables of {size} entries for a {n}-variable spec")
-    w, dev = data[0].dtype, data[0].device
-    # ping-pong fold buffers: round j >= 1 writes [B, size >> j] into
-    # buffer (j - 1) % 2, reading the previous round's buffer
-    bufs = [
-        [torch.empty(batch * size // 2, dtype=w, device=dev),
-         torch.empty(batch * size // 4, dtype=w, device=dev)]
-        for _ in data
-    ]
-    cur = data
-    for j in range(n):
-        if j == 0:
-            _, partials = round_partials(cur, field=field)
-        else:
-            m = size >> j
-            out = [pp[(j - 1) % 2][: batch * m].view(batch, m) for pp in bufs]
-            cur, partials = round_partials(cur, r, skip_t1=True, out=out, field=field)
-        yield partials
+    batch, dev = data[0].shape[0], data[0].device
+    if _single_product(spec):
+        return _batch_program(spec, field, batch, dev).prove(data, graph)
+    state = _Dispatch(spec, field, batch, dev)
+    for j, sums in enumerate(_spec_rounds(spec, data, field, state.r, state.claim)):
+        state.tail(j, sums)
+    return state.read()
 
 
 def _spec_rounds(spec: PolySpec, data, field: FieldConfig, r: torch.Tensor, claim: torch.Tensor):
@@ -504,20 +601,7 @@ def fs_prove_device_sharded(
     if not supports_fused_fs(spec, field, dst):
         return None
     poly = ShardedBlockPoly.from_internal_tables(spec, tables, mesh, n_shard=n_shard, axis=axis)
-    dev = mesh.primary
-    n = spec.num_vars()
-    degrees = spec.round_degrees()
-    vinv = {d: interp_tensor(field, d, dev) for d in sorted(set(degrees))}
-    w = word_dtype(field)
-    chain = DevChain.fresh(1, dev)
-    r, claim, c1 = (torch.zeros(1, dtype=w, device=dev) for _ in range(3))
-    coeffs = torch.zeros((1, sum(d + 1 for d in degrees)), dtype=w, device=dev)
-    lens = [_msg_len(j, d, field.byte_size) for j, d in enumerate(degrees)]
-    msgs = torch.zeros((1, sum(lens)), dtype=torch.uint8, device=dev)
-    any_zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    off = 0
-    for j, rows in enumerate(device_rounds(poly, r, claim)):
-        fs_tail(rows, chain, claim, r, c1, coeffs, msgs, any_zero, vinv[degrees[j]], j, off, j < n - 1, field)
-        off += degrees[j] + 1
-    host = torch.cat([msgs, any_zero[:, None].view(torch.uint8)], 1).cpu().numpy()
-    return split_transcripts(host, lens)[0]
+    state = _Dispatch(spec, field, 1, mesh.primary)
+    for j, rows in enumerate(device_rounds(poly, state.r, state.claim)):
+        state.tail(j, rows)
+    return state.read()[0]
