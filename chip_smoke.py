@@ -83,7 +83,12 @@ The paths, each driven through the entry points a user calls:
   the unsharded fused GKR proof's layer loop, each captured as a CUDA
   graph at its program's first run (``ops/fs_kernel._BatchProgram``,
   ``gkr/fused._Program``) and replayed by every later dispatch or proof:
-  the counted main-path runs above are replays.
+  the counted main-path runs above are replays;
+- slice 17 runs through the sharded paths too: every sharded factor
+  table laid out by the shard layout kernel (``ops/shard_layout.py``,
+  one launch per table and group) and every multi-block round and fold
+  of a device's shard rows in one launch of their rows forms
+  (``multiblock.round_sums`` and ``fold_tables`` over [rows, ...] tables).
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -205,7 +210,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    sharded triangle's X round 0 and middle shapes against their plain
    versions (exact), timed from CUDA graphs, K1's beside its per-row form;
    the row sums (rows, lanes out and back) and the multi-block kernel's
-   scaled sums into a row against their plain versions; a traced run of the sharded FS
+   scaled sums into a row against their plain versions;
+   slice 17 (in ``sharded_slice``): the shard layout kernel against its
+   plain version at n (the sharded FS proof's tables, S = 8) and at small
+   odd shapes (S = 2 and 64, partial and one-row groups, words at p - 1),
+   timed from CUDA graphs beside ``.T.contiguous()`` (its library call) and
+   its bytes bound; MB's rows form over the 8 shard rows (with its scale,
+   the claim, and without skip-1) and the fold's rows form against their
+   plain versions, timed beside 8 per-row launches; the layout's launches
+   on the sharded FS proof and the triangles (one per table and group) and
+   MB's per sharded triangle round (one); the digit pre-pass rows' library
+   call (the same byte planes by view, permute, pad and copy);
+   a traced run of the sharded FS
    proof, the sharded triangle proofs and the sharded fused flagship with
    each sharded round in a synced range: 0 plain-torch kernels per round
    is the pass (``ranged_trace``, ``check_ranged``);
@@ -616,7 +632,8 @@ def triangle_launches(k: int, threshold: int):
 PORT_KERNELS = ("mb_round_kernel", "mb_fold_kernel", "tc_kernel", "digits_kernel", "modmatmul_kernel",
                 "round_kernel", "libra_round_kernel", "fs_tail_kernel", "sha_chain_kernel", "phase_tables_kernel",
                 "eq_table_kernel", "line_tile_kernel", "gkr_final_tail_kernel", "libra_total_kernel",
-                "gkr_round_tail_kernel", "row_sums_kernel", "leaf_kernel", "node_kernel", "top_kernel")
+                "gkr_round_tail_kernel", "row_sums_kernel", "leaf_kernel", "node_kernel", "top_kernel",
+                "shard_rows_kernel")
 
 
 def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
@@ -696,13 +713,14 @@ def port_launches() -> int:
     (K1 with the round tail is counted once, as a launch of K1)."""
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.ops import (cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock,
-                                            row_sums)
+                                            row_sums, shard_layout)
 
     counts = (cuda_round.launches, cuda_round.libra_launches, cuda_round.total_launches, fs_kernel.launches,
               multiblock.launches, multiblock.fold_launches, modmatmul.launches, modmatmul.tc_launches,
               modmatmul.digit_launches, modmatmul.total_launches, device_tables.launches, device_tables.eq_launches,
               device_tables.eq_dot_launches, device_tables.line_launches, device_tables.rows_launches,
-              gkr_tail.final_launches, gkr_tail.round_launches, merkle_kernel.launches, row_sums.launches)
+              gkr_tail.final_launches, gkr_tail.round_launches, merkle_kernel.launches, row_sums.launches,
+              shard_layout.launches)
     return sum(sum(c.values()) for c in counts)
 
 
@@ -1278,6 +1296,11 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         tc_ms = graph_ms(lambda: modmatmul.contract_partials_tc(a, b, d, field, 2, planes), count=10)
         a_digits_ms = graph_ms(lambda: modmatmul.digit_planes(a, field, 2), count=10)
         b_digits_ms = graph_ms(lambda: modmatmul.digit_planes(b, field), count=10)
+        # library_ms of B's digit planes: the same planes as one torch call
+        # sequence (view as bytes, permute, pad to Kp, copy)
+        kp = modmatmul.padded_k(side)
+        lib_digits_ms = graph_ms(lambda: torch.nn.functional.pad(
+            b.view(torch.uint8).reshape(side, side, nd).permute(2, 0, 1), (0, kp - side)).contiguous(), count=10)
         products = xh * side * side
         # A's and D's halves and B read once, the partials written
         words = 4 * xh * side + side * side
@@ -1298,7 +1321,8 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
             f"design's own count {nd} x {nd} = {nd * nd}, at 989.5 T int8 multiply-adds/s), bytes bound "
             f"{tc_bytes_ms:.4f} ms: {tc_bound / tc_ms:.1%} of the bound; B's digit planes {b_digits_ms:.4f} ms once "
             f"per round (bytes bound {dig_bound:.4f} ms: {dig_bound / b_digits_ms:.1%}; plain torch "
-            f"{plain_digits:.2f} ms); CUDA cores {cc_ms:.4f} ms ({products / cc_ms / 1e6:.1f} G products/s), "
+            f"{plain_digits:.2f} ms; the same planes by view, permute, pad and copy {lib_digits_ms:.4f} ms from a "
+            f"CUDA graph); CUDA cores {cc_ms:.4f} ms ({products / cc_ms / 1e6:.1f} G products/s), "
             f"operations bound {cc_ops_ms:.4f} ms ({fixed} SASS instructions (all, IMAD-family) per product, the "
             f"fixed yardstick; this build's K loop: {sass.get(backend)}; at 128 instructions and 64 IMAD per clock "
             f"per SM, {sms} SMs, {clock_mhz} MHz: the maximum SM clock), bytes bound {cc_bytes_ms:.4f} ms: "
@@ -1332,8 +1356,8 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
             except (RuntimeError, AttributeError) as exc:
                 log(f"{field.name} {n_nodes}-node round 0: torch._int_mm yardstick not measured ({exc})")
         del a, b, d, planes
-        return ((tc_ms, plain, tc_bound, "operations" if tc_ops_ms >= tc_bytes_ms else "bytes"),
-                (b_digits_ms, plain_digits, dig_bound, "bytes"))
+        return ((tc_ms, plain, tc_bound, "operations" if tc_ops_ms >= tc_bytes_ms else "bytes", None),
+                (b_digits_ms, plain_digits, dig_bound, "bytes", lib_digits_ms))
 
     def mb_bound(plan, backend, wb, skip):
         """MB's least time for one round of ``plan``: the larger of its bytes
@@ -1435,14 +1459,17 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
                for label, xh in (("round 0", 1 << (k - 1)), ("middle", 1 << (k // 2)),
                                  (f"round {last} (the last contracted)", 1 << (k - last - 1)))]
         if in_line:
-            for name, source, replaces, (ms, plain, bound, by), launched in (
+            for name, source, replaces, (ms, plain, bound, by, lib), launched in (
                     ("modmatmul_tc", "modmatmul_tc.cu", "modmatmul.py:160", got[0][0], run["launches"]["modmatmul_tc"]),
                     ("modmatmul_digits", "modmatmul_tc.cu", "modmatmul.py:106", got[0][1],
                      run["launches"]["modmatmul_digits"])):
                 rows.append({"name": f"{name}_{backend}", "route": "cuda",
                              "source": f"thaler_study_tpu_torch/csrc/{source}",
                              "replaces": f"thaler_study_tpu/ops/{replaces}", "launches": launched, "ms": ms,
-                             "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None})
+                             "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib})
+                if lib is not None:
+                    rows[-1]["library_call"] = ("torch.nn.functional.pad(x.view(torch.uint8).reshape(R, K, D)"
+                                                ".permute(2, 0, 1), (0, Kp - K)).contiguous()")
     # dense W's first b round (no fold, degree 2) at the wide circuit's width
     mb_times(GOLDILOCKS, f"dense W {wide_depth} x 2^{wide_log} gates, the first b round",
              rk.PolySpec((wide_log, wide_log), W_BLOCKS, W_TERMS), False, False)
@@ -2185,7 +2212,7 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         generate_transcript,
         generate_transcript_device,
     )
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, modmatmul, multiblock, row_sums
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, modmatmul, multiblock, row_sums, shard_layout
     from thaler_study_tpu_torch.ops.round_kernel import PolySpec, single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.parallel import ShardedBlockPoly, init_distributed, make_mesh_2d
@@ -2196,7 +2223,7 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
     gen.manual_seed(seed + 13)
     mesh = _shard_mesh(dev)
     S = SHARD_COUNT
-    err, timing = {}, {}
+    err, timing, library = {}, {}, {}
 
     def wb_of(field):
         return 8 if field.backend == "goldilocks" else 4
@@ -2237,6 +2264,13 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             bytes_ms = (nd * kp * S * (m + (1 << k_tri)) + 2 * m * (1 << k_tri) * wb) / PEAK_BYTES_PER_S * 1e3
             d_ms = graph_ms(lambda: modmatmul.digit_planes(a, field, 2))
             d_plain = plain_ms(lambda: [modmatmul.digit_planes_plain(a[s], field, 2) for s in range(S)])
+            # library_ms: the byte planes of the same words as one torch call
+            # sequence (view as bytes, permute, pad to Kp, copy) over A_t's
+            # S x M words, the view at t made before it (not in its time)
+            a_t = torch.cat([FArray.fold(FArray(a[s, :m], field), FArray(a[s, m:], field),
+                                         FArray.scalar(field.felt(2), device=dev)).data for s in range(S)])
+            d_lib = graph_ms(lambda: torch.nn.functional.pad(
+                a_t.view(torch.uint8).reshape(S * m, 1 << zl, nd).permute(2, 0, 1), (0, kp - (1 << zl))).contiguous())
             d_bytes = (2 * S * m * (1 << zl) * wb + nd * S * m * kp) / PEAK_BYTES_PER_S * 1e3
             log(f"{field.name} tensor-core digit pre-pass over the {S} shards' A_t, {tri_nodes}-node sharded "
                 f"triangle {label} ({S} shards x 2M = {2 * m}, K = {1 << zl}) == plain (exact): {d_ms:.4f} ms from a "
@@ -2271,6 +2305,12 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
                 timing[("modmatmul_tc_total", field.backend)] = (r_ms, r_plain, max(ops_ms, bytes_ms),
                                                                  "operations" if ops_ms >= bytes_ms else "bytes")
                 timing[("modmatmul_digits_batched", field.backend)] = (d_ms, d_plain, d_bytes, "bytes")
+                library[("modmatmul_digits_batched", field.backend)] = (
+                    d_lib, "torch.nn.functional.pad(x.view(torch.uint8).reshape(R, K, D).permute(2, 0, 1), "
+                           "(0, Kp - K)).contiguous() over A_t's words (the view at t not in it)")
+                log(f"{field.name} batched digit pre-pass library yardstick (the byte planes of A_t's {S * m} x "
+                    f"{1 << zl} words by view, permute, pad and copy): {d_lib:.4f} ms from a CUDA graph, the kernel "
+                    f"{d_ms:.4f} ms {tag}")
             del a, b, d, planes, want_planes, b_planes
         for (bs, m_, n_, k_) in ((3, 33, 65, 100), (2, 64, 64, 16), (1, 1, 7, 3)):
             a = FArray(slice_words(gen, field, (bs, m_, k_), dev), field)
@@ -2280,6 +2320,47 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             note_err(("modmatmul_tc_batched", field.backend), word_err(got.data, want), f"C = A B^T {bs}x{m_}x{n_}x{k_}")
         log(f"{field.name} batched C = A B^T (mode 0) == the plain product at S x M x N x K = 3x33x65x100, "
             f"2x64x64x16, 1x1x7x3 {tag}")
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- phase 2: the shard layout (ops/shard_layout.py: a group's shard
+    # rows cut out of a table and transposed) against its plain version
+    # (.T.contiguous() of the [L, S] view), exact: the n-variable proof's
+    # tables (S = 8, the whole group; words at p - 1 too), then small odd
+    # shapes (S = 2, S = 64, a 4-row group at row0 = 4, a 3-row group, one
+    # row); at n timed from CUDA graphs beside .T.contiguous() itself (the
+    # library call) and its bytes bound (each word read once, written once)
+    layout_cases = ((n, SHARD_VARS, 0, S, "random"), (n - 2, SHARD_VARS, 0, S, "max"), (12, 1, 0, 2, "random"),
+                    (12, 1, 1, 1, "random"), (14, 6, 0, 64, "random"), (13, 6, 32, 32, "random"),
+                    (13, 3, 4, 4, "random"), (11, 3, 1, 3, "random"), (9, 3, 7, 1, "random"))
+    for field in (GOLDILOCKS, BABYBEAR):
+        wb = wb_of(field)
+        for n_, n_shard, row0, rows, fill in layout_cases:
+            x = slice_words(gen, field, (1 << n_,), dev, fill)
+            got = shard_layout.shard_rows(x, n_shard, row0, rows)
+            want = shard_layout.shard_rows_plain(x, n_shard, row0, rows)
+            note_err(("shard_layout", field.backend), word_err(got, want),
+                     f"2^{n_} words, S = {1 << n_shard}, rows [{row0}, {row0 + rows}), {fill}")
+            del got, want
+            if (n_, n_shard, row0, rows, fill) != layout_cases[0]:
+                del x
+                continue
+            cols = 1 << (n - SHARD_VARS)
+            ms = graph_ms(lambda: shard_layout.shard_rows(x, SHARD_VARS, 0, S), count=5)
+            lib_ms = graph_ms(lambda: x.reshape(cols, S).T.contiguous(), count=5)
+            t_plain = plain_ms(lambda: shard_layout.shard_rows_plain(x, SHARD_VARS, 0, S))
+            bound = 2 * (1 << n) * wb / PEAK_BYTES_PER_S * 1e3
+            timing[("shard_layout", field.backend)] = (ms, t_plain, bound, "bytes")
+            library[("shard_layout", field.backend)] = (lib_ms, "x.reshape(L, S).T.contiguous()")
+            tc, tl = shard_layout.tile(S, cols, wb)
+            log(f"{field.name} shard layout kernel, 2^{n} words ({(1 << n) * wb / 1e9:.2f} GB) to {S} shard rows of "
+                f"2^{n - SHARD_VARS} (tiles of {tl} source rows x {tc} columns) == plain (exact), and at "
+                f"{len(layout_cases) - 1} more shapes (S = 2, 8, 64; whole, partial and one-row groups; words at "
+                f"p - 1): {ms:.4f} ms from a CUDA graph, bytes bound {bound:.4f} ms ({2 * (1 << n) * wb / 1e9:.2f} GB "
+                f"at 3.35 TB/s): {100 * bound / ms:.1f} %; .T.contiguous() {lib_ms:.4f} ms ({100 * bound / lib_ms:.1f} "
+                f"%) from a CUDA graph, {lib_ms / ms:.2f}x the kernel; plain {t_plain:.2f} ms {tag}")
+            del x
     sync()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2398,18 +2479,22 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             f"entries {u_ms:.5f} ms; bytes bound {bound:.5f} ms: TOTAL {100 * bound / t_ms:.1f} %, per-row "
             f"{100 * bound / ms:.1f} %; plain {t_plain:.1f} ms {tag}")
         del k1_tabs, k1_max, k1_out, one, one_out
-        # MB over one shard row of the sharded triangle's Y phase: the X -> Y
-        # round (f1(X,Y) replicated, folded before; f3(X,Z_s) folded in the
-        # launch) and the middle of the Y phase (f1(Y) folded before, f2
-        # folded in the launch)
+        # MB over the sharded triangle's Y phase, one shard row and the rows
+        # form (the S shard rows of the card in one launch, the rows' sums
+        # added): the X -> Y round (f1(X,Y) replicated, folded before; f3(X,
+        # Z_s) folded in the launch) and the middle of the Y phase (f1(Y)
+        # folded before, f2 folded in the launch); the fold's rows form over
+        # the S rows of the sharded tables
         spec_x = PolySpec((1, k_tri, zl), TRI_BLOCKS, ((0, 1, 2),))
         spec_y = PolySpec((k_tri // 2, zl), ((0,), (0, 1), (1,)), ((0, 1, 2),))
         for label, spec in (("X -> Y round", spec_x), ("middle of the Y phase", spec_y)):
             post = spec.after_fold()
             plan = multiblock.round_plan(spec, True, spec.terms, post.degree())
             plan = dataclasses.replace(plan, folded=tuple(f and k != 0 for k, f in enumerate(plan.folded)))
-            mb_tabs = [slice_words(gen, field, ((plan.sizes[k] * (2 if plan.folded[k] else 1)),), dev)
-                       for k in range(3)]
+            sizes = [plan.sizes[k] * (2 if plan.folded[k] else 1) for k in range(3)]
+            mb_rows = [slice_words(gen, field, (sizes[0],), dev)] + [slice_words(gen, field, (S, sizes[k]), dev)
+                                                                       for k in (1, 2)]
+            mb_tabs = [mb_rows[0], mb_rows[1][0], mb_rows[2][0]]
             got_f, got_s = multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None)
             want_f, want_s = multiblock.round_sums_plain(plan, mb_tabs, r[:1], field, True, None)
             note_err(("multiblock_round_sharded", field.backend),
@@ -2417,26 +2502,65 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
                      label)
             if int(got_s[1]):
                 raise AssertionError("MB spliced s(1) into a shard's sums")
-            # a shard row's sums written into its row of the round's buffer,
-            # and scaled by 2^n_shard in the launch (a replicated-only term)
+            # the rows form: every shard row in one launch, summed into a
+            # row of the round's buffer; scaled by 2^n_shard (a replicated-
+            # only term's form), with the claim, and without skip-1
             buf = torch.zeros((3, plan.degree + 1), dtype=word_dtype(field), device=dev)
-            _, row_s = multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None, sums=buf[1],
-                                             scale=1 << SHARD_VARS)
-            _, want_sc = multiblock.round_sums_plain(plan, mb_tabs, r[:1], field, True, None, 1 << SHARD_VARS)
-            note_err(("multiblock_round_sharded", field.backend),
-                     word_err(row_s, want_sc) + int(row_s.data_ptr() != buf[1].data_ptr()) + int(bool(buf[0].any())),
-                     f"{label}, sums into a row, scaled")
+            claim = slice_words(gen, field, (1,), dev)
+            for skip, cl, scale in ((True, None, None), (True, None, 1 << SHARD_VARS), (True, claim, None),
+                                    (False, None, None)):
+                got_f, row_s = multiblock.round_sums(plan, mb_rows, r[:1], field, skip, cl, sums=buf[1], scale=scale)
+                want_f, want_sc = multiblock.round_sums_plain(plan, mb_rows, r[:1], field, skip, cl, scale)
+                note_err(("multiblock_round_sharded", field.backend),
+                         max([word_err(row_s, want_sc), int(row_s.data_ptr() != buf[1].data_ptr()),
+                              int(bool(buf[0].any()))] + [word_err(x, y) for x, y in zip(got_f, want_f)
+                                                          if x is not None]),
+                         f"{label}, the rows form over {S} shard rows, skip-1 {skip}, claim {cl is not None}, "
+                         f"scale {scale}")
+                if skip and cl is None and int(row_s[1]):
+                    raise AssertionError("MB's rows form spliced s(1) into the device's sums")
+            # the fold's rows form: the S rows of both sharded tables
+            halves = [sizes[k] // 2 if plan.folded[k] else 0 for k in (1, 2)]
+            got = multiblock.fold_tables(mb_rows[1:], halves, r[:1], field)
+            want = multiblock.fold_tables_plain(mb_rows[1:], halves, r[:1], field)
+            note_err(("multiblock_fold_rows", field.backend), max(word_err(x, y) for x, y in zip(got, want)),
+                     f"{label}, the fold's rows form over {S} shard rows")
             if label == "X -> Y round":
-                mb_ms = graph_ms(lambda: [multiblock.round_sums(plan, mb_tabs, r[:1], field, True, None)
-                                          for _ in range(S)]) / S
-                t_plain = plain_ms(lambda: multiblock.round_sums_plain(plan, mb_tabs, r[:1], field, True, None))
-                moved = sum(t.numel() for t in mb_tabs) + sum(x.numel() for x in got_f if x is not None)
+                rows_ms = graph_ms(lambda: multiblock.round_sums(plan, mb_rows, r[:1], field, True, None))
+                mb_ms = graph_ms(lambda: [multiblock.round_sums(plan, [mb_rows[0], mb_rows[1][i], mb_rows[2][i]], r[:1],
+                                                                field, True, None) for i in range(S)])
+                t_plain = plain_ms(lambda: multiblock.round_sums_plain(plan, mb_rows, r[:1], field, True, None))
+                moved = sum(t.numel() for t in mb_rows) + S * sum(n_ for n_, f in zip(plan.sizes, plan.folded) if f)
                 bound = moved * wb / PEAK_BYTES_PER_S * 1e3
-                timing[("multiblock_round_sharded", field.backend)] = (mb_ms, t_plain, bound, "bytes")
-                log(f"{field.name} MB over one shard row of the {tri_nodes}-node sharded triangle, {label} (f1 folded "
-                    f"before, s(1) left 0) == plain (exact): {mb_ms:.4f} ms per shard from a CUDA graph of {S}, "
-                    f"bytes bound {bound:.4f} ms: {100 * bound / mb_ms:.1f} %; plain {t_plain:.1f} ms {tag}")
-        log(f"{field.name} MB over one shard row == plain (exact) at the middle of the Y phase too {tag}")
+                timing[("multiblock_round_sharded", field.backend)] = (rows_ms, t_plain, bound, "bytes")
+                log(f"{field.name} MB over the {S} shard rows of the {tri_nodes}-node sharded triangle, {label} (f1 "
+                    f"folded before, s(1) left 0; {multiblock.kernel_class(plan)}, tiles "
+                    f"{multiblock.layout(plan, wb, shards=S).tiles} a row) == plain (exact), the rows form with its "
+                    f"scale, claim and no skip-1 too: the rows form {rows_ms:.4f} ms per launch from a CUDA graph, "
+                    f"{S} per-row launches {mb_ms:.4f} ms ({mb_ms / S:.4f} ms each); bytes bound over the rows "
+                    f"{bound:.4f} ms: rows form {100 * bound / rows_ms:.1f} %, per-row {100 * bound / mb_ms:.1f} %; "
+                    f"plain {t_plain:.1f} ms {tag}")
+            del mb_rows, mb_tabs
+        log(f"{field.name} MB over one shard row, its rows form and the fold's rows form == plain (exact) at the "
+            f"middle of the Y phase too {tag}")
+        # the fold's rows form where the sharded rounds fold most: f3(X, Z_s)
+        # of every shard row at the X phase's round 1 (the contracted rounds
+        # fold before their sums), against one launch per row
+        f3 = slice_words(gen, field, (S, 1 << (k_tri + zl)), dev)
+        half = [1 << (k_tri + zl - 1)]
+        got, want = multiblock.fold_tables([f3], half, r[:1], field), multiblock.fold_tables_plain([f3], half, r[:1], field)
+        note_err(("multiblock_fold_rows", field.backend), word_err(got[0], want[0]),
+                 f"f3 of {S} shard rows of 2^{k_tri + zl}, the X phase's round 1")
+        fold_ms = graph_ms(lambda: multiblock.fold_tables([f3], half, r[:1], field))
+        fold_rows_ms = graph_ms(lambda: [multiblock.fold_tables([f3[i]], half, r[:1], field) for i in range(S)])
+        f_plain = plain_ms(lambda: multiblock.fold_tables_plain([f3], half, r[:1], field))
+        f_bound = (f3.numel() + S * half[0]) * wb / PEAK_BYTES_PER_S * 1e3
+        timing[("multiblock_fold_rows", field.backend)] = (fold_ms, f_plain, f_bound, "bytes")
+        log(f"{field.name} MB's fold, rows form: f3 of the {S} shard rows of 2^{k_tri + zl} at the {tri_nodes}-node "
+            f"sharded triangle's X round 1 == plain (exact): {fold_ms:.4f} ms per launch from a CUDA graph, {S} "
+            f"per-row launches {fold_rows_ms:.4f} ms; bytes bound {f_bound:.4f} ms: {100 * f_bound / fold_ms:.1f} % "
+            f"(per-row {100 * f_bound / fold_rows_ms:.1f} %); plain {f_plain:.1f} ms {tag}")
+        del f3, got, want
     sync()
 
     # ---- phase 2: the reduction's row sums (ops/row_sums.py): a device's
@@ -2479,13 +2603,16 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh, n_shard=SHARD_VARS)
         sync()
         launches = {"round_kernel": cuda_round.launches[field.backend], "fs_tail": fs_kernel.launches[field.backend],
-                    "multiblock_fold": multiblock.fold_launches[field.backend]}
+                    "multiblock_fold": multiblock.fold_launches[field.backend],
+                    "shard_layout": shard_layout.launches[field.backend]}
         coll = _collectives()
         if ref is None or got is None or [m.hex() for m in got] != [m.hex() for m in ref]:
             raise AssertionError(f"sharded FS proof ({field.name}, n = {n}) != fs_prove_device")
-        # every shard is on the one card: a reduction sends no words off it
+        # every shard is on the one card: a reduction sends no words off it;
+        # the layout: one launch per factor table and group (one group)
         want_coll = {"reduce": n - SHARD_VARS, "reduce_words": 0, "gather": 2, "gather_words": 2 * (1 << SHARD_VARS)}
-        if coll != want_coll or launches["fs_tail"] != n or launches["round_kernel"] != n:
+        if (coll != want_coll or launches["fs_tail"] != n or launches["round_kernel"] != n
+                or dev.type == "cuda" and launches["shard_layout"] != 2):
             raise AssertionError(f"sharded FS proof ({field.name}): collectives {coll} (want {want_coll}), launches "
                                  f"{launches}")
         times = in_turns({"fs_prove_device": lambda: fs_kernel.fs_prove_device(spec, tables),
@@ -2499,7 +2626,7 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             f"messages); median of {reps} in turns {times['fs_prove_device_sharded'][0]:.3f} ms (runs "
             f"{[round(x, 3) for x in times['fs_prove_device_sharded'][1]]}) beside the unsharded "
             f"{times['fs_prove_device'][0]:.3f} ms ({[round(x, 3) for x in times['fs_prove_device'][1]]}); of the "
-            f"sharded proof, the layout (ShardedBlockPoly.from_internal_tables: the [L, S] -> [S, L] copy) alone "
+            f"sharded proof, the layout (ShardedBlockPoly.from_internal_tables: the [L, S] -> [S, L] kernel) alone "
             f"{times['layout'][0]:.3f} ms ({[round(x, 3) for x in times['layout'][1]]}); "
             f"collectives {coll}: one reduction per sharded round (no word leaves the card), {coll['gather']} "
             f"gathers of 2^{SHARD_VARS} at the transition; launches {launches} {tag}")
@@ -2531,20 +2658,54 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         t_round = per_round()
         sync()
         reset_counts()
+        multiblock.rows_launches[field.backend] = multiblock.fold_rows_launches[field.backend] = 0
         _collectives(reset=True)
-        t_dev = generate_transcript_device(g, field, mesh=mesh, n_shard=SHARD_VARS)
+        # MB's and the fold's launches per sharded round (ShardedBlockPoly.
+        # _block_rows: each round's and c_1's sums): one of each form per
+        # device, whatever its shard rows
+        per_round_mb = []
+        block_rows = ShardedBlockPoly._block_rows
+
+        def counted_block_rows(self, *a, **kw):
+            before = multiblock.launches[field.backend], multiblock.fold_launches[field.backend]
+            got = block_rows(self, *a, **kw)
+            per_round_mb.append((multiblock.launches[field.backend] - before[0],
+                                 multiblock.fold_launches[field.backend] - before[1]))
+            return got
+
+        ShardedBlockPoly._block_rows = counted_block_rows
+        try:
+            t_dev = generate_transcript_device(g, field, mesh=mesh, n_shard=SHARD_VARS)
+        finally:
+            ShardedBlockPoly._block_rows = block_rows
         sync()
         launches = {"tc_total": modmatmul.total_launches[field.backend],
                     "digits_batched": modmatmul.digit_launches[field.backend],
                     "multiblock_round": multiblock.launches[field.backend],
                     "multiblock_fold": multiblock.fold_launches[field.backend],
+                    "multiblock_round_rows": multiblock.rows_launches[field.backend],
+                    "multiblock_fold_rows": multiblock.fold_rows_launches[field.backend],
                     "fs_tail": fs_kernel.launches[field.backend],
-                    "tc_batched": modmatmul.tc_launches[field.backend]}
+                    "tc_batched": modmatmul.tc_launches[field.backend],
+                    "shard_layout": shard_layout.launches[field.backend]}
         coll = _collectives()
         if t_round.to_bytes() != ref.to_bytes() or t_dev.to_bytes() != ref.to_bytes():
             raise AssertionError(f"sharded triangle ({nodes} nodes, {field.name}) != the unsharded device transcript")
         if not launches["tc_total"] or not launches["multiblock_round"] or launches["tc_batched"]:
             raise AssertionError(f"sharded triangle ({nodes} nodes): launches {launches}")
+        mb_rounds = sum(1 for m_, _ in per_round_mb if m_)
+        if (max(m_ for m_, _ in per_round_mb) > 1 or max(f_ for _, f_ in per_round_mb) > 2
+                or dev.type == "cuda" and (launches["shard_layout"] != 2
+                                           or launches["multiblock_round_rows"] != mb_rounds)):
+            raise AssertionError(f"sharded triangle ({nodes} nodes): MB and fold launches per sharded round "
+                                 f"{per_round_mb} (at most one MB launch, in the rows form, and two folds per round "
+                                 f"on one card), rows-form launches {launches['multiblock_round_rows']}, layout "
+                                 f"launches {launches['shard_layout']} (one per sharded table)")
+        log(f"sharded triangle IP {nodes} nodes {field.name}: MB's rows form in {mb_rounds} of "
+            f"{len(per_round_mb)} sharded rounds (c_1 included), one launch each on the card ({launches['multiblock_round']} "
+            f"MB launches in the proof, the replicated rounds' included); fold launches per round "
+            f"{sorted({f_ for _, f_ in per_round_mb})}, {launches['multiblock_fold_rows']} of them in the rows "
+            f"form {tag}")
         if dev.type == "cuda":
             def phase_of(self, r, *_):
                 post = self.spec.after_fold() if r is not None else self.spec
@@ -2620,16 +2781,24 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         "libra_round_total": (src + "round_kernel.cu", "thaler_study_tpu/parallel/sharded.py:101",
                               {b: gkr_info[b][0] for b in gkr_info}),
         "multiblock_round_sharded": (src + "multiblock_round.cu", "thaler_study_tpu/parallel/sharded.py:493",
-                                     {b: tri_rows[b]["multiblock_round"] for b in tri_rows}),
+                                     {b: tri_rows[b]["multiblock_round_rows"] for b in tri_rows}),
+        "multiblock_fold_rows": (src + "multiblock_round.cu", "thaler_study_tpu/parallel/sharded.py:417",
+                                 {b: tri_rows[b]["multiblock_fold_rows"] for b in tri_rows}),
+        "shard_layout": (src + "shard_layout.cu", "thaler_study_tpu/parallel/sharded.py:79",
+                         {b: fs_rows[b]["shard_layout"] for b in fs_rows}),
     }
     rows = []
     for name, (source, replaces, launches) in forms.items():
         for backend in ("goldilocks", "mont32"):
             ms, plain, bound_ms, by, *floor = timing[(name, backend)]
+            lib_ms, lib_call = library.get((name, backend), (None, None))
             row = {"name": f"{name}_{backend}", "route": "cuda", "source": source, "replaces": replaces,
                    "launches": launches.get(backend, 0), "max_abs_err": err[(name, backend)], "ms": ms,
-                   "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-                   "library_ms_reason": "no PyTorch call computes this function mod p"}
+                   "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+            if lib_call:
+                row["library_call"] = lib_call
+            else:
+                row["library_ms_reason"] = "no PyTorch call computes this function mod p"
             if floor:
                 row["latency_floor_ms"] = floor[0]
             if not row["launches"]:
@@ -2976,7 +3145,7 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.gkr.circuit import layer_wiring
     from thaler_study_tpu_torch.ops import (cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock,
-                                            row_sums, sha_chain)
+                                            row_sums, sha_chain, shard_layout)
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.protocols import (
@@ -3441,7 +3610,7 @@ def main(argv=None) -> int:
                 "modmatmul": modmatmul.launches, "modmatmul_tc": modmatmul.tc_launches,
                 "modmatmul_digits": modmatmul.digit_launches, "merkle": merkle_kernel.launches,
                 "libra_round_total": cuda_round.total_launches, "modmatmul_tc_total": modmatmul.total_launches,
-                "row_sums": row_sums.launches}
+                "row_sums": row_sums.launches, "shard_layout": shard_layout.launches}
 
     def reset_counts():
         for counts in counters.values():

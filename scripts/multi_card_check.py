@@ -12,7 +12,9 @@ Phases (each prints one line; any mismatch raises and the exit code is 1):
    ``fs_prove_device_sharded`` of a 2-factor product over Goldilocks and
    BabyBear, ``n_shard`` 3, against ``fs_prove_device`` on card 0; its
    collectives (each reduction sends D + 1 words off every card but the
-   first);
+   first); its layout (``ShardedBlockPoly.from_internal_tables``: one
+   launch of the shard layout kernel per table and group on card 0, each
+   group's rows then copied to its card) timed in turns with the proofs;
 2. the triangle IP sharded over Z across the cards (each card's shards on
    one launch of the tensor-core matmul's dot form per t): the per-round loop over
    ``ShardedBlockPoly`` and ``generate_transcript_device(mesh=)`` against
@@ -218,7 +220,7 @@ def main(argv=None) -> int:
         generate_transcript_device,
     )
     from thaler_study_tpu_torch.fields import FArray
-    from thaler_study_tpu_torch.ops import fs_kernel, modmatmul
+    from thaler_study_tpu_torch.ops import fs_kernel, modmatmul, shard_layout
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.parallel import ShardedBlockPoly, make_mesh, sharded
     from thaler_study_tpu_torch.protocols import TriangleG
@@ -298,8 +300,10 @@ def main(argv=None) -> int:
         want[field.name] = digest(ref)
         for name, mesh in (("make_mesh()", cards), ("alternating", alternating)):
             reset()
+            laid = shard_layout.launches[field.backend]
             got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh, n_shard=SHARD_VARS)
             sync()
+            laid = shard_layout.launches[field.backend] - laid
             coll = dict(sharded.collectives)
             if got is None or digest(got) != want[field.name]:
                 raise AssertionError(f"phase 1 {field.name} on {name} {mesh}: != fs_prove_device")
@@ -307,13 +311,20 @@ def main(argv=None) -> int:
             others = sum(1 for d, _, _ in mesh.layout(mesh.devices.size) if d != mesh.primary)
             if coll["reduce"] != args.n - SHARD_VARS or coll["reduce_words"] != others * 3 * coll["reduce"]:
                 raise AssertionError(f"phase 1 {field.name} on {name}: collectives {coll}")
+            if not args.cpu and laid != 2 * groups:
+                raise AssertionError(f"phase 1 {field.name} on {name}: {laid} layout launches, not one per table "
+                                     f"and group ({2 * groups})")
             times = in_turns({"unsharded": lambda: fs_kernel.fs_prove_device(spec, tables),
                               "sharded": lambda: fs_kernel.fs_prove_device_sharded(spec, tables, mesh,
-                                                                                   n_shard=SHARD_VARS)}, 3, sync)
+                                                                                   n_shard=SHARD_VARS),
+                              "layout": lambda: ShardedBlockPoly.from_internal_tables(spec, tables, mesh,
+                                                                                      n_shard=SHARD_VARS)}, 3, sync)
             print(f"phase 1: sharded FS proof {field.name} n = {args.n} on {name} {mesh} ({groups} groups, "
-                  f"n_shard {SHARD_VARS}) == fs_prove_device on {first}; collectives {coll}; median of 3 in turns "
-                  f"sharded {times['sharded'][0]:.1f} ms, unsharded {times['unsharded'][0]:.1f} ms", flush=True)
-            report[f"fs {field.name} {name}"] = {"sharded_ms": times["sharded"][0],
+                  f"n_shard {SHARD_VARS}) == fs_prove_device on {first}; collectives {coll}; {laid} layout kernel "
+                  f"launches; median of 3 in turns sharded {times['sharded'][0]:.1f} ms (its layout alone: the "
+                  f"kernel on {first}, then the copies to the cards, {times['layout'][0]:.2f} ms), unsharded "
+                  f"{times['unsharded'][0]:.1f} ms", flush=True)
+            report[f"fs {field.name} {name}"] = {"sharded_ms": times["sharded"][0], "layout_ms": times["layout"][0],
                                                  "unsharded_ms": times["unsharded"][0], "collectives": coll}
         del tables
 

@@ -27,8 +27,10 @@ scalar table), fold on and off, skip-1 on and off, random words and words
 at p - 1, under the default layout (one block per tile, and three blocks
 walking tiles of one row) and one cut into two-point spans (one block and
 three). Also:
-the layout at the paths' shapes, and the wrapper's [D + 1] contract. No
-JAX work; exact.
+the layout at the paths' shapes, and the wrapper's [D + 1] contract; the
+rows form (a device's shard rows in one launch, the sharded prover's MB
+round) replayed over three shard rows against the per-row rounds summed.
+No JAX work; exact.
 """
 
 import dataclasses
@@ -73,14 +75,17 @@ def _ints(t, field):
     return [int(x) for x in FArray(t, field).to_u64()]
 
 
-def emulate(plan, lay, tables, r, claim, skip, p, blocks=None):
+def emulate(plan, lay, tables, r, claim, skip, p, blocks=None, shards=None):
     """The kernel's work over ``plan`` cut by ``lay`` and walked by
-    ``blocks`` blocks (default: one per tile), in Python ints mod p
+    ``blocks`` blocks (default: one per unit), in Python ints mod p
     (canonical values): (folded tables as {index: value} per table, none
-    where not folded; s(0..degree))."""
+    where not folded; s(0..degree)). With ``shards`` the rows form:
+    ``tables[s]`` are shard row s's tables, the units are shard rows x
+    tiles, the folded entries are keyed (s, index) and s sums every row."""
     sp = mb.split(plan)
     ni, nrow, nterms, deg = sp.ni, len(sp.order) - sp.ni, len(plan.counts), plan.degree
     out = {k: {} for k, f in enumerate(plan.folded) if f and r is not None}
+    row_tables = tables if shards is not None else [tables]
     mask = (1 << sp.rl1) - 1
     stage_a = any(s and not m & 1 for s, m in zip(sp.staged, sp.miss))
 
@@ -88,12 +93,12 @@ def emulate(plan, lay, tables, r, claim, skip, p, blocks=None):
         return ((a if m & 1 else 0) | (b if m & 2 else 0)) == 0
 
     def write(k, i, v):
-        assert i not in out[k], f"table {k} entry {i} written twice"
-        out[k][i] = v
+        assert (srow, i) not in out[k], f"table {k} entry {i} of shard row {srow} written twice"
+        out[k][srow, i] = v
 
     def entry(pos, idx, own):
         k, h, o = sp.order[pos], sp.fold[pos], sp.hi[pos]
-        t = tables[k]
+        t = row_tables[srow][k]
         if h:
             lo = (t[idx] + r * (t[idx + h] - t[idx])) % p
             hv = (t[idx + o] + r * (t[idx + o + h] - t[idx + o])) % p if o else lo
@@ -105,14 +110,16 @@ def emulate(plan, lay, tables, r, claim, skip, p, blocks=None):
             lo, hv = t[idx], t[idx + o] if o else t[idx]
         return lo, (hv - lo) % p
 
-    blocks = blocks or lay.tiles
-    per = -(-lay.tiles // blocks)
+    units = lay.tiles * len(row_tables)
+    blocks = blocks or units
+    per = -(-units // blocks)
     partials = []
     for blk in range(blocks):
         s = [0] * (deg + 1)
         staged, staged_key = {}, None
-        for x in range(blk * per, min(blk * per + per, lay.tiles)):
-            tile, span = divmod(x, lay.spans)
+        for x in range(blk * per, min(blk * per + per, units)):
+            srow, xt = divmod(x, lay.tiles)
+            tile, span = divmod(xt, lay.spans)
             r0, j0 = tile * lay.rt, span * lay.span
             a0, b0 = r0 >> sp.rl1, r0 & mask
             rowv = {}
@@ -122,7 +129,7 @@ def emulate(plan, lay, tables, r, claim, skip, p, blocks=None):
                     pos = ni + q
                     rowv[rho, q] = entry(pos, a * sp.ra[pos] + b * sp.rb[pos],
                                          span == 0 and owner(sp.miss[pos], a, b))
-            key = (a0 if stage_a else 0, span)
+            key = (srow, a0 if stage_a else 0, span)
             if any(sp.staged) and key != staged_key:  # folded again only where the span's entries change
                 staged = {i: [entry(i, a0 * sp.ra[i] + b0 * sp.rb[i] + j0 + jj, False) for jj in range(lay.span)]
                           for i in range(ni) if lay.stage[i] >= 0}
@@ -184,6 +191,8 @@ def emulate(plan, lay, tables, r, claim, skip, p, blocks=None):
     sums = [sum(col) % p for col in zip(*partials)]
     if skip:
         sums[1] = (claim - sums[0]) % p if claim is not None else 0
+    if shards is None:
+        out = {k: {i: v for (_, i), v in d.items()} for k, d in out.items()}
     return out, sums
 
 
@@ -233,6 +242,74 @@ def test_kernel_order_of_work_equals_plain(name, field):
     rng = np.random.default_rng(len(name) + field.p % 97)
     for spec0, states in SINGLE if name == "single" else [SPECS[name]]:
         _check_spec(spec0, states, field, rng)
+
+
+# the sharded prover's local specs with which tables hold shard rows (the
+# triangle sharded on Z: f1(X, Y) replicated; dense W sharded on c: W(b)
+# replicated; a replicated table comes folded, never folded in the launch)
+# and the folds before each checked round
+ROWS_SPECS = (
+    (rk.PolySpec((2, 2, 2), TRI, ((0, 1, 2),)), (False, True, True), (0, 1, 2, 3)),
+    (rk.PolySpec((3, 2), W_BLOCKS, W_TERMS), (True, True, False, True), (0, 2, 3)),
+)
+
+
+@pytest.mark.parametrize("field", [GOLDILOCKS, BABYBEAR], ids=lambda f: f.name)
+def test_rows_form_order_of_work(field):
+    """The rows form (a device's shard rows in one launch, each row a round
+    of the plan over its own tables, a replicated table read by every row):
+    replayed over 3 shard rows under the rows layout and under walks whose
+    blocks cross shard rows (one-row tiles, two and five blocks; two-point
+    spans, three blocks), it equals round_sums_plain over the rows (each row's round,
+    the sums added) and writes each row's folded entries once; the wrapper
+    gives the same on the CPU and refuses a replicated table folded in the
+    launch."""
+    rng = np.random.default_rng(field.p % 89)
+    wb, p, shards = (8 if field is GOLDILOCKS else 4), field.p, 3
+    for spec0, hs, states in ROWS_SPECS:
+        for j in states:
+            spec = _folded(spec0, j)
+            for fold in (False, True):
+                if fold and spec.num_vars() < 2:
+                    continue
+                post = spec.after_fold() if fold else spec
+                plan = mb.round_plan(spec if fold else post, fold, post.terms, post.degree())
+                plan = dataclasses.replace(plan, folded=tuple(f and h for f, h in zip(plan.folded, hs)))
+                sizes = [2 * n if f else n for n, f in zip(plan.sizes, plan.folded)]
+                rep = [_words(rng, field, n, "random") for n in sizes]
+                row_tabs = [[_words(rng, field, n, "random") if h else rep[k] for k, (n, h) in enumerate(zip(sizes, hs))]
+                            for _ in range(shards)]
+                stacked = [torch.stack([row[k] for row in row_tabs]) if h else rep[k] for k, h in enumerate(hs)]
+                r = _words(rng, field, 1, "random") if fold else None
+                claim = _words(rng, field, 1, "random")
+                lay = mb.layout(plan, wb, shards=shards)
+                one_row = dataclasses.replace(lay, rt=1, rpi=1, tiles=lay.spans * mb.split(plan).rows)
+                short = mb.layout(plan, wb, span_max=2, shards=shards)
+                lays = [(lay, None), (one_row, 2), (one_row, 5), (short, 3)]
+                ints = [[_ints(t, field) for t in row] for row in row_tabs]
+                for skip, cl in [(False, None)] + ([(True, claim), (True, None)] if plan.degree >= 1 else []):
+                    where = f"{field.name} {spec} fold={fold} skip={skip} claim={cl is not None}"
+                    ref_f, ref = mb.round_sums_plain(plan, stacked, r, field, skip, cl)
+                    got_f, got = mb.round_sums(plan, stacked, r, field, skip, cl)
+                    assert torch.equal(got, ref) and all((a is None) == (b is None) for a, b in zip(got_f, ref_f))
+                    want = _ints(ref, field)
+                    for lay_, blocks in lays:
+                        out, sums = emulate(plan, lay_, ints, None if r is None else _ints(r, field)[0],
+                                            None if cl is None else _ints(cl, field)[0], skip, p, blocks, shards)
+                        assert sums == want, f"{where} {lay_} {blocks}"
+                        for k, f in enumerate(ref_f):
+                            if f is None:
+                                assert k not in out, where
+                                continue
+                            assert len(out[k]) == shards * plan.sizes[k], f"{where}: table {k} not covered"
+                            for i in range(shards):
+                                assert [out[k][i, e] for e in range(plan.sizes[k])] == _ints(f[i], field), where
+                if fold and not all(hs):
+                    k = hs.index(False)
+                    bad = dataclasses.replace(plan, folded=tuple(f or i == k for i, f in enumerate(plan.folded)))
+                    tabs = [torch.cat([t, t]) if i == k else t for i, t in enumerate(stacked)]
+                    with pytest.raises(ValueError, match="replicated"):
+                        mb.round_sums(bad, tabs, r, field)
 
 
 def test_layout_at_the_paths_shapes():

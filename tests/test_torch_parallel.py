@@ -174,16 +174,19 @@ def test_sharded_product_poly_matches_jax(field):
 @pytest.mark.parametrize("case", ["triangle", "dense_w"])
 def test_sharded_block_poly_matches_jax(case, monkeypatch):
     """The triangle sharded on Z (f1 replicated; every X round contracted on
-    the batched matmul where the threshold is 0) and dense W sharded on c
-    (W(b) replicated), against the JAX package's unsharded transcripts."""
+    the batched matmul where the threshold is 0) on 8 positions and on 2
+    (two devices to torch: groups of 4 shard rows at rows 0 and 4), and
+    dense W sharded on c (W(b) replicated), against the JAX package's
+    unsharded transcripts."""
     mesh = _cpu_mesh()
     if case == "triangle":
         g, want = _triangle()
         for threshold in (round_kernel.CONTRACT_THRESHOLD, 0):
             monkeypatch.setattr(round_kernel, "CONTRACT_THRESHOLD", threshold)
-            poly = ShardedBlockPoly.from_internal_tables(g.spec, g.tables, mesh, n_shard=3)
-            assert poly.has_shard == (False, True, True) and poly.num_vars() == 12
-            assert _per_round(poly, GOLDILOCKS) == want, threshold
+            for m in (mesh, make_mesh(["cpu", "cpu:0"])):
+                poly = ShardedBlockPoly.from_internal_tables(g.spec, g.tables, m, n_shard=3)
+                assert poly.has_shard == (False, True, True) and poly.num_vars() == 12
+                assert _per_round(poly, GOLDILOCKS) == want, (threshold, m)
         return
     field = GOLDILOCKS
     rng = np.random.default_rng(33)
@@ -204,7 +207,7 @@ def test_fs_prove_device_sharded_matches_jax(monkeypatch):
     """The whole proof across the mesh: a product, the triangle (with its
     contraction forced too), a multi-block spec drawn from a seed, every
     last-block variable sharded, BabyBear; each the JAX host loop's
-    bytes."""
+    bytes; the product and the triangle on a 2-position mesh too."""
     mesh = _cpu_mesh()
     cases = []
     for field in (GOLDILOCKS, BABYBEAR):
@@ -225,6 +228,10 @@ def test_fs_prove_device_sharded_matches_jax(monkeypatch):
         assert msgs is not None and FiatShamirTranscript(msgs).to_bytes() == want, name
         poly = ProductPoly(spec, tables)
         assert generate_transcript_device(poly, field, mesh=mesh, n_shard=n_shard).to_bytes() == want, name
+    two = make_mesh(["cpu", "cpu:0"])
+    for name, spec, tables, want, n_shard in (cases[0], cases[-1]):
+        msgs = fs_kernel.fs_prove_device_sharded(spec, tables, two, n_shard=n_shard)
+        assert msgs is not None and FiatShamirTranscript(msgs).to_bytes() == want, f"{name}, 2 positions"
     monkeypatch.setattr(round_kernel, "CONTRACT_THRESHOLD", 0)
     assert generate_transcript_device(g, GOLDILOCKS, mesh=mesh, n_shard=3).to_bytes() == want
 

@@ -24,7 +24,15 @@ CPU.
   (``contract_partials``);
 - the reduction's row sums (``ops/row_sums.py``: rows to one row, 32-bit
   lanes and back) and the multi-block kernel's sums written into a row and
-  scaled in the launch, against Python integers.
+  scaled in the launch, against Python integers;
+- the shard layout (``ops/shard_layout.py``: a group's shard rows cut out
+  of a table and transposed) against the JAX package's ``shard_factor``,
+  its kernel's tiles replayed in Python, and ``parallel.shard_factor`` over
+  a mesh of uneven groups;
+- the multi-block kernel's rows form (``round_sums`` over [rows, size]
+  tables: a device's shard rows in one launch, the rows' sums added) and
+  the fold's rows form (``fold_tables`` over [rows, 2h] tables) against
+  each row alone.
 
 Seeded words include p - 1 and, for Goldilocks, 2^64 - 2^32 (p - 1 is
 2^64 - 2^32): the lazy accumulators' and the lanes' worst cases. The JAX
@@ -33,6 +41,7 @@ exact. ``chip_smoke.py`` holds the kernels against these plain versions on
 the card.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -47,6 +56,8 @@ from thaler_study_tpu import fields as jfields  # noqa: E402
 from thaler_study_tpu.fiat_shamir import SumcheckInteractiveProver as JInteractiveProver  # noqa: E402
 from thaler_study_tpu.fiat_shamir import generate_transcript as jgenerate  # noqa: E402
 from thaler_study_tpu.ops import round_kernel as jrk  # noqa: E402
+from thaler_study_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
+from thaler_study_tpu.parallel import shard_factor as jshard_factor  # noqa: E402
 from thaler_study_tpu.protocols import ProductPoly as JProductPoly  # noqa: E402
 from thaler_study_tpu.sumcheck import Prover as JProver  # noqa: E402
 from thaler_study_tpu_torch.fiat_shamir import (  # noqa: E402
@@ -55,9 +66,9 @@ from thaler_study_tpu_torch.fiat_shamir import (  # noqa: E402
     generate_transcript_device,
 )
 from thaler_study_tpu_torch.fields import BABYBEAR, GOLDILOCKS, FArray  # noqa: E402
-from thaler_study_tpu_torch.ops import cuda_round, modmatmul, multiblock, row_sums  # noqa: E402
+from thaler_study_tpu_torch.ops import cuda_round, modmatmul, multiblock, row_sums, shard_layout  # noqa: E402
 from thaler_study_tpu_torch.ops import round_kernel as rk  # noqa: E402
-from thaler_study_tpu_torch.parallel import ShardedBlockPoly, make_mesh, sharded  # noqa: E402
+from thaler_study_tpu_torch.parallel import ShardedBlockPoly, make_mesh, shard_factor, sharded  # noqa: E402
 from thaler_study_tpu_torch.protocols import ProductPoly  # noqa: E402
 from thaler_study_tpu_torch.sumcheck import Prover  # noqa: E402
 
@@ -239,3 +250,125 @@ def test_row_sums_and_scaled_rows(field):
     assert poly.n_shard == 1 and not any(poly.has_shard)
     assert generate_transcript(SumcheckInteractiveProver(Prover(poly)), field).to_bytes() == want
     assert sharded.collectives["reduce"] == 3 and sharded.collectives["reduce_words"] == 0  # c_1 and 2 rounds
+
+
+def _replay_layout(words, n_shard, row0, rows, wb):
+    """``csrc/shard_layout.cu``'s work over one group, in Python: the tiles
+    of ``shard_layout.tile``, each thread's accesses (16 bytes where the
+    wrapper takes that path), the shared-memory tile at its odd pitch;
+    every output word written once and every staged word once per tile."""
+    shards, cols = 1 << n_shard, len(words) >> n_shard
+    tc, tl = shard_layout.tile(rows, cols, wb)
+    vec = 16 // wb
+    v = vec if rows % tc == 0 and tc % vec == 0 and tl % vec == 0 and row0 % vec == 0 else 1
+    per, threads, pitch = shard_layout.TILE_BYTES // wb // 256 // v, 256, tc + 1
+    out = {}
+    for bx in range(cols // tl):
+        for by in range(-(-rows // tc)):
+            l0, c0, sm = bx * tl, by * tc, {}
+            width = min(tc, rows - c0)
+            for i in (v * (t + k * threads) for k in range(per) for t in range(threads)):
+                if i >= tc * tl:
+                    continue
+                for e in range(v):
+                    c = i % tc + e
+                    if c < width:
+                        assert i // tc * pitch + c not in sm
+                        sm[i // tc * pitch + c] = words[(l0 + i // tc) * shards + row0 + c0 + c]
+            for j in (v * (t + k * threads) for k in range(per) for t in range(threads)):
+                c, l = j // tl, j % tl
+                if j >= tc * tl or c >= width:
+                    continue
+                for e in range(v):
+                    assert (c0 + c, l0 + l + e) not in out
+                    out[c0 + c, l0 + l + e] = sm[(l + e) * pitch + c]
+    assert len(out) == rows * cols
+    return [[out[s_, l] for l in range(cols)] for s_ in range(rows)]
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_shard_rows_match_jax_layout(field):
+    """The shard layout at S = 2, 8 and 64: ``shard_rows`` (the CPU takes
+    its plain version) of the whole group and of partial ones (4 rows at
+    row0 = 4, 3 rows at row0 = 1, one row) equal the rows of the JAX
+    ``shard_factor``'s [S, L] layout (words at p - 1, Goldilocks's 2^64 -
+    2^32, first), and the kernel's tiles replayed in Python equal them;
+    ``shard_factor`` over a mesh whose device changes twice (groups of 2,
+    4 and 2 rows) gives the JAX rows; a tensor on the meta device raises."""
+    wb = 8 if field is GOLDILOCKS else 4
+    for n_shard, cols in ((1, 256), (3, 256), (6, 128)):
+        shards = 1 << n_shard
+        vals = _words(field, shards * cols, 60 + n_shard)
+        table = _port(field, vals)
+        with jax.disable_jit():
+            jt = jfields.FArray.from_ints(np.array([int(x) for x in vals], dtype=object), _JF[field.name])
+            want = np.asarray(jshard_factor(jt, jmake_mesh(jax.devices()[:1]), n_shard).to_ints(), dtype=object)
+        assert want.shape == (shards, cols)
+        words = [int(x) for x in table.data]
+        groups = {(0, shards), (0, 1), (shards - 1, 1)} | ({(4, 4), (1, 3)} if shards >= 8 else set())
+        for row0, rows in sorted(groups):
+            got = shard_layout.shard_rows(table.data, n_shard, row0, rows)
+            assert got.shape == (rows, cols) and torch.equal(got, shard_layout.shard_rows_plain(table.data, n_shard,
+                                                                                                 row0, rows))
+            assert [[int(x) for x in row] for row in FArray(got, field).to_ints()] == want[row0 : row0 + rows].tolist()
+            replay = _replay_layout(words, n_shard, row0, rows, wb)
+            assert replay == [[int(x) for x in row] for row in got], (n_shard, row0, rows)
+    mesh = make_mesh(["cpu", "cpu:0", "cpu:0", "cpu"])
+    assert [(row0, rows) for _, row0, rows in mesh.layout(8)] == [(0, 2), (2, 4), (6, 2)]
+    parts = shard_factor(table, mesh, 3).parts  # the S = 64 table, its last 3 variables sharded
+    with jax.disable_jit():
+        want = np.asarray(jshard_factor(jt, jmake_mesh(jax.devices()[:1]), 3).to_ints(), dtype=object)
+    assert [[int(x) for x in row] for p in parts for row in FArray(p, field).to_ints()] == want.tolist()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        shard_layout.shard_rows(torch.empty(64, dtype=table.data.dtype, device="meta"), 3, 0, 8)
+    with pytest.raises(ValueError, match="group"):
+        shard_layout.shard_rows(table.data, 3, 6, 4)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_rows_forms_are_the_rows_rounds(field):
+    """MB's rows form over 3 shard rows lying one row stride apart (views of
+    a wider buffer), with a replicated table (one [size] table, row stride
+    0): fold with skip-1 and a claim, skip-1 without one (s(1) 0), no fold,
+    and scaled by 2^3; its folded rows and sums equal each row's
+    ``round_sums_plain`` (the sums added mod p in Python ints), into a row
+    of a buffer. The fold's rows form (``fold_tables`` over [3, 2h] tables
+    apart by a row stride, one not folded) equals each row folded alone."""
+    p, rows = field.p, 3
+    spec = rk.PolySpec((2, 3), ((0,), (0, 1), (1,)), ((0, 1, 2), (1,)))  # f1(Y) replicated; f2(Y,Z), f3(Z) rows
+    plan = multiblock.round_plan(spec, True, spec.terms, spec.after_fold().degree())
+    plan = dataclasses.replace(plan, folded=(False,) + plan.folded[1:])  # f1 comes folded
+    f1 = _port(field, _words(field, plan.sizes[0], 81)).data
+    widths = [2 * n if f else n for n, f in zip(plan.sizes[1:], plan.folded[1:])]
+    wide = [_port(field, _words(field, (rows, w + 5), 82 + k)).data for k, w in enumerate(widths)]
+    tabs = [f1] + [x[:, :w] for x, w in zip(wide, widths)]
+    assert not tabs[1].is_contiguous() and tabs[1].stride(1) == 1
+    r, claim = (_port(field, _words(field, 1, s_)).data for s_ in (91, 92))
+    for fold, skip, cl, scale in ((True, True, claim, None), (True, True, None, 8), (False, False, None, None)):
+        pl = plan if fold else multiblock.round_plan(spec.after_fold(), False, spec.terms, plan.degree)
+        ts = tabs if fold else [f1] + [t[:, : n] for t, n in zip(tabs[1:], pl.sizes[1:])]
+        buf = torch.zeros((2, pl.degree + 1), dtype=f1.dtype)
+        folded, s = multiblock.round_sums(pl, ts, r if fold else None, field, skip, cl, sums=buf[1], scale=scale)
+        per = [multiblock.round_sums_plain(pl, [ts[0]] + [t[i] for t in ts[1:]], r if fold else None, field, skip,
+                                           None, scale) for i in range(rows)]
+        want = [sum(int(x) for x in col) % p for col in zip(*[FArray(ps, field).to_ints() for _, ps in per])]
+        if cl is not None:
+            want[1] = (int(FArray(cl, field).to_ints()[0]) - want[0]) % p
+        assert s.data_ptr() == buf[1].data_ptr() and not buf[0].any()
+        assert [int(x) for x in FArray(s, field).to_ints()] == want, (fold, skip, scale)
+        assert not skip or cl is not None or want[1] == 0
+        for k, f in enumerate(folded):
+            assert (f is None) == (not fold or not pl.folded[k])
+            if f is not None:
+                assert f.shape == (rows, pl.sizes[k]) and all(torch.equal(f[i], pf[k]) for i, (pf, _) in
+                                                              enumerate(per))
+    halves = [w // 2 for w in widths] + [0]
+    srcs = tabs[1:] + [wide[0]]
+    out = multiblock.fold_tables(srcs, halves, r, field)
+    for t, h, o in zip(srcs, halves, out):
+        if not h:
+            assert o is t
+            continue
+        assert o.shape == (rows, h)
+        for i in range(rows):
+            assert torch.equal(o[i], multiblock.fold_tables([t[i].contiguous()], [h], r, field)[0])

@@ -37,6 +37,7 @@ SOURCES = {
     "modmatmul_tc": "modmatmul_tc.cu",
     "merkle": "merkle.cu",
     "row_sums": "row_sums.cu",
+    "shard_layout": "shard_layout.cu",
 }
 # per-library flags after the sources: modmatmul_tc.cu finds libcuda's
 # cuTensorMapEncodeTiled with dlsym

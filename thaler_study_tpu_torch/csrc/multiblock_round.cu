@@ -65,6 +65,18 @@
 // once for all 2^n_shard shard rows (parallel/sharded.py; JAX _mb_sums
 // :548), and `sums` may point into a row of the round's rows buffer.
 //
+// The rows form (JAX _mb_sums :493 over the whole [S, ...] grid, the shard
+// axis reduced last): `nrows` shard rows of one device in one launch, each
+// a round of the same plan over its own tables. Table k of shard row s
+// starts rsi[k] s words into in[k] (0: a replicated table, the same for
+// every row) and writes its folded entries rso[k] s words into out[k]. The
+// blocks walk rows x tiles as one range; every row's s(0..D) lands in the
+// same accumulators, so the ticket epilogue writes the sum over the rows:
+// the device's one row of the round, as K1's TOTAL form does
+// (round_kernel.cu). A single round is nrows = 1, launched on an
+// instantiation whose shard row is the constant 0 (ROWS = false: no row
+// offset reaches the point loop, whose registers are at their cap).
+//
 // What bounds it on the H100: device memory where a table is streamed (a
 // 2^24-entry triangle table read once in the first Y round), else the
 // 64-bit products and the latency of small grids. The descriptor (Args) is
@@ -175,7 +187,19 @@ struct Args {
   int pipe_k, pipe_stages, pipe_off;   // slots per stage, stages (2, or 0: loads), shared-memory word offset
   int scaled;                          // the sums are written times `scale` (a word of the field)
   unsigned long long scale;
+  long long rsi[MAX_TABLES], rso[MAX_TABLES];  // words from one shard row's table to the next's (in, out)
+  int nrows;                                   // shard rows, walked with the tiles (1: one round)
 };
+
+// Table k of shard row srow, as read and as written.
+template <class W>
+__device__ __forceinline__ const W* row_in(const Args& d, int k, int srow) {
+  return reinterpret_cast<const W*>(d.in[k]) + (long long)srow * d.rsi[k];
+}
+template <class W>
+__device__ __forceinline__ W* row_out(const Args& d, int k, int srow) {
+  return reinterpret_cast<W*>(d.out[k]) + (long long)srow * d.rso[k];
+}
 
 __device__ __forceinline__ bool owner(int miss, int a, int b) {
   return (((miss & 1) ? a : 0) | ((miss & 2) ? b : 0)) == 0;
@@ -184,16 +208,16 @@ __device__ __forceinline__ bool owner(int miss, int a, int b) {
 // Entry idx of table k (lo and, where it covers block 0, hi), folded at r
 // where the round folds it; the owner writes the folded entries.
 template <class F>
-__device__ __forceinline__ void entry(const F& f, const Args& d, int k, int idx, typename F::word r, bool own,
-                                      typename F::word& lo, typename F::word& hv) {
+__device__ __forceinline__ void entry(const F& f, const Args& d, int k, int srow, int idx, typename F::word r,
+                                      bool own, typename F::word& lo, typename F::word& hv) {
   using W = typename F::word;
-  const W* src = reinterpret_cast<const W*>(d.in[k]);
+  const W* src = row_in<W>(d, k, srow);
   const int h = d.fold[k], o = d.hi[k];
   if (h) {
     lo = f.fold(src[idx], src[idx + h], r);
     hv = o ? f.fold(src[idx + o], src[idx + o + h], r) : lo;
     if (own) {
-      W* out = reinterpret_cast<W*>(d.out[k]);
+      W* out = row_out<W>(d, k, srow);
       out[idx] = lo;
       if (o) out[idx + o] = hv;
     }
@@ -207,7 +231,7 @@ __device__ __forceinline__ void entry(const F& f, const Args& d, int k, int idx,
 // `two`), from its staged span or with one load per word (a table that is
 // not aligned for pairs): lo and hi - lo of each.
 template <class F>
-__device__ __forceinline__ void inner_pair(const F& f, const Args& d, int i, int base, int jj, bool two,
+__device__ __forceinline__ void inner_pair(const F& f, const Args& d, int i, int srow, int base, int jj, bool two,
                                            bool own, typename F::word r, const typename F::word* sm,
                                            typename F::word (&lo)[2], typename F::word (&dl)[2]) {
   using W = typename F::word;
@@ -224,7 +248,7 @@ __device__ __forceinline__ void inner_pair(const F& f, const Args& d, int i, int
   for (int p = 0; p < 2; ++p) {
     W hv = 0;
     lo[p] = 0;
-    if (p == 0 || two) entry(f, d, i, base + jj + p, r, own, lo[p], hv);
+    if (p == 0 || two) entry(f, d, i, srow, base + jj + p, r, own, lo[p], hv);
     dl[p] = f.sub(hv, lo[p]);
   }
 }
@@ -236,8 +260,8 @@ __device__ __forceinline__ void inner_pair(const F& f, const Args& d, int i, int
 // 16-byte (Goldilocks) / 8-byte (mont32) loads, folded where due (the
 // owner writing the folded pair).
 template <class F, int N>
-__device__ __forceinline__ void load_pair(const F& f, const Args& d, int i, const typename F::word* src, int base,
-                                          int jj, bool two, bool own, typename F::word r,
+__device__ __forceinline__ void load_pair(const F& f, const Args& d, int i, int srow, const typename F::word* src,
+                                          int base, int jj, bool two, bool own, typename F::word r,
                                           const typename F::word* sm, const typename F::word2* pipe,
                                           typename F::word (&lo)[2][N], typename F::word (&dl)[2][N]) {
   using W = typename F::word;
@@ -245,7 +269,7 @@ __device__ __forceinline__ void load_pair(const F& f, const Args& d, int i, cons
   const int o = d.hi[i], h = d.fold[i];
   if (d.stage[i] >= 0 || !d.vec) {
     W l2[2], d2[2];
-    inner_pair(f, d, i, base, jj, two, own, r, sm, l2, d2);
+    inner_pair(f, d, i, srow, base, jj, two, own, r, sm, l2, d2);
     lo[0][i] = l2[0], lo[1][i] = l2[1], dl[0][i] = d2[0], dl[1][i] = d2[1];
     return;
   }
@@ -269,7 +293,7 @@ __device__ __forceinline__ void load_pair(const F& f, const Args& d, int i, cons
       h1 = f.fold(h1, u1, r);
     }
     if (own) {
-      W* out = reinterpret_cast<W*>(d.out[i]) + base + jj;
+      W* out = row_out<W>(d, i, srow) + base + jj;
       *reinterpret_cast<W2*>(out) = join(l0, l1);
       if (o) *reinterpret_cast<W2*>(out + o) = join(h0, h1);
     }
@@ -442,11 +466,11 @@ struct Point<F, 0, 0, 0> {
 // then hi - lo where it covers block 0, into s. Each thread starts SG
 // entries' loads before it folds them.
 template <class F>
-__device__ __forceinline__ void stage_span(const F& f, const Args& d, int i, int base, typename F::word r,
-                                           typename F::word* s) {
+__device__ __forceinline__ void stage_span(const F& f, const Args& d, int i, int srow, int base,
+                                           typename F::word r, typename F::word* s) {
   using W = typename F::word;
   constexpr int SG = 4;
-  const W* src = reinterpret_cast<const W*>(d.in[i]) + base;
+  const W* src = row_in<W>(d, i, srow) + base;
   const int h = d.fold[i], o = d.hi[i], span = d.span;
 #pragma unroll 1
   for (int j = threadIdx.x; j < span; j += SG * THREADS) {
@@ -471,12 +495,13 @@ __device__ __forceinline__ void stage_span(const F& f, const Args& d, int i, int
   }
 }
 
-// One round (see the file note). The blocks walk the tiles, each a
-// contiguous range of them; tile x is rows [x / spans * rt, + rt) and span
-// x % spans of the inner block. A block's threads: tpr along a row, rpi
-// rows at once (thread = rsub * tpr + lane). The staged spans are folded
-// again only where a tile's differ from the last tile's.
-template <class F, int NT, int D, int NI>
+// One round (see the file note). The blocks walk the shard rows' tiles,
+// each a contiguous range of them; unit x is shard row x / ntiles and its
+// tile x % ntiles, which is rows [tile / spans * rt, + rt) and span tile %
+// spans of the inner block. A block's threads: tpr along a row, rpi rows at
+// once (thread = rsub * tpr + lane). The staged spans are folded again
+// only where a unit's differ from the last unit's.
+template <class F, int NT, int D, int NI, bool ROWS>
 __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(F f, const Args d) {
   using W = typename F::word;
   using W2 = typename F::word2;
@@ -489,17 +514,19 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
   const int mask = (1 << d.rl1) - 1;
   const W rr = d.r ? reinterpret_cast<const W*>(d.r)[0] : W(0);
   const int nrow = d.ntables - ni;
-  const int per = (d.ntiles + gridDim.x - 1) / gridDim.x;
-  const int first = blockIdx.x * per, stop = min(first + per, d.ntiles);
+  const int units = ROWS ? d.ntiles * d.nrows : d.ntiles;
+  const int per = (units + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * per, stop = min(first + per, units);
   const int lane = threadIdx.x % d.tpr, rsub = threadIdx.x / d.tpr;
   Acc out[DM + 1];
 #pragma unroll
   for (int t = 0; t <= DM; ++t) out[t] = Acc{};
-  int staged_key = -1;
+  int staged_key = -1, staged_row = -1;
 
 #pragma unroll 1
   for (int x = first; x < stop; ++x) {
-    const int tile = x / d.spans, span = x - tile * d.spans;
+    const int srow = ROWS ? x / d.ntiles : 0, xt = x - srow * d.ntiles;
+    const int tile = xt / d.spans, span = xt - tile * d.spans;
     const int r0 = tile * d.rt, j0 = span * d.span;
     const int a0 = r0 >> d.rl1, b0 = r0 & mask;
     const int key = (d.stage_a ? a0 : 0) * d.spans + span;
@@ -511,15 +538,16 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
       const int rho = y / nrow, k = ni + y - rho * nrow;
       const int r = r0 + rho, a = r >> d.rl1, b = r & mask;
       W lo, hv;
-      entry(f, d, k, a * d.ra[k] + b * d.rb[k], rr, span == 0 && owner(d.miss[k], a, b), lo, hv);
+      entry(f, d, k, srow, a * d.ra[k] + b * d.rb[k], rr, span == 0 && owner(d.miss[k], a, b), lo, hv);
       sm[2 * y] = lo;
       sm[2 * y + 1] = f.sub(hv, lo);
     }
-    if (d.nstaged && key != staged_key) {
+    if (d.nstaged && (key != staged_key || (ROWS && srow != staged_row))) {
 #pragma unroll 1
       for (int i = 0; i < ni; ++i)
-        if (d.stage[i] >= 0) stage_span(f, d, i, a0 * d.ra[i] + b0 * d.rb[i] + j0, rr, sm + d.stage[i]);
+        if (d.stage[i] >= 0) stage_span(f, d, i, srow, a0 * d.ra[i] + b0 * d.rb[i] + j0, rr, sm + d.stage[i]);
       staged_key = key;
+      if (ROWS) staged_row = srow;
     }
     __syncthreads();
     // 2. the row products (term j's row factors at row rho and t), and the
@@ -546,7 +574,7 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
 #pragma unroll 1
       for (int i = 0; i < ni; ++i) {
         if (d.stage[i] < 0 || !owner(d.miss[i], a0, b0)) continue;
-        W* o = reinterpret_cast<W*>(d.out[i]) + a0 * d.ra[i] + b0 * d.rb[i] + j0;
+        W* o = row_out<W>(d, i, srow) + a0 * d.ra[i] + b0 * d.rb[i] + j0;
         const W* s = sm + d.stage[i];
         for (int jj = threadIdx.x; jj < d.span; jj += THREADS) {
           o[jj] = s[jj];
@@ -572,7 +600,7 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
         pt.zero();
         const W* src[NIM];
 #pragma unroll
-        for (int i = 0; i < NIM; ++i) src[i] = reinterpret_cast<const W*>(d.in[i < ni ? i : 0]) + base[i];
+        for (int i = 0; i < NIM; ++i) src[i] = row_in<W>(d, i < ni ? i : 0, srow) + base[i];
         // the pipeline: the next step copied ahead of the one in use
         const int step = 2 * d.tpr;
         const bool piped = !GEN && d.vec && d.pipe_stages;
@@ -594,7 +622,7 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
 #pragma unroll
           for (int i = 0; i < NIM; ++i) {
             if (i < ni) {
-              load_pair<F, NIM>(f, d, i, src[i], base[i], jj, two, own[i], rr, sm, pb, lo, dl);
+              load_pair<F, NIM>(f, d, i, srow, src[i], base[i], jj, two, own[i], rr, sm, pb, lo, dl);
             } else {
               lo[0][i] = lo[1][i] = dl[0][i] = dl[1][i] = 0;
             }
@@ -671,12 +699,15 @@ __global__ void __launch_bounds__(THREADS, NT ? MIN_BLOCKS : 1) mb_round_kernel(
 }
 
 // The flat fold: out[k][j] = fold(in[k][j], in[k][j + half[k]], r) for
-// j < half[k], every table at once (half[k] = 0: not folded).
+// j < half[k], every table at once (half[k] = 0: not folded); in the rows
+// form every shard row of every table (grid y = the row; row s of table k
+// at rsi[k] s words into in[k], written at rso[k] s into out[k]).
 template <class W>
 struct FoldDesc {
   const W* in[MAX_TABLES];
   W* out[MAX_TABLES];
   long long half[MAX_TABLES];
+  long long rsi[MAX_TABLES], rso[MAX_TABLES];
   int ntables;
   long long most;  // the largest half
 };
@@ -686,12 +717,14 @@ __global__ void __launch_bounds__(THREADS)
     mb_fold_kernel(F f, FoldDesc<typename F::word> d, const typename F::word* __restrict__ r) {
   using W = typename F::word;
   const W rr = r[0];
+  const long long row = blockIdx.y;
   for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x; j < d.most; j += (long long)gridDim.x * THREADS) {
 #pragma unroll
     for (int k = 0; k < MAX_TABLES; ++k) {
       if (k >= d.ntables) break;
       const long long h = d.half[k];
-      if (j < h) d.out[k][j] = f.fold(d.in[k][j], d.in[k][j + h], rr);
+      const W* in = d.in[k] + row * d.rsi[k];
+      if (j < h) d.out[k][row * d.rso[k] + j] = f.fold(in[j], in[j + h], rr);
     }
   }
 }
@@ -706,7 +739,8 @@ int grid_for(K kernel, int smem, const Args& a) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
   const int g = sms * (occ > 0 ? occ : 1);
-  return g < a.ntiles ? (g < a.max_blocks ? g : a.max_blocks) : (a.ntiles < a.max_blocks ? a.ntiles : a.max_blocks);
+  const int units = a.ntiles * a.nrows;
+  return g < units ? (g < a.max_blocks ? g : a.max_blocks) : (units < a.max_blocks ? units : a.max_blocks);
 }
 
 // The instantiations: the paths' shapes (terms, degree, inner tables) and
@@ -716,13 +750,13 @@ int launch_round(const F& f, const Args& a, int smem, cudaStream_t s) {
   if (a.ntables < 1 || a.ntables > MAX_TABLES || a.ni < 0 || a.ni > a.ntables || a.nterms < 1 ||
       a.nterms > MAX_TERMS || a.degree < 0 || a.degree > MAX_D || a.ntiles < 1 || a.max_blocks < 1 ||
       a.tpr < 1 || a.rpi < 1 || a.tpr * a.rpi > THREADS || a.span < 1 || a.rt < 1 || a.spans < 1 ||
-      a.ntiles % a.spans != 0)
+      a.ntiles % a.spans != 0 || a.nrows < 1 || (long long)a.ntiles * a.nrows > 0x7fffffffll)
     return (int)cudaErrorInvalidValue;
   bool fast = true;
   for (int j = 0; j < a.nterms; ++j) fast = fast && a.nf[j] >= 0 && a.nf[j] <= 2;
 #define MB_CASE(NT_, D_, NI_)                                                          \
   if (fast && a.nterms == NT_ && a.degree == D_ && a.ni == NI_) {                     \
-    auto kernel = mb_round_kernel<F, NT_, D_, NI_>;                                    \
+    auto kernel = a.nrows > 1 ? mb_round_kernel<F, NT_, D_, NI_, true> : mb_round_kernel<F, NT_, D_, NI_, false>; \
     kernel<<<grid_for(kernel, smem, a), THREADS, smem, s>>>(f, a);                     \
     return 0;                                                                          \
   }
@@ -732,26 +766,28 @@ int launch_round(const F& f, const Args& a, int smem, cudaStream_t s) {
   MB_CASE(3, 1, 3)  // dense W's c_1
   MB_CASE(3, 2, 3)  // dense W's rounds
 #undef MB_CASE
-  auto kernel = mb_round_kernel<F, 0, 0, 0>;
+  auto kernel = a.nrows > 1 ? mb_round_kernel<F, 0, 0, 0, true> : mb_round_kernel<F, 0, 0, 0, false>;
   kernel<<<grid_for(kernel, smem, a), THREADS, smem, s>>>(f, a);
   return 0;
 }
 
 template <class F>
 int launch_fold(const F& f, int ntables, const void* const* in, void* const* out, const long long* half,
-                const void* r, int blocks, cudaStream_t s) {
+                const long long* rsi, const long long* rso, int rows, const void* r, int blocks, cudaStream_t s) {
   using W = typename F::word;
-  if (ntables < 1 || ntables > MAX_TABLES) return (int)cudaErrorInvalidValue;
+  if (ntables < 1 || ntables > MAX_TABLES || rows < 1 || rows > 65535) return (int)cudaErrorInvalidValue;
   FoldDesc<W> d{};
   d.most = 0;
   for (int k = 0; k < ntables; ++k) {
     d.in[k] = static_cast<const W*>(in[k]);
     d.out[k] = static_cast<W*>(out[k]);
     d.half[k] = half[k];
+    d.rsi[k] = rsi[k];
+    d.rso[k] = rso[k];
     if (half[k] > d.most) d.most = half[k];
   }
   d.ntables = ntables;
-  mb_fold_kernel<F><<<blocks, THREADS, 0, s>>>(f, d, static_cast<const W*>(r));
+  mb_fold_kernel<F><<<dim3(blocks, rows), THREADS, 0, s>>>(f, d, static_cast<const W*>(r));
   return 0;
 }
 
@@ -778,11 +814,13 @@ extern "C" int ts_mb_round_launch(int mont32, unsigned p, unsigned pinv, const v
 extern "C" int ts_mb_args_size() { return (int)sizeof(Args); }
 
 // The flat fold of ntables tables (half[k] = 0: table k is not folded and
-// out[k] may be null). Returns as above.
+// out[k] may be null), each of `rows` shard rows (rsi / rso: words from a
+// row to the next, in and out). Returns as above.
 extern "C" int ts_mb_fold_launch(int mont32, unsigned p, unsigned pinv, int ntables, const void* const* in,
-                                 void* const* out, const long long* half, const void* r, int blocks, void* stream) {
+                                 void* const* out, const long long* half, const long long* rsi,
+                                 const long long* rso, int rows, const void* r, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = mont32 ? launch_fold(M32Ops{{p, pinv}}, ntables, in, out, half, r, blocks, s)
-                        : launch_fold(GlOps{}, ntables, in, out, half, r, blocks, s);
+  const int rc = mont32 ? launch_fold(M32Ops{{p, pinv}}, ntables, in, out, half, rsi, rso, rows, r, blocks, s)
+                        : launch_fold(GlOps{}, ntables, in, out, half, rsi, rso, rows, r, blocks, s);
   return rc ? rc : (int)cudaGetLastError();
 }

@@ -18,10 +18,13 @@ raise:
 
 - :func:`round_sums`: one round (the fold of every block-0 table at r,
   where one is due, and s(0..D) as a [D + 1] tensor; with the claim
-  shortcut s(1) = claim - s(0), in the same launch);
+  shortcut s(1) = claim - s(0), in the same launch); over [rows, size]
+  tables the rows form, a round over every shard row of a device in one
+  launch, the rows' sums summed (the sharded prover's, JAX
+  ``parallel/sharded.py:493`` ``_mb_sums``);
 - :func:`fold_tables`: the flat fold of each table over its own entries,
   for rounds whose sums go elsewhere (the triangle contraction) and for
-  ``fix_variables``.
+  ``fix_variables``; [rows, n] tables fold every row in the launch.
 """
 
 from __future__ import annotations
@@ -63,9 +66,12 @@ FAST = frozenset({(1, 1, 2), (1, 2, 2), (2, 1, 3), (3, 1, 3), (3, 2, 3)})
 _FOLD_BLOCKS = 1024
 _LIMIT = 1 << 31  # 32-bit index arithmetic in the kernel
 
-# launches of the CUDA kernels (not of the plain versions), per instantiation
+# launches of the CUDA kernels (not of the plain versions), per word type;
+# the rows forms' launches are in the first two and again in the last two
 launches = {"goldilocks": 0, "mont32": 0}
 fold_launches = {"goldilocks": 0, "mont32": 0}
+rows_launches = {"goldilocks": 0, "mont32": 0}
+fold_rows_launches = {"goldilocks": 0, "mont32": 0}
 
 _fns = {}
 
@@ -98,7 +104,8 @@ class _Args(ctypes.Structure):
         "ntables", "ni", "nterms", "degree", "skip1", "vec", "rl1", "span", "spans", "rt", "tpr", "rpi",
         "ntiles", "max_blocks", "rp", "nstaged", "stage_a")] + [
         ("pslot", ctypes.c_int * MAX_TABLES), ("pipe_k", ctypes.c_int), ("pipe_stages", ctypes.c_int),
-        ("pipe_off", ctypes.c_int), ("scaled", ctypes.c_int), ("scale", ctypes.c_ulonglong)]
+        ("pipe_off", ctypes.c_int), ("scaled", ctypes.c_int), ("scale", ctypes.c_ulonglong),
+        ("rsi", ctypes.c_longlong * MAX_TABLES), ("rso", ctypes.c_longlong * MAX_TABLES), ("nrows", ctypes.c_int)]
 
 
 def _kernel(name: str):
@@ -114,7 +121,7 @@ def _kernel(name: str):
                                    f"mirror {ctypes.sizeof(_Args)}")
             fn.argtypes = head + [ctypes.POINTER(_Args), ctypes.c_int, ptr]
         else:
-            fn.argtypes = head + [ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.c_int, ptr]
+            fn.argtypes = head + [ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ptr, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -315,10 +322,12 @@ class Layout:
 
 
 @functools.lru_cache(maxsize=None)
-def layout(plan: Plan, word_bytes: int, span_max: int = SPAN_MAX) -> Layout:
+def layout(plan: Plan, word_bytes: int, span_max: int = SPAN_MAX, shards: int = 1) -> Layout:
     """The tiles of ``plan`` for words of ``word_bytes`` (8 Goldilocks, 4
-    mont32). A tile takes 2 to POINTS_PER_THREAD points per thread, as
-    many as leave MIN_TILES tiles (a small grid: one tile); a span is as
+    mont32), over ``shards`` shard rows of the grid in one launch (the rows
+    form; the tiles are per shard row). A tile takes 2 to POINTS_PER_THREAD
+    points per thread, as many as leave MIN_TILES tiles over every shard
+    row (a small grid: one tile per shard row); a span is as
     long as that allows (up to ``span_max`` inner points), the tile as many
     rows deep as the rest; the threads stand on up to rpi = rt rows at once
     and along a row up to one pair of points each; all within SMEM_BYTES,
@@ -337,9 +346,9 @@ def layout(plan: Plan, word_bytes: int, span_max: int = SPAN_MAX) -> Layout:
         return staged_w * ls + rt * per_row <= budget
 
     ppt = 2
-    while ppt < POINTS_PER_THREAD and rows * inner >= 2 * ppt * THREADS * MIN_TILES:
+    while ppt < POINTS_PER_THREAD and shards * rows * inner >= 2 * ppt * THREADS * MIN_TILES:
         ppt *= 2
-    if rows * inner <= ONE_TILE_POINTS * THREADS:  # a small grid: one block, no ticket
+    if shards * rows * inner <= ONE_TILE_POINTS * THREADS:  # a small grid: one tile a row (one: no ticket)
         ppt = max(ppt, rows * inner // THREADS)
     ls = min(inner, span_max, ppt * THREADS)
     while ls > 1 and not fits(ls, 1):
@@ -416,9 +425,10 @@ def _ptrs(xs) -> ctypes.Array:
 
 
 @functools.lru_cache(maxsize=None)
-def _template(plan: Plan, word_bytes: int) -> bytes:
-    """The launch's ``Args`` without its pointers and per-call flags."""
-    sp, lay = split(plan), layout(plan, word_bytes)
+def _template(plan: Plan, word_bytes: int, shards: int = 1) -> bytes:
+    """The launch's ``Args`` over ``shards`` shard rows without its
+    pointers, row strides and per-call flags."""
+    sp, lay = split(plan), layout(plan, word_bytes, shards=shards)
     a = _Args()
     for i in range(len(sp.order)):
         a.ra[i], a.rb[i], a.hi[i], a.fold[i], a.miss[i] = sp.ra[i], sp.rb[i], sp.hi[i], sp.fold[i], sp.miss[i]
@@ -430,7 +440,7 @@ def _template(plan: Plan, word_bytes: int) -> bytes:
     a.tvals = int(3 in sp.tmode)
     a.ntables, a.ni, a.nterms, a.degree = len(sp.order), sp.ni, len(plan.counts), plan.degree
     a.rl1, a.span, a.spans, a.rt, a.tpr, a.rpi = sp.rl1, lay.span, lay.spans, lay.rt, lay.tpr, lay.rpi
-    a.ntiles, a.max_blocks, a.rp = lay.tiles, min(lay.tiles, MAX_GRID), lay.rp
+    a.ntiles, a.max_blocks, a.rp, a.nrows = lay.tiles, min(lay.tiles * shards, MAX_GRID), lay.rp, shards
     for i, q in enumerate(lay.pslot):
         a.pslot[i] = q
     a.pipe_k, a.pipe_stages, a.pipe_off = lay.pipe_k, lay.pipe_stages, lay.pipe_off
@@ -462,26 +472,36 @@ def round_sums(
     when None). ``sums``: a contiguous [degree + 1] buffer for s (a row
     of the sharded round's rows; allocated when None). ``scale``: s is
     written times this integer (the sharded rounds' replicated-only
-    terms, times their 2^n_shard shard rows). The input tables are never
-    written."""
+    terms, times their 2^n_shard shard rows). The rows form, where a table
+    is 2-D: one launch over its ``rows`` shard rows, each a round of
+    ``plan``: a table is [rows, size] (row i the row's table; rows may lie
+    apart, each contiguous) or [size] (replicated: every row reads it,
+    never folded), the folded tables and their buffers [rows, size], and s
+    is the sum over the rows. The input tables are never written."""
     fold = r is not None
     dtype = word_dtype(field)
+    rows = _rows_of(tables)
     if len(tables) != len(plan.sizes):
         raise ValueError(f"the plan has {len(plan.sizes)} tables, got {len(tables)}")
     if skip_t1 and plan.degree < 1 or claim is not None and not skip_t1:
         raise ValueError("the claim shortcut needs skip_t1 and a round of degree >= 1")
-    shapes = [(2 * s if fold and f else s,) for s, f in zip(plan.sizes, plan.folded)]
-    dev = _check_tables(tables, shapes, dtype, "round_sums")
+    sizes = [2 * s if fold and f else s for s, f in zip(plan.sizes, plan.folded)]
+    if rows is None:
+        dev = _check_tables(tables, [(s,) for s in sizes], dtype, "round_sums")
+        out_shapes = [(s,) if fold and f else None for s, f in zip(plan.sizes, plan.folded)]
+    else:
+        dev = _check_row_tables(tables, sizes, [fold and f for f in plan.folded], rows, dtype)
+        out_shapes = [(rows, s) if fold and f else None for s, f in zip(plan.sizes, plan.folded)]
     if fold:
         _check_r(r, dtype, dev)
     if claim is not None:
         _check_r(claim, dtype, dev, "claim")
-    out = _check_out(out, [(s,) if fold and f else None for s, f in zip(plan.sizes, plan.folded)], dtype, dev)
+    out = _check_out(out, out_shapes, dtype, dev)
     if sums is not None and (sums.dtype != dtype or sums.device != dev or tuple(sums.shape) != (plan.degree + 1,)
                              or not sums.is_contiguous()):
         raise ValueError(f"sums must be a contiguous {dtype} [{plan.degree + 1}] tensor on {dev}")
     sp = split(plan)
-    if max(s[0] for s in shapes) >= _LIMIT or sp.rows >= _LIMIT or sp.inner >= _LIMIT:
+    if max(sizes) >= _LIMIT or sp.rows >= _LIMIT or sp.inner >= _LIMIT:
         raise ValueError("the multi-block round kernel takes tables, rows and rows' lengths below 2^31 entries")
     if dev.type == "cpu":
         folded, s = round_sums_plain(plan, tables, r, field, skip_t1, claim, scale)
@@ -492,31 +512,64 @@ def round_sums(
     if dev.type != "cuda":
         raise ValueError(f"round_sums runs on cpu or cuda, not {dev}")
     wb = tables[0].element_size()
-    lay = layout(plan, wb)
+    shards = rows or 1
+    lay = layout(plan, wb, shards=shards)
+    if lay.tiles * shards >= _LIMIT:
+        raise ValueError("the multi-block round kernel takes fewer than 2^31 tiles over its shard rows")
     if out is None:
-        out = [torch.empty((s,), dtype=dtype, device=dev) if fold and f else None
-               for s, f in zip(plan.sizes, plan.folded)]
+        out = [torch.empty(shape, dtype=dtype, device=dev) if shape else None for shape in out_shapes]
     if sums is None:
         sums = torch.empty((plan.degree + 1,), dtype=dtype, device=dev)
-    partials = torch.empty((min(lay.tiles, MAX_GRID) * (plan.degree + 1),), dtype=dtype, device=dev)
-    a = _Args.from_buffer_copy(_template(plan, wb))
+    partials = torch.empty((min(lay.tiles * shards, MAX_GRID) * (plan.degree + 1),), dtype=dtype, device=dev)
+    a = _Args.from_buffer_copy(_template(plan, wb, shards))
     for i, k in enumerate(sp.order):
         a.in_[i] = tables[k].data_ptr()
         a.out[i] = out[k].data_ptr() if out[k] is not None else 0
+        if rows is not None:
+            a.rsi[i] = tables[k].stride(0) if tables[k].dim() == 2 else 0
+            a.rso[i] = out[k].stride(0) if out[k] is not None else 0
     a.r = r.data_ptr() if fold else 0
     a.claim = claim.data_ptr() if claim is not None else 0
     a.sums, a.partials, a.counter = sums.data_ptr(), partials.data_ptr(), _build.ticket_counter(dev).data_ptr()
     a.skip1 = int(skip_t1)
     if scale is not None:
         a.scaled, a.scale = 1, _word(field, scale)
-    a.vec = int(lay.span % 2 == 0 and all(x % (2 * wb) == 0 for x in list(a.in_)[:sp.ni] + list(a.out)[:sp.ni]))
+    inner = list(a.in_)[:sp.ni] + list(a.out)[:sp.ni]
+    strides = list(a.rsi)[:sp.ni] + list(a.rso)[:sp.ni]
+    a.vec = int(lay.span % 2 == 0 and all(x % (2 * wb) == 0 for x in inner) and all(x % 2 == 0 for x in strides))
     with torch.cuda.device(dev):
         rc = _kernel("ts_mb_round_launch")(*_head(field), ctypes.byref(a), lay.words * wb,
                                            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multi-block round kernel launch failed: CUDA error {rc}")
     launches[field.backend] += 1
+    if rows is not None:
+        rows_launches[field.backend] += 1
     return out, sums
+
+
+def _rows_of(tables) -> Optional[int]:
+    """The rows form's shard rows (the first 2-D table's rows), or None
+    for one round (every table 1-D)."""
+    return next((t.shape[0] for t in tables if t.dim() == 2), None)
+
+
+def _check_row_tables(tables, sizes, folded, rows: int, dtype) -> torch.device:
+    """The rows form's tables: table k [rows, sizes[k]] (each row
+    contiguous) or, where not ``folded[k]``, [sizes[k]] (contiguous)."""
+    if rows < 1:
+        raise ValueError(f"the rows form needs at least one shard row, got {rows}")
+    dev = tables[0].device
+    for t, size, f in zip(tables, sizes, folded):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"round_sums: tables must be {dtype} tensors on one device")
+        if t.dim() == 2 and tuple(t.shape) == (rows, size) and (t.stride(1) == 1 or size == 1):
+            continue
+        if t.dim() == 1 and tuple(t.shape) == (size,) and t.is_contiguous() and not f:
+            continue
+        raise ValueError(f"round_sums over {rows} shard rows: a table is [{rows}, {size}] with contiguous rows, or, "
+                         f"replicated and not folded, [{size}]; got {tuple(t.shape)} strides {t.stride()}")
+    return dev
 
 
 def _check_out(out, shapes, dtype, dev):
@@ -563,7 +616,19 @@ def round_sums_plain(
     scale: Optional[int] = None,
 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
     """The kernel's function in plain torch ops (``FArray`` arithmetic, any
-    device): the same folded tables and the same s(0..degree)."""
+    device): the same folded tables and the same s(0..degree); in the rows
+    form, the round of each shard row (a [size] table read by every row),
+    its folded tables stacked and its sums added mod p."""
+    rows = _rows_of(tables)
+    if rows is not None:
+        per = [round_sums_plain(plan, [t[i] if t.dim() == 2 else t for t in tables], r, field, skip_t1, None, scale)
+               for i in range(rows)]
+        s = FArray(torch.stack([ps for _, ps in per]), field).sum(axis=0)
+        if skip_t1 and claim is not None:
+            s = FArray(s.data.clone(), field)
+            s.data[1] = (FArray(claim.reshape(()), field) - FArray(s.data[0], field)).data
+        folded = [None if f is None else torch.stack([pf[k] for pf, _ in per]) for k, f in enumerate(per[0][0])]
+        return folded, s.data
     post, folded = [], []
     for t, size, f in zip(tables, plan.sizes, plan.folded):
         fa = FArray(t, field)
@@ -607,33 +672,48 @@ def fold_tables(
 ) -> List[torch.Tensor]:
     """Fold table k at ``r`` over its own entries, T'[j] = T[j] + r (T[j +
     h] - T[j]) for j < h = halves[k] (its first variable, the MSB), where
-    halves[k] > 0; the others are returned as they are. ``out``: buffers
-    [h] for the folded tables, None elsewhere (allocated when None). The
-    input tables are never written."""
+    halves[k] > 0; the others are returned as they are. The tables are all
+    1-D, or all [rows, 2h] shard rows (each row contiguous; every row of
+    every table folded in one launch, into [rows, h]). ``out``: buffers
+    [h] (or [rows, h]) for the folded tables, None elsewhere (allocated
+    when None). The input tables are never written."""
     dtype = word_dtype(field)
-    if len(tables) != len(halves) or len(tables) > MAX_TABLES:
-        raise ValueError(f"fold_tables takes up to {MAX_TABLES} tables and one half per table")
-    shapes = [(2 * h,) if h else tuple(t.shape) for t, h in zip(tables, halves)]
-    dev = _check_tables(tables, shapes, dtype, "fold_tables")
+    if len(tables) != len(halves) or len(tables) > MAX_TABLES or not tables:
+        raise ValueError(f"fold_tables takes 1 to {MAX_TABLES} tables and one half per table")
+    rows = tables[0].shape[0] if tables[0].dim() == 2 else None
+    lead = () if rows is None else (rows,)
+    for t, h in zip(tables, halves):
+        if (t.dim() != len(lead) + 1 or tuple(t.shape[:-1]) != lead or t.dtype != dtype or t.device != tables[0].device
+                or h and t.shape[-1] != 2 * h or t.stride(-1) != 1 and t.shape[-1] > 1):
+            raise ValueError(f"fold_tables: tables must be {dtype} tensors on one device, all 1-D or all "
+                             f"[rows, 2h] with contiguous rows, of twice their halves")
+    dev = tables[0].device
     _check_r(r, dtype, dev)
-    out = _check_out(out, [(h,) if h else None for h in halves], dtype, dev)
+    out = _check_out(out, [lead + (h,) if h else None for h in halves], dtype, dev)
     if dev.type == "cpu":
         return _copy_out(fold_tables_plain(tables, halves, r, field), out)
     if dev.type != "cuda":
         raise ValueError(f"fold_tables runs on cpu or cuda, not {dev}")
+    if rows is not None and not 1 <= rows <= 65535:
+        raise ValueError(f"fold_tables folds 1 to 65535 shard rows in one launch, not {rows}")
     if out is None:
-        out = [torch.empty((h,), dtype=dtype, device=dev) if h else None for h in halves]
+        out = [torch.empty(lead + (h,), dtype=dtype, device=dev) if h else None for h in halves]
     if any(halves):
-        blocks = max(1, min(-(-max(halves) // THREADS), _FOLD_BLOCKS))
+        n = rows or 1
+        blocks = max(1, min(-(-max(halves) // THREADS), max(1, _FOLD_BLOCKS // n)))
+        longs = ctypes.c_longlong * len(halves)
+        rsi = longs(*[t.stride(0) if rows is not None else 0 for t in tables])
+        rso = longs(*[o.stride(0) if rows is not None and o is not None else 0 for o in out])
         with torch.cuda.device(dev):
             rc = _kernel("ts_mb_fold_launch")(
-                *_head(field), len(tables), _ptrs(tables), _ptrs(out),
-                (ctypes.c_longlong * len(halves))(*halves), r.data_ptr(), blocks,
-                torch.cuda.current_stream(dev).cuda_stream,
+                *_head(field), len(tables), _ptrs(tables), _ptrs(out), longs(*halves), rsi, rso, n, r.data_ptr(),
+                blocks, torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"multi-block fold kernel launch failed: CUDA error {rc}")
         fold_launches[field.backend] += 1
+        if rows is not None:
+            fold_rows_launches[field.backend] += 1
     return [o if h else t for t, o, h in zip(tables, out, halves)]
 
 
@@ -642,5 +722,5 @@ def fold_tables_plain(
 ) -> List[torch.Tensor]:
     """:func:`fold_tables` in plain torch ops (any device)."""
     rr = FArray(r.reshape(()), field)
-    return [FArray.fold(FArray(t[:h], field), FArray(t[h:], field), rr).data if h else t
+    return [FArray.fold(FArray(t[..., :h], field), FArray(t[..., h:], field), rr).data if h else t
             for t, h in zip(tables, halves)]

@@ -19,9 +19,9 @@ keeps the layout and makes the rest explicit:
   form for them (``cuda_round.round_partials`` for a product of 1 to 8
   tables: S tables of one batch folding at one challenge, the blocks'
   partials as the group's rows; ``libra_round_total`` for the LibraW
-  shapes and ``modmatmul.contract_total`` for the triangle's contracted
-  term: the S shard rows summed in the launch into one row), else one
-  launch of the multi-block kernel per shard, each writing its row. Each
+  shapes, ``modmatmul.contract_total`` for the triangle's contracted
+  term and, for every other spec, the multi-block kernel's rows form: the
+  S shard rows summed in the launch into one row). Each
   writes s(0), s(2..D) and leaves s(1) out where the claim is known:
   s(1) = claim - s(0) holds only for the *global* s(0), so it is filled
   after the reduction (by the FS tail or the host). A term that covers no
@@ -56,7 +56,7 @@ import torch.distributed as dist
 
 from ..fields import FArray, Felt, FieldConfig
 from ..fields.farray import resolve_device, word_dtype
-from ..ops import cuda_round, modmatmul, multiblock, row_sums
+from ..ops import cuda_round, modmatmul, multiblock, row_sums, shard_layout
 from ..ops.round_kernel import Merge, PolySpec, _contraction, _split, check_spec, merge_blocks, round_step
 from ..protocols.factor_poly import ProductPoly
 from ..sumcheck.univariate import UniPoly, interpolate_at_small_points
@@ -182,14 +182,16 @@ class Sharded:
 def shard_factor(table: FArray, mesh: Mesh, n_shard: int, axis=None) -> Sharded:
     """A 1-D internal-order table in the sharded layout: the last n_shard
     variables (its LSBs) on the rows, [L, S] transposed to [S, L], each
-    group's rows copied to its device."""
+    group's rows cut out on the table's device (``ops/shard_layout.py``,
+    one launch per group on the card) and copied to the group's device."""
     _check_axis(mesh, axis)
     _check_shards(n_shard, mesh)
     n = table.shape[0].bit_length() - 1
     if table.shape != (1 << n,) or n_shard > n:
         raise ValueError(f"a table of {table.shape[0]} entries cannot shard {n_shard} variables")
-    m = table.data.reshape(1 << (n - n_shard), 1 << n_shard)
-    parts = [m[:, row0 : row0 + rows].T.contiguous().to(dev) for dev, row0, rows in mesh.layout(1 << n_shard)]
+    words = table.data.contiguous()
+    parts = [shard_layout.shard_rows(words, n_shard, row0, rows).to(dev)
+             for dev, row0, rows in mesh.layout(1 << n_shard)]
     return Sharded(parts, table.field, True)
 
 
@@ -442,27 +444,27 @@ class ShardedBlockPoly:
                 new[k][g] = done[dev][i].reshape(1, -1)
 
     def _fold_sharded(self, new, r) -> None:
-        """Fold the sharded tables over block 0 at r: every shard row, in
-        launches of up to MAX_TABLES rows, into one [rows, L/2] tensor per
-        group and table."""
+        """Fold the sharded tables over block 0 at r: every shard row of
+        every table of a group in one launch (the fold's rows form), into
+        one [rows, L/2] tensor per group and table."""
         ids = [k for k, tb in enumerate(self.spec.table_blocks) if self.has_shard[k] and 0 in tb]
-        for g, (dev, _, n_rows) in enumerate(self._layout()):
-            pairs = []
-            for k in ids:
-                src = self.tables[k].parts[g]
-                new[k][g] = torch.empty((n_rows, src.shape[1] // 2), dtype=src.dtype, device=dev)
-                pairs += [(src[i], new[k][g][i]) for i in range(n_rows)]
+        if not ids:
+            return
+        for g, (dev, _, _) in enumerate(self._layout()):
             rr = r.to(dev)
-            for c in range(0, len(pairs), multiblock.MAX_TABLES):
-                chunk = pairs[c : c + multiblock.MAX_TABLES]
-                multiblock.fold_tables([a for a, _ in chunk], [a.shape[0] // 2 for a, _ in chunk], rr, self.field,
-                                       out=[b for _, b in chunk])
+            for c in range(0, len(ids), multiblock.MAX_TABLES):
+                chunk = ids[c : c + multiblock.MAX_TABLES]
+                folded = multiblock.fold_tables([self.tables[k].parts[g] for k in chunk],
+                                                [self.tables[k].cols // 2 for k in chunk], rr, self.field)
+                for k, f in zip(chunk, folded):
+                    new[k][g] = f
 
     def _block_rows(self, post: PolySpec, r, skip_t1: bool, degree: int, halved: bool):
         """Every group's rows of s(0..degree) over any spec, each row written
-        by a kernel into the group's [rows, degree + 1] buffer: the sharded
-        terms by one multi-block launch per shard (folding its sharded rows
-        too where no contraction needs them folded first), the triangle's
+        by a kernel into the group's buffer: the sharded terms by one
+        multi-block launch over the group's shard rows, summed into one row
+        (folding its sharded rows too where no contraction needs them
+        folded first), the triangle's
         contracted term by one tensor-core launch per t over the group's
         shard rows as one contraction (one row), the replicated-only terms
         once (first group, first process), their sums scaled by 2^n_shard
@@ -494,19 +496,16 @@ class ShardedBlockPoly:
         rows = []
         for g, (dev, _, n_rows) in enumerate(self._layout()):
             rep = bool(rep_terms) and g == 0 and self.mesh.owner
-            mb_rows = n_rows if plan is not None else 0
+            mb_rows = int(plan is not None)
             out = torch.empty((mb_rows + len(contract) + int(rep), degree + 1), dtype=word_dtype(field), device=dev)
             if plan is not None:
                 rr = r.to(dev) if in_mb else None
-                if in_mb:
-                    for k, f in enumerate(plan.folded):
-                        if f:
-                            new[k][g] = torch.empty((n_rows, plan.sizes[k]), dtype=new[k][g].dtype, device=dev)
-                for i in range(n_rows):
-                    tabs = [(self.tables[k].parts[g] if in_mb else new[k][g])[i] if hs[k] else new[k][g].reshape(-1)
-                            for k in range(len(hs))]
-                    outs = [new[k][g][i] if in_mb and plan.folded[k] else None for k in range(len(hs))]
-                    multiblock.round_sums(plan, tabs, rr, field, skip_t1, None, out=outs, sums=out[i])
+                tabs = [(self.tables[k].parts[g] if in_mb else new[k][g]) if hs[k] else new[k][g].reshape(-1)
+                        for k in range(len(hs))]
+                folded, _ = multiblock.round_sums(plan, tabs, rr, field, skip_t1, None, sums=out[0])
+                for k, f in enumerate(folded):
+                    if f is not None:
+                        new[k][g] = f
             for j, ks in enumerate(contract):
                 self._contract_row(post, ks, new, g, n_rows, degree, skip_t1, halved, out[mb_rows + j])
             if rep:
