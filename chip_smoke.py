@@ -246,6 +246,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    8 shard rows on the flagship's layer 0 wiring and the round tail over 8
    reduced rows (every fill x StartSumCheck / one / two draws) against
    their plain versions, timed from CUDA graphs beside their bounds;
+   slice 18: K2 over shard rows on the group's layout-ordered plan over
+   Goldilocks and BabyBear words (groups 0-7, 3, 6-7 and 1-5), timed in
+   turns with the unsharded K2, the plan's bytes; the FS tail over the n =
+   28 proof's 2,048 partial rows in the wide form (``fs_kernel.tail_warps``)
+   and in the one-warp form forced on the same rows, both against the plain
+   version, timed in turns with each other and with the one-warp tail over
+   the batch dispatch's 32 rows;
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2223,7 +2230,7 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
     gen.manual_seed(seed + 13)
     mesh = _shard_mesh(dev)
     S = SHARD_COUNT
-    err, timing, library = {}, {}, {}
+    err, timing, library, extra = {}, {}, {}, {}
 
     def wb_of(field):
         return 8 if field.backend == "goldilocks" else 4
@@ -2427,13 +2434,48 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             tst[0].nbytes = nbytes
             fs_kernel.fs_tail(rows, *tst, 1, 3, True, field)
 
-        ms = graph_ms(tail)
+        # the form fs_kernel.tail_warps picks (the wide form at these rows),
+        # in turns with the one-warp form forced on the same rows (the
+        # earlier design; checked against the plain version too) and with
+        # the one-warp tail over the batch dispatch's 32 rows per proof
+        wide_warps = fs_kernel.tail_warps(rows.shape[1])
+        rows32 = rows[:, : cuda_round.blocks_for(64, 1 << 20)].contiguous()
+        ost, picks = state(), fs_kernel.tail_warps
+
+        def tail32():
+            tst[0].nbytes = nbytes
+            fs_kernel.fs_tail(rows32, *tst, 1, 3, True, field)
+
+        per_form = {"wide": [], "one": [], "32": []}
+        try:
+            fs_kernel.tail_warps = lambda blocks: 1
+            fs_kernel.fs_tail(rows, *ost, 1, 3, True, field)
+            sync()
+            pairs = [(ost[0].state, pst[0].state), (ost[0].buf, pst[0].buf)] + list(zip(ost[1:7], pst[1:7]))
+            note_err(("fs_tail_sharded", field.backend), max(word_err(x.to(torch.int64), y.to(torch.int64))
+                                                             for x, y in pairs), "the one-warp form")
+            for _ in range(2):
+                fs_kernel.tail_warps = picks
+                per_form["wide"].append(graph_ms(tail))
+                fs_kernel.tail_warps = lambda blocks: 1
+                per_form["one"].append(graph_ms(tail))
+                fs_kernel.tail_warps = picks
+                per_form["32"].append(graph_ms(tail32))
+        finally:
+            fs_kernel.tail_warps = picks
+        ms = min(per_form["wide"])
         t_bytes = rows.numel() * wb + 2 * (32 + 64 + 4) + m_len + 4 * wb
         floor = compressions(nbytes, m_len, True) * compress_ms
         timing[("fs_tail_sharded", field.backend)] = (ms, t_plain, t_bytes / PEAK_BYTES_PER_S * 1e3, "bytes", floor)
+        extra[("fs_tail_sharded", field.backend)] = {
+            "warps": wide_warps, "one_warp_ms": min(per_form["one"]), "rows32_ms": min(per_form["32"])}
+        fmt = {k_: " / ".join(f"{x * 1e3:.2f}" for x in v) for k_, v in per_form.items()}
         log(f"{field.name} FS tail over {rows.shape[1]} shard partial rows (degree 2, round 1, fill 40) == plain "
-            f"(exact): {ms * 1e3:.2f} us per launch from a CUDA graph, latency floor {floor * 1e3:.2f} us "
-            f"({compressions(nbytes, m_len, True)} compressions); plain {t_plain:.2f} ms {tag}")
+            f"(exact), {wide_warps} warps per proof (fs_kernel.tail_warps): {fmt['wide']} us per launch from CUDA "
+            f"graphs, in turns with the one-warp form on the same rows {fmt['one']} us (== plain too) and the "
+            f"one-warp tail over {rows32.shape[1]} rows (the batch dispatch's per proof) "
+            f"{fmt['32']} us; latency floor {floor * 1e3:.2f} us ({compressions(nbytes, m_len, True)} "
+            f"compressions); plain {t_plain:.2f} ms {tag}")
         del tabs, outs, folded, partials, pf, pp
         # K1 over the flagship's shards: 2^20 entries, n_shard 3
         kl = gkr_log - SHARD_VARS
@@ -2801,6 +2843,7 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
                 row["library_ms_reason"] = "no PyTorch call computes this function mod p"
             if floor:
                 row["latency_floor_ms"] = floor[0]
+            row.update(extra.get((name, backend), {}))
             if not row["launches"]:
                 raise AssertionError(f"{name} ({backend}) was not launched on its sharded path")
             rows.append(row)
@@ -2877,8 +2920,8 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
 
     from thaler_study_tpu_torch import gkr
     from thaler_study_tpu_torch.fiat_shamir import SerializationError
+    from thaler_study_tpu_torch.fields import BABYBEAR, FArray
     from thaler_study_tpu_torch.fields import GOLDILOCKS as F
-    from thaler_study_tpu_torch.fields import FArray
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.sumcheck import SumCheckError
@@ -2910,7 +2953,8 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
     t = fused_proof(mesh)
     sync()
     first_s = time.perf_counter() - t0
-    counts = {name: sum(v.values()) for name, v in read_counts().items()}
+    by_backend = read_counts()
+    counts = {name: sum(v.values()) for name, v in by_backend.items()}
     moves = {"collectives": _collectives(), "sends": dict(sharded.sends)}
     want = sharded_fused_counts(circuit, SHARD_VARS, line_launches)
     got = {name: counts.get(name, 0) for name in want["launches"]}
@@ -3003,35 +3047,58 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
         hi = torch.randint(0, (1 << 32) - 1, (n,), generator=gen, device=dev, dtype=torch.int64)
         return (hi << 32) | lo
 
-    eq_r, table = FArray(words(g), F), FArray(words(N), F)
-    err = 0
-    for phase, key_t, gidx in ((1, wiring.b, wiring.c), (2, wiring.c, wiring.b)):
-        for row0, rows in ((0, S), (3, 1), (6, 2)):
-            got_t = device_tables.phase_tables_rows(phase, wiring, eq_r, table, k, SHARD_VARS, row0, rows)
-            want_t = device_tables.phase_tables_rows_plain(phase, key_t, gidx, wiring.is_mul, eq_r, table, k,
-                                                           SHARD_VARS, row0, rows)
-            e = max(word_err(a.data, b.data) for a, b in zip(got_t, want_t))
-            if e:
-                raise AssertionError(f"K2 over shard rows != plain: phase {phase}, rows {row0}..{row0 + rows - 1}")
-            err = max(err, e)
-    k2_ms = graph_ms(lambda: device_tables.phase_tables_rows(1, wiring, eq_r, table, k, SHARD_VARS, 0, S))
-    k2_plain = time_ms(lambda: device_tables.phase_tables_rows_plain(1, wiring.b, wiring.c, wiring.is_mul, eq_r, table,
-                                                                     k, SHARD_VARS, 0, S), 3)
-    k2_whole = graph_ms(lambda: device_tables.phase_tables(1, wiring, eq_r, table, k))
-    # the plan (order, packed) and eq_r per gate, starts and the gathered
-    # table per cell read once; two tables written
-    k2_bytes = g * (4 + 4 + 8) + (N + 1) * 4 + N * 8 + 2 * N * 8
-    k2_bound = k2_bytes / PEAK_BYTES_PER_S * 1e3
-    log(f"K2 over shard rows == plain (exact) on the flagship's layer 0 wiring ({g} gates, 2^{k} cells, n_shard "
-        f"{SHARD_VARS}), both phases, rows 0-7, 3 and 6-7; all {S} rows in one launch {k2_ms:.4f} ms from a CUDA "
-        f"graph (the unsharded K2 at the same shape {k2_whole:.4f} ms), bytes bound {k2_bound:.4f} ms "
-        f"({k2_bytes / 1e6:.1f} MB at 3.35 TB/s): {k2_bound / k2_ms:.1%}; plain {k2_plain:.3f} ms {tag}")
-    rows_out.append({"name": "phase_tables_rows_goldilocks", "route": "cuda",
-                     "source": "thaler_study_tpu_torch/csrc/phase_tables.cu",
-                     "replaces": "thaler_study_tpu/gkr/device_tables.py:192", "launches": got["phase_tables_rows"],
-                     "max_abs_err": err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": "bytes",
-                     "library_ms": None})
-    del eq_r, table
+    # K2 over the card's 8 shard rows (the rows form: the plan of the
+    # group, in the layout's order) and over partial groups (row0 > 0), per
+    # field (the rows form runs on the path over Goldilocks: the fused
+    # prover's field; its mont32 instantiation is the unsharded K2's,
+    # checked and timed here over BabyBear words on the same wiring)
+    for field in (F, BABYBEAR):
+        wb = 8 if field is F else 4
+        if field is F:
+            eq_r, table = FArray(words(g), F), FArray(words(N), F)
+        else:
+            eq_r, table = (FArray(torch.randint(0, field.p, (n,), generator=gen, device=dev, dtype=torch.int64)
+                                  .to(torch.int32), field) for n in (g, N))
+        err = 0
+        for phase, key_t, gidx in ((1, wiring.b, wiring.c), (2, wiring.c, wiring.b)):
+            for row0, rows in ((0, S), (3, 1), (6, 2), (1, 5)):
+                got_t = device_tables.phase_tables_rows(phase, wiring, eq_r, table, k, SHARD_VARS, row0, rows)
+                want_t = device_tables.phase_tables_rows_plain(phase, key_t, gidx, wiring.is_mul, eq_r, table, k,
+                                                               SHARD_VARS, row0, rows)
+                e = max(word_err(a.data, b.data) for a, b in zip(got_t, want_t))
+                if e:
+                    raise AssertionError(f"K2 over shard rows != plain: {field.name} phase {phase}, rows "
+                                         f"{row0}..{row0 + rows - 1}")
+                err = max(err, e)
+        # in turns: all rows in one launch, the unsharded K2 at the same
+        # shape, twice each
+        k2_ms, k2_whole = [], []
+        for _ in range(2):
+            k2_ms.append(graph_ms(lambda: device_tables.phase_tables_rows(1, wiring, eq_r, table, k, SHARD_VARS, 0,
+                                                                          S)))
+            k2_whole.append(graph_ms(lambda: device_tables.phase_tables(1, wiring, eq_r, table, k)))
+        k2_plain = time_ms(lambda: device_tables.phase_tables_rows_plain(1, wiring.b, wiring.c, wiring.is_mul, eq_r,
+                                                                         table, k, SHARD_VARS, 0, S), 3)
+        plan = wiring.plan(1, SHARD_VARS, 0, S)
+        plan_mb = sum(t.numel() * t.element_size() for t in (plan.order, plan.starts, plan.packed)) / 1e6
+        # the plan (order, packed) and eq_r per gate, starts and the
+        # gathered table per cell read once; two tables written
+        k2_bytes = g * (4 + 4 + wb) + (N + 1) * 4 + N * wb + 2 * N * wb
+        k2_bound = k2_bytes / PEAK_BYTES_PER_S * 1e3
+        fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+        log(f"{field.name} K2 over shard rows == plain (exact) on the flagship's layer 0 wiring ({g} gates, 2^{k} "
+            f"cells, n_shard {SHARD_VARS}), both phases, rows 0-7, 3, 6-7 and 1-5; all {S} rows in one launch "
+            f"{fmt(k2_ms)} ms from CUDA graphs, in turns with the unsharded K2 at the same shape {fmt(k2_whole)} ms; "
+            f"bytes bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.1f} MB at 3.35 TB/s): {k2_bound / min(k2_ms):.1%}; "
+            f"the group's plan {plan_mb:.2f} MB per phase; plain {k2_plain:.3f} ms {tag}")
+        row = {"name": f"phase_tables_rows_{field.backend}", "route": "cuda",
+               "source": "thaler_study_tpu_torch/csrc/phase_tables.cu",
+               "replaces": "thaler_study_tpu/gkr/device_tables.py:192",
+               "launches": by_backend["phase_tables_rows"][field.backend], "max_abs_err": err, "ms": min(k2_ms),
+               "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None,
+               "unsharded_ms": min(k2_whole), "plan_mb": plan_mb}
+        rows_out.append(row)
+        del eq_r, table
 
     # the round tail over the reduced rows: one on a one-card mesh (K1's
     # TOTAL form sums the card's shard rows), 8 in the checks' odd fills
@@ -3099,8 +3166,11 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
                      "max_abs_err": err, "ms": tail_ms, "plain_ms": tail_plain,
                      "bound_ms": t_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
                      "latency_floor_ms": floor})
+    # every row launched on the path, but the mont32 rows form: the fused
+    # GKR prover takes Goldilocks only, as the JAX package's, so its
+    # measured count on the path is 0
     for row in rows_out:
-        if not row["launches"]:
+        if not row["launches"] and row["name"] != "phase_tables_rows_mont32":
             raise AssertionError(f"{row['name']} was not launched on the sharded fused path")
     return rows_out
 

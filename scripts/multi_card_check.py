@@ -301,7 +301,12 @@ def main(argv=None) -> int:
         for name, mesh in (("make_mesh()", cards), ("alternating", alternating)):
             reset()
             laid = shard_layout.launches[field.backend]
-            got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh, n_shard=SHARD_VARS)
+            tail, tail_rows = fs_kernel.fs_tail, []  # the partial rows each FS tail sums (its form's input)
+            fs_kernel.fs_tail = lambda partials, *a: (tail_rows.append(partials.shape[1]), tail(partials, *a))[1]
+            try:
+                got = fs_kernel.fs_prove_device_sharded(spec, tables, mesh, n_shard=SHARD_VARS)
+            finally:
+                fs_kernel.fs_tail = tail
             sync()
             laid = shard_layout.launches[field.backend] - laid
             coll = dict(sharded.collectives)
@@ -321,7 +326,8 @@ def main(argv=None) -> int:
                                                                                       n_shard=SHARD_VARS)}, 3, sync)
             print(f"phase 1: sharded FS proof {field.name} n = {args.n} on {name} {mesh} ({groups} groups, "
                   f"n_shard {SHARD_VARS}) == fs_prove_device on {first}; collectives {coll}; {laid} layout kernel "
-                  f"launches; median of 3 in turns sharded {times['sharded'][0]:.1f} ms (its layout alone: the "
+                  f"launches; the FS tail over up to {max(tail_rows)} partial rows (the first card's and the "
+                  f"others' sums, {fs_kernel.tail_warps(max(tail_rows))} warps per proof); median of 3 in turns sharded {times['sharded'][0]:.1f} ms (its layout alone: the "
                   f"kernel on {first}, then the copies to the cards, {times['layout'][0]:.2f} ms), unsharded "
                   f"{times['unsharded'][0]:.1f} ms", flush=True)
             report[f"fs {field.name} {name}"] = {"sharded_ms": times["sharded"][0], "layout_ms": times["layout"][0],
@@ -392,8 +398,10 @@ def main(argv=None) -> int:
             "unsharded": lambda: gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, field, **dev_kw), field),
             "sharded": lambda: gkr.generate_gkr_transcript_fused(gkr.Prover(circuit, inputs, field, **dev_kw), field,
                                                                  mesh=mesh)}, 3, sync)
+        groups = [(row0, rows) for _, row0, rows in mesh.layout(1 << SHARD_VARS)]
         print(f"phase 5: sharded fused GKR {field.name} {args.gkr_depth} x 2^{args.gkr_log} on {name} {mesh} == the "
-              f"unsharded fused proof on {first}; collectives {coll}, sends {sends}; median of 3 in turns sharded "
+              f"unsharded fused proof on {first} (K2 over each group's shard rows (row0, rows): {groups}); "
+              f"collectives {coll}, sends {sends}; median of 3 in turns sharded "
               f"{gkr_times['sharded'][0]:.1f} ms, unsharded {gkr_times['unsharded'][0]:.1f} ms", flush=True)
         report[f"gkr fused {name}"] = {"sharded_ms": gkr_times["sharded"][0],
                                        "unsharded_ms": gkr_times["unsharded"][0], "collectives": coll, "sends": sends}

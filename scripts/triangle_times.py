@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the triangle-counting IP's prover, the sharded proofs and the multi-block rounds on one card, for the checkout at --root.
+"""Time the triangle-counting IP's prover, the sharded proofs and single kernels on one card, for the checkout at --root.
 
 Usage, on a machine with a card:
 
-    python3 scripts/triangle_times.py [--root DIR] [--device-proofs] [--sharded-fs N] [--mb-shapes] [--no-api]
+    python3 scripts/triangle_times.py [--root DIR] [--device-proofs] [--sharded-fs N] [--mb-shapes]
+                                      [--k2-rows LOG] [--fs-tail ROWS] [--dispatch] [--no-api]
 
 Imports ``thaler_study_tpu_torch`` from ``--root`` (default: this checkout),
 so that two checkouts, such as a commit and its parent, can be timed in
@@ -30,7 +31,25 @@ part:
   x 2^11 gates), each held against its plain version and timed from a
   CUDA graph of 20 launches (median of 5 replays); with ptxas's registers
   and spills of each ``mb_round_kernel`` instantiation where this run
-  built the library.
+  built the library;
+- ``--k2-rows LOG``: kernel K2 on one random layer of 2^LOG gates over
+  2^LOG cells (labels uniform, MUL with probability 0.5, seed 42: the
+  flagship's wiring), Goldilocks and BabyBear words, both phases: over all
+  ``SHARD_COUNT`` shard rows in one launch (``phase_tables_rows``) and
+  unsharded (``phase_tables``), each held against its plain version (the
+  rows form also at the groups of rows (3, 1), (6, 2) and (1, 5)) and
+  timed from CUDA graphs, twice each in turns;
+- ``--fs-tail ROWS``: the FS tail (degree 2, round 1, a chain fill of 40)
+  of one proof over 32, 64, 128, 256, 512 and ROWS partial rows, and of
+  64 proofs over 32 rows each (the batch dispatch's), both fields, in
+  each of the kernel's forms (one warp per proof and the wide form, each
+  forced through ``fs_kernel.tail_warps``; a checkout without that choice
+  in the form it has), each held against its plain version and timed from
+  CUDA graphs, twice each in turns;
+- ``--dispatch``: the batch dispatch of B = 64 proofs of a 2-factor
+  product over 2^22 (``bench.py``'s shape) through
+  ``generate_transcripts_batch``, both fields: one warm dispatch, then 5
+  timed (host clock, each ending in its host read).
 
 Proofs in turns: 5 timed runs each after one warm run, medians in ms.
 Prints one JSON line, with the card's name and power limit; exits 1
@@ -117,6 +136,11 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-fs", type=int, default=0, metavar="N",
                     help="also time the FS proof of 2^N entries, sharded and not, in turns")
     ap.add_argument("--mb-shapes", action="store_true", help="also time the multi-block round at its unsharded shapes")
+    ap.add_argument("--k2-rows", type=int, default=0, metavar="LOG",
+                    help="also time K2 over shard rows and unsharded on a layer of 2^LOG gates")
+    ap.add_argument("--fs-tail", type=int, default=0, metavar="ROWS",
+                    help="also time the FS tail over ROWS and 32 partial rows per proof")
+    ap.add_argument("--dispatch", action="store_true", help="also time the B = 64 batch dispatch")
     ap.add_argument("--no-api", action="store_true", help="leave out api.prove_triangle_count")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
@@ -230,6 +254,115 @@ def main(argv=None) -> int:
             del tabs
         log = logs.get("multiblock_round")
         out["mb_ptxas"] = ptxas_of(log, "mb_round_kernel") if log else "built before this run"
+    fields = (GOLDILOCKS, BABYBEAR)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    if args.k2_rows:
+        import numpy as np
+
+        from thaler_study_tpu_torch.gkr import device_tables
+        from thaler_study_tpu_torch.gkr.circuit import layer_wiring
+
+        k, n_shard = args.k2_rows, smoke.SHARD_VARS
+        rng = np.random.default_rng(SEED)
+        b, c = (torch.from_numpy(rng.integers(0, 1 << k, 1 << k).astype(np.int32)).to(dev) for _ in range(2))
+        wiring = layer_wiring(b, c, torch.from_numpy(rng.random(1 << k) < 0.5).to(dev), k)
+        out["k2_ms"] = {}
+        for field in fields:
+            eq_r, table = FArray(words(field, (1 << k,)), field), FArray(words(field, (1 << k,)), field)
+            for phase, key, gidx in ((1, wiring.b, wiring.c), (2, wiring.c, wiring.b)):
+                for row0, rows in ((0, 1 << n_shard), (3, 1), (6, 2), (1, 5)):
+                    got = device_tables.phase_tables_rows(phase, wiring, eq_r, table, k, n_shard, row0, rows)
+                    want = device_tables.phase_tables_rows_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k,
+                                                                 n_shard, row0, rows)
+                    if not same([t.data for t in got], [t.data for t in want]):
+                        raise AssertionError(f"K2 over shard rows != plain: {field.name} {phase} {row0} {rows}")
+                got = device_tables.phase_tables(phase, wiring, eq_r, table, k)
+                want = device_tables.phase_tables_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k)
+                if not same([t.data for t in got], [t.data for t in want]):
+                    raise AssertionError(f"K2 != plain: {field.name} phase {phase}")
+                runs = {"rows": [], "whole": []}
+                for _ in range(2):
+                    runs["rows"].append(graph_ms(lambda: device_tables.phase_tables_rows(
+                        phase, wiring, eq_r, table, k, n_shard, 0, 1 << n_shard), sync))
+                    runs["whole"].append(graph_ms(lambda: device_tables.phase_tables(phase, wiring, eq_r, table, k),
+                                                  sync))
+                out["k2_ms"][f"{field.name} phase {phase}"] = runs
+            del eq_r, table
+    if args.fs_tail:
+        from thaler_study_tpu_torch.fields.farray import word_dtype
+        from thaler_study_tpu_torch.ops import fs_kernel
+        from thaler_study_tpu_torch.ops.sha_chain import DevChain
+
+        # each of the kernel's forms forced where the checkout picks one
+        # (fs_kernel.tail_warps), else the one it has
+        picks = getattr(fs_kernel, "tail_warps", None)
+        forms = {"one warp": 1, "wide": fs_kernel.WIDE_WARPS} if picks else {"as built": None}
+        nbytes = 64 * 7 + 40
+        out["fs_tail_us"] = {}
+        for field in fields:
+            vinv = fs_kernel.interp_tensor(field, 2, dev)
+            w, m_len = word_dtype(field), fs_kernel._msg_len(1, 2, field.byte_size)
+
+            def state(batch):
+                chain = DevChain.fresh(batch, dev)
+                chain.state.copy_(torch.arange(8 * batch, device=dev, dtype=torch.int32).reshape(batch, 8) * 40503
+                                  + 7)
+                chain.buf[:, :40] = 7
+                chain.nbytes = nbytes
+                return [chain, words(field, (batch,)), torch.zeros(batch, dtype=w, device=dev),
+                        torch.zeros(batch, dtype=w, device=dev), torch.zeros((batch, 9), dtype=w, device=dev),
+                        torch.zeros((batch, nbytes + m_len), dtype=torch.uint8, device=dev),
+                        torch.zeros(batch, dtype=torch.int32, device=dev), vinv]
+
+            shapes = {f"1 x {x}": (1, x) for x in sorted({32, 64, 128, 256, 512, args.fs_tail})}
+            shapes["64 x 32"] = (64, 32)
+            cases = {}
+            for name, (batch, nrows) in shapes.items():
+                rows = words(field, (batch, nrows, 3))
+                for form, warps in forms.items():
+                    fs_kernel.tail_warps = picks if warps is None else lambda blocks, w=warps: w
+                    a, p = state(batch), state(batch)
+                    p[1].copy_(a[1])
+                    fs_kernel.fs_tail(rows, *a, 1, 3, True, field)
+                    fs_kernel.fs_tail_plain(rows, *p, 1, 3, True, field)
+                    if not same([a[0].state, a[0].buf] + a[1:7], [p[0].state, p[0].buf] + p[1:7]):
+                        raise AssertionError(f"FS tail != plain: {field.name}, {name} rows, {form}")
+                    cases[name, form] = (rows, state(batch))
+
+            def tail(key):
+                rows, st = cases[key]
+                st[0].nbytes = nbytes
+                fs_kernel.fs_tail(rows, *st, 1, 3, True, field)
+
+            runs = {f"{name}, {form}": [] for name, form in cases}
+            try:
+                for _ in range(2):
+                    for (name, form), warps in ((key, forms[key[1]]) for key in cases):
+                        fs_kernel.tail_warps = picks if warps is None else lambda blocks, w=warps: w
+                        runs[f"{name}, {form}"].append(graph_ms(lambda: tail((name, form)), sync) * 1e3)
+            finally:
+                fs_kernel.tail_warps = picks
+            out["fs_tail_us"][field.name] = runs
+            del cases
+    if args.dispatch:
+        from thaler_study_tpu_torch.protocols.batched import BatchedProductPoly, generate_transcripts_batch
+
+        out["dispatch_ms"] = {}
+        for field in fields:
+            poly = BatchedProductPoly([FArray(words(field, (64, 1 << 22)), field) for _ in range(2)])
+            generate_transcripts_batch(poly, field)
+            times = []
+            for _ in range(REPS):
+                sync()
+                t0 = time.perf_counter()
+                generate_transcripts_batch(poly, field)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["dispatch_ms"][field.name] = {"ms": times, "median_ms": statistics.median(times)}
+            del poly
+            torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     out["card"] = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not read"

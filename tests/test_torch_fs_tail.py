@@ -16,7 +16,16 @@ the port.
   ``split_transcripts`` over the transcript bytes) at n = 3, byte for byte
   against the JAX package's host loop under ``jax.disable_jit()``, for the
   five fields;
-- the wrapper's checks of the byte buffer.
+- the wrapper's checks of the byte buffer;
+- the kernel's two ways of summing the partial rows (one warp per proof;
+  the wide form's ``WIDE_WARPS`` warps for more than ``WIDE_ROWS`` rows),
+  replayed in Python ints at 1, 33, 2,048 and 4,095 rows with words at
+  p - 1 (Goldilocks: 2^64 - 2^32): each row summed once, the sums and the
+  tail's bytes, chain, challenge and claim those of ``fs_tail_plain``; and
+  a sharded proof whose tails sum through the wide replay, byte for byte
+  against the JAX package (BabyBear: its ``fs_prove_device_sharded``
+  program, ``_fs_prove_sharded_impl``, run eagerly; Goldilocks: its host
+  loop).
 
 Inputs come from numpy seeds; tolerance: exact equality throughout. The
 cases loop inside few test functions (at most 7): the suite runs under
@@ -38,7 +47,9 @@ from thaler_study_tpu import fields as jfields  # noqa: E402
 from thaler_study_tpu.fiat_shamir import SumcheckInteractiveProver as JInteractiveProver  # noqa: E402
 from thaler_study_tpu.fiat_shamir import generate_transcript as jgenerate  # noqa: E402
 from thaler_study_tpu.fields import FArray as JFArray  # noqa: E402
+from thaler_study_tpu.ops import fs_kernel as jfs  # noqa: E402
 from thaler_study_tpu.ops import round_kernel as jrk  # noqa: E402
+from thaler_study_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
 from thaler_study_tpu.protocols import ProductPoly as JProductPoly  # noqa: E402
 from thaler_study_tpu.sumcheck import Prover as JProver  # noqa: E402
 from thaler_study_tpu_torch.fiat_shamir import XmdChain  # noqa: E402
@@ -48,6 +59,7 @@ from thaler_study_tpu_torch.ops import fs_kernel  # noqa: E402
 from thaler_study_tpu_torch.ops import round_kernel as rk  # noqa: E402
 from thaler_study_tpu_torch.ops.sha256 import digest_bytes, py_compress  # noqa: E402
 from thaler_study_tpu_torch.ops.sha_chain import ZPAD_STATE, DevChain, absorb_py  # noqa: E402
+from thaler_study_tpu_torch.parallel import make_mesh  # noqa: E402
 
 FIELDS = (F5, F389, F1572869, BABYBEAR, GOLDILOCKS)
 N_ROUNDS, BATCH, BLOCKS = 4, 3, 3
@@ -243,3 +255,121 @@ def test_tail_checks_the_byte_buffer():
                 torch.zeros((batch, 2 * (64 + m)), dtype=torch.uint8)[:, ::2]):
         with pytest.raises(ValueError):
             call(bad)
+
+
+STEP_WORDS = 24  # csrc/fs_tail.cu STEP_WORDS: the wide form's words per thread and step
+
+
+def _kernel_sums(rows, p, warps):
+    """The FS tail kernel's sums of one proof's partial rows (canonical
+    ints, [blocks][d + 1]) in Python ints, walked as its threads walk
+    them: one warp, lane l every 32nd row from the l-th; the wide form,
+    thread t of 32 warps... every T-th row from the t-th (T = 32 warps),
+    max(1, STEP_WORDS // (d + 1)) rows per step, then the rest; a shuffle
+    tree in each warp (xor 16, 8, 4, 2, 1), then warp 0 adds the warps'
+    sums in order. Returns the sums and how often each row was read."""
+    threads, blocks, d1 = 32 * warps, len(rows), len(rows[0])
+    unroll = max(1, STEP_WORDS // d1)
+    seen = [0] * blocks
+    sums = []
+    for t in range(threads):
+        s, x = [0] * d1, t
+        steps = []
+        if warps > 1:
+            while x + (unroll - 1) * threads < blocks:
+                steps += [x + u * threads for u in range(unroll)]
+                x += unroll * threads
+        steps += range(x, blocks, threads)
+        for y in steps:
+            seen[y] += 1
+            s = [(a + b) % p for a, b in zip(s, rows[y])]
+        sums.append(s)
+    warp_sums = []
+    for w in range(warps):
+        lanes = sums[32 * w : 32 * w + 32]
+        for o in (16, 8, 4, 2, 1):
+            lanes = [[(a + b) % p for a, b in zip(lanes[lane], lanes[lane ^ o])] for lane in range(32)]
+        warp_sums.append(lanes[0])
+    total = warp_sums[0]
+    for w in warp_sums[1:]:
+        total = [(a + b) % p for a, b in zip(total, w)]
+    return total, seen
+
+
+@pytest.mark.parametrize("field", (BABYBEAR, GOLDILOCKS), ids=lambda f: f.name)
+def test_wide_tail_rows_replay(field):
+    """At 1, 33, 2,048 and 4,095 partial rows of 2 proofs (the words p - 1
+    first, then a whole row of p - 1), the form ``tail_warps`` picks, and
+    both forms, replayed: every row read once and the sums those of the
+    plain version; the tail over the replay's sums (one row per proof)
+    leaves the bytes, chain, challenge, claim, c_1, coefficients and zero
+    flags of ``fs_tail_plain`` over all the rows."""
+    p, degree, batch, nbytes = field.p, 2, 2, 64 * 3 + 40
+    rng = np.random.default_rng(91 + field.p % 7)
+    vinv = fs_kernel.interp_tensor(field, degree, "cpu")
+    for blocks in (1, 33, 2048, 4095):
+        assert fs_kernel.tail_warps(blocks) == (1 if blocks <= fs_kernel.WIDE_ROWS else fs_kernel.WIDE_WARPS)
+        vals = rng.integers(0, p, size=(batch, blocks, degree + 1), dtype=np.uint64)
+        vals[0, 0, :2] = p - 1
+        vals[1, -1, :] = p - 1
+        rows = vals.astype(object).tolist()
+        replayed = []
+        for warps in (1, fs_kernel.WIDE_WARPS):
+            for b in range(batch):
+                total, seen = _kernel_sums(rows[b], p, warps)
+                assert seen == [1] * blocks, (field.name, blocks, warps)
+                assert total == [sum(r[e] for r in rows[b]) % p for e in range(degree + 1)], (field.name, blocks, b)
+                if warps == fs_kernel.tail_warps(blocks):
+                    replayed.append(total)
+        outs = []
+        for parts in (vals, np.array(replayed, dtype=np.uint64).reshape(batch, 1, degree + 1)):
+            chain = DevChain.fresh(batch, "cpu")
+            chain.state.copy_(torch.arange(16, dtype=torch.int32).reshape(batch, 8) * 40503 + 7)
+            chain.buf[:, :40] = 7
+            chain.nbytes = nbytes
+            w = word_dtype(field)
+            state = [chain, _words(field, np.array([5, p - 1], dtype=np.uint64)), torch.zeros(batch, dtype=w),
+                     torch.zeros(batch, dtype=w), torch.zeros((batch, 3 * degree + 3), dtype=w),
+                     torch.zeros((batch, nbytes + 64), dtype=torch.uint8), torch.zeros(batch, dtype=torch.int32)]
+            fs_kernel.fs_tail(_words(field, parts), *state, vinv, 1, degree + 1, True, field)
+            outs.append(state)
+        (a, *xa), (b, *xb) = outs
+        assert a.nbytes == b.nbytes and torch.equal(a.state, b.state) and torch.equal(a.buf, b.buf)
+        assert all(torch.equal(x, y) for x, y in zip(xa, xb)), (field.name, blocks)
+
+
+def test_wide_tail_sharded_proof_matches_jax(monkeypatch):
+    """A proof on 8 shards of the CPU (``fs_prove_device_sharded``, n = 4,
+    n_shard 3), every tail summing its rows through the wide form's replay
+    (forced at any row count), byte for byte against the JAX package:
+    BabyBear against its sharded program run eagerly, Goldilocks against
+    its host loop."""
+    plain = fs_kernel.fs_tail_plain
+    wide = []
+
+    def through_wide(partials, *args):
+        field = args[-1]
+        p, (batch, blocks, d1) = field.p, partials.shape
+        ints = np.array(_canonical(field, partials), dtype=object).reshape(batch, blocks, d1).tolist()
+        sums = [_kernel_sums(rows, p, fs_kernel.WIDE_WARPS)[0] for rows in ints]
+        wide.append(blocks)
+        plain(_words(field, np.array(sums, dtype=np.uint64).reshape(batch, 1, d1)), *args)
+
+    monkeypatch.setattr(fs_kernel, "fs_tail_plain", through_wide)
+    n, mesh = 4, make_mesh(["cpu"] * 8)
+    for field in (BABYBEAR, GOLDILOCKS):
+        rng = np.random.default_rng(93)
+        values = [rng.integers(1, field.p, size=1 << n, dtype=np.uint64) for _ in range(2)]
+        spec = rk.single_block_spec(2, n)
+        jspec = jrk.PolySpec(spec.block_sizes, spec.table_blocks, spec.terms)
+        jtabs = [JFArray.from_ints(np.array([int(x) for x in v], dtype=object), _jfield(field)) for v in values]
+        wide.clear()
+        got = fs_kernel.fs_prove_device_sharded(spec, [FArray.from_ints(v, field, device="cpu") for v in values],
+                                                mesh, n_shard=3)
+        assert wide and max(wide) > 1, field.name  # the sharded round's tail summed several rows
+        with jax.disable_jit():
+            if field is BABYBEAR:
+                want = jfs.fs_prove_device_sharded(jspec, jtabs, jmake_mesh(jax.devices()[:1]), n_shard=3)
+            else:
+                want = list(jgenerate(JInteractiveProver(JProver(JProductPoly(jspec, jtabs))), _jfield(field)).g)
+        assert got is not None and got == list(want), field.name

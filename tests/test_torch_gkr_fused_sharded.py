@@ -12,9 +12,11 @@
   the large ones shard, in one proof (the counterpart of the JAX
   ``test_fused_sharded_mixed_small_layers``);
 - K2 over shard rows (``phase_tables_rows``) at n_shard 1 and 3 against
-  the unsharded K2's tables in the sharded layout, and against a walk of
-  the static plan over the strided positions in Python ints (the kernel's
-  indexing);
+  the unsharded K2's tables in the sharded layout, and the kernel's walk
+  of each group's plan (in the layout's order, runs longer than LONG
+  split over a warp's lanes) in Python ints against those tables and
+  against the JAX ``phase1_tables`` / ``phase2_tables`` laid out by the JAX
+  ``shard_factor``, over Goldilocks and BabyBear;
 - the round tail over a sharded round's reduced rows
   (``gkr_tail.round_tail``) against the same round run whole with the tail
   as K1's epilogue (``libra_round_tail``): bytes, chain, challenges, claim;
@@ -38,11 +40,15 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # 6 test workers share the cores: torch's own pool would compete with them
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from thaler_study_tpu import fields as jfields  # noqa: E402
 from thaler_study_tpu import gkr as jgkr  # noqa: E402
+from thaler_study_tpu.gkr import device_tables as jdt  # noqa: E402
+from thaler_study_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
+from thaler_study_tpu.parallel import shard_factor as jshard_factor  # noqa: E402
 from thaler_study_tpu_torch import gkr  # noqa: E402
-from thaler_study_tpu_torch.fields import GOLDILOCKS, FArray  # noqa: E402
+from thaler_study_tpu_torch.fields import BABYBEAR, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.gkr import device_tables as dt  # noqa: E402
 from thaler_study_tpu_torch.gkr import fused  # noqa: E402
 from thaler_study_tpu_torch.gkr.circuit import layer_wiring  # noqa: E402
@@ -50,6 +56,7 @@ from thaler_study_tpu_torch.ops import cuda_round, gkr_tail  # noqa: E402
 from thaler_study_tpu_torch.parallel import make_mesh, make_mesh_2d, sharded  # noqa: E402
 
 F, JF, P = GOLDILOCKS, jfields.GOLDILOCKS, GOLDILOCKS.p
+_JF = {"Goldilocks": jfields.GOLDILOCKS, "BabyBear": jfields.BABYBEAR}
 # 3 layers of 16 gates over 16 inputs (k = 4 > n_shard = 3: one sharded
 # round per phase); the mixed circuit's layers of 2^4 (sharded), 2^2
 # (replicated: 4 values do not divide over 8 shards) and 2^3 inputs
@@ -130,49 +137,82 @@ def test_mixed_small_layers():
     assert sharded.collectives["reduce"] == 2 and sharded.collectives["gather"] == 12
 
 
+LONG = 32  # csrc/phase_tables.cu LONG: a longer run is walked by its warp's 32 lanes
+
+
 def _plan_walk(phase, wiring, eq_r, table, k, n_shard, row0, rows):
-    """The kernel's indexing in Python ints: thread (row, col) walks the
-    plan's run at position (col << n_shard) | (row0 + row)."""
-    plan = wiring.plan1 if phase == 1 else wiring.plan2
+    """The kernel's walk over the group's plan in Python ints: thread pos
+    sums the run of plan position pos and writes word pos; a run of more
+    than LONG gates is split over the warp's 32 lanes (lane l every 32nd
+    gate from the l-th), each lane's sums reduced, then added. Checks the
+    plan's shape on the way: the group's gates, each once, ascending
+    within a run. Returns the two [rows, cols] tables."""
+    p = eq_r.field.p
+    plan = wiring.plan(phase, n_shard, row0, rows)
     starts, order, packed = (plan.starts.tolist(), plan.order.tolist(), plan.packed.tolist())
     e, v = [int(x) for x in eq_r.to_u64()], [int(x) for x in table.to_u64()]
     cols = 1 << (k - n_shard)
-    out = np.zeros((2, rows, cols), dtype=object)
-    for row in range(rows):
-        for col in range(cols):
-            pos = (col << n_shard) | (row0 + row)
-            for s in range(starts[pos], starts[pos + 1]):
+    key = (wiring.b if phase == 1 else wiring.c).tolist()
+    mask = (1 << n_shard) - 1
+    pos_of = [int(format(x, f"0{k}b")[::-1], 2) for x in key]  # the MSB-first position of each gate's cell
+    group = [g for g, x in enumerate(pos_of) if row0 <= x & mask < row0 + rows]
+    assert len(starts) == rows * cols + 1 and starts[0] == 0 and sorted(order) == group
+    out = np.zeros((2, rows * cols), dtype=object)
+    for pos in range(rows * cols):
+        s0, s1 = starts[pos], starts[pos + 1]
+        run = order[s0:s1]
+        assert run == sorted(run) and all(pos_of[g] == (pos % cols) << n_shard | (row0 + pos // cols) for g in run)
+        lanes = [range(s0, s1)] if s1 - s0 <= LONG else [range(s0 + lane, s1, 32) for lane in range(32)]
+        for walk in lanes:
+            acc = [0, 0]
+            for s in walk:
                 g, w = order[s], packed[s]
                 mul, x = w < 0, e[g] * v[w & 0x7FFFFFFF]
                 if phase == 1:
-                    out[0, row, col] += x if mul else e[g]
-                    out[1, row, col] += 0 if mul else x
+                    acc[0] += x if mul else e[g]
+                    acc[1] += 0 if mul else x
                 else:
-                    out[0, row, col] += 0 if mul else x
-                    out[1, row, col] += x if mul else 0
-    return out % P
+                    acc[0] += 0 if mul else x
+                    acc[1] += x if mul else 0
+            out[0, pos] += acc[0] % p
+            out[1, pos] += acc[1] % p
+    return (out % p).reshape(2, rows, cols)
+
+
+def _groups(n_shard):
+    """Groups of shard rows as a mesh gives them to a device: all rows, one
+    row at row0 = 1, the last two, and 4 rows from row0 = 3."""
+    shards = 1 << n_shard
+    return [(0, shards), (1, 1), (shards - 2, 2)] + ([(3, 4)] if shards >= 8 else [])
+
+
+def _skewed_wiring(rng, k, skew):
+    g = 1 << k
+    b, c = rng.integers(0, 1 << k, g), rng.integers(0, 1 << k, g)
+    if skew:  # 40 gates on one cell of each key: runs longer than LONG
+        b[:40] = 5
+        c[g - 40 :] = 9
+    mul = rng.random(g) < 0.5
+    return b, c, mul, layer_wiring(torch.from_numpy(b.astype(np.int32)), torch.from_numpy(c.astype(np.int32)),
+                                   torch.from_numpy(mul), k)
 
 
 def test_phase_tables_over_shard_rows():
     """At n_shard 1 and 3, both phases, every group of rows a mesh gives a
-    device (all rows, one row, the last two): the unsharded K2's tables in
-    the layout and the plan walked at the strided positions; a skewed
-    wiring (half the gates on one cell) and a k = n_shard layer."""
+    device (all rows, one row, the last two, 4 from row 3): the unsharded
+    K2's tables in the layout and the kernel's walk of the group's plan; a
+    skewed wiring (40 gates on one cell: the warp's walk) and a k = n_shard
+    layer."""
     rng = np.random.default_rng(61)
     for k, n_shard, skew in ((6, 1, False), (6, 3, True), (5, 3, False), (3, 3, False)):
         g = 1 << k
-        b, c = rng.integers(0, 1 << k, g), rng.integers(0, 1 << k, g)
-        if skew:
-            b[: g // 2] = 5
-        mul = rng.random(g) < 0.5
-        wiring = layer_wiring(torch.from_numpy(b.astype(np.int32)), torch.from_numpy(c.astype(np.int32)),
-                              torch.from_numpy(mul), k)
+        _, _, _, wiring = _skewed_wiring(rng, k, skew)
         eq_r = FArray.from_ints(rng.integers(0, P, g, dtype=np.uint64), F, device="cpu")
         table = FArray.from_ints(rng.integers(0, P, 1 << k, dtype=np.uint64), F, device="cpu")
         cols = 1 << (k - n_shard)
         for phase in (1, 2):
             whole = dt.phase_tables(phase, wiring, eq_r, table, k)
-            for row0, rows in ((0, 1 << n_shard), (1, 1), ((1 << n_shard) - 2, 2)):
+            for row0, rows in _groups(n_shard):
                 got = dt.phase_tables_rows(phase, wiring, eq_r, table, k, n_shard, row0, rows)
                 walk = _plan_walk(phase, wiring, eq_r, table, k, n_shard, row0, rows)
                 for t, x, want in zip(range(2), got, whole):
@@ -182,6 +222,50 @@ def test_phase_tables_over_shard_rows():
                     assert x.to_u64().astype(object).tolist() == walk[t].tolist(), (k, n_shard, phase, row0)
     with pytest.raises(ValueError, match="shard rows"):
         dt.phase_tables_rows(1, wiring, eq_r, table, 3, 3, 7, 2)
+    with pytest.raises(ValueError, match="shard rows"):
+        wiring.plan(1, 3, 7, 2)
+
+
+@pytest.mark.parametrize("field", [GOLDILOCKS, BABYBEAR], ids=lambda f: f.name)
+def test_layout_plans_match_jax(field):
+    """The kernel's walk of each group's plan (``_plan_walk``) and K2's
+    rows form on the CPU against the JAX package's ``phase1_tables`` /
+    ``phase2_tables`` (the scan mode) laid out by the JAX ``shard_factor``:
+    n_shard 1 and 3, the groups of ``_groups``, a skewed wiring whose hot
+    cells take 40 gates (more than LONG) and a k = n_shard layer; eq_r, the
+    gathered W and eq_u with p - 1 among their words."""
+    rng = np.random.default_rng(71 if field is GOLDILOCKS else 72)
+    p, jf = field.p, _JF[field.name]
+    mesh1 = jmake_mesh(jax.devices()[:1])
+    for k, shards in ((6, (1, 3)), (3, (3,))):
+        b, c, mul, wiring = _skewed_wiring(rng, k, k == 6)
+        r_ints = [p - 1] + [int(x) for x in rng.integers(0, p, k - 1, dtype=np.uint64)]
+        u_ints = [int(x) for x in rng.integers(0, p, k - 1, dtype=np.uint64)] + [p - 1]
+        w_ints = [p - 1] + [int(x) for x in rng.integers(0, p, (1 << k) - 1, dtype=np.uint64)]
+        port = {name: FArray.from_ints(np.array(x, dtype=np.uint64), field, device="cpu")
+                for name, x in (("r", r_ints), ("u", u_ints), ("w", w_ints))}
+        eq_r, eq_u = dt.eq_table_dev(port["r"], k), dt.eq_table_dev(port["u"], k)
+        jb, jc, jm = jnp.asarray(b.astype(np.int32)), jnp.asarray(c.astype(np.int32)), jnp.asarray(mul)
+        with jax.disable_jit():
+            jr, ju, jw = (jfields.FArray.from_ints(np.array(x, dtype=object), jf) for x in (r_ints, u_ints, w_ints))
+            b_scan = tuple(jnp.asarray(x) for x in jdt.scan_plan(b, 1 << k))
+            c_scan = tuple(jnp.asarray(x) for x in jdt.scan_plan(c, 1 << k))
+            ja1, ja2, jeq = jdt.phase1_tables(jr, jw, jb, jc, jm, k, k, lane_bits=16, b_scan=b_scan)
+            jb1, jb2, _ = jdt.phase2_tables(ju, jw, jeq, jb, jc, jm, k, lane_bits=16, c_scan=c_scan)
+            msb = [jdt.lsb_to_msb(t, k) for t in (ja1, ja2, jb1, jb2)]
+            layouts = {n: [np.asarray(jshard_factor(t, mesh1, n).to_ints(), dtype=object) for t in msb]
+                       for n in shards}
+        assert eq_r.to_u64().astype(object).tolist() == np.asarray(jeq.to_ints(), dtype=object).tolist()
+        for n_shard in shards:
+            for phase, table in ((1, port["w"]), (2, eq_u)):
+                want = layouts[n_shard][2 * (phase - 1) : 2 * phase]
+                for row0, rows in _groups(n_shard):
+                    walk = _plan_walk(phase, wiring, eq_r, table, k, n_shard, row0, rows)
+                    got = dt.phase_tables_rows(phase, wiring, eq_r, table, k, n_shard, row0, rows)
+                    for t in range(2):
+                        lay = want[t][row0 : row0 + rows].tolist()
+                        assert walk[t].tolist() == lay, (field.name, k, n_shard, phase, row0, rows)
+                        assert got[t].to_u64().astype(object).tolist() == lay, (field.name, k, n_shard, phase, row0)
 
 
 def test_round_tail_over_rows_matches_the_epilogue():

@@ -219,7 +219,7 @@ def test_phase_tables_match_jax(field):
         assert _same(w_u, jwu), (field.name, name)
         # kernel K2's walk over the static plan, on the same inputs
         eq_np, eq_u = eq_r.to_u64(), dt.eq_table_dev(u_arr, k).to_u64()
-        walked = _walk(wiring.plan1, 1, eq_np, w_vals, k, p) + _walk(wiring.plan2, 2, eq_np, eq_u, k, p)
+        walked = _walk(wiring.plan(1), 1, eq_np, w_vals, k, p) + _walk(wiring.plan(2), 2, eq_np, eq_u, k, p)
         for got, exp, label in zip(walked, want, ("a1", "a2", "b1", "b2")):
             assert np.array_equal(np.array(got, dtype=np.uint64), np.asarray(exp.to_u64())), (field.name, name, label)
 
@@ -289,7 +289,7 @@ def test_phase_plan_layout_and_walk():
             wiring = _layer_wiring(b, c, m, k)
             g = len(b)
             rev = [int(format(x, f"0{k}b")[::-1], 2) for x in range(1 << k)]
-            for phase, plan, key, gidx in ((1, wiring.plan1, b, c), (2, wiring.plan2, c, b)):
+            for phase, plan, key, gidx in ((1, wiring.plan(1), b, c), (2, wiring.plan(2), c, b)):
                 order, starts, packed = (x.numpy() for x in (plan.order, plan.starts, plan.packed))
                 assert sorted(order.tolist()) == list(range(g)), name
                 assert starts[0] == 0 and starts[-1] == g and (np.diff(starts) >= 0).all()

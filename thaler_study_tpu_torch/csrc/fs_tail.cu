@@ -41,6 +41,14 @@
 //   latencies overlap;
 // - the lanes load the [blocks, d+1] partials together and a shuffle tree
 //   sums them mod p; lanes 0..d interpolate one coefficient each;
+// - many partial rows (the sharded prover's: 2,048 at 8 shards x 256
+//   blocks) are summed by a block of WIDE_WARPS warps instead (the wide
+//   form, chosen on the host from the row count: ops/fs_kernel.tail_warps):
+//   each thread sums every (32 WIDE_WARPS)-th row, step_rows(D) rows'
+//   loads issued before their adds, a shuffle tree sums each warp, the warps'
+//   sums meet in shared memory, and warp 0 goes on alone with the path
+//   below, unchanged. One warp would walk 2,048 rows in 64 dependent
+//   steps of L2 round trips before the hash path can start;
 // - the message (each lane writes its own bytes), b_0's suffix and the
 //   padding are staged in shared memory at their run-time offsets; each
 //   compression reads its 16 big-endian words from there at compile-time
@@ -62,6 +70,8 @@ namespace {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int MAX_D = 8;
+constexpr int WIDE_WARPS = 8;  // the wide form's warps per proof
+constexpr int STEP_WORDS = 24;  // words per thread and step in the wide form
 
 // The longest degree-D message: c_1, the length, D + 1 terms of 8 + 8 bytes
 __host__ __device__ constexpr int max_msg(int d) { return 8 + 8 + 16 * (d + 1); }
@@ -116,8 +126,40 @@ struct M32Ops : m32::Field {
   }
 };
 
-template <class F, int D>
-__global__ void __launch_bounds__(32)
+// The wide form's rows per thread and step: STEP_WORDS words' loads in
+// flight (8 rows at degree 2), at least one row
+__host__ __device__ constexpr int step_rows(int d) { return STEP_WORDS / (d + 1) > 1 ? STEP_WORDS / (d + 1) : 1; }
+
+// s[0..D] += the partial rows x = t, t + T, t + 2T, ... < blocks of pp
+// (rows of D + 1 words), step_rows(D) rows' loads issued before their adds
+template <class F, int D, int T>
+__device__ __forceinline__ void sum_rows(const F& f, const typename F::word* __restrict__ pp, int blocks, int t,
+                                         typename F::word (&s)[D + 1]) {
+  using W = typename F::word;
+  constexpr int UNROLL = step_rows(D);
+  int x = t;
+  for (; x + (UNROLL - 1) * T < blocks; x += UNROLL * T) {
+    W v[UNROLL][D + 1];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int e = 0; e <= D; ++e) v[u][e] = pp[(x + u * T) * (D + 1) + e];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], v[u][e]);
+    }
+  }
+  for (; x < blocks; x += T) {
+#pragma unroll
+    for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], pp[x * (D + 1) + e]);
+  }
+}
+
+// WARPS = 1: one warp per proof; WARPS = WIDE_WARPS: the wide form
+template <class F, int D, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
     fs_tail_kernel(F f, int byte_size, int len, const typename F::word* __restrict__ partials,
                    int blocks, uint32_t* __restrict__ state, uint8_t* __restrict__ buf,
                    typename F::word* __restrict__ claim, typename F::word* __restrict__ r,
@@ -129,7 +171,7 @@ __global__ void __launch_bounds__(32)
   constexpr int STAGE = stage_bytes(D);
   __shared__ __align__(16) uint8_t stage[STAGE];
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int lane = WARPS == 1 ? (int)threadIdx.x : (int)(threadIdx.x & 31);
 
   // the loads: this lane's partials, the claim, row i = min(lane, D) of
   // vinv, the chain's state and this lane's carried bytes
@@ -138,9 +180,11 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
   for (int e = 0; e <= D; ++e) s[e] = 0;
   const W* pp = partials + (long long)b * blocks * (D + 1);
-  for (int x = lane; x < blocks; x += 32) {
+  if constexpr (WARPS == 1) {
+    for (int x = lane; x < blocks; x += 32) {
 #pragma unroll
-    for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], pp[x * (D + 1) + e]);
+      for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], pp[x * (D + 1) + e]);
+    }
   }
   const W claim_in = round > 0 ? claim[b] : 0;
   const int i = min(lane, D);
@@ -154,10 +198,26 @@ __global__ void __launch_bounds__(32)
   const uint8_t carried1 = lane + 32 < fill ? buf[b * 64 + lane + 32] : 0;
 
   // round sums: each lane summed its blocks, a shuffle tree sums the lanes
+  if constexpr (WARPS > 1) sum_rows<F, D, 32 * WARPS>(f, pp, blocks, threadIdx.x, s);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
     for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], __shfl_xor_sync(FULL, s[e], o));
+  }
+  if constexpr (WARPS > 1) {  // the warps' sums meet in shared memory; warp 0 goes on
+    __shared__ W warp_sums[WARPS][D + 1];
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) {
+#pragma unroll
+      for (int e = 0; e <= D; ++e) warp_sums[warp][e] = s[e];
+    }
+    __syncthreads();
+    if (warp != 0) return;
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+#pragma unroll
+      for (int e = 0; e <= D; ++e) s[e] = f.add(s[e], warp_sums[w][e]);
+    }
   }
   if (round > 0) s[1] = f.sub(claim_in, s[0]);
 
@@ -275,10 +335,12 @@ template <class F, int D = 1>
 int launch(const F& f, int byte_size, int len, int degree, const void* partials, int blocks,
            void* state, void* buf, void* claim, void* r, void* c1, void* coeffs, int ncoef,
            int coeff_off, void* msgs, long long msg_stride, void* any_zero, const void* vinv,
-           int batch, int round, long long nbytes, int draw_next, cudaStream_t s) {
+           int batch, int round, long long nbytes, int draw_next, int warps, cudaStream_t s) {
   using W = typename F::word;
   if (degree == D) {
-    fs_tail_kernel<F, D><<<batch, 32, 0, s>>>(
+    if (warps != 1 && warps != WIDE_WARPS) return (int)cudaErrorInvalidValue;
+    auto kernel = warps == 1 ? &fs_tail_kernel<F, D, 1> : &fs_tail_kernel<F, D, WIDE_WARPS>;
+    kernel<<<batch, 32 * warps, 0, s>>>(
         f, byte_size, len, static_cast<const W*>(partials), blocks, static_cast<uint32_t*>(state),
         static_cast<uint8_t*>(buf), static_cast<W*>(claim), static_cast<W*>(r), static_cast<W*>(c1),
         static_cast<W*>(coeffs), ncoef, coeff_off, static_cast<uint8_t*>(msgs), msg_stride,
@@ -288,7 +350,7 @@ int launch(const F& f, int byte_size, int len, int degree, const void* partials,
   if constexpr (D < MAX_D) {
     return launch<F, D + 1>(f, byte_size, len, degree, partials, blocks, state, buf, claim, r, c1, coeffs,
                             ncoef, coeff_off, msgs, msg_stride, any_zero, vinv, batch, round, nbytes,
-                            draw_next, s);
+                            draw_next, warps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -320,23 +382,23 @@ __global__ void sha_chain_kernel(int n, uint32_t* out) {
 // byte_size is the serialized width of one element, len the uniform bytes
 // of one draw (17..20 for mont32, 24 for Goldilocks). degree must be 1 to
 // 8 (MAX_D). msgs is a [batch, msg_stride] byte buffer whose row b receives the
-// round's message at offset nbytes (the wrapper checks every argument
-// first).
+// round's message at offset nbytes; warps is 1 (one warp per proof) or
+// WIDE_WARPS (the wide form). The wrapper checks every argument first.
 extern "C" int ts_fs_tail_launch(int mont32, unsigned p, unsigned pinv,
                                  int byte_size, int len, int degree, const void* partials,
                                  int blocks, void* state, void* buf, void* claim, void* r,
                                  void* c1, void* coeffs, int ncoef, int coeff_off, void* msgs,
                                  long long msg_stride, void* any_zero, const void* vinv,
                                  int batch, int round, long long nbytes, int draw_next,
-                                 void* stream) {
+                                 int warps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
       mont32 ? launch(M32Ops{{p, pinv}}, byte_size, len, degree, partials, blocks, state,
                       buf, claim, r, c1, coeffs, ncoef, coeff_off, msgs, msg_stride, any_zero,
-                      vinv, batch, round, nbytes, draw_next, s)
+                      vinv, batch, round, nbytes, draw_next, warps, s)
              : launch(GlOps{}, byte_size, len, degree, partials, blocks, state, buf, claim, r, c1,
                       coeffs, ncoef, coeff_off, msgs, msg_stride, any_zero, vinv, batch, round,
-                      nbytes, draw_next, s);
+                      nbytes, draw_next, warps, s);
   return rc ? rc : (int)cudaGetLastError();
 }
 

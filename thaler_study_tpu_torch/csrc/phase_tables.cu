@@ -35,14 +35,18 @@
 // once: no atomics, exact and deterministic at any wiring; an empty run
 // writes 0.
 //
-// SHARD ROWS: the same launch writes the tables straight into the
-// sharded layout of parallel/sharded.py (row = the last n_shard variables,
-// the low n_shard bits of the MSB-first position): grid y walks a device's
-// shard rows row0..row0 + rows - 1, thread (row, col) owns plan position
-// pos = (col << n_shard) | (row0 + row) and writes out[row][col], so no
-// full-width table is built and then copied. It keeps the whole plan and
-// strides through it; the gather reads eq_r and the table whole. The
-// unsharded tables are the case n_shard = 0, one row.
+// SHARD ROWS: the same kernel writes a device's shard rows of the sharded
+// layout of parallel/sharded.py straight (row = the last n_shard
+// variables, the low n_shard bits of the MSB-first position), so no
+// full-width table is built and then copied. The plan is then the group's
+// own (gkr/circuit.phase_plan with n_shard, row0, rows): it lists only the
+// cells of rows row0 .. row0 + rows - 1, in the layout's order (row by
+// row, column by column), so position pos of the plan is word pos of the
+// [rows, 2^(k - n_shard)] outputs, and the walk is the unsharded one:
+// coalesced starts[], contiguous runs, coalesced stores (the whole plan
+// walked at a row's positions (col << n_shard) | row would read starts[]
+// at a stride of 2^n_shard words). The gathers read eq_r and the table
+// whole. The unsharded tables are the plan of one row, n_shard = 0.
 //
 // One thread per position: random wiring (the flagship circuit) has a mean
 // fan-in of 1, so a warp per position would leave 31 of 32 lanes idle on
@@ -104,9 +108,7 @@ struct Args {
   W* __restrict__ out1;
   W* __restrict__ out2;
   W one;
-  int size;     // output positions per row (2^(k - n_shard))
-  int n_shard;  // plan position = (col << n_shard) | (row0 + row)
-  int row0;
+  int size;  // the plan's positions: output words
 };
 
 // one gate's contributions to the two accumulators: e = eq_r[g], v the
@@ -129,22 +131,20 @@ __device__ __forceinline__ void contribute(const F& f, typename F::word one, typ
   }
 }
 
-// grid = (ceil(size / THREADS), rows) blocks; thread (row, col) owns plan
-// position pos and output word opos
+// grid = ceil(size / THREADS) blocks; thread pos owns plan position and
+// output word pos
 template <class F, int PHASE>
 __global__ void __launch_bounds__(THREADS) phase_tables_kernel(F f, Args<F> a) {
   using W = typename F::word;
-  const int col = blockIdx.x * THREADS + threadIdx.x;
-  const int pos = (col << a.n_shard) | (a.row0 + (int)blockIdx.y);
-  const int opos = (int)blockIdx.y * a.size + col;
+  const int pos = blockIdx.x * THREADS + threadIdx.x;
   const int lane = threadIdx.x & 31;
   int s0 = 0, s1 = 0;
-  if (col < a.size) {
+  if (pos < a.size) {
     s0 = a.starts[pos];
     s1 = a.starts[pos + 1];
   }
   const bool is_long = s1 - s0 > LONG;
-  if (col < a.size && !is_long) {
+  if (pos < a.size && !is_long) {
     typename F::Acc acc1{}, acc2{};
     for (int s = s0; s < s1; s += 2) {
       // two gates per step (the second repeats the first past the run's
@@ -157,8 +157,8 @@ __global__ void __launch_bounds__(THREADS) phase_tables_kernel(F f, Args<F> a) {
       contribute<F, PHASE>(f, a.one, e0, v0, w0 < 0, acc1, acc2);
       if (t != s) contribute<F, PHASE>(f, a.one, e1, v1, w1 < 0, acc1, acc2);
     }
-    a.out1[opos] = f.acc_reduce(acc1);
-    a.out2[opos] = f.acc_reduce(acc2);
+    a.out1[pos] = f.acc_reduce(acc1);
+    a.out2[pos] = f.acc_reduce(acc2);
   }
   // long runs: one at a time, by the whole warp
   unsigned pending = __ballot_sync(0xffffffffu, is_long);
@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(THREADS) phase_tables_kernel(F f, Args<F> a) {
     pending &= pending - 1;
     const int c0 = __shfl_sync(0xffffffffu, s0, src);
     const int c1 = __shfl_sync(0xffffffffu, s1, src);
-    const int cpos = __shfl_sync(0xffffffffu, opos, src);
+    const int cpos = __shfl_sync(0xffffffffu, pos, src);
     typename F::Acc acc1{}, acc2{};
     for (int s = c0 + lane; s < c1; s += 32) {
       const int w = a.packed[s];
@@ -188,16 +188,13 @@ __global__ void __launch_bounds__(THREADS) phase_tables_kernel(F f, Args<F> a) {
 
 template <class F>
 int launch(const F& f, int phase, const void* order, const void* starts, const void* packed, const void* eq_r,
-           const void* table, void* out1, void* out2, int size, int n_shard, int row0, int rows,
-           typename F::word one, cudaStream_t stream) {
+           const void* table, void* out1, void* out2, int size, typename F::word one, cudaStream_t stream) {
   using W = typename F::word;
   Args<F> a{static_cast<const int*>(order), static_cast<const int*>(starts), static_cast<const int*>(packed),
             static_cast<const W*>(eq_r),    static_cast<const W*>(table),    static_cast<W*>(out1),
-            static_cast<W*>(out2),          one,                             size,
-            n_shard,                        row0};
-  if (rows < 1 || rows > 65535 || n_shard < 0 || row0 < 0 || row0 + rows > (1 << n_shard))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((size + THREADS - 1) / THREADS, rows);
+            static_cast<W*>(out2),          one,                             size};
+  if (size < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (size + THREADS - 1) / THREADS;
   if (phase == 1)
     phase_tables_kernel<F, 1><<<grid, THREADS, 0, stream>>>(f, a);
   else if (phase == 2)
@@ -212,19 +209,16 @@ int launch(const F& f, int phase, const void* order, const void* starts, const v
 // Returns cudaGetLastError() after the launch (0 = launched). mont32 = 0
 // takes Goldilocks int64 words; mont32 = 1 takes Montgomery words of the
 // field with modulus p < 2^31 and pinv = -p^-1 mod 2^32. order, starts and
-// packed are the int32 arrays of a gkr/circuit.PhasePlan over 2^k
-// positions; out1 and out2 hold rows x size words each, size = 2^(k -
-// n_shard), row i holding shard row row0 + i in position order (n_shard =
-// 0, row0 = 0, rows = 1: the whole tables). The wrapper checks every
-// argument first.
+// packed are the int32 arrays of a gkr/circuit.PhasePlan over size
+// positions (2^k for the whole tables; rows x 2^(k - n_shard) for a group
+// of shard rows); out1 and out2 receive size words each, in the plan's
+// position order. The wrapper checks every argument first.
 extern "C" int ts_phase_tables_launch(int mont32, unsigned p, unsigned pinv, int phase, const void* order,
                                       const void* starts, const void* packed, const void* eq_r, const void* table,
-                                      void* out1, void* out2, int size, int n_shard, int row0, int rows,
-                                      void* stream) {
+                                      void* out1, void* out2, int size, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = mont32 ? launch(M32Ops{{p, pinv}}, phase, order, starts, packed, eq_r, table, out1, out2, size,
-                                 n_shard, row0, rows, (uint32_t)((1ull << 32) % p), s)
-                        : launch(GlOps{}, phase, order, starts, packed, eq_r, table, out1, out2, size, n_shard,
-                                 row0, rows, (uint64_t)1, s);
+                                 (uint32_t)((1ull << 32) % p), s)
+                        : launch(GlOps{}, phase, order, starts, packed, eq_r, table, out1, out2, size, (uint64_t)1, s);
   return rc ? rc : (int)cudaGetLastError();
 }

@@ -14,7 +14,8 @@ Two evaluation paths:
   exact), over wiring uploaded once per circuit and device and cached.
 
 The wiring arrays (``_wiring``) and their device copies with the static
-plans of the phase-table scatter-adds (``device_wiring``) are what the
+plans of the phase-table scatter-adds (``device_wiring``; a plan per
+phase and group of shard rows, made at first use) are what the
 LibraW prover and the sparse verifier read; ``add_i_ext`` / ``mul_i_ext``
 build the dense-W prover's wiring tables from them.
 """
@@ -71,30 +72,44 @@ class CircuitEvaluation:
 
 @dataclasses.dataclass
 class PhasePlan:
-    """The static plan of one phase-table scatter-add (kernel K2), in the
-    tables' output order: ``order`` (int32 [g]) lists the gates so that
-    those of output position ``pos`` = bitrev_k(key) are contiguous, in
-    ascending pos; ``starts`` (int32 [2^k + 1]) is the first listed
-    position of each pos; ``packed`` (int32 [g]) is the gather index of
-    gate ``order[s]`` with its type in bit 31 (1 = MUL). It depends only on
-    the circuit, so it is made once per circuit and device."""
+    """The static plan of one phase-table scatter-add (kernel K2) over a
+    group of shard rows, in the order the tables are laid out: ``order``
+    (int32 [g']) lists the group's g' gates so that those of output
+    position ``pos`` are contiguous, in ascending pos (and ascending gate
+    within a pos); ``starts`` (int32 [positions + 1]) is the first listed
+    position of each pos; ``packed`` (int32 [g']) is the gather index of
+    gate ``order[s]`` with its type in bit 31 (1 = MUL). A cell at
+    MSB-first position x = bitrev_k(key) lies in shard row x mod 2^n_shard
+    at column x >> n_shard (``parallel/sharded.py``'s layout), and the
+    group's rows row0 .. row0 + rows - 1 are listed row by row: pos =
+    (row - row0) 2^(k - n_shard) + column. The unsharded plan is n_shard =
+    0, one row (pos = x). It depends only on the circuit, so it is made
+    once per circuit, device and group."""
 
     order: torch.Tensor
     starts: torch.Tensor
     packed: torch.Tensor
 
 
-@dataclasses.dataclass
 class LayerWiring:
     """One layer's wiring on a device: input labels, gate types, and the
-    plans of the two phase-table scatter-adds: phase 1 keyed on b and
-    gathering at c, phase 2 keyed on c and gathering at b."""
+    plans of the two phase-table scatter-adds (phase 1 keyed on b and
+    gathering at c, phase 2 keyed on c and gathering at b), each made at
+    its first use per group of shard rows (:meth:`plan`)."""
 
-    b: torch.Tensor  # int32 [g]
-    c: torch.Tensor  # int32 [g]
-    is_mul: torch.Tensor  # bool [g]
-    plan1: PhasePlan
-    plan2: PhasePlan
+    def __init__(self, b: torch.Tensor, c: torch.Tensor, is_mul: torch.Tensor, k: int):
+        self.b, self.c, self.is_mul, self.k = b, c, is_mul, k  # int32 [g], int32 [g], bool [g]
+        self._plans = {}
+
+    def plan(self, phase: int, n_shard: int = 0, row0: int = 0, rows: int = 1) -> PhasePlan:
+        """The :class:`PhasePlan` of ``phase`` over shard rows row0 ..
+        row0 + rows - 1 of 2^n_shard (the whole table by default)."""
+        key = (phase, n_shard, row0, rows)
+        plan = self._plans.get(key)
+        if plan is None:
+            key_t, gidx = (self.b, self.c) if phase == 1 else (self.c, self.b)
+            plan = self._plans[key] = phase_plan(key_t, gidx, self.is_mul, self.k, n_shard, row0, rows)
+        return plan
 
 
 def scan_plan(idx: torch.Tensor, size: int):
@@ -111,24 +126,32 @@ def scan_plan(idx: torch.Tensor, size: int):
     return order, starts.to(torch.int32)
 
 
-def phase_plan(key: torch.Tensor, gather_idx: torch.Tensor, is_mul: torch.Tensor, k: int) -> PhasePlan:
+def phase_plan(key: torch.Tensor, gather_idx: torch.Tensor, is_mul: torch.Tensor, k: int, n_shard: int = 0,
+               row0: int = 0, rows: int = 1) -> PhasePlan:
     """The :class:`PhasePlan` of a scatter-add keyed on ``key`` over 2^k
-    cells (labels < 2^k <= 2^30): :func:`scan_plan` keyed on bitrev_k(key),
-    and the gather index and gate type permuted into its order."""
+    cells (labels < 2^k <= 2^30) for shard rows row0 .. row0 + rows - 1 of
+    2^n_shard: the gates whose cell lies in those rows, :func:`scan_plan`
+    keyed on their position in the group's layout, and the gather index and
+    gate type permuted into its order."""
+    if not 0 <= n_shard <= k or rows < 1 or not 0 <= row0 <= (1 << n_shard) - rows:
+        raise ValueError(f"rows {row0}..{row0 + rows - 1} are not shard rows of 2^{n_shard} over {k} variables")
     key = key.to(torch.int64)
-    pos = torch.zeros_like(key)
+    x = torch.zeros_like(key)
     for j in range(k):
-        pos |= ((key >> j) & 1) << (k - 1 - j)
-    order, starts = scan_plan(pos, 1 << k)
-    idx = order.to(torch.int64)
+        x |= ((key >> j) & 1) << (k - 1 - j)
+    row = (x & ((1 << n_shard) - 1)) - row0
+    gates = torch.nonzero((row >= 0) & (row < rows)).reshape(-1)
+    pos = (row[gates] << (k - n_shard)) | (x[gates] >> n_shard)
+    order, starts = scan_plan(pos, rows << (k - n_shard))
+    idx = gates[order.to(torch.int64)]
     packed = gather_idx.to(torch.int64)[idx] - (is_mul[idx].to(torch.int64) << 31)  # bit 31 of the int32
-    return PhasePlan(order, starts, packed.to(torch.int32))
+    return PhasePlan(idx.to(torch.int32), starts, packed.to(torch.int32))
 
 
 def layer_wiring(b: torch.Tensor, c: torch.Tensor, is_mul: torch.Tensor, k: int) -> LayerWiring:
     """A :class:`LayerWiring` on the tensors' device (b, c int32 labels
     below 2^k, is_mul bool)."""
-    return LayerWiring(b, c, is_mul, phase_plan(b, c, is_mul, k), phase_plan(c, b, is_mul, k))
+    return LayerWiring(b, c, is_mul, k)
 
 
 class Circuit:
@@ -178,8 +201,8 @@ class Circuit:
         return CircuitEvaluation(layers)
 
     def device_wiring(self, i: int, device) -> LayerWiring:
-        """Layer i's wiring on ``device``, uploaded (and its phase plans
-        made) once per circuit and device."""
+        """Layer i's wiring on ``device``, uploaded once per circuit and
+        device (its phase plans are made at their first use)."""
         dev = torch.device(device)
         key = (i, dev.type, dev.index)
         w = self._dev_wiring.get(key)

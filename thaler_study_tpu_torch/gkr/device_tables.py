@@ -22,10 +22,12 @@ JAX package's ``lsb_to_msb``). The kernel reads the layer's static plan
 index and type packed in that order), so it writes each output position
 once, in order; its plain version, :func:`phase_tables_plain`, scatters
 by the key itself with ``index_add_`` over 32-bit halves and then bit
-reverses, so the two agree only if the plan is right. The same launch
+reverses, so the two agree only if the plan is right. The same kernel
 writes a device's shard rows of the sharded layout straight
-(:func:`phase_tables_rows`, grid y = the rows; plain version
-:func:`phase_tables_rows_plain`), for the sharded fused GKR prover.
+(:func:`phase_tables_rows`, for the sharded fused GKR prover; plain
+version :func:`phase_tables_rows_plain`): it walks the plan of that
+group of rows, which lists the rows' cells in the layout's order, so the
+rows are one contiguous range of positions, as the whole table is.
 
 Two more builders have kernels of their own, ``csrc/gkr_tables.cu``:
 
@@ -88,8 +90,7 @@ def _kernel():
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int]
             + [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 4
-            + [ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -412,7 +413,7 @@ def _scatter_add_mod(key: torch.Tensor, vals: FArray, size: int) -> FArray:
     return FArray((s % vals.field.p).to(torch.int32), vals.field)
 
 
-def _check(phase, wiring, eq_r: FArray, table: FArray, k: int):
+def _check(phase, wiring, eq_r: FArray, table: FArray, k: int) -> None:
     g = wiring.b.shape[0]
     dev = eq_r.device
     dtype = word_dtype(eq_r.field)
@@ -422,14 +423,11 @@ def _check(phase, wiring, eq_r: FArray, table: FArray, k: int):
         raise ValueError("eq_r and the gathered table must be FArrays of one field")
     if table.data.dim() != 1 or table.shape[0] < 1 << k:
         raise ValueError(f"the gathered table must hold the 2^{k} values the labels index")
-    plan = wiring.plan1 if phase == 1 else wiring.plan2
     want = [(wiring.b, torch.int32, (g,)), (wiring.c, torch.int32, (g,)), (wiring.is_mul, torch.bool, (g,)),
-            (plan.order, torch.int32, (g,)), (plan.starts, torch.int32, ((1 << k) + 1,)),
-            (plan.packed, torch.int32, (g,)), (eq_r.data, dtype, (g,)), (table.data, dtype, (table.shape[0],))]
+            (eq_r.data, dtype, (g,)), (table.data, dtype, (table.shape[0],))]
     for t, dt, shape in want:
         if t.dtype != dt or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
             raise ValueError(f"phase_tables: expected a contiguous {dt} {shape} tensor on {dev}")
-    return plan
 
 
 def phase_tables(phase: int, wiring, eq_r: FArray, table: FArray, k: int) -> Tuple[FArray, FArray]:
@@ -437,18 +435,18 @@ def phase_tables(phase: int, wiring, eq_r: FArray, table: FArray, k: int) -> Tup
     cells in internal MSB-first order.
 
     ``wiring``: the layer's ``circuit.LayerWiring`` (phase 1 keys on b and
-    gathers at c with ``plan1``, phase 2 keys on c and gathers at b with
-    ``plan2``); ``eq_r``: eq(r_i, g) over the layer's gates; ``table``: W
-    in label order (phase 1) or eq_u (phase 2). CPU tensors take
+    gathers at c, phase 2 keys on c and gathers at b, each over its plan);
+    ``eq_r``: eq(r_i, g) over the layer's gates; ``table``: W in label
+    order (phase 1) or eq_u (phase 2). CPU tensors take
     :func:`phase_tables_plain`; CUDA tensors launch kernel K2 or raise."""
     eq_r = eq_r[: wiring.b.shape[0]] if eq_r.shape[0] != wiring.b.shape[0] else eq_r
-    plan = _check(phase, wiring, eq_r, table, k)
+    _check(phase, wiring, eq_r, table, k)
     dev = eq_r.device
     if dev.type == "cpu":
         key, gidx = (wiring.b, wiring.c) if phase == 1 else (wiring.c, wiring.b)
         return phase_tables_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k)
     _check_cuda("phase_tables", dev)
-    out1, out2 = _launch(phase, plan, eq_r, table, k, 0, 0, 1)
+    out1, out2 = _launch(phase, wiring.plan(phase), eq_r, table, 1, 1 << k)
     launches[eq_r.field.backend] += 1
     return FArray(out1.reshape(-1), eq_r.field), FArray(out2.reshape(-1), eq_r.field)
 
@@ -461,35 +459,38 @@ def phase_tables_rows(phase: int, wiring, eq_r: FArray, table: FArray, k: int, n
     [rows, 2^(k - n_shard)] each, entry [i, j] the cell at position
     (j << n_shard) | (row0 + i). ``eq_r`` and ``table`` are whole (the gates
     of a row may gather anywhere), on the device the rows go to. CPU tensors
-    take :func:`phase_tables_rows_plain`; CUDA tensors launch K2 once, grid
-    y over the rows, or raise."""
+    take :func:`phase_tables_rows_plain`; CUDA tensors launch K2 once over
+    the group's plan (``wiring.plan(phase, n_shard, row0, rows)``, made at
+    the first call: its positions are the rows' words in order) or
+    raise."""
     if not 0 <= n_shard <= k or rows < 1 or not 0 <= row0 <= (1 << n_shard) - rows:
         raise ValueError(f"rows {row0}..{row0 + rows - 1} are not shard rows of 2^{n_shard} over {k} variables")
     eq_r = eq_r[: wiring.b.shape[0]] if eq_r.shape[0] != wiring.b.shape[0] else eq_r
-    plan = _check(phase, wiring, eq_r, table, k)
+    _check(phase, wiring, eq_r, table, k)
     dev = eq_r.device
     if dev.type == "cpu":
         key, gidx = (wiring.b, wiring.c) if phase == 1 else (wiring.c, wiring.b)
         return phase_tables_rows_plain(phase, key, gidx, wiring.is_mul, eq_r, table, k, n_shard, row0, rows)
     _check_cuda("phase_tables_rows", dev)
-    out1, out2 = _launch(phase, plan, eq_r, table, k, n_shard, row0, rows)
+    out1, out2 = _launch(phase, wiring.plan(phase, n_shard, row0, rows), eq_r, table, rows, 1 << (k - n_shard))
     rows_launches[eq_r.field.backend] += 1
     return FArray(out1, eq_r.field), FArray(out2, eq_r.field)
 
 
-def _launch(phase, plan, eq_r: FArray, table: FArray, k: int, n_shard: int, row0: int, rows: int):
-    """K2 on the card over shard rows (checked arguments): two [rows,
-    2^(k - n_shard)] tensors."""
-    if rows > 65535:
-        raise ValueError("K2 takes at most 65535 shard rows per launch")
+def _launch(phase: int, plan, eq_r: FArray, table: FArray, rows: int, cols: int):
+    """K2 on the card over a plan of rows x cols positions (checked
+    arguments): two [rows, cols] tensors, position i at word i."""
     dev, field = eq_r.device, eq_r.field
-    size = 1 << (k - n_shard)
-    out1 = torch.empty((rows, size), dtype=word_dtype(field), device=dev)
+    size = rows * cols
+    if (plan.starts.shape != (size + 1,) or plan.order.shape != plan.packed.shape
+            or plan.order.shape[0] > eq_r.shape[0]):
+        raise ValueError(f"phase_tables: the plan does not fit {size} positions of {eq_r.shape[0]} gates")
+    out1 = torch.empty((rows, cols), dtype=word_dtype(field), device=dev)
     out2 = torch.empty_like(out1)
     with torch.cuda.device(dev):
         rc = _kernel()(
             *_field_args(field), phase, plan.order.data_ptr(), plan.starts.data_ptr(), plan.packed.data_ptr(),
-            eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size, n_shard, row0, rows,
+            eq_r.data.data_ptr(), table.data.data_ptr(), out1.data_ptr(), out2.data_ptr(), size,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -80,6 +80,8 @@ from .sha_chain import DevChain, absorb_py, draw_py, len_in_bytes
 launches = {"goldilocks": 0, "mont32": 0}
 
 MAX_DEGREE = 8  # csrc/fs_tail.cu MAX_D
+WIDE_WARPS = 8  # csrc/fs_tail.cu WIDE_WARPS
+WIDE_ROWS = 256  # the tail sums more partial rows per proof than this with WIDE_WARPS warps
 
 _lib = None
 
@@ -94,7 +96,7 @@ def _library():
             + [ctypes.c_void_p] * 6
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
             + [ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p]
         )
         lib.ts_fs_tail_launch.restype = ctypes.c_int
@@ -199,6 +201,16 @@ def _check_tail(field, partials, chain, claim, r, c1, coeffs, msgs, any_zero, vi
         raise ValueError("msgs must be contiguous and on the partials' device")
 
 
+def tail_warps(blocks: int) -> int:
+    """The FS tail kernel's warps per proof for ``blocks`` partial rows: one
+    warp (the batch's tails: a few dozen rows per proof), or the wide form's
+    ``WIDE_WARPS`` above ``WIDE_ROWS`` rows (the sharded prover's S x blocks
+    rows), whose warps sum the rows together before warp 0 runs the rest.
+    ``WIDE_ROWS`` is where the wide form stops losing to one warp over
+    Goldilocks on an H100 (``scripts/triangle_times.py --fs-tail``)."""
+    return WIDE_WARPS if blocks > WIDE_ROWS else 1
+
+
 def fs_tail(
     partials: torch.Tensor,
     chain: DevChain,
@@ -223,7 +235,8 @@ def fs_tail(
     [B, blocks, d+1]; ``vinv``: :func:`interp_tensor`. Field-valued tensors
     hold ``field``'s words (``word_dtype``): ``claim`` and ``r`` in the
     round kernel's domain, ``c1`` and ``coeffs`` canonical.
-    CPU tensors run :func:`fs_tail_plain`; CUDA tensors the kernel."""
+    CPU tensors run :func:`fs_tail_plain`; CUDA tensors the kernel, in the
+    form :func:`tail_warps` picks from the row count."""
     _check_tail(field, partials, chain, claim, r, c1, coeffs, msgs, any_zero, vinv, round_idx, coeff_off)
     batch, blocks, d1 = partials.shape
     dev = partials.device
@@ -259,6 +272,7 @@ def fs_tail(
                 round_idx,
                 chain.nbytes,
                 int(draw),
+                tail_warps(blocks),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
