@@ -128,8 +128,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    batch round kernel at k = 1..8 (Goldilocks, BabyBear, F5; fold and
    skip-1 on and off; N = 2^2 to 2^16, B = 1, 3, 64; random words and
    words at p - 1), the FS tail at degrees 1 and 4..8 over the five fields
-   at every fill, and the Merkle kernel at 1 to 2^16 leaves of 1, 2, 3 and
-   8 bytes against ``hashlib``, every level;
+   at every fill, and the Merkle kernel at 1 to 2^17 leaves of 1, 2, 3, 4
+   and 8 bytes (each stage of its one launch) against ``hashlib``, every
+   level;
 3. each path at full size, with the launch counts set to 0 just before it
    and read just after: per field, instances 0 and B - 1 byte-identical to
    the plain path on CPU copies, accepted by the verifier and rejected when
@@ -189,9 +190,10 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    triangle proof through ``generate_transcript_device`` in turns with
    ``prove_triangle_count``, the PCS commit split (``evaluate_many``, leaf
    bytes, the tree's kernels, the whole ``MerkleTree``) and the Merkle build at 2^22
-   Goldilocks and 2^18 F389 leaves against the larger of its operations
-   bound (SASS instructions per thread from ``cuobjdump -sass``) and its
-   bytes bound;
+   Goldilocks and 2^18 F389 leaves against the largest of its operations
+   bound (the pinned SASS instructions per hash,
+   ``MERKLE_SASS_PER_HASH``), its depth floor (1 + 2 log2 n compressions
+   in series) and its bytes bound, with the kernel's own SASS by pipe;
    slice 13 (phases 2-5 in ``sharded_slice``, the GKR part in
    ``sharded_gkr`` on the flagship): the batched tensor-core matmul (grid y
    = the shard) at the 4096-node sharded triangle's per-shard shapes (X
@@ -1525,15 +1527,32 @@ DST16 = b"chip-smoke-dst16"  # a 16-byte domain-separation tag
 # H100 SXM: 4 warp schedulers x 32 lanes issue 128 lane-instructions per
 # clock per SM, 132 SMs
 LANE_INSTRUCTIONS_PER_CLOCK = 128 * 132
+# The Merkle build's work, whatever implements it: the SASS instructions one
+# thread issues for a leaf hash (one compression) and for a node hash (two),
+# counted in the per-level form of csrc/merkle.cu (leaf_kernel, node_kernel:
+# one hash a thread, no loop) that the one-launch build replaced
+MERKLE_SASS_PER_HASH = {"leaf": 1480, "node": 2764}
+# the integer pipe's SASS (16 lanes a clock per sub-partition on sm_90) and
+# IMAD's (the FMA pipe's), against the rest
+SASS_PIPES = {"IMAD": ("IMAD",), "LOP3/SHF/IADD3/PRMT": ("LOP3", "SHF", "IADD3", "PRMT")}
 
 
-def sass_instructions(lib: str, kernel: str) -> int:
-    """The SASS instructions (NOPs left out) of ``kernel`` in ``lib``: for a
-    kernel with no loop, what one thread issues."""
+def sass_pipes(lib: str, kernel: str) -> dict:
+    """The SASS instructions (NOPs left out) of the first function in
+    ``lib`` whose name holds ``kernel``, counted by :data:`SASS_PIPES`'
+    groups and "other"; for a kernel with no loop, what one thread
+    issues."""
     import re
 
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass_functions(lib, kernel)[0])
-    return sum(not op.startswith("NOP") for op in ops)
+    out = {name: 0 for name in SASS_PIPES}
+    out["other"] = 0
+    for op in ops:
+        if op.startswith("NOP"):
+            continue
+        group = next((name for name, heads in SASS_PIPES.items() if op.split(".")[0] in heads), "other")
+        out[group] += 1
+    return out
 
 
 def compressions(nbytes, m, draw):
@@ -1676,12 +1695,14 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
             "every fill 0..63, round 0 / middle / last, transcript bytes, one proof with zero coefficients")
 
     # ---- phase 2: the Merkle build ------------------------------------------
-    # n = 1, 2, 64, 2^10, 2^16 leaves of 1 (F5), 2 (F389), 3 (F1572869) and
-    # 8 (Goldilocks) bytes: every level equal to the hashlib build
+    # leaves of 1 (F5), 2 (F389), 3 (F1572869), 4 and 8 (Goldilocks) bytes,
+    # every level equal to the hashlib build, at n = 1, 2, one block's 64
+    # leaves, twice it (the top takes over), 2^13 (every block of the top),
+    # 2^16 (blocks of THREADS threads) and 2^17 (each thread over 2 leaves)
     nrng = np.random.default_rng(seed + 12)
     checks = 0
-    for byte_size in (1, 2, 3, 8):
-        for size in (1, 2, 64, 1 << 10, 1 << 16):
+    for byte_size in (1, 2, 3, 4, 8):
+        for size in (1, 2, 64, 128, 1 << 13, 1 << 16, 1 << 17):
             vals = nrng.integers(0, 256, size=(size, byte_size), dtype=np.uint8)
             vals[0] = 255
             got = merkle_kernel.build_tree_device(vals, dev)
@@ -1690,8 +1711,8 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
                 raise AssertionError(f"Merkle kernel != hashlib: {size} leaves of {byte_size} bytes")
             checks += 1
     err[("merkle", "goldilocks")] = err[("merkle", "mont32")] = 0
-    log(f"Merkle kernel == hashlib (every level, exact) in {checks} cases: 1, 2, 64, 2^10, 2^16 leaves of 1, 2, 3 "
-        "and 8 bytes")
+    log(f"Merkle kernel == hashlib (every level, exact) in {checks} cases: 1, 2, 64, 128, 2^13, 2^16, 2^17 leaves "
+        f"(plans {[tuple(merkle_kernel.plan(1 << k)) for k in (6, 7, 13, 16, 17)]}) of 1, 2, 3, 4 and 8 bytes")
 
     # ---- phase 3: the batched prover with a non-empty DST -------------------
     field = GOLDILOCKS
@@ -2030,13 +2051,16 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
         f"parameters included); relaxed PCS over F5, m = 2 ({len(pprover.values)} leaves): commit {ped_s:.2f} s, accepted")
 
     # ---- phase 4: the Merkle build at 2^merkle_log leaves ---------------------
+    # its work is the pinned SASS per hash (MERKLE_SASS_PER_HASH), whatever
+    # implements it; its depth floor one leaf hash and log2(n) node hashes in
+    # series, compress_ms each compression
     rows = []
     lib = str(_build._library_path("merkle")) if dev.type == "cuda" else None
     try:
-        sass = {name: sass_instructions(lib, name) for name in ("leaf_kernel", "node_kernel")} if lib else None
+        pipes = sass_pipes(lib, "build_kernel") if lib else None
         clock_mhz = max_sm_clock_mhz()
     except (OSError, subprocess.CalledProcessError, AssertionError) as e:
-        raise AssertionError(f"cannot count the Merkle kernels' SASS or read the clock: {e}")
+        raise AssertionError(f"cannot count the Merkle kernel's SASS or read the clock: {e}")
     for field, log_n in ((GOLDILOCKS, merkle_log), (F389, 18)):
         bs = field.byte_size
         size = 1 << log_n
@@ -2064,19 +2088,22 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
         n_comp = size + 2 * (size - 1)
         nbytes = size * bs + (2 * size - 1) * 32 + (2 * size - 2) * 32
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        if sass:
-            ins = size * sass["leaf_kernel"] + (size - 1) * sass["node_kernel"]
-            ops_ms = ins / (LANE_INSTRUCTIONS_PER_CLOCK * clock_mhz * 1e6) * 1e3
-        else:
-            ins, ops_ms = 0, 0.0
-        bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        ins = size * MERKLE_SASS_PER_HASH["leaf"] + (size - 1) * MERKLE_SASS_PER_HASH["node"]
+        ops_ms = ins / (LANE_INSTRUCTIONS_PER_CLOCK * clock_mhz * 1e6) * 1e3
+        floor_ms = compress_ms * (1 + 2 * log_n)
+        bound, by, src = max((ops_ms, "operations", "operations rate"), (floor_ms, "operations", "depth floor"),
+                             (bytes_ms, "bytes", "bytes"))
+        per_sm = ins / (ms * 1e-3 * clock_mhz * 1e6 * 132)
         name = "merkle_goldilocks" if field is GOLDILOCKS else "merkle_mont32"
-        timing[("merkle", field.backend)] = (ms, plain_ms, bound, by, count)
-        log(f"Merkle build, 2^{log_n} leaves of {bs} bytes ({field.name}; {n_comp} compressions): {ms:.4f} ms "
-            f"from a CUDA graph ({count} launches), operations bound {ops_ms:.4f} ms ({ins} lane-instructions: "
-            f"SASS per thread {sass} at {LANE_INSTRUCTIONS_PER_CLOCK} per clock, {clock_mhz:.0f} MHz), bytes bound "
-            f"{bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB); {bound / ms:.1%} of the {by} bound; every level == hashlib "
-            f"at 2^{check_log}, the root at 2^{log_n}; plain (hashlib) {plain_ms:.1f} ms {tag}")
+        timing[("merkle", field.backend)] = (ms, plain_ms, bound, by, count, floor_ms, src)
+        log(f"Merkle build, 2^{log_n} leaves of {bs} bytes ({field.name}; {n_comp} compressions; plan "
+            f"{tuple(merkle_kernel.plan(size))}): {ms:.4f} ms from a CUDA graph, launches per build {count}, "
+            f"{per_sm:.1f} lane-instructions per clock per SM achieved; operations bound {ops_ms:.4f} ms ({ins} "
+            f"lane-instructions: pinned SASS per hash {MERKLE_SASS_PER_HASH} at {LANE_INSTRUCTIONS_PER_CLOCK} per "
+            f"clock, {clock_mhz:.0f} MHz; build_kernel's own SASS by pipe {pipes}), depth floor {floor_ms:.4f} ms "
+            f"({1 + 2 * log_n} compressions of {compress_ms * 1e6:.1f} ns), bytes bound {bytes_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB); {bound / ms:.1%} of the {src} bound; every level == hashlib at 2^{check_log}, "
+            f"the root at 2^{log_n}; plain (hashlib) {plain_ms:.1f} ms {tag}")
         del vals, tree, small, plain
     sync()
 
@@ -2104,11 +2131,11 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
             row["latency_floor_ms"] = floor[0]
         rows.append(row)
     for backend in ("goldilocks", "mont32"):
-        ms, plain_ms, bound_ms, by, count = timing[("merkle", backend)]
+        ms, plain_ms, bound_ms, by, count, floor_ms, src = timing[("merkle", backend)]
         rows.append({"name": f"merkle_{backend}", "route": "cuda", "source": "thaler_study_tpu_torch/csrc/merkle.cu",
                      "replaces": "thaler_study_tpu/ops/merkle_kernel.py:107", "launches": count,
                      "max_abs_err": err[("merkle", backend)], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": by, "library_ms": None})
+                     "bound_by": by, "bound_from": src, "latency_floor_ms": floor_ms, "library_ms": None})
     return rows
 
 

@@ -4,7 +4,7 @@
 Usage, on a machine with a card:
 
     python3 scripts/triangle_times.py [--root DIR] [--device-proofs] [--sharded-fs N] [--mb-shapes]
-                                      [--k2-rows LOG] [--fs-tail ROWS] [--dispatch] [--no-api]
+                                      [--k2-rows LOG] [--fs-tail ROWS] [--dispatch] [--merkle] [--no-api]
 
 Imports ``thaler_study_tpu_torch`` from ``--root`` (default: this checkout),
 so that two checkouts, such as a commit and its parent, can be timed in
@@ -50,6 +50,18 @@ part:
   product over 2^22 (``bench.py``'s shape) through
   ``generate_transcripts_batch``, both fields: one warm dispatch, then 5
   timed (host clock, each ending in its host read).
+- ``--merkle``: the Merkle build (``merkle_kernel.build_tree``) over
+  ``chip_smoke.py``'s trees, 2^22 leaves of 8 bytes and 2^18 of 2 (random
+  bytes, seed 42), timed from CUDA graphs twice; every level of the 2^18
+  tree held against ``hashlib``, and the SHA-256 of each whole tree
+  printed (equal across checkouts); beside it the checkout's launches split:
+  each launch of the build alone from a CUDA graph (a checkout with one
+  launch per node level: the leaf level, each node level, the top block),
+  the lane-instructions per clock per SM achieved (``chip_smoke``'s pinned
+  SASS per hash) on the leaf launch, the largest node launch and the whole
+  build, the SASS of each of the library's kernels by pipe
+  (``chip_smoke.sass_pipes``), and the depth floor (1 + 2 log2 n
+  compressions at one thread's compression latency, ``fs_kernel.sha_chain``).
 
 Proofs in turns: 5 timed runs each after one warm run, medians in ms.
 Prints one JSON line, with the card's name and power limit; exits 1
@@ -128,6 +140,85 @@ def ptxas_of(log: str, kernel: str) -> dict:
     return {k: "; ".join(v) for k, v in out.items()}
 
 
+def merkle_times(smoke, dev, sync) -> dict:
+    """``--merkle``: the build at both trees, its launches split, the SASS
+    by pipe, the depth floor (module docstring)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from thaler_study_tpu_torch import _build
+    from thaler_study_tpu_torch.ops import fs_kernel, merkle_kernel
+
+    clock_hz = smoke.max_sm_clock_mhz() * 1e6
+    leaf_ins, node_ins = smoke.MERKLE_SASS_PER_HASH["leaf"], smoke.MERKLE_SASS_PER_HASH["node"]
+
+    def per_clock_sm(ins, ms):
+        return ins / (ms * 1e-3 * clock_hz * 132)
+
+    chain = torch.empty(8, dtype=torch.int32, device=dev)
+    chain_ms = {}
+    for c in (1024, 2048):
+        fs_kernel.sha_chain(c, chain)
+        sync()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            fs_kernel.sha_chain(c, chain)
+        b.record()
+        sync()
+        chain_ms[c] = a.elapsed_time(b) / 5
+    compress_ms = (chain_ms[2048] - chain_ms[1024]) / 1024
+    lib = merkle_kernel._library()
+    path = str(_build._library_path("merkle"))
+    kernels = [k for k in ("leaf_kernel", "node_kernel", "top_kernel", "build_kernel")
+               if hasattr(lib, "ts_merkle_build_launch") == (k == "build_kernel")]
+    out = {"compress_ns": compress_ms * 1e6, "clock_mhz": clock_hz / 1e6,
+           "sass_by_pipe": {k: smoke.sass_pipes(path, k) for k in kernels}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for log_n, bs in ((22, 8), (18, 2)):
+        n = 1 << log_n
+        vals = torch.randint(0, 256, (n, bs), generator=gen, device=dev, dtype=torch.int64).to(torch.uint8)
+        tree = merkle_kernel.build_tree(vals)
+        words = tree.cpu().numpy()
+        if log_n == 18:
+            want = merkle_kernel.build_tree_plain(vals.cpu().numpy())
+            if any(not np.array_equal(a, b) for a, b in zip(merkle_kernel.split_levels(words), want)):
+                raise AssertionError(f"Merkle build at 2^{log_n} leaves: a level != hashlib")
+        ins = n * leaf_ins + (n - 1) * node_ins
+        ms = [graph_ms(lambda: merkle_kernel.build_tree(vals), sync, 5) for _ in range(2)]
+        row = {"ms": ms, "tree_sha256": hashlib.sha256(words.tobytes()).hexdigest(),
+               "depth_floor_ms": compress_ms * (1 + 2 * log_n),
+               "lane_instructions_per_clock_per_sm": per_clock_sm(ins, min(ms))}
+        def stream():  # the capturing stream inside a graph capture
+            return torch.cuda.current_stream(dev).cuda_stream
+
+        if hasattr(lib, "ts_merkle_build_launch"):  # one launch: the build is its split
+            row["launches"] = {"build": min(ms)}
+        else:  # a launch per node level of more than TOP nodes, then the top block
+            split, off = {}, 0
+            split[f"leaf {n}"] = graph_ms(lambda: lib.ts_merkle_leaf_launch(vals.data_ptr(), bs, n, tree.data_ptr(),
+                                                                            stream()), sync)
+            for m in merkle_kernel.level_sizes(n)[1:]:
+                if m <= merkle_kernel.TOP:
+                    split[f"top {m}"] = graph_ms(lambda: lib.ts_merkle_top_launch(tree[off].data_ptr(), m, stream()),
+                                                 sync)
+                    break
+                split[f"node {m}"] = graph_ms(lambda: lib.ts_merkle_node_launch(
+                    tree[off].data_ptr(), m, tree[off + 2 * m].data_ptr(), stream()), sync)
+                off += 2 * m
+            row["launches"] = split
+            row["leaf_lane_instructions_per_clock_per_sm"] = per_clock_sm(n * leaf_ins, split[f"leaf {n}"])
+            row["node_lane_instructions_per_clock_per_sm"] = per_clock_sm(n // 2 * node_ins, split[f"node {n // 2}"])
+            if not torch.equal(tree, merkle_kernel.build_tree(vals)):
+                raise AssertionError("the split's launches changed the tree")
+        out[f"2^{log_n} x {bs} bytes"] = row
+        del vals, tree
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout to import")
@@ -141,6 +232,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fs-tail", type=int, default=0, metavar="ROWS",
                     help="also time the FS tail over ROWS and 32 partial rows per proof")
     ap.add_argument("--dispatch", action="store_true", help="also time the B = 64 batch dispatch")
+    ap.add_argument("--merkle", action="store_true", help="also time and split the Merkle build at 2^22 and 2^18")
     ap.add_argument("--no-api", action="store_true", help="leave out api.prove_triangle_count")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
@@ -363,6 +455,8 @@ def main(argv=None) -> int:
             out["dispatch_ms"][field.name] = {"ms": times, "median_ms": statistics.median(times)}
             del poly
             torch.cuda.empty_cache()
+    if args.merkle:
+        out["merkle"] = merkle_times(smoke, dev, sync)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     out["card"] = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not read"

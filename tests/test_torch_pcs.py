@@ -6,7 +6,9 @@ and ``utils.config`` against the JAX package on the CPU.
   plain version) against the JAX package's host tree over F5, F389 and
   Goldilocks leaves; the CUDA kernel's message words (``csrc/merkle.cu``:
   the leaf block, the node's two blocks shifted by the 5-byte prefix)
-  replayed in Python ints against ``hashlib``;
+  replayed in Python ints against ``hashlib``; its launch plan
+  (``merkle_kernel.plan``) and its walk over the tree buffer replayed with
+  ``hashlib``;
 - the relaxed PCS: the same roots, restrictions, accept and reject
   decisions as the JAX package (an honest prover, a wrong degree, a
   shifted restriction, a changed leaf, a multi-opening);
@@ -94,9 +96,106 @@ def test_merkle_levels_match_jax():
             assert tree.generate_proof(i).verify(tree.root(), felts[i])
         if n > 1:
             assert not tree.generate_proof(1).verify(tree.root(), felts[1] + field.one())
-    # the kernel's launch plan: one per level of more than 256 nodes, one
-    # block for the levels above
-    assert [merkle_kernel.node_launches(1 << k) for k in (0, 1, 8, 9, 10, 22)] == [0, 1, 1, 1, 2, 14]
+
+
+def _offset(n, level):
+    """csrc/merkle.cu level_offset: where level ``level`` starts."""
+    return 2 * n - 2 * (n >> level)
+
+
+def test_merkle_launch_plan():
+    """The kernel's launch plan for n = 2^0 .. 2^24: one launch, within the
+    kernel's limits, whose three stages (each block's levels over its
+    threads up to one node a thread, each block's levels in shared memory,
+    the last block's levels above the blocks' roots) build every level
+    once, tiling it, at the offsets of ``level_sizes``' running sum."""
+    for k in range(25):
+        n = 1 << k
+        blocks, threads, per = merkle_kernel.plan(n)
+        assert 1 + merkle_kernel.node_launches(n) <= 3
+        for x in (blocks, threads, per):
+            assert x & (x - 1) == 0
+        assert blocks * threads * per == n and blocks <= merkle_kernel.ROOTS and threads <= merkle_kernel.THREADS
+        assert blocks <= 2 * threads  # the last block has a thread for every node of the top's first level
+        assert threads >= min(n, 64) and (blocks == merkle_kernel.ROOTS or per == 1)
+        sizes = merkle_kernel.level_sizes(n)
+        assert [_offset(n, level) for level in range(len(sizes))] == np.cumsum([0] + sizes[:-1]).tolist()
+        # (level, units building it, nodes each): each block's levels up to
+        # one node a thread, over its threads; each block's levels in
+        # shared memory; the last block's
+        p, t, r = per.bit_length() - 1, threads.bit_length() - 1, blocks.bit_length() - 1
+        stages = ([(level, blocks * threads, per >> level) for level in range(p + 1)]
+                  + [(level, blocks, threads >> (level - p)) for level in range(p + 1, p + t + 1)]
+                  + [(level, 1, blocks >> (level - p - t)) for level in range(p + t + 1, p + t + r + 1)])
+        assert [level for level, _, _ in stages] == list(range(len(sizes)))
+        assert all(units * each == sizes[level] and each >= 1 for level, units, each in stages), n
+
+
+def _replay_walk(vals, plan):
+    """csrc/merkle.cu build_kernel's walk in Python: every digest hashed with
+    ``hashlib`` where the kernel hashes it, in its order, at its offset
+    (blocks in any order, the last block's top after all of them); each
+    slot of the 2n - 1 is written once, and every digest read was written
+    before."""
+    n = len(vals)
+    blocks, threads, per = plan
+    p = per.bit_length() - 1
+    tree = [None] * (2 * n - 1)
+
+    def put(level, i, digest):
+        at = _offset(n, level) + i
+        assert tree[at] is None, (level, i)
+        tree[at] = digest
+
+    def node(level, i):  # node i of level ``level`` from the tree buffer
+        left, right = tree[_offset(n, level - 1) + 2 * i], tree[_offset(n, level - 1) + 2 * i + 1]
+        assert left is not None and right is not None
+        return hashlib.sha256(b"node:" + left + right).digest()
+
+    for b in reversed(range(blocks)):  # no block reads another's digests
+        first = b * threads * per
+        for j in range(per):  # the leaves, thread t at j * threads + t
+            for t in range(threads):
+                i = first + j * threads + t
+                put(0, i, hashlib.sha256(b"leaf:" + vals[i].tobytes()).digest())
+        for level in range(1, p + 1):  # levels 1 .. p over all threads
+            for j in range(per >> level):
+                for t in range(threads):
+                    i = (first >> level) + j * threads + t
+                    put(level, i, node(level, i))
+        nodes = [tree[_offset(n, p) + (first >> p) + t] for t in range(threads)]  # in shared memory
+        level = p
+        while len(nodes) > 1:
+            level += 1
+            nodes = [hashlib.sha256(b"node:" + nodes[2 * i] + nodes[2 * i + 1]).digest() for i in range(len(nodes) // 2)]
+            for i, d in enumerate(nodes):
+                put(level, b * len(nodes) + i, d)
+    level = p + threads.bit_length() - 1
+    nodes = [tree[_offset(n, level) + b] for b in range(blocks)]  # the last block reads every root
+    while len(nodes) > 1:
+        level += 1
+        nodes = [hashlib.sha256(b"node:" + nodes[2 * i] + nodes[2 * i + 1]).digest() for i in range(len(nodes) // 2)]
+        for i, d in enumerate(nodes):
+            put(level, i, d)
+    assert None not in tree
+    return tree
+
+
+@pytest.mark.parametrize("byte_size", [1, 2, 8])
+def test_merkle_walk_replays_hashlib(byte_size):
+    """The kernel's walk (:func:`_replay_walk`) under ``plan(n)`` at n = 1,
+    2, one block's 64 leaves, 128 (two blocks: the top takes over) and 2^13
+    (every block), and under plans with each thread over 2, 4 and 8 leaves
+    and blocks of 1 to 8 threads, equals ``build_tree_plain``."""
+    rng = np.random.default_rng(10 + byte_size)
+    cases = [(n, merkle_kernel.plan(n)) for n in (1, 2, 64, 128, 1 << 13)]
+    cases += [(64, merkle_kernel.Plan(4, 8, 2)), (64, merkle_kernel.Plan(2, 4, 8)), (32, merkle_kernel.Plan(2, 4, 4)),
+              (16, merkle_kernel.Plan(1, 4, 4))]
+    for n, plan in cases:
+        vals = rng.integers(0, 256, size=(n, byte_size), dtype=np.uint8)
+        vals[0] = 255
+        want = b"".join(lv.astype(">u4").tobytes() for lv in merkle_kernel.build_tree_plain(vals))
+        assert b"".join(_replay_walk(vals, plan)) == want, (n, plan)
 
 
 def _words_bytes(w):

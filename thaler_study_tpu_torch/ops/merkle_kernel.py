@@ -4,15 +4,17 @@ Counterpart of ``thaler_study_tpu/ops/merkle_kernel.py``. The PCS commits
 with a SHA-256 Merkle tree (``pcs/merkle.py``): leaf i is
 sha256(b"leaf:" || value_i as byte_size little-endian bytes), node
 sha256(b"node:" || left || right). The host build hashes 2n - 1 nodes one
-``hashlib`` call at a time; here every level of more than :data:`TOP`
-nodes is one launch of ``csrc/merkle.cu`` (a thread per leaf, one
-compression; a thread per node, two), the levels from :data:`TOP` nodes up
-to the root share one block's launch, and the whole tree stays in one
-device buffer of 2n - 1 digests until the one host read at the end.
+``hashlib`` call at a time; here the whole tree is one launch of
+``csrc/merkle.cu`` (:func:`plan`: each block hashes a run of consecutive
+leaves and the levels above them, over all its threads, up to one node a
+thread, then those nodes up to the block's root in shared memory; the last
+block to finish hashes the blocks' roots up to the tree's root), and the
+tree stays in one device buffer of 2n - 1 digests until the one host read
+at the end.
 
 :func:`build_tree` is the wrapper (CPU tensors go to
 :func:`build_tree_plain`, ``hashlib`` per node, the JAX package's host
-build; CUDA tensors to the kernels or raise); :func:`build_tree_device`
+build; CUDA tensors to the kernel or raise); :func:`build_tree_device`
 takes and returns numpy arrays as the JAX package's does.
 """
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -28,11 +30,14 @@ import torch
 from .. import _build
 from ..fields.farray import resolve_device
 
-# launches of the CUDA kernels (not of the plain version): the leaf level,
-# and the node levels (the one-block launch of the top levels included)
+# launches of the CUDA kernel (not of the plain version): "leaf" counts the
+# launches that hash a tree's leaves (a build's one launch, which builds its
+# node levels too), "node" the launches that hash node levels alone (none:
+# node_launches)
 launches = {"leaf": 0, "node": 0}
 
-TOP = 256  # csrc/merkle.cu THREADS: the levels of at most TOP nodes share one block
+THREADS = 512  # csrc/merkle.cu THREADS: the most threads a block has
+ROOTS = 128  # csrc/merkle.cu ROOTS: the most blocks, whose roots the last block hashes up
 
 _lib = None
 
@@ -41,12 +46,9 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("merkle")
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.ts_merkle_leaf_launch.argtypes = [vp, ctypes.c_int, ll, vp, vp]
-        lib.ts_merkle_node_launch.argtypes = [vp, ll, vp, vp]
-        lib.ts_merkle_top_launch.argtypes = [vp, ll, vp]
-        for fn in (lib.ts_merkle_leaf_launch, lib.ts_merkle_node_launch, lib.ts_merkle_top_launch):
-            fn.restype = ctypes.c_int
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.ts_merkle_build_launch.argtypes = [vp, i, ll, i, i, i, vp, vp, vp]
+        lib.ts_merkle_build_launch.restype = i
         _lib = lib
     return _lib
 
@@ -59,11 +61,33 @@ def level_sizes(n: int) -> List[int]:
     return sizes
 
 
+class Plan(NamedTuple):
+    """The build's one launch over n leaves: ``blocks`` blocks of
+    ``threads`` threads, each block over ``threads`` x ``per_thread``
+    consecutive leaves, which it hashes with the levels above them up to
+    one node a thread, then up to its root; the last block builds the
+    levels above the blocks' roots."""
+
+    blocks: int
+    threads: int
+    per_thread: int
+
+
+def plan(n: int) -> Plan:
+    """The launch over n leaves (a power of two): ROOTS blocks (one per SM)
+    where the tree has two warps for each, fewer below 64 x ROOTS leaves (so
+    that the last block has a thread for each node of the top's first
+    level); n / ROOTS threads a block, from two warps up to THREADS, and
+    the leaves left over per thread."""
+    threads = min(THREADS, max(min(n, 64), n // ROOTS))
+    blocks = min(ROOTS, n // threads)
+    return Plan(blocks, threads, n // (blocks * threads))
+
+
 def node_launches(n: int) -> int:
-    """The node-level launches of a tree over n leaves: one per level of
-    more than :data:`TOP` nodes, and one for the levels above them."""
-    sizes = level_sizes(n)[1:]
-    return sum(m > TOP for m in sizes) + (1 if sizes else 0)
+    """The launches a build over n leaves makes after the one that hashes
+    the leaves: none, that launch builds every node level (:func:`plan`)."""
+    return 0
 
 
 def split_levels(tree: np.ndarray) -> List[np.ndarray]:
@@ -93,7 +117,8 @@ def build_tree(vals: torch.Tensor) -> torch.Tensor:
     a leaf's little-endian bytes, n a power of two): a [2n - 1, 8] int32
     tensor of digest words (the big-endian u32 words' bits) on ``vals``'
     device, level by level, leaves first. CPU tensors run
-    :func:`build_tree_plain`; CUDA tensors one launch per level."""
+    :func:`build_tree_plain`; CUDA tensors one launch of the kernel
+    (:func:`plan`)."""
     n = _check(vals)
     dev = vals.device
     if dev.type == "cpu":
@@ -103,25 +128,15 @@ def build_tree(vals: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"build_tree runs on cpu or cuda, not {dev}")
     lib = _library()
     tree = torch.empty((2 * n - 1, 8), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks, threads, per_thread = plan(n)
     with torch.cuda.device(dev):
-        rc = lib.ts_merkle_leaf_launch(vals.data_ptr(), vals.shape[1], n, tree.data_ptr(), stream)
+        rc = lib.ts_merkle_build_launch(vals.data_ptr(), vals.shape[1], n, blocks, threads,
+                                        per_thread.bit_length() - 1, tree.data_ptr(),
+                                        _build.ticket_counter(dev).data_ptr(),
+                                        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"Merkle leaf kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"Merkle build kernel launch failed: CUDA error {rc}")
     launches["leaf"] += 1
-    off = 0
-    for m in level_sizes(n)[1:]:
-        with torch.cuda.device(dev):
-            if m <= TOP:  # this level and every one above it in one block
-                rc = lib.ts_merkle_top_launch(tree[off].data_ptr(), m, stream)
-            else:
-                rc = lib.ts_merkle_node_launch(tree[off].data_ptr(), m, tree[off + 2 * m].data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"Merkle node kernel launch failed: CUDA error {rc}")
-        launches["node"] += 1
-        if m <= TOP:
-            break
-        off += 2 * m
     return tree
 
 

@@ -9,8 +9,9 @@ deterministic and dependency-free. Leaves are canonical serialized field
 elements (``byte_size`` little-endian bytes, as ``fiat_shamir.serialize``).
 
 A tree is built where its caller's ``device`` says, by
-``ops/merkle_kernel.build_tree``: on the card one launch per level and one
-host read, on the CPU ``hashlib`` per node; both give the same digests.
+``ops/merkle_kernel.build_tree``: on the card one launch for the whole tree
+and one host read, on the CPU ``hashlib`` per node; both give the same
+digests.
 The tree is kept as the one string of its 2n - 1 digests, level by level,
 leaves first; a path or a multiproof slices its 32-byte siblings out of it.
 """
