@@ -88,7 +88,14 @@ The paths, each driven through the entry points a user calls:
   table laid out by the shard layout kernel (``ops/shard_layout.py``,
   one launch per table and group) and every multi-block round and fold
   of a device's shard rows in one launch of their rows forms
-  (``multiblock.round_sums`` and ``fold_tables`` over [rows, ...] tables).
+  (``multiblock.round_sums`` and ``fold_tables`` over [rows, ...] tables);
+- slice 20 runs through the paths above: the GKR forward pass (one
+  launch of ``csrc/forward.cu`` per layer), the bit reversal of the
+  matmul entry's two 2^26-word MLEs, of the triangle's input and of each
+  GKR layer's W (``csrc/mle.cu``, inside the fused program's graph too),
+  the matmul entry's fold chains (13 of 26 variables, one launch each),
+  each per-layer GKR restriction and the PCS commit's 151,321 evaluations
+  (one launch of the fold kernel's evaluation form each).
 
 Phases, each ending in ``torch.cuda.synchronize()``:
 
@@ -255,6 +262,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
    and in the one-warp form forced on the same rows, both against the plain
    version, timed in turns with each other and with the one-warp tail over
    the batch dispatch's 32 rows;
+   slice 20 (``mle_slice``): the bit reversal (2^0..2^26), the fold chain
+   (n = 26 at every k = 1..13 and 26; n = 3, 10, 20), the evaluation (P =
+   1..21 points over 2^1..2^20; the PCS's 151,321 points) and the forward
+   pass (1 to 2^20 gates) against their plain versions over five fields,
+   random words and every word p - 1, then timed from CUDA graphs beside
+   their bounds (the bit reversal also beside ``index_select`` with a
+   prebuilt index); on the paths: the matmul entry's MLE build split into
+   upload, bit reversal, relabel and fold chain, the triangle's input
+   building into widening, upload and bit reversal, the fused flagship's
+   forward pass into upload and layers, the PCS commit's
+   ``evaluate_many`` into host and kernel; the row sums beside one empty
+   one-block launch (their latency floor);
 5. the ``kernels`` line and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -407,18 +426,23 @@ def gkr_layer_trace(circuit, inputs, field, layer: int, card: str = "") -> dict:
     out["plain_names"] = sorted(names.items(), key=lambda x: -x[1])[:4]
     out["plain_per_round"] = sum(r[1] for r in inner) / len(inner)
     out["copies_per_round"] = sum(r[2] for r in inner) / len(inner)
+    # the final round: the last sumcheck round and the restriction
+    # (restrict_poly: one evaluation launch since slice 20)
+    out["restrict_round"] = rounds[2 * k - 1]
+    restrict_names = sorted({n[:60] for n in plain[2 * k - 1]})
     log(f"GKR per-layer {field.name} trace of layer {layer}: {out['wall_ms']:.3f} ms wall (profiler on), "
         f"{out['records']} device records, busy {out['busy_ms']:.3f} ms, idle share {out['idle']:.1%}; per round "
         f"(port kernels, plain-torch kernels, copies): {rounds}; plain-torch kernels per sumcheck round "
         f"{out['plain_per_round']:.2f}, copies {out['copies_per_round']:.2f}; the plain-torch kernels of those "
-        f"rounds by name {out['plain_names']} {card}")
+        f"rounds by name {out['plain_names']}; the final round with the restriction {out['restrict_round']}, its "
+        f"plain-torch kernels {restrict_names} {card}")
     return out
 
 
 # the fused proof's device records by kernel (the first match of a name);
 # line_fold_kernel is the line restriction of trees before the tiles
 FUSED_KERNELS = ("libra_round_kernel", "phase_tables_kernel", "eq_table_kernel", "line_tile_kernel",
-                 "line_fold_kernel", "gkr_final_tail_kernel", "Memcpy DtoH", "Memcpy HtoD")
+                 "line_fold_kernel", "gkr_final_tail_kernel", "bitrev_kernel", "Memcpy DtoH", "Memcpy HtoD")
 
 
 def template_flag(name: str, kernel: str) -> bool:
@@ -642,7 +666,7 @@ PORT_KERNELS = ("mb_round_kernel", "mb_fold_kernel", "tc_kernel", "digits_kernel
                 "round_kernel", "libra_round_kernel", "fs_tail_kernel", "sha_chain_kernel", "phase_tables_kernel",
                 "eq_table_kernel", "line_tile_kernel", "gkr_final_tail_kernel", "libra_total_kernel",
                 "gkr_round_tail_kernel", "row_sums_kernel", "leaf_kernel", "node_kernel", "top_kernel",
-                "shard_rows_kernel")
+                "shard_rows_kernel", "build_kernel", "bitrev_kernel", "fold_kernel", "forward_kernel")
 
 
 def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
@@ -721,15 +745,16 @@ def port_launches() -> int:
     """Every launch of the port's kernels so far, from the wrappers' counters
     (K1 with the round tail is counted once, as a launch of K1)."""
     from thaler_study_tpu_torch.gkr import device_tables
-    from thaler_study_tpu_torch.ops import (cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock,
-                                            row_sums, shard_layout)
+    from thaler_study_tpu_torch.ops import (cuda_round, forward_kernel, fs_kernel, gkr_tail, merkle_kernel, mle_kernel,
+                                            modmatmul, multiblock, row_sums, shard_layout)
 
     counts = (cuda_round.launches, cuda_round.libra_launches, cuda_round.total_launches, fs_kernel.launches,
               multiblock.launches, multiblock.fold_launches, modmatmul.launches, modmatmul.tc_launches,
               modmatmul.digit_launches, modmatmul.total_launches, device_tables.launches, device_tables.eq_launches,
               device_tables.eq_dot_launches, device_tables.line_launches, device_tables.rows_launches,
               gkr_tail.final_launches, gkr_tail.round_launches, merkle_kernel.launches, row_sums.launches,
-              shard_layout.launches)
+              shard_layout.launches, forward_kernel.launches, mle_kernel.bitrev_launches, mle_kernel.fold_launches,
+              mle_kernel.eval_launches)
     return sum(sum(c.values()) for c in counts)
 
 
@@ -924,7 +949,7 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         generate_transcript,
     )
     from thaler_study_tpu_torch.fields import GOLDILOCKS, BABYBEAR, F389, FArray
-    from thaler_study_tpu_torch.ops import modmatmul, multiblock
+    from thaler_study_tpu_torch.ops import mle_kernel, modmatmul, multiblock
     from thaler_study_tpu_torch.ops import round_kernel as rk
     from thaler_study_tpu_torch.protocols import TriangleG
     from thaler_study_tpu_torch.sumcheck import Prover, SumCheckError
@@ -1117,6 +1142,9 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         counts = read_counts()
         want = triangle_launches(k, thr)
         got = {name: counts[name][field.backend] for name in want}
+        if counts["mle_bitrev"][field.backend] != 1:
+            raise AssertionError(f"triangle {n_nodes} {field.name}: {counts['mle_bitrev']} bit reversals, expected "
+                                 "one (the input building)")
         # the main path's kernels all launch; the CUDA-core matmul is on no
         # path
         if got != want or (main_path and not all(v for name, v in got.items() if name != "modmatmul")):
@@ -1132,6 +1160,27 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
         bad[len(bad) // 2][-1] ^= 1
         if not ok or not rejects(adj, n_nodes, FiatShamirTranscript([bytes(m) for m in bad]), field):
             raise AssertionError(f"triangle {n_nodes} {field.name}: accepted {ok}, tampered copy not rejected")
+        if main_path:
+            # the input building by step, each synced: the host's widening
+            # to 0/1 words, their upload, the bit reversal on the card
+            parts = dict.fromkeys(("widen", "upload", "bitrev"), 0.0)
+            t0 = time.perf_counter()
+            flat = (np.asarray(adj).reshape(-1) != 0).astype(np.uint64)
+            parts["widen"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            x = FArray.from_ints(flat, field, device=dev)
+            sync()
+            parts["upload"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rev = mle_kernel.bitrev(x, 2 * k)
+            sync()
+            parts["bitrev"] = time.perf_counter() - t0
+            if not torch.equal(rev.data, TriangleG.new_adj_matrix(2 * k, adj, field, device=dev).tables[0].data):
+                raise AssertionError(f"triangle {n_nodes}: the input building by step != TriangleG.new_adj_matrix")
+            log(f"triangle IP, {n_nodes} nodes, input building by step (host clock, 2^{2 * k} words): widening on the "
+                f"host {parts['widen'] * 1e3:.2f} ms, upload {parts['upload'] * 1e3:.2f} ms, bit reversal "
+                f"{parts['bitrev'] * 1e3:.3f} ms {tag}")
+            del flat, x, rev
         log(f"triangle IP, {n_nodes} nodes (G(n, 0.05), {int(adj.sum()) // 2} edges, {3 * k} variables, tables "
               f"of 2^{2 * k}) over {field.name}: 6 Delta = {claim} == trace(A^3) (float64 on the card); "
               f"api.prove_triangle_count {prove_s:.3f} s, verify_triangle_count {verify_s:.3f} s, accepted, a "
@@ -1225,8 +1274,8 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
 
     k_big = (n_big - 1).bit_length()
     adj_mle = FArray(slice_words(gen, GOLDILOCKS, (1 << (2 * k_big),), dev), GOLDILOCKS)
-    log(f"bit reversal of the {n_big}-node adjacency MLE (2^{2 * k_big} entries, its index built per call above "
-        f"2^22): {time_ms(lambda: bitrev(adj_mle, 2 * k_big), 3):.3f} ms per call (CUDA events, host issue "
+    log(f"bit reversal of the {n_big}-node adjacency MLE (2^{2 * k_big} entries, one launch of the bit-reversal "
+        f"kernel): {time_ms(lambda: bitrev(adj_mle, 2 * k_big), 3):.3f} ms per call (CUDA events, host issue "
         f"included) {tag}")
     del adj_mle
     log("library_ms is null in the slice's rows: no PyTorch call computes a matrix product mod p, a fold mod p "
@@ -1591,7 +1640,7 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
     from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, GOLDILOCKS, FArray
     from thaler_study_tpu_torch.fields.farray import word_dtype
     from thaler_study_tpu_torch.mle.dense import DenseMLE
-    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, merkle_kernel
+    from thaler_study_tpu_torch.ops import cuda_round, fs_kernel, merkle_kernel, mle_kernel
     from thaler_study_tpu_torch.ops.round_kernel import PolySpec, single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.pcs import pedersen
@@ -1973,6 +2022,8 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
     counts = read_counts()
     if counts["merkle"] != {"leaf": 1, "node": merkle_kernel.node_launches(len(prover.values))}:
         raise AssertionError(f"PCS commit: Merkle launches {counts['merkle']}")
+    if counts["mle_eval_many"]["mont32"] != 1:
+        raise AssertionError(f"PCS commit: evaluation launches {counts['mle_eval_many']}, expected one")
     cpu_tree = pcs.MerkleTree(prover.values, device="cpu")
     if cpu_tree.root() != prover.merkle_root() or cpu_tree.digests != prover.tree.digests:
         raise AssertionError("PCS commit: the card's tree != device='cpu'")
@@ -2013,6 +2064,20 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
     # the digest string)
     points = pcs.all_multidimensional_values(field, m)
     t_eval, _ = median_ms(lambda: poly.evaluate_many([list(pt) for pt in points]), 1)
+    # evaluate_many by step: the points' Felt lists to one upload (host),
+    # the kernel (device), the values back as Felts (host)
+    pts = [list(pt) for pt in points]
+    ev = {}
+
+    def ev_in():
+        ev["rs"] = FArray.from_ints([f.v for pt in pts for f in pt], field, device=dev).reshape(len(pts), m)
+
+    def ev_kernel():
+        ev["out"] = mle_kernel.eval_many(poly.evals, ev["rs"])
+
+    t_ev_in, _ = median_ms(ev_in, 1)
+    t_ev_kernel, _ = median_ms(ev_kernel, 3)
+    t_ev_out, _ = median_ms(lambda: ev["out"].to_felts(), 1)
     values = prover.values
     t_bytes, _ = median_ms(lambda: pcs.merkle.leaf_bytes(values), reps)
     vals_t = torch.from_numpy(pcs.merkle.leaf_bytes(values)).to(dev)
@@ -2020,7 +2085,9 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
     t_all, _ = median_ms(lambda: pcs.MerkleTree(values, device=dev), reps)
     log(f"relaxed PCS over {field.name}, m = {m}: {field.p ** m} points padded to {len(values)} leaves; commit "
         f"(pcs.Prover) {commit_s:.3f} s, Merkle launches {counts['merkle']}; every digest == device='cpu'; "
-        f"decisions {outcome} (line seed {rng_seed}); split: evaluate_many {t_eval:.1f} ms, leaf bytes {t_bytes:.1f} "
+        f"decisions {outcome} (line seed {rng_seed}); split: evaluate_many {t_eval:.1f} ms (the points' Felt lists "
+        f"to one upload {t_ev_in:.1f} ms on the host, the kernel {t_ev_kernel:.3f} ms synced, the values back as "
+        f"Felts {t_ev_out:.1f} ms on the host), leaf bytes {t_bytes:.1f} "
         f"ms, the tree's kernels {t_tree:.3f} ms, the whole MerkleTree (leaf bytes, copy in, kernels, one read, "
         f"the digest string) {t_all:.1f} ms {tag}")
     del prover, cpu_tree, vals_t
@@ -2650,10 +2717,13 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
         ms = graph_ms(lambda: row_sums.row_sums(x, field))
         t_plain = plain_ms(lambda: row_sums.row_sums_plain(x, field))
         bound = (x.numel() + 3) * wb / PEAK_BYTES_PER_S * 1e3
-        timing[("row_sums", field.backend)] = (ms, t_plain, bound, "bytes")
+        # the latency floor: one empty one-block launch, timed the same way
+        floor = graph_ms(lambda: row_sums.empty_launch(dev))
+        timing[("row_sums", field.backend)] = (ms, t_plain, bound, "bytes", floor)
         log(f"{field.name} row sums (one block) == plain (exact): {nrows} rows of 3 to one row, its lanes, lanes "
             f"back to words; {ms * 1e3:.2f} us per launch from a CUDA graph at {nrows} rows, bytes bound "
-            f"{bound * 1e3:.3f} us; plain {t_plain:.2f} ms {tag}")
+            f"{bound * 1e3:.3f} us, latency floor (one empty one-block launch from a CUDA graph) {floor * 1e3:.2f} "
+            f"us: {ms / floor:.2f}x the floor; plain {t_plain:.2f} ms {tag}")
         del x
     sync()
 
@@ -2876,11 +2946,11 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
             rows.append(row)
     # the reduction's row sums: launched on the path across processes (the
     # one-rank group above: the lanes out and back, Goldilocks)
-    ms, plain, bound_ms, by = timing[("row_sums", "goldilocks")]
+    ms, plain, bound_ms, by, floor = timing[("row_sums", "goldilocks")]
     rows.append({"name": "row_sums_goldilocks", "route": "cuda", "source": src + "row_sums.cu",
                  "replaces": "thaler_study_tpu/parallel/sharded.py:101", "launches": dcn_row_sums,
                  "max_abs_err": err[("row_sums", "goldilocks")], "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                 "bound_by": by, "library_ms": None,
+                 "bound_by": by, "latency_floor_ms": floor, "library_ms": None,
                  "library_ms_reason": "no PyTorch call computes this function mod p"})
     if not rows[-1]["launches"]:
         raise AssertionError("row_sums (goldilocks) was not launched on its sharded path")
@@ -2894,17 +2964,19 @@ def sharded_slice(seed, tag, dev, sync, graph_ms, reset_counts, compress_ms, gkr
 
 def sharded_fused_counts(circuit, n_shard: int, line_launches) -> dict:
     """The launches and cross-device moves of one sharded fused proof on one
-    card (``line_launches(k)``: the line restriction's launches at k): per
+    card (``line_launches(k)``: the line restriction's launches at k): the
+    prover's forward pass (one launch per layer); per
     sharded layer (k >= n_shard, L = k - n_shard) 2 K2 launches over shard
     rows, 2L round tails over rows and 2L launches of K1's TOTAL form (one
     per sharded round: the card's rows are one group), 2 n_shard - 1
     launches of K1 with the tail (the replicated rounds but the final one),
     2 n_shard of K1 per proof in all, 2L reductions, 6 gathers of 2 x
     2^n_shard words (2^n_shard when L = 0), 2 + 2 max(L - 1, 0) sends; a
-    replicated layer runs the unsharded fused layer's launches."""
+    replicated layer runs the unsharded fused layer's launches (with its
+    bit reversal of W)."""
     want = {"phase_tables_rows": 0, "gkr_round_tail": 0, "libra_round_tail": 0, "libra_round": 0,
             "libra_round_total": 0, "phase_tables": 0, "eq_table": 0, "eq_table_dot": 0, "line_restrict": 0,
-            "gkr_final_tail": 0}
+            "gkr_final_tail": 0, "forward": len(circuit.layers), "mle_bitrev": 0}
     coll = {"reduce": 0, "reduce_words": 0, "gather": 0, "gather_words": 0}
     sends = {"send": 0, "send_words": 0}
     for i in range(len(circuit.layers)):
@@ -2927,6 +2999,7 @@ def sharded_fused_counts(circuit, n_shard: int, line_launches) -> dict:
         else:
             want["phase_tables"] += 2
             want["libra_round_tail"] += 2 * k - 1
+            want["mle_bitrev"] += 1
     return {"launches": want, "collectives": coll, "sends": sends}
 
 
@@ -3202,6 +3275,198 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
     return rows_out
 
 
+# ---- slice 20: B6's device programs (csrc/mle.cu, csrc/forward.cu): the
+# bit reversal, the fold chain, the evaluation at many points, the GKR
+# forward pass
+
+
+def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26, gkr_log=20,
+              pcs_points=151321) -> list:
+    """Slice 20 (phases 2 and 4; its rows of the ``kernels`` line returned):
+    each kernel against its plain version on the card, exactly, at the
+    paths' shapes and at edge words (p - 1; Goldilocks words >= 2^63), over
+    Goldilocks and the mont32 fields: the bit reversal at 2^0..2^26; the
+    fold chain at n = 26 for every k = 1..13 and k = 26 (the matmul entry,
+    ``DenseMLE.evaluate``) and at n = 20; the evaluation at P = 1, 5, 13 and
+    21 points over 2^20 (GKR's restriction) and the PCS's 151,321 points
+    over 2 variables; the forward pass at 2^20 gates and at mixed widths.
+    Then each timed from CUDA graphs (``graph_ms(fn, count)``) beside its
+    bound, its plain version and, for the bit reversal, ``index_select``
+    with a prebuilt index (its library column). ``path_launches[(name,
+    backend)]``: the launches counted on the main paths. The sizes default
+    to the paths' (a CPU rehearsal passes smaller ones): ``wide_log`` the
+    matmul entry's 2L variables (its fold fixes half), ``gkr_log`` the
+    flagship's width, ``pcs_points`` the PCS commit's points."""
+    import dataclasses
+
+    import torch
+
+    from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, F1572869, GOLDILOCKS, FArray
+    from thaler_study_tpu_torch.ops import forward_kernel as fk
+    from thaler_study_tpu_torch.ops import mle_kernel as mk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    err = {}
+
+    def words(field, size, fill="random"):
+        return FArray(slice_words(gen, field, (size,), dev, fill), field)
+
+    def check(key, got, want, what):
+        sync()
+        e = word_err(got.data, want.data)
+        if e:
+            raise AssertionError(f"{key[0]} kernel != plain ({key[1]}): {what}")
+        err[key] = max(err.get(key, 0), e)
+
+    def plain_ms(fn, count=reps):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / count * 1e3
+
+    # ---- phase 2: each kernel against its plain version ----
+    fields = (GOLDILOCKS, BABYBEAR, F389, F5, F1572869)
+    for field in fields:
+        wide = field in (GOLDILOCKS, F5)  # the matmul entry's fields, n = 26
+        be = field.backend
+        for n in (0, 1, 5, 9, 10, 11, gkr_log) + ((wide_log - 2, wide_log) if wide else ()):
+            for fill in ("random", "max"):
+                t = words(field, 1 << n, fill)
+                check(("mle_bitrev", be), mk.bitrev(t, n), mk.bitrev_plain(t, n), f"{field.name} n = {n} {fill}")
+        for n, ks in ((3, (1, 2, 3)), (10, (1, 2, 5, 10)), (gkr_log, (1, gkr_log // 3, 2 * gkr_log // 3, gkr_log))) + (
+                ((wide_log, tuple(range(1, wide_log // 2 + 1)) + (wide_log,)),) if wide else ()):
+            t = words(field, 1 << n)
+            for k in ks:
+                r = words(field, k)
+                check(("mle_fold", be), mk.fold(t, r, k), mk.fold_plain(t, r, k), f"{field.name} n = {n}, k = {k}")
+            tmax, rmax = words(field, 1 << n, "max"), words(field, ks[-1], "max")
+            check(("mle_fold", be), mk.fold(tmax, rmax, ks[-1]), mk.fold_plain(tmax, rmax, ks[-1]),
+                  f"{field.name} n = {n}, k = {ks[-1]}, every word p - 1")
+            del t, tmax
+        for n, ps in ((1, (1, 3)), (2, (1, 5) + ((pcs_points,) if field is F389 else ())), (7, (1, 4, 5)),
+                      (12, (1, 13, 21)), (gkr_log, (1, 5, 13, gkr_log + 1))):
+            for fill in ("random", "max"):
+                t = words(field, 1 << n, fill)
+                for P in ps:
+                    rs = FArray(words(field, P * n, fill).data.reshape(P, n), field)
+                    check(("mle_eval_many", be), mk.eval_many(t, rs), mk.eval_many_plain(t, rs),
+                          f"{field.name} n = {n}, P = {P}, {fill}")
+        for g, nxt in ((1, 1), (7, 4), (1 << 12, 1 << 10), (1 << 10, 1 << 12), (1 << gkr_log, 1 << gkr_log)):
+            for fill in ("random", "max"):
+                cur = words(field, nxt, fill)
+                b = torch.randint(0, nxt, (g,), generator=gen, device=dev, dtype=torch.int32)
+                c = torch.randint(0, nxt, (g,), generator=gen, device=dev, dtype=torch.int32)
+                m = torch.rand((g,), generator=gen, device=dev) < 0.5
+                check(("forward", be), fk.forward_layer(cur, b, c, m), fk.forward_layer_plain(cur, b, c, m),
+                      f"{field.name} {g} gates over {nxt} values, {fill}")
+        torch.cuda.empty_cache()
+        log(f"slice 20 over {field.name}: the bit reversal (2^0..2^{wide_log if wide else gkr_log}), the fold (n = 3, "
+            f"10, {gkr_log}{f', {wide_log} at every k = 1..{wide_log // 2} and {wide_log}' if wide else ''}), the "
+            f"evaluation at P points (n = 1..{gkr_log}, P = 1, 3, 4, 5, 13, 21, {gkr_log + 1}"
+            f"{f', {pcs_points} at n = 2' if field is F389 else ''}) and the forward pass (1 to 2^{gkr_log} gates) == "
+            f"their plain versions (exact), random words and every word p - 1")
+
+    # ---- phase 4: times from CUDA graphs, at the paths' shapes ----
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = max_sm_clock_mhz()
+    rows = []
+    src = "thaler_study_tpu_torch/csrc/"
+    for field in (GOLDILOCKS, BABYBEAR):
+        be, wb = field.backend, (8 if field.backend == "goldilocks" else 4)
+        imad = MM_SASS_PER_PRODUCT[be][1]
+        wide = GOLDILOCKS if be == "goldilocks" else F5  # the matmul entry's field of this family
+        timing = {}
+        # the bit reversal: the matmul entry's 2^wide_log words (library:
+        # index_select, its index prebuilt)
+        t = words(wide, 1 << wide_log)
+        idx = mk.bitrev_index(wide_log, dev)
+        ms = graph_ms(lambda: mk.bitrev(t, wide_log), 5)
+        lib = graph_ms(lambda: torch.index_select(t.data, 0, idx), 5)
+        plain = plain_ms(lambda: mk.bitrev_plain(t, wide_log))
+        bound = 2 * (1 << wide_log) * wb / PEAK_BYTES_PER_S * 1e3
+        t20 = words(field, 1 << gkr_log)
+        idx20 = mk.bitrev_index(gkr_log, dev)
+        ms20 = graph_ms(lambda: mk.bitrev(t20, gkr_log))
+        lib20 = graph_ms(lambda: torch.index_select(t20.data, 0, idx20))
+        timing["mle_bitrev"] = (ms, plain, bound, "bytes", lib, {"ms_gkr_layer": ms20, "library_ms_gkr_layer": lib20,
+                                                                 "shape": f"2^{wide_log} {wide.name} words"})
+        log(f"{wide.name} bit reversal of 2^{wide_log} words: {ms:.4f} ms from a CUDA graph, bytes bound {bound:.4f} "
+            f"ms ({bound / ms:.1%}); index_select with a prebuilt index {lib:.4f} ms; plain {plain:.2f} ms; at "
+            f"2^{gkr_log} ({field.name}, a GKR layer) {ms20 * 1e3:.2f} us (index_select {lib20 * 1e3:.2f} us) {tag}")
+        del idx
+        # the fold chain: the matmul entry's first half of its variables
+        kf = wide_log // 2
+        r = words(wide, kf)
+        ms = graph_ms(lambda: mk.fold(t, r, kf), 5)
+        plain = plain_ms(lambda: mk.fold_plain(t, r, kf))
+        bytes_ms = ((1 << wide_log) + (1 << (wide_log - kf))) * wb / PEAK_BYTES_PER_S * 1e3
+        ops_ms = (1 << wide_log) * imad / (64 * sms * clock_mhz * 1e6) * 1e3
+        pl = mk.plan(wide_log, kf, 1, 1)
+        timing["mle_fold"] = (ms, plain, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                              None, {"shape": f"2^{wide_log} {wide.name} words, k = {kf}", "plan": dataclasses.asdict(pl)})
+        log(f"{wide.name} fold chain of {kf} of {wide_log} variables (the matmul entry's fix_variables; plan {pl}): "
+            f"{ms:.4f} ms from a CUDA graph, bytes bound {bytes_ms:.4f} ms ({bytes_ms / ms:.1%}; products "
+            f"{ops_ms:.4f} ms); plain {plain:.2f} ms {tag}")
+        del t, r
+        torch.cuda.empty_cache()
+        # the evaluation: GKR's restriction, gkr_log + 1 points over 2^gkr_log words
+        P, gw = gkr_log + 1, 1 << gkr_log
+        rs = FArray(words(field, P * gkr_log).data.reshape(P, gkr_log), field)
+        ms = graph_ms(lambda: mk.eval_many(t20, rs))
+        plain = plain_ms(lambda: mk.eval_many_plain(t20, rs))
+        bytes_ms = (gw + P * (gkr_log + 1)) * wb / PEAK_BYTES_PER_S * 1e3
+        ops_ms = P * gw * imad / (64 * sms * clock_mhz * 1e6) * 1e3
+        pl = mk.plan(gkr_log, gkr_log, P, mk.EVAL_POINTS)
+        extra = {"shape": f"{P} points x 2^{gkr_log} {field.name} words", "plan": dataclasses.asdict(pl)}
+        if field is BABYBEAR:  # the PCS's evaluations (F389, m = 2)
+            tp = words(F389, 4)
+            rp = FArray(words(F389, pcs_points * 2).data.reshape(pcs_points, 2), F389)
+            extra["pcs_ms"] = graph_ms(lambda: mk.eval_many(tp, rp), 3)
+            log(f"F389 evaluation at the PCS's {pcs_points} points over 2 variables: {extra['pcs_ms']:.4f} ms from a "
+                f"CUDA graph {tag}")
+        timing["mle_eval_many"] = (ms, plain, max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes",
+                                   None, extra)
+        log(f"{field.name} evaluation at {P} points over 2^{gkr_log} words (GKR's restrict_poly; plan {pl}): {ms:.4f} "
+            f"ms from a CUDA graph, products bound {ops_ms:.4f} ms ({ops_ms / ms:.1%}; {imad} IMAD per product at 64 "
+            f"per clock per SM, {sms} SMs, {clock_mhz} MHz; bytes {bytes_ms:.4f} ms); plain {plain:.2f} ms {tag}")
+        # the forward pass: one layer of 2^gkr_log gates over 2^gkr_log values
+        cur = words(field, gw)
+        b = torch.randint(0, gw, (gw,), generator=gen, device=dev, dtype=torch.int32)
+        c = torch.randint(0, gw, (gw,), generator=gen, device=dev, dtype=torch.int32)
+        m = torch.rand((gw,), generator=gen, device=dev) < 0.5
+        ms = graph_ms(lambda: fk.forward_layer(cur, b, c, m))
+        plain = graph_ms(lambda: fk.forward_layer_plain(cur, b, c, m), 5)
+        bound = gw * (4 + 4 + 1 + 2 * wb) / PEAK_BYTES_PER_S * 1e3
+        timing["forward"] = (ms, plain, bound, "bytes", None,
+                             {"shape": f"2^{gkr_log} {field.name} gates over 2^{gkr_log} values"})
+        log(f"{field.name} forward layer of 2^{gkr_log} gates: {ms:.4f} ms from a CUDA graph, bytes bound {bound:.4f} ms "
+            f"({bound / ms:.1%}); plain (two gathers, the product, the add, a where) {plain:.4f} ms from a CUDA graph "
+            f"{tag}")
+        del t20, rs, cur, b, c, m
+        torch.cuda.empty_cache()
+        replaces = {"forward": "thaler_study_tpu/gkr/circuit.py:155", "mle_bitrev": "thaler_study_tpu/mle/dense.py:44",
+                    "mle_fold": "thaler_study_tpu/mle/dense.py:176", "mle_eval_many": "thaler_study_tpu/mle/dense.py:185"}
+        for name, (ms, plain, bound, by, lib, extra) in timing.items():
+            launches = path_launches.get((name, be), 0)
+            if not launches:
+                raise AssertionError(f"{name} ({be}) was not launched on its main path")
+            row = {"name": f"{name}_{be}", "route": "cuda",
+                   "source": src + ("forward.cu" if name == "forward" else "mle.cu"), "replaces": replaces[name],
+                   "launches": launches, "max_abs_err": err[(name, be)], "ms": ms, "plain_ms": plain,
+                   "bound_ms": bound, "bound_by": by, "library_ms": lib}
+            if lib is not None:
+                row["library_call"] = "torch.index_select with a prebuilt index (the index not timed)"
+            else:
+                row["library_ms_reason"] = "no PyTorch call computes this function mod p"
+            row.update(extra)
+            rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=42, help="numpy seed of the tables")
@@ -3241,8 +3506,9 @@ def main(argv=None) -> int:
     from thaler_study_tpu_torch.gkr import device_tables
     from thaler_study_tpu_torch.gkr import fused as gkr_fused
     from thaler_study_tpu_torch.gkr.circuit import layer_wiring
-    from thaler_study_tpu_torch.ops import (cuda_round, fs_kernel, gkr_tail, merkle_kernel, modmatmul, multiblock,
-                                            row_sums, sha_chain, shard_layout)
+    from thaler_study_tpu_torch.mle import DenseMLE
+    from thaler_study_tpu_torch.ops import (cuda_round, forward_kernel, fs_kernel, gkr_tail, merkle_kernel, mle_kernel,
+                                            modmatmul, multiblock, row_sums, sha_chain, shard_layout)
     from thaler_study_tpu_torch.ops.round_kernel import single_block_spec
     from thaler_study_tpu_torch.ops.sha_chain import DevChain
     from thaler_study_tpu_torch.protocols import (
@@ -3707,7 +3973,13 @@ def main(argv=None) -> int:
                 "modmatmul": modmatmul.launches, "modmatmul_tc": modmatmul.tc_launches,
                 "modmatmul_digits": modmatmul.digit_launches, "merkle": merkle_kernel.launches,
                 "libra_round_total": cuda_round.total_launches, "modmatmul_tc_total": modmatmul.total_launches,
-                "row_sums": row_sums.launches, "shard_layout": shard_layout.launches}
+                "row_sums": row_sums.launches, "shard_layout": shard_layout.launches,
+                "forward": forward_kernel.launches, "mle_bitrev": mle_kernel.bitrev_launches,
+                "mle_fold": mle_kernel.fold_launches, "mle_eval_many": mle_kernel.eval_launches}
+    # slice 20's kernels: launches counted on their main paths (the matmul
+    # entry's bit reversals and folds, the per-layer flagship's forward
+    # passes and restrictions), per field family
+    b6_launches = {}
 
     def reset_counts():
         for counts in counters.values():
@@ -4085,9 +4357,12 @@ def main(argv=None) -> int:
         prove_s = time.perf_counter() - t0
         counts = read_counts()
         if (counts["round_kernel"][field.backend] != L or sum(counts["fs_tail"].values())
-                or counts["multiblock_round"][field.backend] != 1):
-            raise AssertionError(f"matmul {field.name}: expected {L} round kernel launches and c_1 on the "
-                                 f"multi-block kernel, got {counts}")
+                or counts["multiblock_round"][field.backend] != 1 or counts["mle_bitrev"][field.backend] != 2
+                or counts["mle_fold"][field.backend] != 2):
+            raise AssertionError(f"matmul {field.name}: expected {L} round kernel launches, c_1 on the "
+                                 f"multi-block kernel, 2 bit reversals and 2 folds (f_a, f_b), got {counts}")
+        for name in ("mle_bitrev", "mle_fold"):
+            b6_launches[(name, field.backend)] = counts[name][field.backend]
         want = sum(int(x) * int(y) for x, y in zip(a[i * N : (i + 1) * N], b[j::N])) % field.p
         if claim.v != want:
             raise AssertionError(f"matmul {field.name}: claim {claim.v} != (A*B)[{i}][{j}] = {want}")
@@ -4128,7 +4403,34 @@ def main(argv=None) -> int:
         log(f"matmul entry {field.name} split (host clock): MLE build (from_evals_lsb, relabel, fix_variables) "
             f"{(t1 - t0) * 1e3:.1f} ms; c_1 {(t2 - t1) * 1e3:.2f} ms; {L} rounds with hashing "
             f"{(t3 - t2) * 1e3:.2f} ms, of which host hashing {(t4 - t3) * 1e3:.2f} ms {tag}")
-        del a, b, g, prover
+        # the MLE build by step, each synced: the upload of the numpy words,
+        # the bit reversal, A's relabel (one permute copy), the fold chain
+        build = dict.fromkeys(("upload", "bitrev", "relabel", "fold"), 0.0)
+        folded = []
+        for words_np, rel, rs in ((a, True, point[:L]), (b, False, point[L:])):
+            for step in build:
+                if step == "relabel" and not rel:
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if step == "upload":
+                    x = FArray.from_ints(words_np, field, device=dev)
+                elif step == "bitrev":
+                    mle = DenseMLE(mle_kernel.bitrev(x, 2 * L), 2 * L)
+                elif step == "relabel":
+                    mle = mle.relabel(0, L, L)
+                else:
+                    mle = mle.fix_variables(list(rs))
+                torch.cuda.synchronize()
+                build[step] += time.perf_counter() - t0
+            folded.append(mle.evals)
+            del x, mle
+        if any(not torch.equal(f.data, w.data) for f, w in zip(folded, g.tables)):
+            raise AssertionError(f"matmul {field.name}: the MLE build by step != MatMulG.new's tables")
+        log(f"matmul entry {field.name} MLE build by step (host clock, each synced; 2 x 2^{2 * L} words): upload "
+            f"{build['upload'] * 1e3:.2f} ms, bit reversal {build['bitrev'] * 1e3:.3f} ms, relabel "
+            f"{build['relabel'] * 1e3:.3f} ms, fold chain {build['fold'] * 1e3:.3f} ms {tag}")
+        del a, b, g, prover, folded
 
         small = 10
         Ns = 1 << small
@@ -4146,14 +4448,17 @@ def main(argv=None) -> int:
     def gkr_launch_counts(circuit, fused_path=False):
         """The launches of one proof: per layer 2k of K1 (one per round), 2
         of K2, one of the eq table (phase 1) and one of the eq table with
-        the dot (phase 2); on the fused path 2k - 1 of the 2k K1 launches
+        the dot (phase 2), one forward-pass launch and one bit reversal
+        (W to internal order), and on the per-layer path one evaluation
+        (the restriction); on the fused path 2k - 1 of the 2k K1 launches
         carry the round tail (TAIL), and one final tail and the line
         restriction's launches (one at k = 20) follow."""
         ks = [circuit.num_vars_at(i + 1) for i in range(len(circuit.layers))]
         want = {"libra_round": sum(2 * k for k in ks), "phase_tables": 2 * len(ks), "eq_table": len(ks),
-                "eq_table_dot": len(ks)}
-        if not fused_path:  # each layer's c_1 on the multi-block kernel
+                "eq_table_dot": len(ks), "forward": len(ks), "mle_bitrev": len(ks)}
+        if not fused_path:  # each layer's c_1 on the multi-block kernel, its restriction on the evaluation form
             want["multiblock_round"] = len(ks)
+            want["mle_eval_many"] = sum(k >= 1 for k in ks)
         if fused_path:
             want.update(libra_round_tail=sum(2 * k - 1 for k in ks), gkr_final_tail=len(ks),
                         line_restrict=sum(len(device_tables.line_launches_of(device_tables.line_plan(k, 8)))
@@ -4251,6 +4556,8 @@ def main(argv=None) -> int:
     if not gkr_counts_ok(counts, F, circuit):
         raise AssertionError(f"GKR flagship: launches {counts}, expected {gkr_launch_counts(circuit)}")
     gkr_launches[F.backend] = {name: counts[name][F.backend] for name in gkr_names}
+    for name in ("forward", "mle_eval_many"):
+        b6_launches[(name, F.backend)] = counts[name][F.backend]
     n_msgs = 1 + sum(1 + 2 * circuit.num_vars_at(i + 1) for i in range(depth))
     if len(transcript.g) != n_msgs:
         raise AssertionError(f"GKR flagship: {len(transcript.g)} messages, expected {n_msgs}")
@@ -4339,6 +4646,37 @@ def main(argv=None) -> int:
         "circuit_construct_s": construct_s, "device_idle_share_one_layer": idle, "card": card,
     }))
     gl_trace = gkr_layer_trace(circuit, inputs, F, depth // 2, tag)
+    # final_restrict_s's restriction by step, on a layer of the flagship's
+    # width (restrict_poly's steps, each synced, median of 3): the line
+    # points (host), evaluate_many (the points' upload, one evaluation
+    # launch, the values read back), the Lagrange interpolation (host)
+    from thaler_study_tpu_torch.gkr.protocol import line, restrict_poly
+    from thaler_study_tpu_torch.sumcheck import lagrange_interpolate
+
+    kw = args.gkr_log
+    w_mle = DenseMLE(FArray(slice_words(torch.Generator(device=dev).manual_seed(args.seed), F, (width,), dev), F), kw)
+    lb, lc = F.felts(list(range(3, 3 + kw))), F.felts(list(range(7, 7 + kw)))
+    t_f = [F.felt(t) for t in range(kw + 1)]
+    r_parts = {"points": [], "evaluate_many": [], "interpolation": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts = [[l_.evaluate(t) for l_ in line(lb, lc)] for t in t_f]
+        t1 = time.perf_counter()
+        vals = w_mle.evaluate_many(pts)
+        t2 = time.perf_counter()
+        q = lagrange_interpolate(list(zip(t_f, vals)), F)
+        t3 = time.perf_counter()
+        for key, sec in zip(r_parts, (t1 - t0, t2 - t1, t3 - t2)):
+            r_parts[key].append(sec * 1e3)
+    if q.coeffs_dense() != restrict_poly(lb, lc, w_mle).coeffs_dense():
+        raise AssertionError("GKR flagship: restrict_poly by step != restrict_poly")
+    log(f"GKR per-layer restriction by step at 2^{kw} (restrict_poly, median of 3, host clock, synced): the "
+        f"{kw + 1} line points {statistics.median(r_parts['points']):.2f} ms, evaluate_many (upload, one "
+        f"evaluation launch, read) {statistics.median(r_parts['evaluate_many']):.3f} ms, the Lagrange "
+        f"interpolation {statistics.median(r_parts['interpolation']):.2f} ms; the bucket final_restrict_s also "
+        f"holds each layer's last sumcheck round {tag}")
+    del w_mle
 
     # the per-layer prover over BabyBear at the flagship's width, the path
     # K1 mont32 serves: the same circuit (benches/gkr_benchmark.py's wiring
@@ -4357,6 +4695,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"GKR BabyBear {depth} x 2^{args.gkr_log}: launches {counts}, expected "
                              f"{gkr_launch_counts(circuit)}")
     gkr_launches[BB.backend] = {name: counts[name][BB.backend] for name in gkr_names}
+    for name in ("forward", "mle_eval_many"):
+        b6_launches[(name, BB.backend)] = counts[name][BB.backend]
     if len(bb_t.g) != n_msgs:
         raise AssertionError(f"GKR BabyBear: {len(bb_t.g)} messages, expected {n_msgs}")
     bb_outs = gkr.deserialize_gkr_message(bb_t.g[0], BB).circuit_outputs
@@ -4515,6 +4855,40 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         fwd_s.append(time.perf_counter() - t0)
     fwd_med = statistics.median(fwd_s)
+    # the forward pass split: the inputs' upload, then one kernel per layer
+    fwd_parts = {"upload": [], "layers": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inp = FArray.from_ints(inputs, F, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        circuit.evaluate_device(inp)
+        torch.cuda.synchronize()
+        fwd_parts["upload"].append(t1 - t0)
+        fwd_parts["layers"].append(time.perf_counter() - t1)
+    # a traced forward pass: one forward-kernel launch per layer (the
+    # counters) and no other device record; the host idles around it (a
+    # trace stopped right after its last kernel has lost records here)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(10 * RANGE_GAP_S)
+        circuit.evaluate_device(inp)
+        torch.cuda.synchronize()
+        time.sleep(100 * RANGE_GAP_S)
+    fwd_launches = read_counts()["forward"][F.backend]
+    fwd_spans, fwd_busy_us = device_spans(prof)
+    fwd_records = sum("forward_kernel" in name_ for _, _, name_ in fwd_spans)
+    if fwd_launches != depth or fwd_records != len(fwd_spans):
+        raise AssertionError(f"GKR flagship: the traced forward pass launched {fwd_launches} forward kernels "
+                             f"(expected {depth}, one per layer) and holds {len(fwd_spans)} device records, "
+                             f"{fwd_records} of them forward_kernel")
+    log(f"GKR flagship forward pass (gkr.Prover, median of 3): {fwd_med * 1e3:.2f} ms; the inputs' upload "
+        f"{statistics.median(fwd_parts['upload']) * 1e3:.2f} ms, the {depth} layers (one forward kernel launch "
+        f"each) {statistics.median(fwd_parts['layers']) * 1e3:.3f} ms; traced: {fwd_launches} forward-kernel "
+        f"launches, {fwd_records} device records in the trace, all forward_kernel, busy {fwd_busy_us / 1e3:.3f} ms "
+        f"{tag}")
     # the per-step split on the eager route, and a replayed proof's
     timings = []
     gkr_fused._transcript(gkr.Prover(circuit, inputs, F), F, b"", timings, None, graph=False)
@@ -4839,6 +5213,13 @@ def main(argv=None) -> int:
     # phases 2, 3 and 5 (phase 4's GKR part ran on the flagship above) ----
     slice_rows += sharded_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, reset_counts, compress_ms,
                                 sharded_gkr_info, reps=args.reps, n=n + (B - 1).bit_length(), gkr_log=args.gkr_log)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- slice 20: B6's device programs: phases 2 and 4 (their main paths
+    # ran above: the matmul entry, the per-layer and fused GKR flagship, the
+    # triangle's input building, the PCS commit) ----
+    slice_rows += mle_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, b6_launches)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

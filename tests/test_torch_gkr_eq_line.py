@@ -37,6 +37,7 @@ from thaler_study_tpu_torch import runtime  # noqa: E402
 from thaler_study_tpu_torch.fields import BABYBEAR, GOLDILOCKS, FArray  # noqa: E402
 from thaler_study_tpu_torch.gkr import device_tables as dt  # noqa: E402
 from thaler_study_tpu_torch.mle import dense  # noqa: E402
+from thaler_study_tpu_torch.ops import mle_kernel  # noqa: E402
 
 JB = jfields.BABYBEAR
 
@@ -119,10 +120,14 @@ def test_line_plan():
 
 
 def test_bitrev_index_is_cached():
+    # the card's bit reversal computes its index in the kernel
+    # (ops/mle_kernel.bitrev), so no index is cached; the plain version
+    # builds its index per call
     cpu = torch.device("cpu")
+    assert not hasattr(dense, "_bitrev_cache") and not hasattr(mle_kernel, "_bitrev_cache")
     for n in (0, 1, 5, 10, 23):
-        idx = dense._bitrev_index(n, cpu)
-        assert (dense._bitrev_index(n, cpu) is idx) == (n <= dense._BITREV_CACHE_MAX_N)
+        idx = mle_kernel.bitrev_index(n, cpu)
+        assert mle_kernel.bitrev_index(n, cpu) is not idx
         assert np.array_equal(idx.numpy(), dense.bitrev_perm(n))
     table = FArray.from_ints(np.arange(32, dtype=np.uint64), GOLDILOCKS, device="cpu")
     assert np.array_equal(dense.bitrev(table, 5).to_u64(), dense.bitrev_perm(5).astype(np.uint64))

@@ -38,6 +38,8 @@ SOURCES = {
     "merkle": "merkle.cu",
     "row_sums": "row_sums.cu",
     "shard_layout": "shard_layout.cu",
+    "mle": "mle.cu",
+    "forward": "forward.cu",
 }
 # per-library flags after the sources: modmatmul_tc.cu finds libcuda's
 # cuTensorMapEncodeTiled with dlsym

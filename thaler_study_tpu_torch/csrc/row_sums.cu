@@ -19,7 +19,9 @@
 //
 // What bounds it: latency. R is a device's shard rows' partials (up to a
 // few thousand rows of D1 <= 9 words) or two lanes; 256 threads stride the
-// rows with one add each and reduce through shared memory.
+// rows with one add each and reduce through shared memory. The floor
+// beside its time is one launch of empty_kernel (one block of THREADS
+// threads that does nothing), timed the same way.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -114,7 +116,16 @@ int launch(const F& f, const void* in, int rows, int d1, int in_lanes, int out_l
   return 0;
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+// One launch of a kernel that does nothing (one block of THREADS threads):
+// the latency floor of a one-block launch. Returns cudaGetLastError().
+extern "C" int ts_empty_launch(void* stream) {
+  empty_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
 
 // in: rows >= 0 x d1 field words (in_lanes = 0; no row sums to 0) or the
 // lanes of one row (int64; 2 rows Goldilocks, 1 mont32); out: d1 words

@@ -10,8 +10,10 @@ Two evaluation paths:
 - :meth:`Circuit.evaluate`: host values, the reference's layer loop
   (ref :99-124);
 - :meth:`Circuit.evaluate_device`: the forward pass on the tensor's device,
-  per layer two gathers, an add, a product and a select (plain torch,
-  exact), over wiring uploaded once per circuit and device and cached.
+  one launch of the forward kernel per layer on the card
+  (``ops/forward_kernel.py``; on the CPU its plain version: two gathers,
+  an add, a product and a select), over wiring uploaded once per circuit
+  and device and cached.
 
 The wiring arrays (``_wiring``) and their device copies with the static
 plans of the phase-table scatter-adds (``device_wiring``; a plan per
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..fields import FArray
+from ..ops.forward_kernel import forward_layer
 
 
 class GateType(enum.Enum):
@@ -217,16 +220,15 @@ class Circuit:
         return w
 
     def evaluate_device(self, inputs: FArray) -> List[FArray]:
-        """The forward pass on ``inputs``' device: per layer, two gathers,
-        an add, a product and a select. Returns per-layer FArrays, output
+        """The forward pass on ``inputs``' device: one
+        :func:`ops.forward_kernel.forward_layer` per layer (on the card one
+        launch of ``csrc/forward.cu``). Returns per-layer FArrays, output
         layer first, in label order (position = gate label)."""
         out = [inputs]
         cur = inputs
         for i in reversed(range(len(self.layers))):
             w = self.device_wiring(i, inputs.device)
-            lhs = FArray(torch.index_select(cur.data, 0, w.b), cur.field)
-            rhs = FArray(torch.index_select(cur.data, 0, w.c), cur.field)
-            cur = FArray(torch.where(w.is_mul, (lhs * rhs).data, (lhs + rhs).data), cur.field)
+            cur = forward_layer(cur, w.b, w.c, w.is_mul)
             out.append(cur)
         out.reverse()
         return out

@@ -45,8 +45,9 @@ Two more builders have kernels of their own, ``csrc/gkr_tables.cu``:
   :func:`line_restrict_tiled_plain` mirrors its tiles and indexing in
   torch ops.
 
-Everything else here is plain torch, exact: the gathers, the bit reversal
-(the JAX package's jnp programs).
+The gathers here are plain torch, exact (the JAX package's jnp
+programs); the bit reversal (:func:`lsb_to_msb`) is ``ops/mle_kernel``'s
+kernel on the card.
 """
 
 from __future__ import annotations

@@ -404,7 +404,7 @@ class _Program(_Proof):
 
     The layer loop is the same on every route. The first proof runs it
     eagerly (which fills every lazy cache: the libraries, the wiring, the
-    occupancy, the ticket counter, the bit-reversal index) and then, on a
+    occupancy, the ticket counter) and then, on a
     CUDA device, captures it as one CUDA graph (``ops/graphs.Graph``); every
     later proof replays it. On the CPU :meth:`run` is the eager loop over
     the plain versions. Unlike ``_scan_supported``, any layer widths: the

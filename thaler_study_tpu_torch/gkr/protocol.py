@@ -116,7 +116,8 @@ def restrict_poly(b: Sequence[Felt], c: Sequence[Felt], mle: DenseMLE) -> UniPol
     """Restrict the MLE to the line through b and c: q(t) = W~(l(t)).
 
     q has degree <= n, so W~ is evaluated at the n + 1 line points l(0..n)
-    in one ``evaluate_many`` fold chain on the table's device and
+    in one ``evaluate_many`` on the table's device (one launch of the fold
+    kernel's evaluation form on the card) and
     Lagrange-interpolated (the same coefficients as the reference's
     product expansion, ref :291-321)."""
     field = b[0].field

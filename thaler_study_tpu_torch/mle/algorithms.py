@@ -15,7 +15,8 @@ Both take evaluations in the crate's big-endian index order (variable 0
 the most significant index bit, the internal order of ``DenseMLE``) and
 agree with each other and with :meth:`DenseMLE.evaluate`. On a CUDA device
 the weight table is the eq-table kernel of ``csrc/gkr_tables.cu``
-(``gkr.device_tables.eq_table_dev``); the rest is plain torch. Dimensions
+(``gkr.device_tables.eq_table_dev``), and the table-based evaluation is that
+kernel with the dot in the same pass (``eq_table_dot``). Dimensions
 are checked (the reference's guard at :51 compares ``x.len() != x.len()``).
 """
 
@@ -49,12 +50,17 @@ def _check_dims(evals: Sequence[Felt], r: Sequence[Felt]) -> None:
 def vsbw_multilinear_from_evaluations(evals: Sequence[Felt], r: Sequence[Felt], device="cuda") -> Felt:
     """Table-based MLE evaluation (ref multilinear-extensions/src/lib.rs:6-24):
     the big-endian weight table inner-producted with the evaluations, on
-    ``device``."""
+    ``device``: the eq table with the dot in one pass
+    (``gkr.device_tables.eq_table_dot``; on the card one launch of its
+    kernel, on the CPU the table then ``dot_mod``)."""
+    from ..gkr.device_tables import eq_table_dot  # gkr imports mle
+
     _check_dims(evals, r)
     field = r[0].field
-    table = eq_weight_table(r, lsb_order=False, device=device)
     ev = FArray.from_felts(list(evals), field, device=device)
-    return (table * ev).sum(axis=0).item()
+    # the big-endian table of r is the little-endian table of reversed r
+    u = FArray.from_felts(list(reversed(r)), field, device=device)
+    return eq_table_dot(u, ev, len(r))[1].item()
 
 
 def cti_multilinear_from_evaluations(evals: Sequence[Felt], r: Sequence[Felt]) -> Felt:

@@ -12,19 +12,23 @@ variable 0 combines the two contiguous halves
 ``t' = lo + r * (hi - lo)`` and variable 1 is then the new MSB. Conversions
 happen only at the constructors and ``to_evaluations``.
 
-Folds (``fix_variables``, :func:`fold_msb`), the bit reversal and
-``relabel`` are plain torch on the tensor's device: the JAX fold chain
-(``_fold_impl``) is a jnp program, not a Pallas kernel.
+On the card the bit reversal (:func:`bitrev`), the fold chain
+(``fix_variables``, ``evaluate``) and the evaluation at many points
+(``evaluate_many``) are hand-written kernels, ``csrc/mle.cu`` through
+``ops/mle_kernel.py`` (the JAX package's jnp programs ``_device_bitrev``,
+``_fold_impl`` and ``_eval_many_impl``); on the CPU their plain versions.
+``relabel`` is one permute copy and :func:`fold_msb` one fold, both plain
+torch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Sequence
 
 import numpy as np
-import torch
 
 from ..fields import FArray, Felt, FieldConfig
+from ..ops import mle_kernel
 
 
 def bitrev_perm(n: int) -> np.ndarray:
@@ -36,32 +40,11 @@ def bitrev_perm(n: int) -> np.ndarray:
     return rev
 
 
-# the cached indices: a GKR proof reverses every layer's table at the same
-# few widths; a wider table (the matmul entry's 2^26) builds its index per
-# call, since keeping it would hold another table's worth of device memory
-_BITREV_CACHE_MAX_N = 22
-_bitrev_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
-
-
-def _bitrev_index(n: int, device: torch.device) -> torch.Tensor:
-    """:func:`bitrev_perm` built on ``device`` (n doubling steps), kept per
-    (n, device) for n <= 22."""
-    key = (n, device)
-    rev = _bitrev_cache.get(key)
-    if rev is None:
-        rev = torch.zeros(1, dtype=torch.int64, device=device)
-        for _ in range(n):
-            rev = torch.cat([2 * rev, 2 * rev + 1])
-        if n <= _BITREV_CACHE_MAX_N:
-            _bitrev_cache[key] = rev
-    return rev
-
-
 def bitrev(table: FArray, n: int) -> FArray:
     """Bit-reverse a 2^n-entry table on its device (an involution: label
-    order <-> internal MSB-first order): one gather, by the cached index up
-    to n = 22."""
-    return FArray(table.data[_bitrev_index(n, table.device)], table.field)
+    order <-> internal MSB-first order): on the card one launch of the
+    bit-reversal kernel (``ops/mle_kernel.bitrev``), no index tensor."""
+    return mle_kernel.bitrev(table, n)
 
 
 class DenseMLE:
@@ -108,15 +91,14 @@ class DenseMLE:
     # ---- core ops ----
     def fix_variables(self, rs: Sequence[Felt]) -> "DenseMLE":
         """Fold the first ``len(rs)`` variables at the given points
-        (arkworks ``fix_variables``; e.g. matrix-multiplication/src/lib.rs:83-86)."""
+        (arkworks ``fix_variables``; e.g. matrix-multiplication/src/lib.rs:83-86):
+        one launch of the fold kernel on the card."""
         if not rs:
             return self
+        if len(rs) > self.num_vars:
+            raise ValueError(f"{len(rs)} points for a {self.num_vars}-variable MLE")
         r = FArray.from_felts(list(rs), self.field, device=self.evals.device)
-        table = self.evals
-        for j in range(len(rs)):
-            half = table.shape[0] // 2
-            table = FArray.fold(table[:half], table[half:], r[j])
-        return DenseMLE(table, self.num_vars - len(rs))
+        return DenseMLE(mle_kernel.fold(self.evals, r, len(rs)), self.num_vars - len(rs))
 
     def evaluate(self, point: Sequence[Felt]) -> Felt:
         """Evaluate the MLE at a field point (fold every variable)."""
@@ -125,21 +107,19 @@ class DenseMLE:
         return self.fix_variables(list(point)).evals.item()
 
     def evaluate_many(self, points: Sequence[Sequence[Felt]]) -> list:
-        """Evaluate at P points with one fold chain over a [P, 2^n]
-        broadcast of the table (the JAX package's ``_eval_many_impl``; GKR's
-        ``restrict_poly`` needs n + 1 line points per layer). Plain torch."""
+        """Evaluate at P points (the JAX package's ``_eval_many_impl``; GKR's
+        ``restrict_poly`` needs n + 1 line points per layer): one launch of
+        the fold kernel's evaluation form on the card, one host read."""
         if any(len(pt) != self.num_vars for pt in points):
             raise ValueError(f"every point needs {self.num_vars} coordinates")
+        if not points:
+            return []
         if self.num_vars == 0:
             v = self.evals.item()
             return [v for _ in points]
         flat = [f.v for pt in points for f in pt]
         rs = FArray.from_ints(flat, self.field, device=self.evals.device).reshape(len(points), self.num_vars)
-        t = self.evals.reshape(1, -1)
-        for j in range(self.num_vars):
-            half = t.shape[1] // 2
-            t = FArray.fold(t[:, :half], t[:, half:], rs[:, j : j + 1])
-        return t.reshape(len(points)).to_felts()
+        return mle_kernel.eval_many(self.evals, rs).to_felts()
 
     def relabel(self, a: int, b: int, k: int) -> "DenseMLE":
         """Swap the variable blocks [a, a+k) and [b, b+k) (ark-poly

@@ -41,6 +41,19 @@ def _kernel():
     return _fn
 
 
+def empty_launch(dev: torch.device) -> None:
+    """One launch of ``csrc/row_sums.cu``'s empty kernel (one block) on
+    ``dev``'s current stream: the latency floor set beside this kernel's
+    time. Not counted: it computes nothing."""
+    lib = _build.load("row_sums")
+    lib.ts_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.ts_empty_launch.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = lib.ts_empty_launch(torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+
+
 def lanes(field: FieldConfig) -> int:
     """Rows of a word row's lanes: Goldilocks 2 (its low and high 32 bits),
     mont32 1 (the word as an integer)."""

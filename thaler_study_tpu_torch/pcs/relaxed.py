@@ -9,8 +9,8 @@ committed point on a random line.
 
 Only sensible for tiny fields (the reference tests use F5 with m=2); the
 enumeration cost is inherent to the "relaxed" scheme, not an implementation
-limit. The prover's evaluations (``DenseMLE.evaluate_many``, plain torch)
-and its SHA-256 tree (``MerkleTree``: the Merkle kernel on the card,
+limit. The prover's evaluations (``DenseMLE.evaluate_many``: the fold
+kernel's evaluation form on the card, one launch) and its SHA-256 tree (``MerkleTree``: the Merkle kernel on the card,
 ``hashlib`` on the CPU) run on the polynomial's device.
 """
 
