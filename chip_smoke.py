@@ -7,12 +7,17 @@ Usage, from the repository root on a machine with a card:
                           [--gkr-depth 16] [--gkr-log 20] [--tri-nodes 4096]
                           [--tri-nodes-small 1024] [--tri-nodes-cmp 256]
                           [--wide-depth 8] [--wide-log 11] [--fused-trace-only]
+                          [--parent-root DIR]
 
 ``--fused-trace-only`` builds the kernels and the flagship circuit, traces
 one fused GKR proof and prints its device time by kernel and by aten op
 (the plain-torch launches), and stops: it reads only names that earlier
 trees of the port have too, so a copy of this script placed at the root
 of an older checkout traces that tree's proof the same way.
+``--parent-root DIR`` (a checkout of the parent commit, e.g. from ``git
+archive``) adds, in slices 20-21, the evaluation, fold and forward kernels
+of that checkout and of this one timed in turns (parent, this, this,
+parent) by ``scripts/triangle_times.py --mle`` to their rows.
 
 The paths, each driven through the entry points a user calls:
 
@@ -545,6 +550,12 @@ MM_PRODUCTS_PER_LOOP = 256
 # that a redesign is measured against the same yardstick; each run prints
 # the current build's counts beside them.
 MM_SASS_PER_PRODUCT = {"goldilocks": (28.390625, 12.59765625), "mont32": (9.37109375, 2.453125)}
+# The dense MLE's operations bound (csrc/mle.cu): the IMADs one unreduced
+# product of a table word by an eq factor needs, 8 for Goldilocks (four
+# 32 x 32 -> 64-bit partial products) and 2 for mont32 (one 32 x 32 -> 64),
+# as the evaluation kernel's carry chains issue them (GlOps / M32Ops::mac)
+MLE_IMAD_PER_PRODUCT = {"goldilocks": 8, "mont32": 2}
+MLE_WIDE_LOG = 26  # the matmul entry's 2L variables (8192 x 8192), its fold fixing half
 # The tensor-core matmul's operations bound (csrc/modmatmul_tc.cu): P digit
 # products of 8 bits per field product (8 x 8 bytes Goldilocks, 4 x 4
 # mont32) at the card's dense int8 rate, 1,979 T operations/s = 989.5 T
@@ -666,7 +677,8 @@ PORT_KERNELS = ("mb_round_kernel", "mb_fold_kernel", "tc_kernel", "digits_kernel
                 "round_kernel", "libra_round_kernel", "fs_tail_kernel", "sha_chain_kernel", "phase_tables_kernel",
                 "eq_table_kernel", "line_tile_kernel", "gkr_final_tail_kernel", "libra_total_kernel",
                 "gkr_round_tail_kernel", "row_sums_kernel", "leaf_kernel", "node_kernel", "top_kernel",
-                "shard_rows_kernel", "build_kernel", "bitrev_kernel", "fold_kernel", "forward_kernel")
+                "shard_rows_kernel", "build_kernel", "bitrev_kernel", "fold_kernel", "forward_kernel", "eval_kernel",
+                "eval_tiny_kernel")
 
 
 def triangle_trace(n_nodes: int, seed: int, card: str = "") -> dict:
@@ -1572,6 +1584,7 @@ def multiblock_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read
 BATCH_N, BATCH_B, BATCH_B4 = 22, 64, 16
 MERKLE_LOG, MERKLE_CHECK_LOG = 22, 20
 PCS_M = 2
+PCS_POINTS = 389 ** PCS_M  # the PCS commit's evaluations: every point of F389^m
 DST16 = b"chip-smoke-dst16"  # a 16-byte domain-separation tag
 # H100 SXM: 4 warp schedulers x 32 lanes issue 128 lane-instructions per
 # clock per SM, 132 SMs
@@ -1613,11 +1626,13 @@ def compressions(nbytes, m, draw):
 
 def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_counts, compress_ms, reps=5, n=BATCH_N,
                     batch=BATCH_B, batch4=BATCH_B4, tri_nodes=TRI_NODES, tri_nodes_small=TRI_NODES_SMALL,
-                    wide_log=WIDE_LOG, merkle_log=MERKLE_LOG, merkle_check_log=MERKLE_CHECK_LOG):
+                    wide_log=WIDE_LOG, merkle_log=MERKLE_LOG, merkle_check_log=MERKLE_CHECK_LOG, path_launches=None):
     """Phases 2-4 of slice 12; returns its rows of the ``kernels`` line.
     ``reset_counts`` / ``read_counts`` set to 0 and read every launch
     counter of the port; the sizes default to the slice's own (a CPU
-    rehearsal passes smaller ones)."""
+    rehearsal passes smaller ones). ``path_launches``, where given, gets
+    the PCS commit's evaluation launches (``("mle_eval_many_pcs",
+    "mont32")``)."""
     import json
     import os
     import statistics
@@ -2024,6 +2039,8 @@ def batch_pcs_slice(seed, tag, dev, sync, graph_ms, time_ms, reset_counts, read_
         raise AssertionError(f"PCS commit: Merkle launches {counts['merkle']}")
     if counts["mle_eval_many"]["mont32"] != 1:
         raise AssertionError(f"PCS commit: evaluation launches {counts['mle_eval_many']}, expected one")
+    if path_launches is not None:
+        path_launches[("mle_eval_many_pcs", "mont32")] = counts["mle_eval_many"]["mont32"]
     cpu_tree = pcs.MerkleTree(prover.values, device="cpu")
     if cpu_tree.root() != prover.merkle_root() or cpu_tree.digests != prover.tree.digests:
         raise AssertionError("PCS commit: the card's tree != device='cpu'")
@@ -3280,30 +3297,42 @@ def sharded_fused_slice(circuit, inputs, want_bytes, dev, sync, graph_ms, time_m
 # forward pass
 
 
-def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26, gkr_log=20,
-              pcs_points=151321) -> list:
-    """Slice 20 (phases 2 and 4; its rows of the ``kernels`` line returned):
-    each kernel against its plain version on the card, exactly, at the
-    paths' shapes and at edge words (p - 1; Goldilocks words >= 2^63), over
-    Goldilocks and the mont32 fields: the bit reversal at 2^0..2^26; the
-    fold chain at n = 26 for every k = 1..13 and k = 26 (the matmul entry,
-    ``DenseMLE.evaluate``) and at n = 20; the evaluation at P = 1, 5, 13 and
-    21 points over 2^20 (GKR's restriction) and the PCS's 151,321 points
-    over 2 variables; the forward pass at 2^20 gates and at mixed widths.
-    Then each timed from CUDA graphs (``graph_ms(fn, count)``) beside its
-    bound, its plain version and, for the bit reversal, ``index_select``
-    with a prebuilt index (its library column). ``path_launches[(name,
-    backend)]``: the launches counted on the main paths. The sizes default
-    to the paths' (a CPU rehearsal passes smaller ones): ``wide_log`` the
-    matmul entry's 2L variables (its fold fixes half), ``gkr_log`` the
-    flagship's width, ``pcs_points`` the PCS commit's points."""
+def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=MLE_WIDE_LOG, gkr_log=20,
+              pcs_points=PCS_POINTS, parent_root=None) -> list:
+    """Slices 20-21 (phases 2 and 4; its rows of the ``kernels`` line
+    returned): each kernel against its plain version on the card, exactly,
+    at the paths' shapes and at edge words (p - 1; Goldilocks words >=
+    2^63), over Goldilocks and the mont32 fields: the bit reversal at
+    2^0..2^26; the fold chain at n = 26 for every k = 1..13 and k = 26 (the
+    matmul entry, ``DenseMLE.evaluate``) and at n = 20; the evaluation at
+    P = 1, 5, 13 and 21 points over 2^20 (GKR's restriction; also 9 and 25,
+    point groups that do not divide P), the PCS's 151,321 points over 2
+    variables, and both sides of the tiny form's threshold (2^TINY_LOG and
+    twice that words, up to 1,001 points); the forward pass at 2^20 gates,
+    at mixed widths and at odd gate counts. Then each timed from CUDA graphs (``graph_ms(fn, count)``)
+    beside its bound, its plain version and, for the bit reversal,
+    ``index_select`` with a prebuilt index (its library column); the PCS's
+    evaluation as a row of its own beside its bytes bound and the latency
+    floor of one empty launch; the forward layer beside its HBM bytes and
+    its gathers' L2 sectors. ``path_launches[(name, backend)]``: the
+    launches counted on the main paths. ``parent_root``: a checkout of the
+    parent commit; when given, ``scripts/triangle_times.py --mle`` times it
+    and this checkout in turns (parent, this, this, parent; one process
+    each, at the paths' sizes) and the evaluation, fold and forward rows
+    carry both times. The sizes
+    default to the paths' (a CPU rehearsal passes smaller ones):
+    ``wide_log`` the matmul entry's 2L variables (its fold fixes half),
+    ``gkr_log`` the flagship's width, ``pcs_points`` the PCS commit's
+    points."""
     import dataclasses
+    import os
 
     import torch
 
     from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, F1572869, GOLDILOCKS, FArray
     from thaler_study_tpu_torch.ops import forward_kernel as fk
     from thaler_study_tpu_torch.ops import mle_kernel as mk
+    from thaler_study_tpu_torch.ops import row_sums
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 20)
@@ -3347,15 +3376,18 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
             check(("mle_fold", be), mk.fold(tmax, rmax, ks[-1]), mk.fold_plain(tmax, rmax, ks[-1]),
                   f"{field.name} n = {n}, k = {ks[-1]}, every word p - 1")
             del t, tmax
-        for n, ps in ((1, (1, 3)), (2, (1, 5) + ((pcs_points,) if field is F389 else ())), (7, (1, 4, 5)),
-                      (12, (1, 13, 21)), (gkr_log, (1, 5, 13, gkr_log + 1))):
+        tiny = mk.TINY_LOG
+        for n, ps in ((1, (1, 3)), (2, (1, 5) + ((pcs_points,) if field is F389 else ())), (tiny, (1, 9, 1001)),
+                      (tiny + 1, (1, 9, 1001)), (7, (1, 4, 5)), (12, (1, 13, 21)),
+                      (gkr_log, (1, 5, 9, 13, gkr_log + 1, 25))):
             for fill in ("random", "max"):
                 t = words(field, 1 << n, fill)
                 for P in ps:
                     rs = FArray(words(field, P * n, fill).data.reshape(P, n), field)
-                    check(("mle_eval_many", be), mk.eval_many(t, rs), mk.eval_many_plain(t, rs),
-                          f"{field.name} n = {n}, P = {P}, {fill}")
-        for g, nxt in ((1, 1), (7, 4), (1 << 12, 1 << 10), (1 << 10, 1 << 12), (1 << gkr_log, 1 << gkr_log)):
+                    key = "mle_eval_many_pcs" if field is F389 and (n, P) == (2, pcs_points) else "mle_eval_many"
+                    check((key, be), mk.eval_many(t, rs), mk.eval_many_plain(t, rs), f"{field.name} n = {n}, P = {P}, {fill}")
+        for g, nxt in ((1, 1), (7, 4), (1 << 12, 1 << 10), (1 << 10, 1 << 12), ((1 << 12) + 3, 1 << 10),
+                       (1 << gkr_log, 1 << gkr_log), ((1 << gkr_log) + 1, 1 << (gkr_log - 1))):
             for fill in ("random", "max"):
                 cur = words(field, nxt, fill)
                 b = torch.randint(0, nxt, (g,), generator=gen, device=dev, dtype=torch.int32)
@@ -3364,11 +3396,11 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
                 check(("forward", be), fk.forward_layer(cur, b, c, m), fk.forward_layer_plain(cur, b, c, m),
                       f"{field.name} {g} gates over {nxt} values, {fill}")
         torch.cuda.empty_cache()
-        log(f"slice 20 over {field.name}: the bit reversal (2^0..2^{wide_log if wide else gkr_log}), the fold (n = 3, "
-            f"10, {gkr_log}{f', {wide_log} at every k = 1..{wide_log // 2} and {wide_log}' if wide else ''}), the "
-            f"evaluation at P points (n = 1..{gkr_log}, P = 1, 3, 4, 5, 13, 21, {gkr_log + 1}"
-            f"{f', {pcs_points} at n = 2' if field is F389 else ''}) and the forward pass (1 to 2^{gkr_log} gates) == "
-            f"their plain versions (exact), random words and every word p - 1")
+        log(f"slices 20-21 over {field.name}: the bit reversal (2^0..2^{wide_log if wide else gkr_log}), the fold (n = "
+            f"3, 10, {gkr_log}{f', {wide_log} at every k = 1..{wide_log // 2} and {wide_log}' if wide else ''}), the "
+            f"evaluation at P points (n = 1, 2, {tiny}, {tiny + 1}, 7, 12, {gkr_log}; P = 1, 3, 4, 5, 9, 13, 21, "
+            f"{gkr_log + 1}, 25, 1001{f', {pcs_points} at n = 2' if field is F389 else ''}) and the forward pass (1 to "
+            f"2^{gkr_log} + 1 gates) == their plain versions (exact), random words and every word p - 1")
 
     # ---- phase 4: times from CUDA graphs, at the paths' shapes ----
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3377,7 +3409,7 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
     src = "thaler_study_tpu_torch/csrc/"
     for field in (GOLDILOCKS, BABYBEAR):
         be, wb = field.backend, (8 if field.backend == "goldilocks" else 4)
-        imad = MM_SASS_PER_PRODUCT[be][1]
+        imad = MLE_IMAD_PER_PRODUCT[be]
         wide = GOLDILOCKS if be == "goldilocks" else F5  # the matmul entry's field of this family
         timing = {}
         # the bit reversal: the matmul entry's 2^wide_log words (library:
@@ -3405,7 +3437,7 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
         plain = plain_ms(lambda: mk.fold_plain(t, r, kf))
         bytes_ms = ((1 << wide_log) + (1 << (wide_log - kf))) * wb / PEAK_BYTES_PER_S * 1e3
         ops_ms = (1 << wide_log) * imad / (64 * sms * clock_mhz * 1e6) * 1e3
-        pl = mk.plan(wide_log, kf, 1, 1)
+        pl = mk.plan(wide_log, kf)
         timing["mle_fold"] = (ms, plain, max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
                               None, {"shape": f"2^{wide_log} {wide.name} words, k = {kf}", "plan": dataclasses.asdict(pl)})
         log(f"{wide.name} fold chain of {kf} of {wide_log} variables (the matmul entry's fix_variables; plan {pl}): "
@@ -3420,19 +3452,29 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
         plain = plain_ms(lambda: mk.eval_many_plain(t20, rs))
         bytes_ms = (gw + P * (gkr_log + 1)) * wb / PEAK_BYTES_PER_S * 1e3
         ops_ms = P * gw * imad / (64 * sms * clock_mhz * 1e6) * 1e3
-        pl = mk.plan(gkr_log, gkr_log, P, mk.EVAL_POINTS)
-        extra = {"shape": f"{P} points x 2^{gkr_log} {field.name} words", "plan": dataclasses.asdict(pl)}
-        if field is BABYBEAR:  # the PCS's evaluations (F389, m = 2)
-            tp = words(F389, 4)
-            rp = FArray(words(F389, pcs_points * 2).data.reshape(pcs_points, 2), F389)
-            extra["pcs_ms"] = graph_ms(lambda: mk.eval_many(tp, rp), 3)
-            log(f"F389 evaluation at the PCS's {pcs_points} points over 2 variables: {extra['pcs_ms']:.4f} ms from a "
-                f"CUDA graph {tag}")
+        pl = mk.eval_plan(gkr_log, P, field.backend)
         timing["mle_eval_many"] = (ms, plain, max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes",
-                                   None, extra)
+                                   None, {"shape": f"{P} points x 2^{gkr_log} {field.name} words",
+                                          "plan": dataclasses.asdict(pl)})
         log(f"{field.name} evaluation at {P} points over 2^{gkr_log} words (GKR's restrict_poly; plan {pl}): {ms:.4f} "
             f"ms from a CUDA graph, products bound {ops_ms:.4f} ms ({ops_ms / ms:.1%}; {imad} IMAD per product at 64 "
             f"per clock per SM, {sms} SMs, {clock_mhz} MHz; bytes {bytes_ms:.4f} ms); plain {plain:.2f} ms {tag}")
+        if field is BABYBEAR:  # the PCS's evaluations (F389, m = 2): the tiny form
+            tp = words(F389, 4)
+            rp = FArray(words(F389, pcs_points * 2).data.reshape(pcs_points, 2), F389)
+            ms = graph_ms(lambda: mk.eval_many(tp, rp), 3)
+            plain = plain_ms(lambda: mk.eval_many_plain(tp, rp))
+            nbytes = (4 + pcs_points * 3) * 4  # the table and the points read once, the values written once
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            floor = graph_ms(lambda: row_sums.empty_launch(dev))
+            timing["mle_eval_many_pcs"] = (ms, plain, bound, "bytes", None, {
+                "shape": f"{pcs_points} F389 points x 2 variables", "plan": dataclasses.asdict(mk.eval_plan(
+                    2, pcs_points, "mont32")), "bytes": nbytes, "latency_floor_ms": floor})
+            log(f"F389 evaluation at the PCS's {pcs_points} points over 2 variables (the tiny form): {ms:.4f} ms from a "
+                f"CUDA graph, bytes bound {bound * 1e3:.3f} us ({nbytes / 1e6:.2f} MB), latency floor (one empty "
+                f"one-block launch from a CUDA graph) {floor * 1e3:.2f} us: {ms / floor:.2f}x the floor; plain "
+                f"{plain:.2f} ms {tag}")
+            del tp, rp
         # the forward pass: one layer of 2^gkr_log gates over 2^gkr_log values
         cur = words(field, gw)
         b = torch.randint(0, gw, (gw,), generator=gen, device=dev, dtype=torch.int32)
@@ -3440,16 +3482,23 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
         m = torch.rand((gw,), generator=gen, device=dev) < 0.5
         ms = graph_ms(lambda: fk.forward_layer(cur, b, c, m))
         plain = graph_ms(lambda: fk.forward_layer_plain(cur, b, c, m), 5)
+        # HBM: the wiring (labels and type bytes) and the previous layer read
+        # once, the values written once; L2: one 32-byte sector per random
+        # gather
         bound = gw * (4 + 4 + 1 + 2 * wb) / PEAK_BYTES_PER_S * 1e3
-        timing["forward"] = (ms, plain, bound, "bytes", None,
-                             {"shape": f"2^{gkr_log} {field.name} gates over 2^{gkr_log} values"})
-        log(f"{field.name} forward layer of 2^{gkr_log} gates: {ms:.4f} ms from a CUDA graph, bytes bound {bound:.4f} ms "
-            f"({bound / ms:.1%}); plain (two gathers, the product, the add, a where) {plain:.4f} ms from a CUDA graph "
-            f"{tag}")
+        sectors = 2 * 32 * gw
+        timing["forward"] = (ms, plain, bound, "bytes", None, {
+            "shape": f"2^{gkr_log} {field.name} gates over 2^{gkr_log} values",
+            "l2_sector_bytes": sectors, "l2_sector_tb_per_s": sectors / (ms * 1e-3) / 1e12})
+        log(f"{field.name} forward layer of 2^{gkr_log} gates: {ms:.4f} ms from a CUDA graph, HBM bytes bound "
+            f"{bound:.4f} ms ({bound / ms:.1%}), the gathers' L2 sectors "
+            f"{sectors / 1e6:.1f} MB at {sectors / (ms * 1e-3) / 1e12:.2f} TB/s; plain (two gathers, the product, the "
+            f"add, a where) {plain:.4f} ms from a CUDA graph {tag}")
         del t20, rs, cur, b, c, m
         torch.cuda.empty_cache()
         replaces = {"forward": "thaler_study_tpu/gkr/circuit.py:155", "mle_bitrev": "thaler_study_tpu/mle/dense.py:44",
-                    "mle_fold": "thaler_study_tpu/mle/dense.py:176", "mle_eval_many": "thaler_study_tpu/mle/dense.py:185"}
+                    "mle_fold": "thaler_study_tpu/mle/dense.py:176", "mle_eval_many": "thaler_study_tpu/mle/dense.py:185",
+                    "mle_eval_many_pcs": "thaler_study_tpu/mle/dense.py:185"}
         for name, (ms, plain, bound, by, lib, extra) in timing.items():
             launches = path_launches.get((name, be), 0)
             if not launches:
@@ -3464,6 +3513,35 @@ def mle_slice(seed, tag, dev, sync, graph_ms, path_launches, reps=3, wide_log=26
                 row["library_ms_reason"] = "no PyTorch call computes this function mod p"
             row.update(extra)
             rows.append(row)
+    if parent_root is not None:
+        # the parent's kernels and this checkout's in turns, one process each
+        sync()
+        torch.cuda.empty_cache()
+        here = os.path.dirname(os.path.abspath(__file__))
+        script = os.path.join(here, "scripts", "triangle_times.py")
+        turns = {"parent": [], "this": []}
+        for who, root in (("parent", parent_root), ("this", here), ("this", here), ("parent", parent_root)):
+            proc = subprocess.run([sys.executable, script, "--root", root, "--no-api", "--mle", str(gkr_log)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"scripts/triangle_times.py --root {root} failed:\n{proc.stdout}{proc.stderr}")
+            got = json.loads(proc.stdout.splitlines()[-1])["mle"]
+            log(f"  triangle_times --mle ({who}): {json.dumps(got)}")
+            turns[who].append(got)
+        digests = {json.dumps(t["sha256"], sort_keys=True) for ts in turns.values() for t in ts}
+        if len(digests) != 1:
+            raise AssertionError(f"scripts/triangle_times.py --mle: the checkouts' results differ: {digests}")
+        keys = {"mle_eval_many": "eval", "mle_fold": "fold", "forward": "forward"}
+        for row in rows:
+            name, be = row["name"].rsplit("_", 1)
+            key = "eval_pcs" if name == "mle_eval_many_pcs" else f"{keys[name]}_{be}" if name in keys else None
+            if key is not None:
+                # each turn's two graph times, its least in the log
+                row["parent_ms"] = [t["ms"][key] for t in turns["parent"]]
+                row["turns_ms"] = [t["ms"][key] for t in turns["this"]]
+                p0, t0, t1, p1 = (min(x) for x in (row["parent_ms"][0], *row["turns_ms"], row["parent_ms"][1]))
+                log(f"{row['name']} in turns (parent, this, this, parent): {p0:.5f}, {t0:.5f}, {t1:.5f}, {p1:.5f} "
+                    f"ms {tag}")
     return rows
 
 
@@ -3478,6 +3556,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gkr-log", type=int, default=20, help="log2 of the flagship GKR circuit's width")
     ap.add_argument("--fused-trace-only", action="store_true",
                     help="trace one fused flagship proof, print its split by kernel and aten op, and stop")
+    ap.add_argument("--parent-root", default=None,
+                    help="a checkout of the parent commit: time its evaluation, fold and forward kernels and this "
+                         "checkout's in turns (scripts/triangle_times.py --mle) and add both to their rows")
     args = ap.parse_args(argv)
     jax_preloaded = "jax" in sys.modules
 
@@ -5205,7 +5286,8 @@ def main(argv=None) -> int:
     # ---- slice 12: batched proving, the fused prover over every spec, the
     # PCS and its Merkle build: phases 2-4 ---------------------------------
     slice_rows += batch_pcs_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, time_launches, reset_counts,
-                                  read_counts, compress_ms, reps=args.reps, n=n, batch=B, batch4=max(1, B // 4))
+                                  read_counts, compress_ms, reps=args.reps, n=n, batch=B, batch4=max(1, B // 4),
+                                  path_launches=b6_launches)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -5219,7 +5301,8 @@ def main(argv=None) -> int:
     # ---- slice 20: B6's device programs: phases 2 and 4 (their main paths
     # ran above: the matmul entry, the per-layer and fused GKR flagship, the
     # triangle's input building, the PCS commit) ----
-    slice_rows += mle_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, b6_launches)
+    slice_rows += mle_slice(args.seed, tag, dev, torch.cuda.synchronize, graph_ms, b6_launches,
+                            parent_root=args.parent_root)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -4,7 +4,8 @@
 Usage, on a machine with a card:
 
     python3 scripts/triangle_times.py [--root DIR] [--device-proofs] [--sharded-fs N] [--mb-shapes]
-                                      [--k2-rows LOG] [--fs-tail ROWS] [--dispatch] [--merkle] [--no-api]
+                                      [--k2-rows LOG] [--fs-tail ROWS] [--dispatch] [--merkle] [--mle LOG]
+                                      [--no-api]
 
 Imports ``thaler_study_tpu_torch`` from ``--root`` (default: this checkout),
 so that two checkouts, such as a commit and its parent, can be timed in
@@ -62,6 +63,19 @@ part:
   build, the SASS of each of the library's kernels by pipe
   (``chip_smoke.sass_pipes``), and the depth floor (1 + 2 log2 n
   compressions at one thread's compression latency, ``fs_kernel.sha_chain``).
+- ``--mle LOG``: the dense MLE's kernels at the paths' shapes, from CUDA
+  graphs twice each: ``mle_kernel.eval_many`` at GKR's restriction (LOG + 1
+  points over 2^LOG Goldilocks and BabyBear words) and at the PCS commit's
+  ``PCS_POINTS`` F389 points over ``PCS_M`` variables,
+  ``forward_kernel.forward_layer`` on 2^LOG gates over 2^LOG values (labels
+  uniform, MUL with probability 0.5) over both fields, and
+  ``mle_kernel.fold`` of the first half of ``MLE_WIDE_LOG`` variables (the
+  matmul entry's; Goldilocks and F5), all constants ``chip_smoke.py``'s.
+  The words come from a generator seeded 21 on the card, so two checkouts
+  see the same inputs; each result's SHA-256 is printed (equal across
+  checkouts), with ptxas's registers and spills of the kernels where this
+  run built them (``chip_smoke.py --parent-root`` runs it parent, this,
+  this, parent).
 
 Proofs in turns: 5 timed runs each after one warm run, medians in ms.
 Prints one JSON line, with the card's name and power limit; exits 1
@@ -219,6 +233,62 @@ def merkle_times(smoke, dev, sync) -> dict:
     return out
 
 
+def mle_times(smoke, dev, sync, logs, log_n) -> dict:
+    """``--mle LOG``: the evaluation, forward and fold kernels at the
+    paths' shapes (module docstring)."""
+    import hashlib
+
+    import torch
+
+    from thaler_study_tpu_torch.fields import BABYBEAR, F5, F389, GOLDILOCKS, FArray
+    from thaler_study_tpu_torch.ops import forward_kernel as fk
+    from thaler_study_tpu_torch.ops import mle_kernel as mk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+
+    def words(field, size):
+        if field.backend == "goldilocks":
+            lo = torch.randint(0, 1 << 32, (size,), generator=gen, device=dev, dtype=torch.int64)
+            hi = torch.randint(0, (1 << 32) - 1, (size,), generator=gen, device=dev, dtype=torch.int64)
+            return FArray((hi << 32) | lo, field)
+        return FArray(torch.randint(0, field.p, (size,), generator=gen, device=dev, dtype=torch.int64)
+                      .to(torch.int32), field)
+
+    out = {"ms": {}, "sha256": {}, "ptxas": {}}
+
+    def run(name, fn):
+        out["sha256"][name] = hashlib.sha256(fn().data.cpu().numpy().tobytes()).hexdigest()
+        out["ms"][name] = [graph_ms(fn, sync) for _ in range(2)]
+
+    for field in (GOLDILOCKS, BABYBEAR):
+        be = field.backend
+        t = words(field, 1 << log_n)
+        rs = FArray(words(field, (log_n + 1) * log_n).data.reshape(log_n + 1, log_n), field)
+        run(f"eval_{be}", lambda: mk.eval_many(t, rs))
+        cur = words(field, 1 << log_n)
+        b = torch.randint(0, 1 << log_n, (1 << log_n,), generator=gen, device=dev, dtype=torch.int32)
+        c = torch.randint(0, 1 << log_n, (1 << log_n,), generator=gen, device=dev, dtype=torch.int32)
+        m = torch.rand((1 << log_n,), generator=gen, device=dev) < 0.5
+        run(f"forward_{be}", lambda: fk.forward_layer(cur, b, c, m))
+        del t, rs, cur, b, c, m
+    tp = words(F389, 1 << smoke.PCS_M)
+    rp = FArray(words(F389, smoke.PCS_POINTS * smoke.PCS_M).data.reshape(smoke.PCS_POINTS, smoke.PCS_M), F389)
+    run("eval_pcs", lambda: mk.eval_many(tp, rp))
+    del tp, rp
+    kf = smoke.MLE_WIDE_LOG // 2
+    for field in (GOLDILOCKS, F5):
+        t = words(field, 1 << smoke.MLE_WIDE_LOG)
+        r = words(field, kf)
+        run(f"fold_{field.backend}", lambda: mk.fold(t, r, kf))
+        del t, r
+        torch.cuda.empty_cache()
+    for lib, kernel in (("mle", "eval"), ("mle", "fold_kernel"), ("forward", "forward_kernel")):
+        if lib in logs:
+            out["ptxas"].update(ptxas_of(logs[lib], kernel))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout to import")
@@ -233,6 +303,8 @@ def main(argv=None) -> int:
                     help="also time the FS tail over ROWS and 32 partial rows per proof")
     ap.add_argument("--dispatch", action="store_true", help="also time the B = 64 batch dispatch")
     ap.add_argument("--merkle", action="store_true", help="also time and split the Merkle build at 2^22 and 2^18")
+    ap.add_argument("--mle", type=int, default=0, metavar="LOG",
+                    help="also time the MLE evaluation, fold and forward kernels at a GKR width of 2^LOG")
     ap.add_argument("--no-api", action="store_true", help="leave out api.prove_triangle_count")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
@@ -457,6 +529,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     if args.merkle:
         out["merkle"] = merkle_times(smoke, dev, sync)
+    if args.mle:
+        out["mle"] = mle_times(smoke, dev, sync, logs, args.mle)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     out["card"] = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not read"

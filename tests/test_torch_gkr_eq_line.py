@@ -119,7 +119,7 @@ def test_line_plan():
     assert dt.line_plan(6, 8, first=9) == [6] and dt.line_plan(6, 8, first=1) == [1, 5]
 
 
-def test_bitrev_index_is_cached():
+def test_bitrev_index_is_not_cached():
     # the card's bit reversal computes its index in the kernel
     # (ops/mle_kernel.bitrev), so no index is cached; the plain version
     # builds its index per call

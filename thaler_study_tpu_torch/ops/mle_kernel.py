@@ -5,10 +5,11 @@ Counterpart of three jnp programs of ``thaler_study_tpu/mle/dense.py``:
 of a table's first k variables, ``DenseMLE.fix_variables``) and
 ``_eval_many_impl`` (:185, the evaluation at P points,
 ``DenseMLE.evaluate_many``). The CUDA source is ``csrc/mle.cu``: one
-bit-reversal kernel, and one fold kernel in two forms, one point per
-block (:func:`fold`) and four (:func:`eval_many`). Its note says what
-bounds each and how it is laid out; :func:`plan` decides the fold's grid
-in Python. CPU tensors take the plain versions (:func:`bitrev_plain`,
+bit-reversal kernel, the fold kernel (:func:`fold`) and the evaluation in
+two forms, a big table over row chunks and point groups and a tiny table
+at one thread per point (:func:`eval_many`). Its note says what bounds
+each and how it is laid out; :func:`plan` and :func:`eval_plan` decide the
+grids in Python. CPU tensors take the plain versions (:func:`bitrev_plain`,
 :func:`fold_plain`, :func:`eval_many_plain`: the JAX package's index
 permutation and fold chains in plain torch); CUDA tensors launch the
 kernels or raise.
@@ -27,8 +28,18 @@ from ..fields import FArray
 
 MID_WORDS = 2048  # csrc/mle.cu MID_WORDS: the middle eq tables' words per block
 TARGET_BLOCKS = 512  # the fold plan's least block count (about four per SM)
-EVAL_POINTS = 4  # points per block of the evaluation form
 _MAX_S = 15  # grid y = 2^s row chunks
+# the evaluation (csrc/mle.cu): tables of at most 2^TINY_LOG words take the
+# tiny form; the big form takes up to EVAL_POINTS points per block, 16-byte
+# loads of 2^LOAD_LOG words, 2^LANE_LOG lanes, at most 2^EVAL_MID_LOG (h, v)
+# factors per point, and about EVAL_TARGET_BLOCKS blocks
+TINY_LOG = 5
+EVAL_POINTS = 8
+LOAD_LOG = {"goldilocks": 1, "mont32": 2}
+LANE_LOG = 8
+EVAL_MID_LOG = 7
+EVAL_TARGET_BLOCKS = 256
+_MAX_EVAL_S = 30
 
 # launches of the CUDA kernels (not of the plain versions), per field family
 bitrev_launches = {"goldilocks": 0, "mont32": 0}
@@ -46,8 +57,10 @@ def _kernels():
         vp, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
         lib.ts_bitrev_launch.argtypes = [i, vp, vp, i, vp]
         lib.ts_bitrev_launch.restype = i
-        lib.ts_fold_launch.argtypes = [i, u, u, i, vp, vp, ll, i, i, i, i, i, i, vp, vp, vp, vp]
+        lib.ts_fold_launch.argtypes = [i, u, u, vp, vp, i, i, i, i, i, i, vp, vp, vp, vp]
         lib.ts_fold_launch.restype = i
+        lib.ts_eval_launch.argtypes = [i, u, u, vp, vp, ll, i, ll, i, i, i, vp, vp, vp, vp]
+        lib.ts_eval_launch.restype = i
         _lib = lib
     return _lib
 
@@ -102,45 +115,43 @@ def bitrev_plain(table: FArray, n: int) -> FArray:
     return FArray(table.data[bitrev_index(n, table.device)], table.field)
 
 
-# ---- the fold: one point (the fold chain) or many (the evaluations) ----
+# ---- the fold (the fold chain) ----
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """The fold kernel's grid for a table of 2^n words folded over its
-    first k variables at ``points`` points, ``pb`` per block: tiles of 2^ct_log
-    columns (grid x), 2^s row chunks (grid y), point chunks (grid z);
-    a row x of a chunk is (s chunk bits, mb middle bits, c lane bits)."""
+    first k variables at one point: tiles of 2^ct_log columns (grid x),
+    2^s row chunks (grid y); a row x of a chunk is (s chunk bits, mb
+    middle bits, c lane bits)."""
 
     ct_log: int
     s: int
     c: int
     mb: int
     tiles: int
-    zchunks: int
 
 
-def plan(n: int, k: int, points: int, pb: int) -> Plan:
+def plan(n: int, k: int) -> Plan:
     """The fold kernel's :class:`Plan`: 2^s row chunks for at least
     ``TARGET_BLOCKS`` blocks, or more where a chunk's middle bits would
-    outgrow ``MID_WORDS / pb`` words; c = the lanes' bits, at most the
-    chunk's rows."""
-    if not 1 <= k <= n or points < 1 or pb not in (1, EVAL_POINTS):
-        raise ValueError(f"no fold plan for k = {k} of n = {n} at {points} points, {pb} per block")
+    outgrow ``MID_WORDS`` words; c = the lanes' bits, at most the chunk's
+    rows."""
+    if not 1 <= k <= n:
+        raise ValueError(f"no fold plan for k = {k} of n = {n}")
     ct_log = min(n - k, 8)
     lane_log = 8 - ct_log
     tiles = 1 << (n - k - ct_log)
-    zchunks = -(-points // pb)
-    mb_max = (MID_WORDS // pb).bit_length() - 1
+    mb_max = MID_WORDS.bit_length() - 1
     s = 0
-    while (tiles * zchunks << s) < TARGET_BLOCKS and s < k:
+    while (tiles << s) < TARGET_BLOCKS and s < k:
         s += 1
     s = min(max(s, k - lane_log - mb_max), k)
     if s > _MAX_S:
         raise ValueError(f"a fold of {k} variables at {2 ** (n - k)} columns needs 2^{s} row chunks (at most "
                          f"2^{_MAX_S})")
     c = min(lane_log, k - s)
-    return Plan(ct_log, s, c, k - s - c, tiles, zchunks)
+    return Plan(ct_log, s, c, k - s - c, tiles)
 
 
 def _tickets_for(dev: torch.device, count: int) -> torch.Tensor:
@@ -153,27 +164,9 @@ def _tickets_for(dev: torch.device, count: int) -> torch.Tensor:
     return t
 
 
-def _fold_launch(table: FArray, rs: torch.Tensor, k: int, pb: int, counter: dict) -> torch.Tensor:
-    """The fold kernel over ``rs`` [P, k] words: [P, 2^(n-k)] words."""
-    field, dev = table.field, table.device
-    n = table.shape[0].bit_length() - 1
-    points = rs.shape[0]
-    pl = plan(n, k, points, pb)
-    m = 1 << (n - k)
-    out = torch.empty((points, m), dtype=table.data.dtype, device=dev)
-    partial = torch.empty((points << pl.s) * m if pl.s else 1, dtype=table.data.dtype, device=dev)
-    tickets = _tickets_for(dev, pl.tiles * pl.zchunks) if pl.s else partial
+def _field_args(field) -> tuple:
     mont32 = field.backend == "mont32"
-    with torch.cuda.device(dev):
-        rc = _kernels().ts_fold_launch(
-            int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0, pb, table.data.data_ptr(),
-            rs.data_ptr(), points, k, n, pl.ct_log, pl.s, pl.c, pl.mb, out.data_ptr(), partial.data_ptr(),
-            tickets.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fold kernel launch failed: CUDA error {rc}")
-    counter[field.backend] += 1
-    return out
+    return int(mont32), field.p if mont32 else 0, field.mont_pinv_neg if mont32 else 0
 
 
 def _check_points(name: str, table: FArray, rs: FArray, k: int) -> None:
@@ -195,9 +188,23 @@ def fold(table: FArray, r: FArray, k: int) -> FArray:
     _check_points("fold", table, r.reshape(1, k), k)
     if table.device.type == "cpu":
         return fold_plain(table, r, k)
-    _check_cuda("fold", table.device)
-    return FArray(_fold_launch(table, r.data.reshape(1, k).contiguous(), k, 1, fold_launches).reshape(-1),
-                  table.field)
+    dev = table.device
+    _check_cuda("fold", dev)
+    pl = plan(n, k)
+    m = 1 << (n - k)
+    out = torch.empty(m, dtype=table.data.dtype, device=dev)
+    partial = torch.empty((m << pl.s) if pl.s else 1, dtype=table.data.dtype, device=dev)
+    tickets = _tickets_for(dev, pl.tiles) if pl.s else partial
+    rw = r.data.contiguous()
+    with torch.cuda.device(dev):
+        rc = _kernels().ts_fold_launch(
+            *_field_args(table.field), table.data.data_ptr(), rw.data_ptr(), k, n, pl.ct_log, pl.s, pl.c, pl.mb,
+            out.data_ptr(), partial.data_ptr(), tickets.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fold kernel launch failed: CUDA error {rc}")
+    fold_launches[table.field.backend] += 1
+    return FArray(out, table.field)
 
 
 def fold_plain(table: FArray, r: FArray, k: int) -> FArray:
@@ -209,11 +216,54 @@ def fold_plain(table: FArray, r: FArray, k: int) -> FArray:
     return table
 
 
+# ---- the evaluation at many points ----
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalPlan:
+    """The evaluation's grid for a table of 2^n words at ``points`` points.
+    ``tiny``: one thread per point (n <= ``TINY_LOG``), the other fields
+    unused. Else the big form: 2^s row chunks (grid x) of 2^(n-s) rows and
+    ``groups`` point groups (grid y) of ``pb`` points each (the points
+    padded to groups x pb with copies of the last); a row of a chunk is (h,
+    lane, v): ``lv`` bits v of a 16-byte load, ``c`` lane bits, ``hb`` bits
+    h of a thread's loop."""
+
+    tiny: bool
+    groups: int
+    pb: int
+    s: int
+    c: int
+    hb: int
+    lv: int
+
+
+def eval_plan(n: int, points: int, backend: str) -> EvalPlan:
+    """The evaluation's :class:`EvalPlan`: the tiny form up to 2^TINY_LOG
+    words; else ceil(P / EVAL_POINTS) groups and 2^s chunks for at least
+    ``EVAL_TARGET_BLOCKS`` blocks while every lane has a load, or more where
+    a thread's (h, v) factors would outgrow 2^EVAL_MID_LOG per point."""
+    if n < 1 or points < 1:
+        raise ValueError(f"no evaluation plan for n = {n} at {points} points")
+    if n <= TINY_LOG:
+        return EvalPlan(True, 1, 1, 0, 0, 0, 0)
+    lv = LOAD_LOG[backend]
+    groups = -(-points // EVAL_POINTS)
+    s_full = max(n - lv - LANE_LOG, 0)  # the most chunks with every lane loading
+    s = 0
+    while (groups << s) < EVAL_TARGET_BLOCKS and s < s_full:
+        s += 1
+    s = max(s, n - LANE_LOG - EVAL_MID_LOG)
+    if s > _MAX_EVAL_S:
+        raise ValueError(f"an evaluation over 2^{n} words needs 2^{s} row chunks (at most 2^{_MAX_EVAL_S})")
+    c = min(LANE_LOG, n - s - lv)
+    return EvalPlan(False, groups, -(-points // groups), s, c, n - s - lv - c, lv)
+
+
 def eval_many(table: FArray, rs: FArray) -> FArray:
     """The table's MLE (2^n words, internal order, n >= 1) at P points
-    (``rs``: [P, n] words): [P] values. One launch on the card, each table
-    word read once per block of ``EVAL_POINTS`` points; CPU tensors take
-    :func:`eval_many_plain`."""
+    (``rs``: [P, n] words): [P] values. One launch on the card
+    (:func:`eval_plan`'s form); CPU tensors take :func:`eval_many_plain`."""
     n = table.shape[0].bit_length() - 1 if table.data.dim() == 1 else -1
     _check_table("eval_many", table, n)
     if n < 1:
@@ -221,8 +271,27 @@ def eval_many(table: FArray, rs: FArray) -> FArray:
     _check_points("eval_many", table, rs, n)
     if table.device.type == "cpu":
         return eval_many_plain(table, rs)
-    _check_cuda("eval_many", table.device)
-    return FArray(_fold_launch(table, rs.data.contiguous(), n, EVAL_POINTS, eval_launches).reshape(-1), table.field)
+    dev, field = table.device, table.field
+    _check_cuda("eval_many", dev)
+    points = rs.shape[0]
+    pl = eval_plan(n, points, field.backend)
+    t = table.data if table.data.data_ptr() % 16 == 0 else table.data.clone()  # the big form's 16-byte loads
+    padded = points if pl.tiny else pl.groups * pl.pb
+    rw = rs.data.contiguous()
+    if padded > points:
+        rw = torch.cat([rw, rw[-1:].expand(padded - points, n)])
+    out = torch.empty(padded, dtype=t.dtype, device=dev)
+    partial = torch.empty((padded << pl.s) if pl.s else 1, dtype=t.dtype, device=dev)
+    tickets = _tickets_for(dev, pl.groups) if pl.s else partial
+    with torch.cuda.device(dev):
+        rc = _kernels().ts_eval_launch(
+            *_field_args(field), t.data_ptr(), rw.data_ptr(), padded, n, pl.groups, pl.pb, pl.s, pl.c,
+            out.data_ptr(), partial.data_ptr(), tickets.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"evaluation kernel launch failed: CUDA error {rc}")
+    eval_launches[field.backend] += 1
+    return FArray(out[:points], field)
 
 
 def eval_many_plain(table: FArray, rs: FArray) -> FArray:
@@ -233,4 +302,3 @@ def eval_many_plain(table: FArray, rs: FArray) -> FArray:
         half = t.shape[1] // 2
         t = FArray.fold(t[:, :half], t[:, half:], rs[:, j : j + 1])
     return t.reshape(rs.shape[0])
-
